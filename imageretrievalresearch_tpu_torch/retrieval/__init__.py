@@ -1,0 +1,6 @@
+"""Retrieval layer: gallery index and engine (f32 serving)."""
+
+from imageretrievalresearch_tpu_torch.retrieval.engine import RetrievalEngine
+from imageretrievalresearch_tpu_torch.retrieval.index import GalleryIndex
+
+__all__ = ["RetrievalEngine", "GalleryIndex"]

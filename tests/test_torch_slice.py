@@ -1,0 +1,142 @@
+"""The whole slice on the CPU, held against the JAX package: seeded uint8
+images -> eval transform -> shrunken EfficientNet embed -> GalleryIndex ->
+query_class_dedup. Plus the port's import hygiene and device default."""
+
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imageretrievalresearch_tpu.cli.inference import (
+    build_eval_transform as jax_eval_transform,
+)
+from imageretrievalresearch_tpu.models import create_model as jax_create
+from imageretrievalresearch_tpu.retrieval import GalleryIndex as JaxIndex
+from imageretrievalresearch_tpu_torch.models import create_model
+from imageretrievalresearch_tpu_torch.models.convert import params_from_jax
+from imageretrievalresearch_tpu_torch.ops.preprocess import (
+    build_eval_transform,
+)
+from imageretrievalresearch_tpu_torch.retrieval import (
+    GalleryIndex,
+    RetrievalEngine,
+)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "imageretrievalresearch_tpu_torch"
+# jax, flax, ml_dtypes, PIL, and the JAX package — whose name is a prefix
+# of the port's, hence the lookahead
+FORBIDDEN = re.compile(
+    r"^(jax|flax|ml_dtypes|PIL|imageretrievalresearch_tpu(?!_torch))(\.|$)")
+
+
+def _near_tie_agreement(v, i, rv, ri):
+    """Rankings agree except at ULP-level near-ties: < 0.5% of positions
+    differ, and every differing position's values agree within 1e-5."""
+    mism = i != ri
+    assert mism.mean() < 0.005, mism.mean()
+    np.testing.assert_allclose(v, rv, rtol=0, atol=1e-5)
+
+
+def test_slice_end_to_end_matches_jax():
+    w, d, size = 0.5, 0.1, 32
+    bb = jax_create("efficientnet_b0", num_classes=0, width_mult=w,
+                    depth_mult=d)
+    shapes = jax.eval_shape(bb.init, jax.random.key(0),
+                            jnp.zeros((1, size, size, 3)))
+    rng = np.random.default_rng(7)
+
+    def leaf(path, x):
+        key = path[-1].key
+        if key == "kernel":
+            fan_in = int(np.prod(x.shape[:-1]))
+            return rng.normal(0, np.sqrt(2.0 / fan_in), x.shape)
+        if key in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape)
+        return rng.normal(0, 0.1, x.shape)
+
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, x: jnp.asarray(leaf(p, x), jnp.float32), shapes)
+
+    images = rng.integers(0, 256, (96, 40, 30, 3), dtype=np.uint8)
+    jax_tf = jax_eval_transform("squarepad", size)
+    jax_embed = jax.jit(lambda v, x: bb.embed(v, jax_tf(x)))
+    ref = np.asarray(jax_embed(variables, jnp.asarray(images)))
+
+    model = create_model("efficientnet_b0", num_classes=0, width_mult=w,
+                         depth_mult=d, device="cpu")
+    model.load_timm_state_dict(params_from_jax(variables, depth_mult=d))
+    engine = RetrievalEngine(model, transform=build_eval_transform(
+        "squarepad", size), device="cpu")
+    ours = engine.embed_batch(images).numpy()
+    assert np.abs(ref).max() > 1e-2
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
+
+    # gallery: 64 embedded items + 2,000 seeded rows (G >= 2048), 32
+    # embedded queries; both indexes hold the SAME (JAX) embeddings,
+    # centered: a random-weight network maps every image to nearly one
+    # direction, which would make the whole top-k a near-tie
+    dim = ref.shape[1]
+    feats = ref - ref.mean(axis=0)
+    extra = rng.normal(size=(2000, dim)).astype(np.float32) * np.std(feats)
+    gallery = np.concatenate([feats[:64], extra])
+    classes = rng.integers(0, 50, len(gallery)).astype(np.int32)
+    queries = feats[64:]
+    jidx = JaxIndex(dim).add(gallery, classes)
+    tidx = GalleryIndex(dim, device="cpu").add(gallery, classes)
+    jv, ji, _ = jidx.query(queries, k=150, method="fused", interpret=True)
+    tv, ti, _ = tidx.query(queries, k=150, method="fused")
+    _near_tie_agreement(tv, ti, jv, ji)
+    jd = jidx.query_class_dedup(queries, k=150, num_unique=3,
+                                method="fused", interpret=True)
+    td = tidx.query_class_dedup(queries, k=150, num_unique=3,
+                                method="fused")
+    assert td[0].shape == (32, 3)
+    _near_tie_agreement(td[0], td[1], jd[0], jd[1])
+    # the engine's own search ranks the same way
+    sv, si = engine.search(queries, gallery, k=150)
+    _near_tie_agreement(sv, si, jv, ji)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(f.name, m) for f in files for m in _imports(f)
+           if FORBIDDEN.match(m)]
+    assert not bad, bad
+    assert FORBIDDEN.match("imageretrievalresearch_tpu.ops")
+    assert not FORBIDDEN.match("imageretrievalresearch_tpu_torch.ops")
+    code = ("import sys, imageretrievalresearch_tpu_torch.retrieval, "
+            "imageretrievalresearch_tpu_torch.models.convert, "
+            "imageretrievalresearch_tpu_torch.ops.preprocess; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'ml_dtypes', 'PIL', "
+            "'imageretrievalresearch_tpu')]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GalleryIndex(16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("efficientnet_b0", width_mult=0.25, depth_mult=0.1)
+    model = create_model("efficientnet_b0", width_mult=0.25, depth_mult=0.1,
+                         device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RetrievalEngine(model)
