@@ -1,10 +1,10 @@
-"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+"""Build and load the port's CUDA kernel (plain C interface, ctypes).
 
-Each ``csrc/*.cu`` source compiles with one ``nvcc`` call into a shared
+``csrc/fused_topk.cu`` compiles with one ``nvcc`` call into a shared
 library under ``imageretrievalresearch_tpu_torch/_build/`` (listed in
 ``.gitignore``), at first use, named by a hash of the source so an edited
 source rebuilds. Nothing here runs at import time: the CPU tests import
-every module, and this machine has no ``nvcc``.
+every module, and a machine without the CUDA toolkit has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -14,19 +14,15 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
+SOURCE = _PKG / "csrc" / "fused_topk.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# every kernel source of the port, with its C entry points
-SOURCES = {"fused_topk": "fused_topk.cu"}
-
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIB: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -40,71 +36,45 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def _lib_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"libfused_topk_{digest}.so"
 
 
-def start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    """Start nvcc for one source in the background (None if already
-    built). Finish with :func:`finish_build`."""
-    out = _lib_path(name)
+def build() -> str:
+    """Compile the kernel if its library is missing; returns nvcc's output
+    (its -Xptxas -v register and shared-memory report), or "" when the
+    library was already built."""
+    out = _lib_path()
     if out.exists():
-        return None
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-         str(CSRC / SOURCES[name])],
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def finish_build(started) -> str:
-    """Wait for a build from :func:`start_build`; returns nvcc's output
-    (its -Xptxas -v register and shared-memory report)."""
-    if started is None:
-        return ""
-    proc, tmp, out = started
-    log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
     os.replace(tmp, out)
-    return log
+    return proc.stdout
 
 
-def build_all() -> dict[str, tuple[float, str]]:
-    """Build every source in parallel, one nvcc each; returns
-    ``{name: (seconds, nvcc output)}``."""
-    t0 = time.perf_counter()
-    started = {name: start_build(name) for name in SOURCES}
-    out = {}
-    for name, s in started.items():
-        log = finish_build(s)
-        out[name] = (time.perf_counter() - t0, log)
-    return out
-
-
-def load_library(name: str = "fused_topk") -> ctypes.CDLL:
-    """The built library of one source (built now if it is missing), with
-    its C signatures declared."""
-    if name in _LIBS:
-        return _LIBS[name]
-    path = _lib_path(name)
-    if not path.exists():
-        finish_build(start_build(name))
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "fused_topk":
-        lib.fused_topk_f32.argtypes = ([p] * 3 + [i] * 7 + [p] * 6 + [p])
+def load_library() -> ctypes.CDLL:
+    """The kernel's library (built now if it is missing), with its C
+    signatures declared."""
+    global _LIB
+    if _LIB is None:
+        build()
+        lib = ctypes.CDLL(str(_lib_path()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_topk_f32.argtypes = [p] * 3 + [i] * 7 + [p] * 6 + [p]
         lib.fused_topk_f32.restype = i
         lib.fused_topk_error_string.argtypes = [i]
         lib.fused_topk_error_string.restype = ctypes.c_char_p
-    _LIBS[name] = lib
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def error_string(err: int) -> str:
-    return load_library("fused_topk").fused_topk_error_string(err).decode()
+    return load_library().fused_topk_error_string(err).decode()

@@ -248,7 +248,7 @@ def fused_splits(q: int, g: int, k: int, device: torch.device) -> int:
     return _n_splits(g, splits, FUSED_BINS)
 
 
-def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms, splits):
+def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms):
     from imageretrievalresearch_tpu_torch.ops import _cuda
 
     dev = queries_hat.device
@@ -271,8 +271,7 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms, splits):
         raise ValueError("gallery_norms: expected (G,) float32 on the "
                          "gallery's device")
     gallery_norms = gallery_norms.contiguous()
-    n_split = (fused_splits(q, g, k, dev) if splits is None
-               else _n_splits(g, splits, FUSED_BINS))
+    n_split = fused_splits(q, g, k, dev)
     cand_v = torch.empty((q, n_split, k), device=dev, dtype=torch.float32)
     cand_i = torch.empty((q, n_split, k), device=dev, dtype=torch.int32)
     tth = torch.empty((q, n_split), device=dev, dtype=torch.float32)
@@ -299,35 +298,27 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms, splits):
 
 def fused_cosine_topk(
         queries_hat: torch.Tensor, gallery: torch.Tensor, k: int,
-        *, gallery_norms: torch.Tensor | None = None,
-        bins: int = FUSED_BINS, t_depth: int = FUSED_T_DEPTH,
-        splits: int | None = None, precision: str = "default"
+        *, gallery_norms: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(Q, D) normalized queries x (G, D) raw f32 gallery -> exact top-k
     ``(vals, inds, ok)`` with the per-row certificate ``ok``; replaces
-    ``fused_cosine_topk_pallas`` (f32 branch).
+    ``fused_cosine_topk_pallas`` (f32 branch). Scores are true f32.
 
     CUDA tensors launch the kernel of ``csrc/fused_topk.cu`` (geometry
-    ``FUSED_BINS`` x ``FUSED_T_DEPTH``; ``splits`` defaults to filling the
-    SMs) or raise. CPU tensors run :func:`fused_cosine_topk_reference`
-    (``splits`` defaults to 1). Rows with ``ok == 0`` must be re-ranked
-    densely: :func:`cosine_topk` does that."""
-    _check_precision(precision, "float32")
+    ``FUSED_BINS`` x ``FUSED_T_DEPTH``, :func:`fused_splits` gallery
+    splits) or raise. CPU tensors run :func:`fused_cosine_topk_reference`
+    at the same geometry with one split. Rows with ``ok == 0`` must be
+    re-ranked densely: :func:`cosine_topk` does that."""
     if gallery.dtype != torch.float32:
         raise _not_ported(f"a {gallery.dtype} gallery in the fused kernel")
+    if not 1 <= k <= FUSED_T_DEPTH * FUSED_BINS:
+        raise ValueError(f"k={k} outside [1, {FUSED_T_DEPTH * FUSED_BINS}]")
     if queries_hat.device.type == "cpu":
-        return fused_cosine_topk_reference(
-            queries_hat, gallery, k, gallery_norms=gallery_norms, bins=bins,
-            t_depth=t_depth, splits=1 if splits is None else splits)
+        return fused_cosine_topk_reference(queries_hat, gallery, k,
+                                           gallery_norms=gallery_norms)
     if queries_hat.device.type != "cuda":
         raise ValueError(f"unsupported device {queries_hat.device}")
-    if (bins, t_depth) != (FUSED_BINS, FUSED_T_DEPTH):
-        raise ValueError(f"the CUDA kernel is built for bins={FUSED_BINS}, "
-                         f"t_depth={FUSED_T_DEPTH}")
-    if not 1 <= k <= t_depth * bins:
-        raise ValueError(f"k={k} outside [1, {t_depth * bins}]")
-    return _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
-                                   splits)
+    return _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms)
 
 
 # ---------------------------------------------------------------------------
@@ -416,8 +407,7 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
     if not fused:
         return dense_rank()
     vals, inds, ok = fused_cosine_topk(q_hat, gallery.float(), k,
-                                       gallery_norms=gallery_norms,
-                                       precision=precision)
+                                       gallery_norms=gallery_norms)
     return certified_topk_repair(q_hat, gallery, k, vals, inds, ok,
                                  gallery_norms=gallery_norms,
                                  precision=precision,

@@ -24,17 +24,17 @@ def cuda_device():
 def _pm1_rows(rng, n, d):
     """16 entries of ±1 per row (norm exactly 4): exact scores, many ties."""
     out = np.zeros((n, d), np.float32)
-    for r in range(n):
-        pos = rng.choice(d, 16, replace=False)
-        out[r, pos] = rng.choice([-1.0, 1.0], 16)
+    pos = rng.random((n, d)).argsort(axis=1)[:, :16]
+    np.put_along_axis(out, pos, rng.choice([-1.0, 1.0], (n, 16)), axis=1)
     return out
 
 
-def _launch_and_compare(q, g, k, splits, device):
+def _launch_and_compare(q, g, k, device):
     qh = T.l2_normalize(torch.from_numpy(q)).to(device)
     gd = torch.from_numpy(g).to(device)
+    splits = T.fused_splits(qh.shape[0], gd.shape[0], k, device)
     before = T.KERNEL_LAUNCHES["fused_cosine_topk"]
-    kv, ki, kok = T.fused_cosine_topk(qh, gd, k, splits=splits)
+    kv, ki, kok = T.fused_cosine_topk(qh, gd, k)
     assert T.KERNEL_LAUNCHES["fused_cosine_topk"] == before + 1
     rv, ri, rok = T.fused_cosine_topk_reference(qh, gd, k, splits=splits)
     torch.cuda.synchronize()
@@ -44,24 +44,33 @@ def _launch_and_compare(q, g, k, splits, device):
     return kok.cpu().numpy()
 
 
+# G and k set the wrapper's split count (fused_splits): one split below one
+# tile; one split per tile (33, 79); capped by the merge kernel's shared
+# memory at k=384 (53) or by the SM count at k=150 (132 on an H100 SXM),
+# both with a ragged last round of tiles.
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,g,d,k,splits", [(70, 5000, 96, 150, 7),
-                                            (33, 2100, 40, 20, 1),
-                                            (64, 4096, 32, 384, 64)])
-def test_fused_kernel_matches_plain_version(cuda_device, q, g, d, k, splits):
+@pytest.mark.parametrize("q,g,d,k", [(40, 60, 32, 20), (33, 2100, 40, 20),
+                                     (70, 5000, 96, 150),
+                                     (64, 40000, 32, 384),
+                                     (64, 30000, 32, 150)])
+def test_fused_kernel_matches_plain_version(cuda_device, q, g, d, k):
     rng = np.random.default_rng(0)
     qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)
-    ga[64] = ga[3]                       # exact duplicates: tied scores
-    _launch_and_compare(qa, ga, k, splits, cuda_device)
+    ga[min(64, g - 1)] = ga[3]           # exact duplicates: tied scores
+    _launch_and_compare(qa, ga, k, cuda_device)
 
 
 @pytest.mark.cuda
 def test_fused_kernel_certificate_fails_on_bin_overflow(cuda_device):
     rng = np.random.default_rng(1)
-    q, g = _pm1_rows(rng, 40, 32), _pm1_rows(rng, 4096, 32)
-    for j in range(T.FUSED_T_DEPTH + 2):   # one bin, one split
-        g[j * T.FUSED_BINS] = q[0]
-    ok = _launch_and_compare(q, g, 50, 1, cuda_device)
+    q, g = _pm1_rows(rng, 40, 32), _pm1_rows(rng, 70000, 32)
+    # tiles are dealt round-robin to the splits: rows S*BINS apart share
+    # bin 0 of split 0
+    stride = T.fused_splits(40, 70000, 50, cuda_device) * T.FUSED_BINS
+    assert (T.FUSED_T_DEPTH + 1) * stride < 70000
+    for j in range(T.FUSED_T_DEPTH + 2):
+        g[j * stride] = q[0]
+    ok = _launch_and_compare(q, g, 50, cuda_device)
     assert ok[0] == 0 and ok[1:].any()
     vals, inds = T.cosine_topk(torch.from_numpy(q).to(cuda_device),
                                torch.from_numpy(g).to(cuda_device), 50)
