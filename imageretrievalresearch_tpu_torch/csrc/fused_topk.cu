@@ -1,32 +1,51 @@
-// Fused cosine top-k for Hopper (sm_90a): normalize the gallery in the
-// kernel, score Q̂·Ĝᵀ in f32, keep per-bin top-T buffers in shared memory,
-// extract the exact top-k with ties to the lowest index, and certify it.
+// Fused cosine top-k for Hopper (sm_90a), in three score variants: score
+// Q̂·Ĝᵀ, keep per-bin top-T buffers in shared memory, extract the exact
+// top-k with ties to the lowest index, and certify it.
 //
-// Replaces the TPU kernel imageretrievalresearch_tpu/ops/retrieval.py
-// _fused_topk_kernel + _stream_topk_update (launched by
-// fused_cosine_topk_pallas, f32 branch). Plain version and wrapper:
-// imageretrievalresearch_tpu_torch/ops/retrieval.py (fused_cosine_topk,
-// fused_cosine_topk_reference).
+// Replaces the TPU kernels of imageretrievalresearch_tpu/ops/retrieval.py
+// (all launched by fused_cosine_topk_pallas, which shares
+// _stream_topk_update between them):
+// - fused_topk_f32  <- _fused_topk_kernel (f32 branch): raw f32 gallery and
+//   its norms; each gallery element is divided by max(norm, eps) as it is
+//   stored in shared memory, then f32 FMAs.
+// - fused_topk_bf16 <- _fused_topk_kernel_bf16: pre-normalized bf16 gallery
+//   and bf16 q̂, no norm input; elements are loaded at 2 bytes and widened
+//   to f32 as they are stored, then f32 FMAs. A bf16 x bf16 product is
+//   exact in f32, so the scores are the dense bf16 path's (an f32 product
+//   of the upcast operands) apart from the order of accumulation.
+// - fused_topk_int8 <- _fused_topk_kernel_int8: int8 codes of q̂ and ĝ with
+//   per-row scales qs (Q,1), gs (G,1); four codes per 32-bit word, __dp4a
+//   into int32 (exact; zero-padded past D), then
+//   s = (float)acc * (qs[q] * gs[g]) rounded as JAX orders it, so the
+//   scores equal the dense int8 path's bit for bit.
+// Plain version and wrapper: imageretrievalresearch_tpu_torch/ops/
+// retrieval.py (fused_cosine_topk, fused_cosine_topk_reference).
 //
-// Bound at Q=64, G=100,000, D=1536, k=150, f32: the gallery is 614 MB
-// (~0.18 ms at 3.35 TB/s) and the product is 2·Q·G·D = 19.7 GFLOP (~0.29 ms
-// at the H100 SXM's 67 TFLOP/s of non-tensor-core f32). So the kernel is
-// bound by f32 operations at ~0.29 ms; a card with a lower power limit or
-// the PCIe part has a lower peak.
+// Bounds at Q=64, G=100,000, D=1536, k=150 on the H100 SXM at 700 W
+// (3.35 TB/s; 67 TFLOP/s f32 without tensor cores, 989 TFLOP/s bf16 and
+// 1,979 TOP/s int8 on tensor cores), 2·Q·G·D = 19.7 G operations:
+// - f32:  gallery 614 MB ~0.18 ms; 19.7 GFLOP at 67 TFLOP/s ~0.29 ms, so
+//         bound by operations at ~0.29 ms;
+// - bf16: gallery 307 MB ~0.092 ms; 0.020 ms on bf16 tensor cores, so
+//         bound by bytes at ~0.092 ms;
+// - int8: codes 154 MB ~0.046 ms; 0.010 ms on int8 tensor cores, so bound
+//         by bytes at ~0.046 ms.
+// The product here is SIMT (f32 FMA, or dp4a at 4 multiply-adds per
+// instruction), not tensor cores, so the bf16 and int8 variants sit far
+// above their byte bounds; the distance is recorded in PERF.md.
+// A card with a lower power limit, or the PCIe part, has lower peaks.
 //
-// Design for that bound (simple first; wgmma/TMA/warp specialisation are
-// later work):
+// Design (simple first; wgmma/TMA/warp specialisation are later work):
 // - One query tile of QT=64 rows covers Q=64, so the gallery streams from
 //   device memory once. The grid is (query tiles x gallery splits); the
 //   wrapper picks one split per SM (132 on the H100 SXM).
 // - The gallery is cut into GT=64-row tiles, dealt round-robin to the
 //   splits (tile t to split t mod S), so consecutive near-duplicates land
 //   in different splits as well as different bins. Each block walks its
-//   split's tiles in index order. Per tile it stages BK=32
-//   columns of queries and of gallery rows in shared memory at a time (the
-//   gallery element divided by max(norm, eps) as it is stored, the dense
-//   path's order), prefetching the next columns into registers, and each of
-//   256 threads accumulates a 4x4 block of scores with f32 FMAs.
+//   split's tiles in index order. Per tile it stages BK=32 words (one
+//   element; int8: four codes) of each query and gallery row in shared
+//   memory at a time, prefetching the next words into registers, and each
+//   of 256 threads accumulates a 4x4 block of scores.
 // - BINS == GT and every tile starts at a multiple of BINS, so row j of a
 //   tile is bin j: the 16 (query, bin) buffers a thread folds its scores
 //   into are its own, and the insertion chain needs no synchronisation.
@@ -41,22 +60,31 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int QT = 64;        // query rows per block
 constexpr int GT = 64;        // gallery rows per tile
 constexpr int BINS = GT;      // bin = global index mod BINS
 constexpr int TD = 6;         // buffer depth
-constexpr int BK = 32;        // columns per staging step
+constexpr int BK = 32;        // words per row per staging step
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PADW = QT + 1;  // staged tile row stride (bank spread)
-constexpr int LOADS = QT * BK / THREADS;  // staged elements per thread
+constexpr int LOADS = QT * BK / THREADS;  // staged words per thread
 constexpr int ENTRIES = TD * BINS / 32;   // buffer entries per lane
 constexpr float EPS = 1e-6f;
 
 static_assert(QT == GT, "one staging layout serves both operands");
 static_assert(QT == 64 && THREADS == 256, "4x4 micro-tile per thread");
+
+enum Mode { F32 = 0, BF16 = 1, I8 = 2 };
+
+// the staged word (f32 element, bf16 element widened, or four int8 codes)
+// and the accumulator of each mode
+template <int M>
+using Word = std::conditional_t<M == I8, int, float>;
 
 // strict total order: value descending, then index ascending
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
@@ -65,22 +93,56 @@ __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
 
 constexpr size_t split_smem_bytes() {
   return (size_t)TD * QT * BINS * (sizeof(float) + sizeof(int)) +
-         (size_t)2 * BK * PADW * sizeof(float) + (size_t)GT * sizeof(float);
+         (size_t)2 * BK * PADW * 4 + (size_t)(GT + QT) * sizeof(float);
 }
 
+// Word w of row r of a (rows, D) operand, zero past the edges. `vec`: D is
+// a multiple of 4 and the int8 base is 4-byte aligned, so four codes load
+// as one int.
+template <int M>
+__device__ __forceinline__ Word<M> load_word(const void* base, int r,
+                                             int rows, int w, int D,
+                                             bool vec) {
+  if constexpr (M == F32) {
+    return (r < rows && w < D)
+               ? static_cast<const float*>(base)[(size_t)r * D + w]
+               : 0.f;
+  } else if constexpr (M == BF16) {
+    if (r >= rows || w >= D) return 0.f;
+    const uint16_t u = static_cast<const uint16_t*>(base)[(size_t)r * D + w];
+    return __uint_as_float((uint32_t)u << 16);  // exact widening
+  } else {
+    const int c = 4 * w;
+    if (r >= rows || c >= D) return 0;
+    const int8_t* row = static_cast<const int8_t*>(base) + (size_t)r * D;
+    if (vec) return *reinterpret_cast<const int*>(row + c);
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (c + b < D) word |= (uint32_t)(uint8_t)row[c + b] << (8 * b);
+    return (int)word;
+  }
+}
+
+// gaux: f32 -> gallery norms (G,); int8 -> gallery scales (G,); bf16 -> unused.
+// qscale: int8 -> query scales (Q,); otherwise unused.
+template <int M>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_topk_split_kernel(const float* __restrict__ q,
-                        const float* __restrict__ g,
-                        const float* __restrict__ gnorm,
-                        int Q, int G, int D, int k, int nsplit,
+fused_topk_split_kernel(const void* __restrict__ q,
+                        const void* __restrict__ g,
+                        const float* __restrict__ gaux,
+                        const float* __restrict__ qscale, int Q, int G,
+                        int D, int k, int nsplit, bool vec,
                         float* __restrict__ cand_v,
                         int* __restrict__ cand_i, float* __restrict__ tth) {
+  using W = Word<M>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* bufv = reinterpret_cast<float*>(smem_raw);   // [TD][QT][BINS]
   int* bufi = reinterpret_cast<int*>(bufv + TD * QT * BINS);
-  float* qs = reinterpret_cast<float*>(bufi + TD * QT * BINS);  // [BK][PADW]
-  float* gs = qs + BK * PADW;                                   // [BK][PADW]
-  float* gn = gs + BK * PADW;                                   // [GT]
+  W* qs = reinterpret_cast<W*>(bufi + TD * QT * BINS);  // [BK][PADW]
+  W* gs = qs + BK * PADW;                               // [BK][PADW]
+  float* gn = reinterpret_cast<float*>(gs + BK * PADW);  // [GT] norm/scale
+  float* qsc = gn + GT;                                   // [QT] int8 scales
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -91,32 +153,37 @@ fused_topk_split_kernel(const float* __restrict__ q,
     bufv[e] = -CUDART_INF_F;
     bufi[e] = 0;
   }
+  if constexpr (M == I8)
+    if (tid < QT) qsc[tid] = q0 + tid < Q ? qscale[q0 + tid] : 0.f;
 
-  const int nsteps = (D + BK - 1) / BK;
+  const int words = M == I8 ? (D + 3) / 4 : D;
+  const int nsteps = (words + BK - 1) / BK;
   for (long long tb = (long long)split * GT; tb < G;
        tb += (long long)nsplit * GT) {
     const int base = (int)tb;
     __syncthreads();  // the previous tile is done with gn
-    if (tid < GT) {
-      const int r = base + tid;
-      gn[tid] = fmaxf(r < G ? gnorm[r] : 1.f, EPS);
+    if constexpr (M != BF16) {
+      if (tid < GT) {
+        const int r = base + tid;
+        const float x = r < G ? gaux[r] : 1.f;
+        gn[tid] = M == F32 ? fmaxf(x, EPS) : x;
+      }
     }
 
-    float acc[4][4];
+    W acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = W(0);
 
-    float qreg[LOADS], greg[LOADS];
-    // element e = tid + THREADS*p of the (64 x BK) staging tile: row e / BK,
-    // column e % BK, so a warp reads 32 consecutive floats of one row
+    W qreg[LOADS], greg[LOADS];
+    // word e = tid + THREADS*p of the (64 x BK) staging tile: row e / BK,
+    // column e % BK, so a warp reads 32 consecutive words of one row
 #pragma unroll
     for (int p = 0; p < LOADS; ++p) {
       const int e = tid + THREADS * p, r = e / BK, c = e % BK;
-      const bool cin = c < D;
-      qreg[p] = (q0 + r < Q && cin) ? q[(size_t)(q0 + r) * D + c] : 0.f;
-      greg[p] = (base + r < G && cin) ? g[(size_t)(base + r) * D + c] : 0.f;
+      qreg[p] = load_word<M>(q, q0 + r, Q, c, D, vec);
+      greg[p] = load_word<M>(g, base + r, G, c, D, vec);
     }
 
     for (int s = 0; s < nsteps; ++s) {
@@ -125,23 +192,24 @@ fused_topk_split_kernel(const float* __restrict__ q,
       for (int p = 0; p < LOADS; ++p) {
         const int e = tid + THREADS * p, r = e / BK, c = e % BK;
         qs[c * PADW + r] = qreg[p];
-        gs[c * PADW + r] = __fdiv_rn(greg[p], gn[r]);
+        if constexpr (M == F32)
+          gs[c * PADW + r] = __fdiv_rn(greg[p], gn[r]);
+        else
+          gs[c * PADW + r] = greg[p];
       }
       __syncthreads();
       if (s + 1 < nsteps) {
-        const int k0 = (s + 1) * BK;
+        const int w0 = (s + 1) * BK;
 #pragma unroll
         for (int p = 0; p < LOADS; ++p) {
-          const int e = tid + THREADS * p, r = e / BK, c = k0 + e % BK;
-          const bool cin = c < D;
-          qreg[p] = (q0 + r < Q && cin) ? q[(size_t)(q0 + r) * D + c] : 0.f;
-          greg[p] =
-              (base + r < G && cin) ? g[(size_t)(base + r) * D + c] : 0.f;
+          const int e = tid + THREADS * p, r = e / BK, c = w0 + e % BK;
+          qreg[p] = load_word<M>(q, q0 + r, Q, c, D, vec);
+          greg[p] = load_word<M>(g, base + r, G, c, D, vec);
         }
       }
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
-        float a[4], b[4];
+        W a[4], b[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[i] = qs[kk * PADW + ty + 16 * i];
 #pragma unroll
@@ -149,7 +217,12 @@ fused_topk_split_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            if constexpr (M == I8)
+              acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+            else
+              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
       }
     }
 
@@ -159,7 +232,13 @@ fused_topk_split_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int ql = ty + 16 * i, bin = tx + 16 * j, idx = base + bin;
-        float v = idx < G ? acc[i][j] : -CUDART_INF_F;
+        float v;
+        if constexpr (M == I8)
+          v = __fmul_rn(__int2float_rn(acc[i][j]),
+                        __fmul_rn(qsc[ql], gn[bin]));
+        else
+          v = acc[i][j];
+        if (idx >= G) v = -CUDART_INF_F;
         int vi = idx;
 #pragma unroll
         for (int t = 0; t < TD; ++t) {
@@ -297,30 +376,27 @@ fused_topk_merge_kernel(const float* __restrict__ cand_v,
   if (lane == 0) ok[qg] = good;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = ok).
-// Scratch: cand_v/cand_i (Q, nsplit, k), tth (Q, nsplit). Outputs: vals,
-// inds (Q, k), ok (Q,). 1 <= nsplit <= number of 64-row gallery tiles.
-int fused_topk_f32(const float* q, const float* g, const float* gnorm,
-                   int Q, int G, int D, int k, int nsplit,
-                   int bins, int t_depth, float* cand_v, int* cand_i,
-                   float* tth, float* vals, int* inds, int* ok,
-                   void* stream) {
+// Launches the split kernel of mode M and the merge kernel on `stream`;
+// returns cudaGetLastError() (0 = ok).
+template <int M>
+int launch(const void* q, const void* g, const float* gaux,
+           const float* qscale, int Q, int G, int D, int k, int nsplit,
+           int bins, int t_depth, float* cand_v, int* cand_i, float* tth,
+           float* vals, int* inds, int* ok, void* stream) {
   if (bins != BINS || t_depth != TD || k < 1 || k > TD * BINS || Q < 1 ||
       G < 1 || D < 1 || nsplit < 1 || nsplit > (G + GT - 1) / GT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bool vec = D % 4 == 0 && (uintptr_t)q % 4 == 0 &&
+                   (uintptr_t)g % 4 == 0;
   const size_t smem1 = split_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_topk_split_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem1);
   if (err != cudaSuccess) return (int)err;
   dim3 grid1((Q + QT - 1) / QT, nsplit);
-  fused_topk_split_kernel<<<grid1, THREADS, smem1, st>>>(
-      q, g, gnorm, Q, G, D, k, nsplit, cand_v, cand_i, tth);
+  fused_topk_split_kernel<M><<<grid1, THREADS, smem1, st>>>(
+      q, g, gaux, qscale, Q, G, D, k, nsplit, vec, cand_v, cand_i, tth);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = (size_t)nsplit * k * (sizeof(float) + sizeof(int)) +
@@ -332,6 +408,44 @@ int fused_topk_f32(const float* q, const float* g, const float* gnorm,
   fused_topk_merge_kernel<<<Q, 32, smem2, st>>>(cand_v, cand_i, tth, k,
                                                 nsplit, vals, inds, ok);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches both kernels on `stream` and returns
+// cudaGetLastError() (0 = ok). Scratch: cand_v/cand_i (Q, nsplit, k),
+// tth (Q, nsplit). Outputs: vals, inds (Q, k), ok (Q,).
+// 1 <= nsplit <= number of 64-row gallery tiles.
+
+// q̂ (Q, D) f32, raw gallery (G, D) f32 and its row norms (G,).
+int fused_topk_f32(const float* q, const float* g, const float* gnorm,
+                   int Q, int G, int D, int k, int nsplit, int bins,
+                   int t_depth, float* cand_v, int* cand_i, float* tth,
+                   float* vals, int* inds, int* ok, void* stream) {
+  return launch<F32>(q, g, gnorm, nullptr, Q, G, D, k, nsplit, bins,
+                     t_depth, cand_v, cand_i, tth, vals, inds, ok, stream);
+}
+
+// q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16.
+int fused_topk_bf16(const void* q, const void* g, int Q, int G, int D,
+                    int k, int nsplit, int bins, int t_depth, float* cand_v,
+                    int* cand_i, float* tth, float* vals, int* inds, int* ok,
+                    void* stream) {
+  return launch<BF16>(q, g, nullptr, nullptr, Q, G, D, k, nsplit, bins,
+                      t_depth, cand_v, cand_i, tth, vals, inds, ok, stream);
+}
+
+// int8 codes of q̂ (Q, D) and of the gallery (G, D), scales qs (Q,),
+// gs (G,) f32.
+int fused_topk_int8(const void* q, const void* g, const float* qscale,
+                    const float* gscale, int Q, int G, int D, int k,
+                    int nsplit, int bins, int t_depth, float* cand_v,
+                    int* cand_i, float* tth, float* vals, int* inds, int* ok,
+                    void* stream) {
+  return launch<I8>(q, g, gscale, qscale, Q, G, D, k, nsplit, bins, t_depth,
+                    cand_v, cand_i, tth, vals, inds, ok, stream);
 }
 
 const char* fused_topk_error_string(int err) {

@@ -1,2 +1,2 @@
 """Device-side ops: preprocessing, pooling, retrieval (with the fused
-top-k CUDA kernel)."""
+top-k CUDA kernels)."""

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernel (plain C interface, ctypes).
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
 
 ``csrc/fused_topk.cu`` compiles with one ``nvcc`` call into a shared
 library under ``imageretrievalresearch_tpu_torch/_build/`` (listed in
@@ -61,15 +61,20 @@ def build() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel's library (built now if it is missing), with its C
-    signatures declared."""
+    """The kernels' library (built now if it is missing), with the C
+    signatures of its three entry points declared."""
     global _LIB
     if _LIB is None:
         build()
         lib = ctypes.CDLL(str(_lib_path()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_topk_f32.argtypes = [p] * 3 + [i] * 7 + [p] * 6 + [p]
-        lib.fused_topk_f32.restype = i
+        # operands (q, gallery, then norms / scales), 7 ints, 6 outputs
+        # and scratch, the stream
+        for name, n_in in (("fused_topk_f32", 3), ("fused_topk_bf16", 2),
+                           ("fused_topk_int8", 4)):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * n_in + [i] * 7 + [p] * 6 + [p]
+            fn.restype = i
         lib.fused_topk_error_string.argtypes = [i]
         lib.fused_topk_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -1,16 +1,28 @@
-"""Gallery retrieval on the card: cosine scores + exact top-k, f32 path.
+"""Gallery retrieval on the card: cosine scores + exact top-k in the f32,
+bf16 and int8 serving modes, and the two-stage ``int8_rerank`` mode.
 
 Counterpart of ``imageretrievalresearch_tpu/ops/retrieval.py``. The fused
-streaming top-k (``fused_cosine_topk``) launches the hand-written CUDA
-kernel in ``csrc/fused_topk.cu`` for CUDA tensors and runs its plain
-PyTorch version (``fused_cosine_topk_reference``) for CPU tensors only.
+streaming top-k (``fused_cosine_topk``) launches one of the hand-written
+CUDA kernels in ``csrc/fused_topk.cu`` for CUDA tensors (the variant
+follows the gallery's dtype) and runs its plain PyTorch version
+(``fused_cosine_topk_reference``) for CPU tensors only.
 
-Precision: on the card every f32 score here is true float32 — TF32 is off
-(``_device.set_float32_precision``), and the kernel runs f32 FMAs. That
-holds for ``precision='highest'`` and, in this port, for ``'default'`` as
-well, which is what JAX computes on the CPU. (On a TPU, JAX's 'default' is
-one bf16-truncated MXU pass.) Mapping 'default' to TF32 tensor cores would
-need a measured ranking agreement first.
+Score arithmetic per ``matmul_dtype`` (one definition, :func:`dense_scores`,
+shared by the dense path, the certificate repair and the plain fused
+version, and matched by the kernels):
+
+- ``float32``: true float32 on the card — TF32 is off
+  (``_device.set_float32_precision``), and the kernel runs f32 FMAs. That
+  holds for ``precision='highest'`` and, in this port, for ``'default'``
+  as well, which is what JAX computes on the CPU. (On a TPU, JAX's
+  'default' is one bf16-truncated MXU pass.) Mapping 'default' to TF32
+  tensor cores would need a measured ranking agreement first.
+- ``bfloat16``: q̂ and the normalized gallery rounded to bf16, products
+  accumulated in f32. A product of two bf16 values is exact in f32, so an
+  f32 matmul of the upcast operands is JAX's ``preferred_element_type=f32``
+  arithmetic apart from the order of accumulation.
+- ``int8``: per-row symmetric int8 codes of q̂ and ĝ, an exact int32 dot,
+  rescaled as ``s32 * (qs * gsᵀ)`` in JAX's order.
 
 Ties go to the lowest gallery index everywhere (``lax.top_k`` order).
 ``torch.topk`` does not promise that, so ranking uses stable sorts.
@@ -26,15 +38,22 @@ import torch
 
 from imageretrievalresearch_tpu_torch.losses import COSINE_SIM_EPS
 
-# Geometry of the CUDA kernel (compile-time constants of csrc/fused_topk.cu;
-# the launcher rejects a mismatch). The TPU kernel used 512 bins of depth 6.
+# Geometry of the CUDA kernels (compile-time constants of csrc/fused_topk.cu;
+# the launcher rejects a mismatch). The TPU kernels used 512 bins of depth 6.
 FUSED_BINS = 64
 FUSED_T_DEPTH = 6
 # per-row candidates the merge kernel stages in shared memory (bytes)
 _MERGE_SMEM_BUDGET = 160 * 1024
+MATMUL_DTYPES = ("float32", "bfloat16", "int8")
+# columns per exact f32 partial product of int8 codes: 127² · 1024 < 2²⁴
+_INT8_EXACT_CHUNK = 1024
+# gallery rows per tile of the dense path: at D = 1536 one tile's f32
+# operands are 100 MB, however large the compact gallery
+_DENSE_GALLERY_TILE = 16384
 
 # launches of each hand-written kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {"fused_cosine_topk": 0}
+KERNEL_LAUNCHES = {"fused_cosine_topk": 0, "fused_cosine_topk_bf16": 0,
+                   "fused_cosine_topk_int8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,10 +91,22 @@ def _check_precision(precision: str, matmul_dtype: str) -> None:
 
 
 def _check_matmul_dtype(matmul_dtype: str) -> None:
-    if matmul_dtype in ("bfloat16", "int8"):
-        raise _not_ported(f"matmul_dtype={matmul_dtype!r}")
-    if matmul_dtype != "float32":
+    if matmul_dtype not in MATMUL_DTYPES:
         raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
+
+
+def _check_prepared(gallery, matmul_dtype: str, gallery_scale) -> None:
+    """A bf16 gallery is pre-normalized, an int8 one pre-quantized (with
+    its scales): each must be scored in its own mode."""
+    if gallery.dtype == torch.bfloat16 and matmul_dtype != "bfloat16":
+        raise ValueError("bfloat16 (pre-normalized) gallery requires "
+                         "matmul_dtype='bfloat16'")
+    if gallery.dtype == torch.int8:
+        if matmul_dtype != "int8":
+            raise ValueError("int8 (pre-quantized) gallery requires "
+                             "matmul_dtype='int8'")
+        if gallery_scale is None:
+            raise ValueError("int8 gallery requires gallery_scale (G, 1)")
 
 
 def _stable_topk(sims: torch.Tensor, k: int):
@@ -105,6 +136,74 @@ def chunked_topk(sims: torch.Tensor, k: int, *, chunk: int = 2048
     return mvals, torch.gather(inds, 1, mpos).to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# Quantization
+# ---------------------------------------------------------------------------
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization: ``(codes, scales)`` with
+    ``x ≈ codes * scales``, scales (N, 1) f32. Divides by the scale (not by
+    a reciprocal product) and rounds half to even, as JAX does."""
+    x = x.float()
+    scale = torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-12) / 127.0
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def quantize_rows_int8_residual(x: torch.Tensor):
+    """Two-level int8 codes for ``int8_rerank``: the primary codes of
+    :func:`quantize_rows_int8` plus int8 codes of the residual. Returns
+    ``(codes, scales, res_codes, res_scales, max_primary_norm,
+    max_residual_norm)``; the two bounds are 0-d f32 tensors."""
+    x = x.float()
+    q1, s1 = quantize_rows_int8(x)
+    deq1 = q1.float() * s1
+    resid = x - deq1
+    q2, s2 = quantize_rows_int8(resid)
+    g1max = torch.linalg.vector_norm(deq1, dim=1).amax()
+    rmax = torch.linalg.vector_norm(resid, dim=1).amax()
+    return q1, s1, q2, s2, g1max, rmax
+
+
+def pack_codes_int32(codes: torch.Tensor) -> torch.Tensor:
+    """(G, D) int8 codes -> (G, D/4) int32 lanes of the same bytes, the
+    resident form of the ``int8_rerank`` residual codes. D must be a
+    multiple of 4."""
+    g, d = codes.shape
+    if d % 4:
+        raise ValueError(f"D={d} not a multiple of 4")
+    return codes.contiguous().view(torch.int32)
+
+
+def _unpack_codes_int32(rows: torch.Tensor) -> torch.Tensor:
+    """(…, D/4) int32 packed rows -> (…, D) int8, the exact inverse of
+    :func:`pack_codes_int32`."""
+    return rows.contiguous().view(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Score arithmetic, one definition per matmul_dtype
+# ---------------------------------------------------------------------------
+
+def _int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, D) x (N, D) int8 codes -> (M, N) int32, exact: f32 products
+    over column chunks of at most 1024, each exact (every partial sum is
+    an integer below 127² · 1024 < 2²⁴), summed in int32."""
+    out = None
+    for lo in range(0, a.shape[1], _INT8_EXACT_CHUNK):
+        hi = lo + _INT8_EXACT_CHUNK
+        part = torch.matmul(a[:, lo:hi].float(), b[:, lo:hi].float().t())
+        part = part.to(torch.int32)
+        out = part if out is None else out + part
+    return out
+
+
+def _int8_scores(qq, qs, gq, gs) -> torch.Tensor:
+    """int8 score arithmetic (the kernel's): exact int32 dot, then
+    ``s32 * (qs * gsᵀ)`` with the product of the scales first."""
+    return _int8_dot(qq, gq).float() * (qs * gs.reshape(1, -1))
+
+
 def _normalized_gallery(gallery: torch.Tensor,
                         gallery_norms: torch.Tensor | None) -> torch.Tensor:
     """ĝ = g / max(|g|, eps): with build-time norms when given, else the
@@ -117,35 +216,67 @@ def _normalized_gallery(gallery: torch.Tensor,
 
 
 def _prepare_gallery(gallery, matmul_dtype: str = "float32",
-                     gallery_scale=None):
-    """The f32 serving form: the L2-normalized gallery."""
-    _check_matmul_dtype(matmul_dtype)
-    return l2_normalize(gallery), None
+                     gallery_scale=None, gallery_norms=None):
+    """The form the score arithmetic consumes, ``(prepared, scale)``:
+    f32 -> ĝ; bf16 -> ĝ as bf16; int8 -> codes and (G, 1) scales of ĝ.
+    Prepared (bf16 / int8) galleries pass through. Row by row, so a tile
+    of rows prepares to the same bits as the whole gallery."""
+    if matmul_dtype == "int8":
+        if gallery.dtype == torch.int8:
+            return gallery, gallery_scale
+        return quantize_rows_int8(l2_normalize(gallery))
+    if matmul_dtype == "bfloat16":
+        if gallery.dtype == torch.bfloat16:
+            return gallery, None
+        return l2_normalize(gallery).to(torch.bfloat16), None
+    return _normalized_gallery(gallery, gallery_norms), None
 
 
-def _scores_prepared(q_hat, g_prep, g_scale, matmul_dtype: str = "float32",
-                     precision: str = "default") -> torch.Tensor:
-    _check_matmul_dtype(matmul_dtype)
-    _dot_precision(precision)
-    return torch.matmul(q_hat.float(), g_prep.t())
+def _prepare_queries(q_hat, matmul_dtype: str = "float32"):
+    """The query side, ``(prepared, scale)``: q̂; q̂ rounded to bf16 and
+    widened (exact); int8 codes and (Q, 1) scales of q̂."""
+    if matmul_dtype == "int8":
+        return quantize_rows_int8(q_hat)
+    if matmul_dtype == "bfloat16":
+        return q_hat.to(torch.bfloat16).float(), None
+    return q_hat.float(), None
+
+
+def _scores_prepared(q_prep, q_scale, g_prep, g_scale,
+                     matmul_dtype: str = "float32") -> torch.Tensor:
+    if matmul_dtype == "int8":
+        return _int8_scores(q_prep, q_scale, g_prep, g_scale)
+    return torch.matmul(q_prep, g_prep.float().t())
+
+
+def _dense_scores(q_hat, gallery, matmul_dtype, gallery_scale=None,
+                  gallery_norms=None) -> torch.Tensor:
+    return _scores_prepared(
+        *_prepare_queries(q_hat, matmul_dtype),
+        *_prepare_gallery(gallery, matmul_dtype, gallery_scale,
+                          gallery_norms), matmul_dtype)
 
 
 def dense_scores(q_hat, gallery, matmul_dtype: str = "float32",
-                 gallery_scale=None, precision: str = "default"
-                 ) -> torch.Tensor:
-    """The one definition of the dense f32 score arithmetic: normalize the
-    gallery, then q̂·ĝᵀ in true f32."""
-    g_prep, gs = _prepare_gallery(gallery, matmul_dtype, gallery_scale)
-    return _scores_prepared(q_hat, g_prep, gs, matmul_dtype, precision)
+                 gallery_scale=None, precision: str = "default",
+                 gallery_norms=None) -> torch.Tensor:
+    """The one definition of the dense score arithmetic per
+    ``matmul_dtype`` (module docstring), on a raw f32 gallery or a
+    prepared one (bf16 normalized / int8 codes + scales)."""
+    _check_matmul_dtype(matmul_dtype)
+    _dot_precision(precision)
+    return _dense_scores(q_hat, gallery, matmul_dtype, gallery_scale,
+                         gallery_norms)
 
 
 # ---------------------------------------------------------------------------
 # Fused streaming exact top-k: plain version and kernel wrapper
 # ---------------------------------------------------------------------------
 #
-# Contract (from the TPU kernel, imageretrievalresearch_tpu/ops/retrieval.py
-# _fused_topk_kernel + _stream_topk_update):
-# - each gallery row is divided by max(norm, eps) BEFORE the dot product;
+# Contract (from the TPU kernels, imageretrievalresearch_tpu/ops/
+# retrieval.py _fused_topk_kernel{,_bf16,_int8} + _stream_topk_update):
+# - scores are the mode's dense arithmetic (f32: each gallery row divided
+#   by max(norm, eps) BEFORE the dot product);
 # - scores fold into per-bin buffers of depth T, bin = global index mod
 #   BINS; a new value sinks below stored values that are >= it, so ties
 #   keep the lower index on top;
@@ -203,21 +334,32 @@ def _extract(bv: torch.Tensor, bi: torch.Tensor, k: int):
 
 def fused_cosine_topk_reference(
         queries_hat: torch.Tensor, gallery: torch.Tensor, k: int,
-        *, gallery_norms: torch.Tensor | None = None,
+        *, matmul_dtype: str = "float32",
+        gallery_scale: torch.Tensor | None = None,
+        gallery_norms: torch.Tensor | None = None,
         bins: int = FUSED_BINS, t_depth: int = FUSED_T_DEPTH,
         splits: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the fused kernel: bins, depth-T buffers,
-    extraction, split merge and certificate, on any device. With
-    ``bins=512, t_depth=6, splits=1`` it is the TPU kernel's geometry.
-    Returns ``(vals (Q,k) f32, inds (Q,k) i32, ok (Q,) i32)``."""
-    q = queries_hat.shape[0]
-    g = gallery.shape[0]
+    """Plain PyTorch version of the fused kernels: the mode's dense scores
+    (:func:`dense_scores`), bins, depth-T buffers, extraction, split merge
+    and certificate, on any device. With ``bins=512, t_depth=6, splits=1``
+    it is the TPU kernels' geometry. Returns ``(vals (Q,k) f32, inds (Q,k)
+    i32, ok (Q,) i32)``."""
+    _check_matmul_dtype(matmul_dtype)
+    _check_prepared(gallery, matmul_dtype, gallery_scale)
     if k > t_depth * bins:
         raise ValueError(f"k={k} exceeds the buffers ({t_depth}x{bins})")
+    return _plain_fused(queries_hat, gallery, k, matmul_dtype, gallery_scale,
+                        gallery_norms, bins, t_depth, splits)
+
+
+def _plain_fused(queries_hat, gallery, k, matmul_dtype, gallery_scale,
+                 gallery_norms, bins, t_depth, splits):
+    q = queries_hat.shape[0]
+    g = gallery.shape[0]
     n_split = _n_splits(g, splits, bins)
-    g_hat = _normalized_gallery(gallery, gallery_norms)
-    s = torch.matmul(queries_hat.float(), g_hat.t())          # (Q, G)
+    s = _dense_scores(queries_hat, gallery, matmul_dtype, gallery_scale,
+                      gallery_norms)                          # (Q, G)
     bv, bi = _bin_buffers(s, bins, t_depth, n_split)          # (Q, S, T, B)
     tth = bv[:, :, -1, :].amax(dim=2)                         # (Q, S)
     cv, ci = _extract(bv.reshape(q * n_split, -1),
@@ -248,29 +390,49 @@ def fused_splits(q: int, g: int, k: int, device: torch.device) -> int:
     return _n_splits(g, splits, FUSED_BINS)
 
 
-def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms):
+def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
+                   shape: tuple, device: torch.device) -> torch.Tensor:
+    if (t.device != device or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t
+
+
+# kernel variant per gallery dtype: (mode, C entry point, launch counter)
+_VARIANTS = {
+    torch.float32: ("float32", "fused_topk_f32", "fused_cosine_topk"),
+    torch.bfloat16: ("bfloat16", "fused_topk_bf16", "fused_cosine_topk_bf16"),
+    torch.int8: ("int8", "fused_topk_int8", "fused_cosine_topk_int8")}
+
+
+def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
+                            gallery_scale):
     from imageretrievalresearch_tpu_torch.ops import _cuda
 
     dev = queries_hat.device
-    for name, t in (("queries_hat", queries_hat), ("gallery", gallery)):
-        if t.device != dev or t.dtype != torch.float32 or t.ndim != 2:
-            raise ValueError(f"{name}: expected a 2-D float32 tensor on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _, entry, counter = _VARIANTS[gallery.dtype]
     q, d = queries_hat.shape
     g = gallery.shape[0]
-    if gallery.shape[1] != d:
-        raise ValueError(f"gallery width {gallery.shape[1]} != {d}")
-    if gallery_norms is None:
-        gallery_norms = torch.linalg.vector_norm(gallery, dim=1)
-    gallery_norms = gallery_norms.reshape(-1)
-    if (gallery_norms.shape[0] != g or gallery_norms.device != dev
-            or gallery_norms.dtype != torch.float32):
-        raise ValueError("gallery_norms: expected (G,) float32 on the "
-                         "gallery's device")
-    gallery_norms = gallery_norms.contiguous()
+    _check_operand("queries_hat", queries_hat, torch.float32, (q, d), dev)
+    _check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
+    if gallery.dtype == torch.float32:
+        if gallery_norms is None:
+            gallery_norms = torch.linalg.vector_norm(gallery, dim=1)
+        aux = (_check_operand("gallery_norms", gallery_norms.reshape(-1),
+                              torch.float32, (g,), dev),)
+        q_in = queries_hat
+    elif gallery.dtype == torch.bfloat16:
+        aux = ()
+        q_in = queries_hat.to(torch.bfloat16)
+    else:
+        q_in, q_scale = quantize_rows_int8(queries_hat)
+        aux = (q_scale, _check_operand(
+            "gallery_scale", gallery_scale.reshape(-1, 1), torch.float32,
+            (g, 1), dev))
     n_split = fused_splits(q, g, k, dev)
     cand_v = torch.empty((q, n_split, k), device=dev, dtype=torch.float32)
     cand_i = torch.empty((q, n_split, k), device=dev, dtype=torch.int32)
@@ -282,43 +444,65 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms):
     p = ctypes.c_void_p
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_topk_f32(
-            p(queries_hat.data_ptr()), p(gallery.data_ptr()),
-            p(gallery_norms.data_ptr()), q, g, d, k, n_split,
+        err = getattr(lib, entry)(
+            p(q_in.data_ptr()), p(gallery.data_ptr()),
+            *(p(a.data_ptr()) for a in aux), q, g, d, k, n_split,
             FUSED_BINS, FUSED_T_DEPTH,
             p(cand_v.data_ptr()), p(cand_i.data_ptr()), p(tth.data_ptr()),
             p(vals.data_ptr()), p(inds.data_ptr()), p(ok.data_ptr()),
             p(stream))
     if err != 0:
-        raise RuntimeError(f"fused_topk_f32 launch failed: CUDA error "
+        raise RuntimeError(f"{entry} launch failed: CUDA error "
                            f"{err} ({_cuda.error_string(err)})")
-    KERNEL_LAUNCHES["fused_cosine_topk"] += 1
+    KERNEL_LAUNCHES[counter] += 1
     return vals, inds, ok
 
 
 def fused_cosine_topk(
         queries_hat: torch.Tensor, gallery: torch.Tensor, k: int,
-        *, gallery_norms: torch.Tensor | None = None
+        *, gallery_norms: torch.Tensor | None = None,
+        gallery_scale: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(Q, D) normalized queries x (G, D) raw f32 gallery -> exact top-k
+    """(Q, D) normalized queries x (G, D) gallery -> exact top-k
     ``(vals, inds, ok)`` with the per-row certificate ``ok``; replaces
-    ``fused_cosine_topk_pallas`` (f32 branch). Scores are true f32.
+    ``fused_cosine_topk_pallas``. The gallery's dtype picks the variant:
 
-    CUDA tensors launch the kernel of ``csrc/fused_topk.cu`` (geometry
-    ``FUSED_BINS`` x ``FUSED_T_DEPTH``, :func:`fused_splits` gallery
-    splits) or raise. CPU tensors run :func:`fused_cosine_topk_reference`
-    at the same geometry with one split. Rows with ``ok == 0`` must be
-    re-ranked densely: :func:`cosine_topk` does that."""
-    if gallery.dtype != torch.float32:
-        raise _not_ported(f"a {gallery.dtype} gallery in the fused kernel")
+    - float32: the raw gallery (optionally its ``gallery_norms``), true
+      f32 scores;
+    - bfloat16: the pre-normalized gallery; q̂ is cast to bf16 here;
+    - int8: codes of the normalized gallery with ``gallery_scale`` (G, 1);
+      q̂ is quantized here with :func:`quantize_rows_int8`.
+
+    CUDA tensors launch the matching kernel of ``csrc/fused_topk.cu``
+    (geometry ``FUSED_BINS`` x ``FUSED_T_DEPTH``, :func:`fused_splits`
+    gallery splits) or raise. CPU tensors run
+    :func:`fused_cosine_topk_reference` at the same geometry with one
+    split. Rows with ``ok == 0`` must be re-ranked densely:
+    :func:`cosine_topk` does that."""
+    if gallery.dtype not in _VARIANTS:
+        raise ValueError(f"unsupported gallery dtype {gallery.dtype}")
+    if gallery_norms is not None and gallery.dtype != torch.float32:
+        raise ValueError("gallery_norms applies to a float32 gallery only")
+    _check_prepared(gallery, _VARIANTS[gallery.dtype][0], gallery_scale)
+    _check_fused_k(k)
+    return _fused(queries_hat, gallery, k, gallery_norms, gallery_scale)
+
+
+def _check_fused_k(k: int) -> None:
     if not 1 <= k <= FUSED_T_DEPTH * FUSED_BINS:
         raise ValueError(f"k={k} outside [1, {FUSED_T_DEPTH * FUSED_BINS}]")
+
+
+def _fused(queries_hat, gallery, k, gallery_norms, gallery_scale):
+    """:func:`fused_cosine_topk` on checked arguments."""
     if queries_hat.device.type == "cpu":
-        return fused_cosine_topk_reference(queries_hat, gallery, k,
-                                           gallery_norms=gallery_norms)
+        return _plain_fused(queries_hat, gallery, k,
+                            _VARIANTS[gallery.dtype][0], gallery_scale,
+                            gallery_norms, FUSED_BINS, FUSED_T_DEPTH, 1)
     if queries_hat.device.type != "cuda":
         raise ValueError(f"unsupported device {queries_hat.device}")
-    return _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms)
+    return _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
+                                   gallery_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -334,12 +518,13 @@ def _fused_eligible(q: int, g: int, d: int, k: int,
 
 
 def certified_topk_repair(q_hat, gallery, k, vals, inds, ok, *,
-                          full_fallback: Callable, gallery_norms=None,
-                          precision: str = "default"):
+                          full_fallback: Callable,
+                          matmul_dtype: str = "float32",
+                          gallery_scale=None, gallery_norms=None):
     """Bounded certificate repair, an eager branch on the number of bad
     rows: none -> unchanged; at most RETRY = min(64, Q) -> re-rank those
-    rows densely with the same score arithmetic; more -> the caller's full
-    dense pass."""
+    rows densely with the same score arithmetic (:func:`_dense_topk`);
+    more -> the caller's full dense pass."""
     q = q_hat.shape[0]
     retry = min(64, q)
     bad = torch.nonzero(ok == 0).reshape(-1)
@@ -348,18 +533,51 @@ def certified_topk_repair(q_hat, gallery, k, vals, inds, ok, *,
         return vals, inds
     if n_bad > retry:
         return full_fallback()
-    g_hat = _normalized_gallery(gallery, gallery_norms)
-    sims = _scores_prepared(q_hat[bad], g_hat, None, "float32", precision)
-    rvals, rinds = chunked_topk(sims, k)
+    rvals, rinds = _dense_topk(q_hat[bad], gallery, k, matmul_dtype,
+                               gallery_scale=gallery_scale,
+                               gallery_norms=gallery_norms)
     vals, inds = vals.clone(), inds.clone()
     vals[bad] = rvals
     inds[bad] = rinds
     return vals, inds
 
 
+def _rows(t: torch.Tensor | None, lo: int, hi: int):
+    return None if t is None else t[lo:hi]
+
+
+def _dense_topk(q_hat, gallery, k, matmul_dtype, *, gallery_scale=None,
+                gallery_norms=None, query_block: int = 512):
+    """Blocked dense ranking: for each query block, the (block, G) scores
+    are filled one gallery tile of ``_DENSE_GALLERY_TILE`` rows at a time
+    (each tile prepared and scored by the mode's arithmetic, row by row,
+    so tiling changes no score), then ranked by :func:`chunked_topk`.
+    Only one tile's f32 operands are ever live, never an f32 copy of a
+    compact gallery."""
+    g = gallery.shape[0]
+    out_v, out_i = [], []
+    for qlo in range(0, q_hat.shape[0], query_block):
+        q_prep, q_scale = _prepare_queries(q_hat[qlo:qlo + query_block],
+                                           matmul_dtype)
+        sims = torch.empty((q_prep.shape[0], g), dtype=torch.float32,
+                           device=q_hat.device)
+        for lo in range(0, g, _DENSE_GALLERY_TILE):
+            hi = lo + _DENSE_GALLERY_TILE
+            sims[:, lo:hi] = _scores_prepared(
+                q_prep, q_scale, *_prepare_gallery(
+                    gallery[lo:hi], matmul_dtype,
+                    _rows(gallery_scale, lo, hi),
+                    _rows(gallery_norms, lo, hi)), matmul_dtype)
+        v, i = chunked_topk(sims, k)
+        out_v.append(v)
+        out_i.append(i)
+    return torch.cat(out_v), torch.cat(out_i)
+
+
 def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                 *, query_block: int = 512, method: str = "exact",
                 matmul_dtype: str = "float32",
+                gallery_scale: torch.Tensor | None = None,
                 gallery_norms: torch.Tensor | None = None,
                 precision: str = "default", use_pallas: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -370,12 +588,22 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
       dense path otherwise; on the CPU the dense path (as JAX off-TPU).
     - ``method='fused'`` forces the fused path (on the CPU: its plain
       version); ``method='dense'`` forces the blocked dense path.
-    - ``gallery_norms``: build-time row norms of the f32 gallery.
-    - ``precision``: 'default' and 'highest' are both true f32 here.
+    - ``matmul_dtype``: 'float32', 'bfloat16' or 'int8' (module
+      docstring); the top-k is exact for the scores of that mode. The
+      gallery is raw f32, or prepared: bf16 pre-normalized, or int8 codes
+      with ``gallery_scale`` (G, 1).
+    - ``gallery_norms``: build-time row norms of a float32 gallery in
+      float32 mode.
+    - ``precision``: 'default' and 'highest' are both true f32 here;
+      'highest' is refused for bf16/int8.
 
-    ``method='approx'``, ``use_pallas`` and the bf16/int8 modes are not
-    ported yet."""
+    ``method='approx'`` and ``use_pallas`` are not ported yet."""
     _check_matmul_dtype(matmul_dtype)
+    if gallery_norms is not None and (gallery.dtype != torch.float32
+                                      or matmul_dtype != "float32"):
+        raise ValueError("gallery_norms applies to a float32 gallery in "
+                         "float32 mode only")
+    _check_prepared(gallery, matmul_dtype, gallery_scale)
     _check_precision(precision, matmul_dtype)
     if use_pallas:
         raise _not_ported("use_pallas")
@@ -383,32 +611,107 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
         raise _not_ported("method='approx'")
     if method not in ("exact", "dense", "fused"):
         raise ValueError(f"unknown method {method!r}")
-    if gallery_norms is not None and gallery.dtype != torch.float32:
-        raise ValueError("gallery_norms applies to a float32 gallery only")
     q, d = queries.shape
     g = gallery.shape[0]
     k = min(k, g)
     q_hat = l2_normalize(queries)
+    if method == "fused":
+        _check_fused_k(k)
     fused = method == "fused" or (
         method == "exact" and q_hat.device.type == "cuda"
         and _fused_eligible(q, g, d, k, FUSED_BINS, FUSED_T_DEPTH))
+    if matmul_dtype == "float32":
+        # the f32 kernel normalizes the raw rows itself
+        g_in, g_scale = gallery.float(), None
+    else:
+        g_in, g_scale = _prepare_gallery(gallery, matmul_dtype,
+                                         gallery_scale)
 
     def dense_rank():
-        g_hat = _normalized_gallery(gallery, gallery_norms)
-        out_v, out_i = [], []
-        for lo in range(0, q, query_block):
-            sims = _scores_prepared(q_hat[lo:lo + query_block], g_hat, None,
-                                    matmul_dtype, precision)
-            v, i = chunked_topk(sims, k)
-            out_v.append(v)
-            out_i.append(i)
-        return torch.cat(out_v), torch.cat(out_i)
+        return _dense_topk(q_hat, g_in, k, matmul_dtype,
+                           gallery_scale=g_scale, gallery_norms=gallery_norms,
+                           query_block=query_block)
 
     if not fused:
         return dense_rank()
-    vals, inds, ok = fused_cosine_topk(q_hat, gallery.float(), k,
-                                       gallery_norms=gallery_norms)
-    return certified_topk_repair(q_hat, gallery, k, vals, inds, ok,
+    vals, inds, ok = _fused(q_hat, g_in, k, gallery_norms, g_scale)
+    return certified_topk_repair(q_hat, g_in, k, vals, inds, ok,
+                                 matmul_dtype=matmul_dtype,
+                                 gallery_scale=g_scale,
                                  gallery_norms=gallery_norms,
-                                 precision=precision,
                                  full_fallback=dense_rank)
+
+
+def int8_rerank_topk(queries: torch.Tensor, codes: torch.Tensor,
+                     scales: torch.Tensor, res_codes: torch.Tensor,
+                     res_scales: torch.Tensor, k: int, *,
+                     shortlist: int = 256, rerank_block: int = 128,
+                     gallery_norm_bound: torch.Tensor | None = None,
+                     residual_norm_bound: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-stage int8 serving: the exact int8 top-``c`` shortlist, then a
+    true-f32 re-rank of its two-level codes. Returns ``(vals (Q, k),
+    inds (Q, k), margin (Q,))``.
+
+    1. Stage 1, ``c = min(max(shortlist, k), G)``: on a CUDA device the
+       int8 fused kernel with the certificate repair, when
+       :func:`_fused_eligible` holds; the blocked dense int8 path
+       otherwise (and always on the CPU). The kernel keeps its compile-
+       time geometry (64 bins x depth 6, :func:`fused_splits` splits)
+       where JAX deepens its TPU buffers to t = 8 / 10 for c > 150 / 384:
+       the split certificate stays sound at any depth, so c <= 384 stays
+       fused, and a shortlist above 384 takes the dense stage 1.
+    2. Stage 2, in ``rerank_block`` query blocks: gather the shortlist's
+       primary codes and residual codes (``res_codes`` (G, D) int8 or its
+       :func:`pack_codes_int32` form) and re-score them in true f32
+       against the unquantized q̂. Ties keep stage-1 order (stable sort).
+
+    ``margin = vals[:, k-1] - v1[:, c-1]``; with both norm bounds given it
+    becomes the signed certificate ``margin - (|q̂ - deq(q̂)|·g1max +
+    |q̂|·rmax)``: > 0 proves the row equals the full-gallery refined
+    top-k."""
+    q, d = queries.shape
+    g = codes.shape[0]
+    k = min(k, g)
+    c = min(max(shortlist, k), g)
+    q_hat = l2_normalize(queries)
+
+    def dense_stage1():
+        return _dense_topk(q_hat, codes, c, "int8", gallery_scale=scales)
+
+    if (q_hat.device.type == "cuda"
+            and _fused_eligible(q, g, d, c, FUSED_BINS, FUSED_T_DEPTH)):
+        v1, i1, ok = _fused(q_hat, codes, c, None, scales)
+        v1, i1 = certified_topk_repair(q_hat, codes, c, v1, i1, ok,
+                                       matmul_dtype="int8",
+                                       gallery_scale=scales,
+                                       full_fallback=dense_stage1)
+    else:
+        v1, i1 = dense_stage1()
+    c = v1.shape[1]
+
+    out_v, out_i = [], []
+    for lo in range(0, q, rerank_block):
+        qblk = q_hat[lo:lo + rerank_block]
+        iblk = i1[lo:lo + rerank_block].long()               # (B, c)
+        c1 = codes[iblk].float()                             # (B, c, D)
+        c2 = res_codes[iblk]
+        if c2.dtype == torch.int32:
+            c2 = _unpack_codes_int32(c2)
+        c2 = c2.float()
+        s1 = scales.reshape(-1)[iblk]                        # (B, c)
+        s2 = res_scales.reshape(-1)[iblk]
+        dots1 = torch.einsum("bd,bcd->bc", qblk, c1)
+        dots2 = torch.einsum("bd,bcd->bc", qblk, c2)
+        rv, rp = _stable_topk(dots1 * s1 + dots2 * s2, k)
+        out_v.append(rv)
+        out_i.append(torch.gather(i1[lo:lo + rerank_block], 1, rp))
+    vals, inds = torch.cat(out_v), torch.cat(out_i)
+    margin = vals[:, k - 1] - v1[:, c - 1]
+    if gallery_norm_bound is not None and residual_norm_bound is not None:
+        qq, qs = quantize_rows_int8(q_hat)
+        q_err = torch.linalg.vector_norm(q_hat - qq.float() * qs, dim=1)
+        q_norm = torch.linalg.vector_norm(q_hat, dim=1)
+        margin = margin - (q_err * gallery_norm_bound
+                           + q_norm * residual_norm_bound)
+    return vals, inds, margin

@@ -1,4 +1,4 @@
-"""Retrieval layer: gallery index and engine (f32 serving)."""
+"""Retrieval layer: gallery index and engine."""
 
 from imageretrievalresearch_tpu_torch.retrieval.engine import RetrievalEngine
 from imageretrievalresearch_tpu_torch.retrieval.index import GalleryIndex

@@ -56,7 +56,9 @@ class RetrievalEngine:
     def search(self, queries, gallery, k: int = 150, *,
                matmul_dtype: str = "float32"
                ) -> tuple[np.ndarray, np.ndarray]:
-        """Rank ``gallery`` for each query; numpy ``(vals, inds)``."""
+        """Rank the raw f32 ``gallery`` for each query; numpy ``(vals,
+        inds)``. ``matmul_dtype`` ('float32', 'bfloat16' or 'int8') picks
+        the score arithmetic of :func:`ops.retrieval.cosine_topk`."""
         vals, inds = cosine_topk(self._tensor(queries).float(),
                                  self._tensor(gallery).float(), k,
                                  matmul_dtype=matmul_dtype)

@@ -1,14 +1,17 @@
-"""GalleryIndex — persistent embedding gallery, f32 serving on the card.
+"""GalleryIndex — persistent embedding gallery, served on the card.
 
 Counterpart of ``imageretrievalresearch_tpu/retrieval/index.py``: an
 append-only gallery of L2-normalized embeddings with class labels and
 paths, saved as one portable ``.npz`` (format v1: f32; v2: bf16 bit view or
-int8 + scales) that either package loads. Queries run on one device
-through :func:`ops.retrieval.cosine_topk`; the f32 gallery is uploaded once
-with its row norms computed there (build time, on the device).
+int8 + scales) that either package loads. Queries run on one device in
+the serving modes ``float32``, ``bfloat16``, ``int8`` (through
+:func:`ops.retrieval.cosine_topk`) and ``int8_rerank`` (through
+:func:`ops.retrieval.int8_rerank_topk`). Each mode's resident form is
+made on the device from the uploaded host rows once and cached, by the
+same quantizers the ops use; the f32 form's row norms are computed on the
+device at upload.
 
-Not ported yet: ``matmul_dtype`` other than float32 (bf16, int8,
-int8_rerank serving) and ``mesh`` sharding.
+Not ported yet: ``mesh`` sharding.
 """
 
 from __future__ import annotations
@@ -23,21 +26,26 @@ from imageretrievalresearch_tpu_torch import metrics as M
 from imageretrievalresearch_tpu_torch._device import resolve_device
 from imageretrievalresearch_tpu_torch.ops.retrieval import (
     cosine_topk,
+    int8_rerank_topk,
     l2_normalize,
+    pack_codes_int32,
+    quantize_rows_int8,
+    quantize_rows_int8_residual,
 )
 
 _FORMAT_VERSION = 1          # raw f32 embeddings
 _FORMAT_VERSION_COMPACT = 2  # bf16 bit-view / int8+scales storage
+# host rows uploaded and converted per step when a compact form is built:
+# each f32 intermediate of the quantizers covers only these (100 MB at
+# D = 1536), whatever the gallery's size
+_UPLOAD_ROWS = 16384
 
 
-def _np_quantize_rows_int8(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Per-row symmetric int8 quantization (round half to even), the JAX
-    package's host arithmetic."""
-    x = np.asarray(x, np.float32)
-    scale = np.maximum(np.abs(x).max(axis=1, keepdims=True),
-                       np.float32(1e-12)) / np.float32(127.0)
-    codes = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
-    return codes, scale.astype(np.float32)
+def _rerank_form(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The int8_rerank resident form of normalized rows: primary codes and
+    scales, packed residual codes and scales, and the two norm bounds."""
+    c1, s1, c2, s2, g1max, rmax = quantize_rows_int8_residual(x)
+    return c1, s1, pack_codes_int32(c2), s2, g1max, rmax
 
 
 def _bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -54,8 +62,9 @@ def _bf16_from_bits(u16: np.ndarray) -> np.ndarray:
 class GalleryIndex:
     """Append-only gallery of L2-normalized embeddings with labels.
 
-    Host state is numpy (cheap appends); the device copy is made on the
-    first query and dropped by ``add``. ``device=None`` means ``cuda``.
+    Host state is numpy (cheap appends); each mode's device form is made
+    on its first query and all are dropped by ``add``. ``device=None``
+    means ``cuda``.
     """
 
     def __init__(self, dim: int, *, meta: dict | None = None,
@@ -66,7 +75,7 @@ class GalleryIndex:
         self._classes: list[np.ndarray] = []
         self._paths: list[str] = []
         self.meta = dict(meta or {})
-        self._device_gallery: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._device_gallery: dict[str, tuple[torch.Tensor, ...]] = {}
         self._device_classes: torch.Tensor | None = None
 
     # --- construction ---
@@ -90,7 +99,7 @@ class GalleryIndex:
         self._classes.append(c)
         self._paths.extend(paths if paths is not None
                            else [""] * e.shape[0])
-        self._device_gallery = None
+        self._device_gallery = {}
         self._device_classes = None
         return self
 
@@ -132,7 +141,8 @@ class GalleryIndex:
         if store_dtype == "bfloat16":
             emb = _bf16_bits(emb)
         elif store_dtype == "int8":
-            emb, extra["scales"] = _np_quantize_rows_int8(emb)
+            emb, extra["scales"] = (t.numpy() for t in quantize_rows_int8(
+                torch.from_numpy(emb)))
         elif store_dtype != "float32":
             raise ValueError(f"unknown store_dtype {store_dtype!r}")
         version = (_FORMAT_VERSION if store_dtype == "float32"
@@ -176,13 +186,44 @@ class GalleryIndex:
 
     # --- querying ---
 
-    def _gallery_on_device(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The f32 serving form: (G, dim) embeddings on the device and
-        their row norms, computed there at upload."""
-        if self._device_gallery is None:
-            g = torch.from_numpy(self.embeddings).to(self.device)
-            self._device_gallery = (g, torch.linalg.vector_norm(g, dim=1))
-        return self._device_gallery
+    def _gallery_on_device(self, matmul_dtype: str = "float32"
+                           ) -> tuple[torch.Tensor, ...]:
+        """The resident serving form of ``matmul_dtype``, made once on the
+        device from the host copy:
+
+        - float32: ``(embeddings, norms)``, the norms computed on the
+          device;
+        - bfloat16: ``(embeddings as bf16,)``;
+        - int8: ``(codes (G, D) int8, scales (G, 1) f32)``;
+        - int8_rerank: ``(codes, scales, packed residual codes (G, D/4)
+          int32, residual scales, max primary norm, max residual norm)``.
+
+        The compact forms are converted in uploaded blocks of
+        ``_UPLOAD_ROWS`` rows. Codes and scales are per row and the bounds
+        are maxima over rows, so the blocks join to the same bits."""
+        if matmul_dtype not in self._device_gallery:
+            if matmul_dtype == "float32":
+                g = torch.from_numpy(self.embeddings).to(self.device)
+                form = (g, torch.linalg.vector_norm(g, dim=1))
+            elif matmul_dtype == "bfloat16":
+                form = self._converted(lambda x: (x.to(torch.bfloat16),))
+            elif matmul_dtype == "int8":
+                form = self._converted(quantize_rows_int8)
+            elif matmul_dtype == "int8_rerank":
+                form = self._converted(_rerank_form)
+            else:
+                raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
+            self._device_gallery[matmul_dtype] = form
+        return self._device_gallery[matmul_dtype]
+
+    def _converted(self, convert) -> tuple[torch.Tensor, ...]:
+        """``convert`` applied on the device to uploaded row blocks of the
+        host copy; row tensors concatenate, 0-d bounds take their max."""
+        emb = self.embeddings
+        parts = [convert(torch.from_numpy(emb[lo:lo + _UPLOAD_ROWS]).to(
+            self.device)) for lo in range(0, emb.shape[0], _UPLOAD_ROWS)]
+        return tuple(torch.cat(ts) if ts[0].ndim else torch.stack(ts).amax()
+                     for ts in zip(*parts))
 
     def _classes_on_device(self) -> torch.Tensor:
         if self._device_classes is None:
@@ -191,43 +232,66 @@ class GalleryIndex:
         return self._device_classes
 
     def _query_tensors(self, queries, k: int, method: str,
-                       matmul_dtype: str, mesh, precision: str):
+                       matmul_dtype: str, mesh, precision: str,
+                       shortlist: int):
         if not len(self):
             raise ValueError("empty gallery")
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet")
-        if matmul_dtype != "float32":
-            raise NotImplementedError(
-                f"matmul_dtype={matmul_dtype!r} is not ported yet")
         q = torch.as_tensor(queries, dtype=torch.float32,
                             device=self.device)
-        g, g_norms = self._gallery_on_device()
-        return cosine_topk(q, g, min(k, len(self)), method=method,
-                           gallery_norms=g_norms, precision=precision)
+        k = min(k, len(self))
+        if matmul_dtype == "int8_rerank":
+            if mesh is not None:
+                raise ValueError("matmul_dtype='int8_rerank' does not "
+                                 "support mesh sharding yet")
+            if method != "exact":
+                raise ValueError("int8_rerank is an exact re-rank mode; "
+                                 f"method={method!r} is not supported")
+            if precision != "default":
+                raise ValueError("int8_rerank already re-ranks in true f32 "
+                                 "(JAX: Precision.HIGHEST); the precision "
+                                 "knob applies to float32 mode only")
+            c1, s1, c2, s2, g1m, rm = self._gallery_on_device(matmul_dtype)
+            vals, inds, _ = int8_rerank_topk(
+                q, c1, s1, c2, s2, k, shortlist=shortlist,
+                gallery_norm_bound=g1m, residual_norm_bound=rm)
+            return vals, inds
+        if mesh is not None:
+            raise NotImplementedError("mesh sharding is not ported yet")
+        form = self._gallery_on_device(matmul_dtype)
+        g, aux = form[0], form[1] if len(form) > 1 else None
+        f32 = matmul_dtype == "float32"
+        return cosine_topk(q, g, k, method=method, matmul_dtype=matmul_dtype,
+                           gallery_norms=aux if f32 else None,
+                           gallery_scale=None if f32 else aux,
+                           precision=precision)
 
     def query(self, queries, k: int = 150, *, method: str = "exact",
               matmul_dtype: str = "float32", mesh=None,
-              precision: str = "default"
+              precision: str = "default", shortlist: int = 256
               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Rank the gallery for (Q, dim) query embeddings; returns numpy
-        ``(vals, inds, classes)`` each (Q, k). ``method`` follows
-        :func:`ops.retrieval.cosine_topk` ('exact' takes the fused CUDA
-        kernel on the card when eligible)."""
+        ``(vals, inds, classes)`` each (Q, k). ``method`` and
+        ``precision`` follow :func:`ops.retrieval.cosine_topk` ('exact'
+        takes the fused CUDA kernel of the mode on the card when
+        eligible). ``matmul_dtype``: 'float32', 'bfloat16' or 'int8' (exact
+        top-k of that mode's scores over its resident form), or
+        'int8_rerank' (:func:`ops.retrieval.int8_rerank_topk` with this
+        ``shortlist``; exact method and default precision only)."""
         vals, inds = self._query_tensors(queries, k, method, matmul_dtype,
-                                         mesh, precision)
+                                         mesh, precision, shortlist)
         inds = inds.cpu().numpy()
         return vals.cpu().numpy(), inds, self.classes[inds]
 
     def query_class_dedup(self, queries, *, k: int = 150,
                           num_unique: int = 3, method: str = "exact",
                           matmul_dtype: str = "float32", mesh=None,
-                          precision: str = "default"
+                          precision: str = "default", shortlist: int = 256
                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Top-k, then the first ``num_unique`` unique classes
         (training_analysis.ipynb cell 2). Returns numpy ``(vals, inds,
         classes)`` each (Q, num_unique)."""
         vals, inds = self._query_tensors(queries, k, method, matmul_dtype,
-                                         mesh, precision)
+                                         mesh, precision, shortlist)
         uniq_inds, uniq_vals, uniq_cls = M.unique_class_dedup(
             inds, vals, self._classes_on_device(), num_unique=num_unique)
         return (uniq_vals.cpu().numpy(), uniq_inds.cpu().numpy(),

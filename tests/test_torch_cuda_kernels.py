@@ -29,14 +29,20 @@ def _pm1_rows(rng, n, d):
     return out
 
 
-def _launch_and_compare(q, g, k, device):
+def _launch_and_compare(q, g, k, device, mode="float32"):
+    """One launch of the mode's kernel against its plain version on the
+    card, on the same (prepared) gallery: vals/inds/ok bitwise."""
     qh = T.l2_normalize(torch.from_numpy(q)).to(device)
-    gd = torch.from_numpy(g).to(device)
+    gd, gs = torch.from_numpy(g).to(device), None
+    if mode != "float32":
+        gd, gs = T._prepare_gallery(gd, mode)
     splits = T.fused_splits(qh.shape[0], gd.shape[0], k, device)
-    before = T.KERNEL_LAUNCHES["fused_cosine_topk"]
-    kv, ki, kok = T.fused_cosine_topk(qh, gd, k)
-    assert T.KERNEL_LAUNCHES["fused_cosine_topk"] == before + 1
-    rv, ri, rok = T.fused_cosine_topk_reference(qh, gd, k, splits=splits)
+    counter = T._VARIANTS[gd.dtype][2]
+    before = T.KERNEL_LAUNCHES[counter]
+    kv, ki, kok = T.fused_cosine_topk(qh, gd, k, gallery_scale=gs)
+    assert T.KERNEL_LAUNCHES[counter] == before + 1
+    rv, ri, rok = T.fused_cosine_topk_reference(
+        qh, gd, k, matmul_dtype=mode, gallery_scale=gs, splits=splits)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(kv.cpu().numpy(), rv.cpu().numpy())
     np.testing.assert_array_equal(ki.cpu().numpy(), ri.cpu().numpy())
@@ -77,5 +83,51 @@ def test_fused_kernel_certificate_fails_on_bin_overflow(cuda_device):
     dv, di = T.cosine_topk(torch.from_numpy(q).to(cuda_device),
                            torch.from_numpy(g).to(cuda_device), 50,
                            method="dense")
+    np.testing.assert_array_equal(inds.cpu().numpy(), di.cpu().numpy())
+    np.testing.assert_array_equal(vals.cpu().numpy(), dv.cpu().numpy())
+
+
+# the f32 cases' shapes and split counts, for the bf16 and int8 kernels;
+# int8 also at widths that are not a multiple of 4 (codes zero-padded)
+_F32_SHAPES = [(40, 60, 32, 20), (33, 2100, 40, 20), (70, 5000, 96, 150),
+               (64, 40000, 32, 384), (64, 30000, 32, 150)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,q,g,d,k", [
+    (mode, *shape) for mode in ("bfloat16", "int8") for shape in _F32_SHAPES
+] + [("int8", 40, 3000, 37, 20), ("int8", 64, 5000, 30, 150)])
+def test_quantized_kernels_match_plain_version(cuda_device, mode, q, g, d,
+                                               k):
+    rng = np.random.default_rng(0)
+    qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)
+    ga[min(64, g - 1)] = ga[3]
+    _launch_and_compare(qa, ga, k, cuda_device, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 37])
+def test_int8_kernel_bitwise_on_float_data(cuda_device, d):
+    # the int8 scores are exact, so float data compares bitwise too
+    rng = np.random.default_rng(2)
+    qa = rng.normal(size=(64, d)).astype(np.float32)
+    ga = rng.normal(size=(20000, d)).astype(np.float32)
+    ok = _launch_and_compare(qa, ga, 150, cuda_device, "int8")
+    assert ok.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bfloat16", "int8"])
+def test_quantized_certificate_fails_on_bin_overflow(cuda_device, mode):
+    rng = np.random.default_rng(1)
+    q, g = _pm1_rows(rng, 40, 32), _pm1_rows(rng, 70000, 32)
+    stride = T.fused_splits(40, 70000, 50, cuda_device) * T.FUSED_BINS
+    for j in range(T.FUSED_T_DEPTH + 2):
+        g[j * stride] = q[0]
+    ok = _launch_and_compare(q, g, 50, cuda_device, mode)
+    assert ok[0] == 0 and ok[1:].any()
+    qd, gd = (torch.from_numpy(a).to(cuda_device) for a in (q, g))
+    vals, inds = T.cosine_topk(qd, gd, 50, matmul_dtype=mode)
+    dv, di = T.cosine_topk(qd, gd, 50, matmul_dtype=mode, method="dense")
     np.testing.assert_array_equal(inds.cpu().numpy(), di.cpu().numpy())
     np.testing.assert_array_equal(vals.cpu().numpy(), dv.cpu().numpy())

@@ -9,6 +9,7 @@ import torch
 
 from imageretrievalresearch_tpu.retrieval import GalleryIndex as JaxIndex
 from imageretrievalresearch_tpu_torch.retrieval import GalleryIndex
+from imageretrievalresearch_tpu_torch.retrieval import index as index_mod
 
 
 def _pm1_rows(rng, n, d=32):
@@ -105,10 +106,135 @@ def test_unported_modes_and_validation(data):
     with pytest.raises(ValueError):
         idx.add(g[:, :8], c)
     idx.add(g, c)
-    for kw in ({"matmul_dtype": "bfloat16"}, {"matmul_dtype": "int8"},
-               {"matmul_dtype": "int8_rerank"}, {"mesh": object()}):
+    for mode in ("float32", "bfloat16", "int8"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            idx.query(g[:2], k=5, **kw)
+            idx.query(g[:2], k=5, matmul_dtype=mode, mesh=object())
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            idx.query(g[:2], k=5, matmul_dtype=mode, method="approx")
+    with pytest.raises(ValueError, match="unknown matmul_dtype"):
+        idx.query(g[:2], k=5, matmul_dtype="float16")
+
+
+def test_int8_rerank_mode_validation(data):
+    # JAX's ValueErrors (tests/test_gallery_index.py::test_mode_validation)
+    g, c, _ = data
+    idx = GalleryIndex(32, device="cpu").add(g, c)
+    with pytest.raises(ValueError, match="exact re-rank"):
+        idx.query(g[:2], k=5, matmul_dtype="int8_rerank", method="approx")
+    with pytest.raises(ValueError, match="HIGHEST"):
+        idx.query(g[:2], k=5, matmul_dtype="int8_rerank",
+                  precision="highest")
+    with pytest.raises(ValueError, match="mesh"):
+        idx.query(g[:2], k=5, matmul_dtype="int8_rerank", mesh=object())
+
+
+def _pair(g, c):
+    """A JAX index and a port index holding the same host embeddings (the
+    two packages' host normalization may differ by an ulp, which a bf16
+    rounding or an int8 code would amplify)."""
+    jidx = JaxIndex(g.shape[1]).add(g, c)
+    tidx = GalleryIndex(g.shape[1], device="cpu").add(g, c)
+    np.testing.assert_allclose(tidx.embeddings, jidx.embeddings, atol=1e-6)
+    tidx._embeds = [jidx.embeddings.copy()]
+    return jidx, tidx
+
+
+def _jax_kw(mode):
+    # the JAX fused kernels in Pallas interpret mode (stage 1 of
+    # int8_rerank too); the port on CPU tensors ranks with the plain
+    # version (method='fused') or densely, with the same results
+    return {"matmul_dtype": mode, "interpret": True,
+            **({} if mode == "int8_rerank" else {"method": "fused"})}
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "int8", "int8_rerank"])
+def test_quantized_query_and_dedup_bitwise_on_pm1(mode):
+    rng = np.random.default_rng(4)
+    g = _pm1_rows(rng, 2100)
+    g[700] = g[5]          # exact duplicates: tied scores
+    g[1900] = g[5]
+    c = rng.integers(0, 40, 2100).astype(np.int32)
+    q = _pm1_rows(rng, 40)
+    jidx, tidx = _pair(g, c)
+    ref = jidx.query(q, k=150, **_jax_kw(mode))
+    methods = ["exact"] if mode == "int8_rerank" else ["fused", "dense"]
+    for method in methods:
+        ours = tidx.query(q, k=150, method=method, matmul_dtype=mode)
+        for a, b in zip(ours, ref):
+            np.testing.assert_array_equal(a, b)
+    jd = jidx.query_class_dedup(q, k=150, **_jax_kw(mode))
+    td = tidx.query_class_dedup(q, k=150, matmul_dtype=mode,
+                                **({} if mode == "int8_rerank"
+                                   else {"method": "fused"}))
+    for a, b in zip(td, jd):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "int8", "int8_rerank"])
+def test_quantized_query_near_ties_on_float_data(mode):
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=(2100, 32)).astype(np.float32)
+    c = rng.integers(0, 40, 2100).astype(np.int32)
+    q = rng.normal(size=(40, 32)).astype(np.float32)
+    jidx, tidx = _pair(g, c)
+    # the near-tie rule: the queries' normalization may differ by an ulp
+    # between the packages and f32 sums run in another order
+    jv, ji, _ = jidx.query(q, k=150, **_jax_kw(mode))
+    tv, ti, tc = tidx.query(q, k=150, matmul_dtype=mode,
+                            **({} if mode == "int8_rerank"
+                               else {"method": "fused"}))
+    mism = ti != ji
+    assert mism.mean() < 0.005, mism.mean()
+    np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tc, tidx.classes[ti])
+    jd = jidx.query_class_dedup(q, k=150, **_jax_kw(mode))
+    td = tidx.query_class_dedup(q, k=150, matmul_dtype=mode)
+    assert (td[1] != jd[1]).mean() < 0.02
+    np.testing.assert_allclose(td[0], jd[0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8",
+                                  "int8_rerank"])
+def test_resident_forms_match_jax(data, mode):
+    g, c, _ = data
+    jidx, tidx = _pair(g, c)
+    jidx.query(g[:2], k=5, matmul_dtype=mode)
+    tidx.query(g[:2], k=5, matmul_dtype=mode)
+    ref = jidx._device_gallery[(mode, None)]
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    ours = tidx._device_gallery[mode]
+    assert list(tidx._device_gallery) == [mode]   # only this mode resident
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        b = np.asarray(b)
+        assert tuple(a.shape) == b.shape
+        if a.dtype == torch.bfloat16:
+            assert b.dtype.name == "bfloat16"
+            np.testing.assert_array_equal(
+                a.view(torch.int16).numpy(), b.view(np.int16))
+        elif mode == "float32":    # norms on the device: an ulp apart
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-6)
+        else:
+            assert a.numpy().dtype == b.dtype
+            np.testing.assert_array_equal(a.numpy(), b)
+    if mode == "int8_rerank":      # int8 primary codes, packed residual
+        assert ours[0].dtype == torch.int8 and ours[2].dtype == torch.int32
+        assert tuple(ours[2].shape) == (len(tidx), 32 // 4)
+    tidx.add(g[:1], c[:1])
+    assert not tidx._device_gallery
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "int8", "int8_rerank"])
+def test_resident_forms_built_in_blocks(data, monkeypatch, mode):
+    # uploaded and converted 64 rows at a time: the same bits as one block
+    g, c, _ = data
+    ref = GalleryIndex(32, device="cpu").add(g, c)._gallery_on_device(mode)
+    monkeypatch.setattr(index_mod, "_UPLOAD_ROWS", 64)
+    ours = GalleryIndex(32, device="cpu").add(g, c)._gallery_on_device(mode)
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
 
 
 def test_build_time_norms_live_on_the_device(data):

@@ -37,15 +37,25 @@ FORBIDDEN = re.compile(
     r"^(jax|flax|ml_dtypes|PIL|imageretrievalresearch_tpu(?!_torch))(\.|$)")
 
 
-def _near_tie_agreement(v, i, rv, ri):
-    """Rankings agree except at ULP-level near-ties: < 0.5% of positions
-    differ, and every differing position's values agree within 1e-5."""
+def _near_tie_agreement(v, i, rv, ri, atol=1e-5):
+    """Rankings agree except at near-ties: < 0.5% of positions differ,
+    and values agree within ``atol`` (1e-5: ULP-level)."""
     mism = i != ri
     assert mism.mean() < 0.005, mism.mean()
-    np.testing.assert_allclose(v, rv, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(v, rv, rtol=0, atol=atol)
 
 
-def test_slice_end_to_end_matches_jax():
+# bf16 against JAX: the two packages' l2_normalize may differ by an ulp,
+# which can flip the bf16 rounding of a q̂ or ĝ element and so move a score
+# by one bf16 ulp (2^-8 relative) of that element's product term
+_ATOL = {"bfloat16": 1e-4}
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    """Seeded images through the JAX and the port embedding paths (shared
+    weights), and the gallery and queries built from the JAX embeddings;
+    made once for the module's serving modes."""
     w, d, size = 0.5, 0.1, 32
     bb = jax_create("efficientnet_b0", num_classes=0, width_mult=w,
                     depth_mult=d)
@@ -76,8 +86,6 @@ def test_slice_end_to_end_matches_jax():
     engine = RetrievalEngine(model, transform=build_eval_transform(
         "squarepad", size), device="cpu")
     ours = engine.embed_batch(images).numpy()
-    assert np.abs(ref).max() > 1e-2
-    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
 
     # gallery: 64 embedded items + 2,000 seeded rows (G >= 2048), 32
     # embedded queries; both indexes hold the SAME (JAX) embeddings,
@@ -88,21 +96,40 @@ def test_slice_end_to_end_matches_jax():
     extra = rng.normal(size=(2000, dim)).astype(np.float32) * np.std(feats)
     gallery = np.concatenate([feats[:64], extra])
     classes = rng.integers(0, 50, len(gallery)).astype(np.int32)
-    queries = feats[64:]
+    return {"ref": ref, "ours": ours, "engine": engine, "dim": dim,
+            "gallery": gallery, "classes": classes, "queries": feats[64:]}
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16", "int8",
+                                          "int8_rerank"])
+def test_slice_end_to_end_matches_jax(slice_run, matmul_dtype):
+    ref, ours = slice_run["ref"], slice_run["ours"]
+    assert np.abs(ref).max() > 1e-2
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
+
+    dim, queries = slice_run["dim"], slice_run["queries"]
+    gallery, classes = slice_run["gallery"], slice_run["classes"]
     jidx = JaxIndex(dim).add(gallery, classes)
     tidx = GalleryIndex(dim, device="cpu").add(gallery, classes)
-    jv, ji, _ = jidx.query(queries, k=150, method="fused", interpret=True)
-    tv, ti, _ = tidx.query(queries, k=150, method="fused")
-    _near_tie_agreement(tv, ti, jv, ji)
+    # the fused path (JAX: Pallas interpret mode; port: the plain version
+    # of the kernel); int8_rerank's stage 1 is fused in JAX, dense here
+    kw = {"matmul_dtype": matmul_dtype}
+    atol = _ATOL.get(matmul_dtype, 1e-5)
+    if matmul_dtype != "int8_rerank":
+        kw["method"] = "fused"
+    jv, ji, _ = jidx.query(queries, k=150, interpret=True, **kw)
+    tv, ti, _ = tidx.query(queries, k=150, **kw)
+    _near_tie_agreement(tv, ti, jv, ji, atol)
     jd = jidx.query_class_dedup(queries, k=150, num_unique=3,
-                                method="fused", interpret=True)
-    td = tidx.query_class_dedup(queries, k=150, num_unique=3,
-                                method="fused")
+                                interpret=True, **kw)
+    td = tidx.query_class_dedup(queries, k=150, num_unique=3, **kw)
     assert td[0].shape == (32, 3)
-    _near_tie_agreement(td[0], td[1], jd[0], jd[1])
-    # the engine's own search ranks the same way
-    sv, si = engine.search(queries, gallery, k=150)
-    _near_tie_agreement(sv, si, jv, ji)
+    _near_tie_agreement(td[0], td[1], jd[0], jd[1], atol)
+    if matmul_dtype != "int8_rerank":
+        # the engine's own search on the raw f32 gallery ranks the same way
+        sv, si = slice_run["engine"].search(queries, gallery, k=150,
+                                            matmul_dtype=matmul_dtype)
+        _near_tie_agreement(sv, si, jv, ji, atol)
 
 
 def _imports(path: Path):
