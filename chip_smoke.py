@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero, with no result line):
 
-1. Build the port's CUDA kernels (one library, ``csrc/fused_topk.cu``)
-   with nvcc and print the card's name and power limit.
+1. Build the port's CUDA kernels (``csrc/fused_topk.cu`` and
+   ``csrc/image_ops.cu``, one nvcc process each, started together) and
+   print the card's name and power limit.
 2. Main path: ``efficientnet_b3a`` at full width with seeded random weights
    embeds 512 seeded uint8 224x224 images through the squarepad eval
    transform into a ``GalleryIndex``, which then takes 99,488 seeded unit
@@ -26,7 +27,19 @@ Phases (any failure exits non-zero, with no result line):
    bitwise for int8 at k=150 and at int8_rerank's shortlist c=256.
    Fidelity of each mode against f32 exact on the unit-row queries.
    Kernel, plain and library times (CUDA events) and each kernel's bound.
-5. One JSON line of kernels, the nvidia-smi line, and the result line.
+5. AutoAugment training input: a seeded triplet batch (qry, one pos, one
+   neg; 64 x 256 x 256 x 3 uint8 each) through
+   ``build_triplet_transform`` with three ``train_autoaugment(224)``
+   specs and a seeded generator, launch counts set to 0 just before and
+   read just after (histogram 6, LUT 9, cubic row shift 3, row shift 18,
+   worked out from ``_STAGE_OPS``; no plain version on the card), the
+   augmented queries through the b3a embed. The transform equals its
+   pieces, and the card's policy the CPU table's on every image no rotate
+   touched; the 3-shear rotate's agreement with the exact gather rotate.
+   Each image kernel against its plain version, bitwise, at the path's
+   shapes and at ragged ones; kernel, plain and library times and bounds;
+   the transform's time, and its device time by kernel.
+6. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -38,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -47,9 +61,14 @@ if not torch.cuda.is_available():
 
 from imageretrievalresearch_tpu_torch.models import create_model  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import _cuda  # noqa: E402
+from imageretrievalresearch_tpu_torch.ops import autoaugment as A  # noqa: E402
+from imageretrievalresearch_tpu_torch.ops import image_kernels as IK  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import retrieval as R  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops.preprocess import (  # noqa: E402
+    TransformSpec,
     build_eval_transform,
+    build_triplet_transform,
+    resize_bilinear,
 )
 from imageretrievalresearch_tpu_torch.retrieval import (  # noqa: E402
     GalleryIndex,
@@ -71,6 +90,22 @@ PEAKS = {"sxm": {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12,
 KERNELS = {"float32": ("fused_cosine_topk", "ops/retrieval.py:259"),
            "bfloat16": ("fused_cosine_topk_bf16", "ops/retrieval.py:288"),
            "int8": ("fused_cosine_topk_int8", "ops/retrieval.py:313")}
+IMAGE_KERNELS = {"plane_histogram": "ops/pallas_image.py:28",
+                 "lut_apply": "ops/pallas_image.py:233",
+                 "row_shift_cubic": "ops/pallas_image.py:150",
+                 "row_shift": "ops/pallas_image.py:76"}
+# the AutoAugment phase: a triplet batch of three roles, each 64 seeded
+# 256 px uint8 images, resized to SIZE
+AUG_BATCH, AUG_SRC, AUG_ROLES = 64, 256, 3
+# the TPU kernels' static shift bounds at SIZE (JAX's batched_shear_x and
+# batched_rotate): shear int(0.3 * H) + 1, rotate passes
+# int(tan(15°) * H/2) + 1 and int(sin(30°) * W/2) + 1
+SMAX_SHEAR = int(0.3 * SIZE) + 1
+SMAX_ROTATE = (int(np.tan(np.deg2rad(30.0) / 2.0) * (SIZE / 2.0)) + 1,
+               int(np.sin(np.deg2rad(30.0)) * (SIZE / 2.0)) + 1)
+# f32 operations per output pixel of the cubic row shift: 4 taps x (the
+# weight polynomial 6, the weighted sum 2, the weight sum 1) + the division
+CUBIC_OPS_PER_PIXEL = 37
 
 
 def log(msg: str) -> None:
@@ -136,18 +171,215 @@ def kernel_args(mode: str, form: tuple):
                      else "gallery_scale": aux}
 
 
+def bound(nbytes: float, ops: float, peaks: dict) -> tuple[float, str]:
+    """The least time (ms) for the work: bytes over the memory rate or f32
+    operations over the f32 rate (CUDA cores), whichever is larger."""
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    t_ops = ops / peaks["float32"] * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def launches_per_policy() -> dict:
+    """Image kernel launches of one policy call on the card, from the ops
+    each stage can select (every one is computed batch-wide): equalize a
+    histogram and a LUT, autocontrast a LUT, shearX a cubic row shift,
+    rotate three row shifts."""
+    def stages(op):
+        return sum(op in ops for ops in A._STAGE_OPS)
+    return {"plane_histogram": stages(A.EQUALIZE),
+            "lut_apply": stages(A.EQUALIZE) + stages(A.AUTOCONTRAST),
+            "row_shift_cubic": stages(A.SHEAR_X),
+            "row_shift": 3 * stages(A.ROTATE)}
+
+
+def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
+    """Phase 5: the AutoAugment training input on the card; returns the
+    image kernels' entries of the ``kernels`` line."""
+    def u8(n, h, w=None):
+        return torch.randint(0, 256, (n, h, w or h, 3), generator=gen,
+                             device=DEV, dtype=torch.uint8)
+
+    batch = {"qry": u8(AUG_BATCH, AUG_SRC), "pos": [u8(AUG_BATCH, AUG_SRC)],
+             "neg": [u8(AUG_BATCH, AUG_SRC)]}
+    spec = TransformSpec.train_autoaugment(SIZE)
+    transform = build_triplet_transform(spec, spec, spec)
+    per_call = launches_per_policy()
+    assert per_call == {"plane_histogram": 2, "lut_apply": 3,
+                        "row_shift_cubic": 1, "row_shift": 6}, per_call
+
+    IK.reset_launch_counts()
+    out, ms = sync_time(lambda: transform(
+        batch, torch.Generator(device=DEV).manual_seed(SEED)))
+    launches = dict(IK.KERNEL_LAUNCHES)
+    plain = dict(IK.PLAIN_ON_CARD)
+    log(f"AutoAugment triplet transform (3 x {AUG_BATCH} x {AUG_SRC} px -> "
+        f"{SIZE}, first call): {ms:.1f} ms; launches {launches}")
+    assert launches == {k: AUG_ROLES * n for k, n in per_call.items()}, (
+        launches)
+    assert not any(plain.values()), f"plain versions ran on the card: {plain}"
+    for x in (out["qry"], *out["pos"], *out["neg"]):
+        assert x.shape == (AUG_BATCH, SIZE, SIZE, 3), x.shape
+        assert x.dtype == torch.float32 and x.device.type == DEV.type
+        assert torch.isfinite(x).all() and x.min() >= 0 and x.max() <= 1
+    with torch.no_grad():
+        emb = model.embed(out["qry"])
+    assert emb.shape == (AUG_BATCH, DIM) and torch.isfinite(emb).all()
+    log(f"augmented queries embedded (b3a): {tuple(emb.shape)}, finite")
+
+    # the transform equals its pieces (the qry role draws first), and the
+    # card's table equals the CPU table on every image no rotate touched
+    x8 = torch.clamp(torch.round(resize_bilinear(batch["qry"],
+                                                 (SIZE, SIZE))),
+                     0, 255).to(torch.uint8)
+    draws = A.draw_policy(AUG_BATCH,
+                          torch.Generator(device=DEV).manual_seed(SEED))
+    card = A.apply_policy(x8, *draws)
+    assert torch.equal(out["qry"], card.float() / 255.0)
+    cpu = A.apply_policy(x8.cpu(), *(d.cpu() for d in draws))
+    ops, _, do, _ = (d.cpu() for d in draws)
+    rotated = ((ops == A.ROTATE) & do).any(dim=1)
+    assert torch.equal(card.cpu()[~rotated], cpu[~rotated])
+    same = (card.cpu()[rotated] == cpu[rotated]).float().mean().item()
+    log(f"card policy vs CPU table, same draws: {int((~rotated).sum())} of "
+        f"{AUG_BATCH} images (no rotate) bitwise equal; the {int(rotated.sum())}"
+        f" rotated ones (3-shear vs gather) agree on {same:.4f} of pixels")
+    # fidelity of the 3-shear rotate at the policy's rotate magnitudes
+    mags = torch.tensor(A._MAGS[A.ROTATE][[3, 8, 9]], device=DEV)
+    deg = mags[torch.randint(0, 3, (AUG_BATCH,), generator=gen, device=DEV)]
+    deg = deg * torch.where(torch.rand(AUG_BATCH, generator=gen, device=DEV)
+                            < 0.5, 1.0, -1.0)
+    fid = (A.batched_rotate(x8, deg) == A.op_rotate(x8, deg)).float()
+    log(f"fidelity: the 3-shear rotate equals the exact gather rotate on "
+        f"{fid.mean().item():.4f} of pixels at ±10/±26.7/±30 degrees "
+        "(JAX documents 60-80%)")
+
+    # each kernel against its plain version at the path's shapes (the
+    # resized query planes) and at ragged ones, bitwise
+    planes = A._planes(x8)                                  # (192, 224, 224)
+    planes[0] = 9                                           # one bin
+    planes[1].reshape(-1)[:256] = torch.arange(256, device=DEV)
+    rows = planes.reshape(-1, SIZE)                         # (43008, 224)
+    n = rows.shape[0]
+    ragged = u8(5, 37, 41)[..., 0].contiguous()             # 5 planes
+    ragged_rows = u8(1, 4097, 223)[0, ..., 0].contiguous()
+    lut = A._equalize_lut(IK.plane_histogram_reference(planes))
+
+    def src0(m, smax):
+        return (torch.rand(m, generator=gen, device=DEV) * 2 - 1) * smax
+
+    def shifts(m, smax):
+        return torch.randint(-smax, smax + 1, (m,), generator=gen,
+                             device=DEV, dtype=torch.int32)
+
+    errs = {}
+    for name, args in (
+            ("plane_histogram", [(planes,), (ragged,)]),
+            ("lut_apply", [(planes, lut), (ragged, A._equalize_lut(
+                IK.plane_histogram_reference(ragged)))]),
+            ("row_shift_cubic", [(rows, src0(n, SMAX_SHEAR)),
+                                 (ragged_rows, src0(4097, SMAX_SHEAR))]),
+            ("row_shift", [(rows, shifts(n, SMAX_ROTATE[0])),
+                           (rows, shifts(n, SMAX_ROTATE[1])),
+                           (ragged_rows, shifts(4097, SMAX_ROTATE[1]))])):
+        kernel = getattr(IK, name)
+        reference = getattr(IK, f"{name}_reference")
+        errs[name] = 0.0
+        for a in args:
+            got, want = kernel(*a), reference(*a)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{name} != plain version at " \
+                f"{tuple(a[0].shape)}"
+            errs[name] = max(errs[name], (got.float() - want.float()).abs()
+                             .max().item())
+        log(f"{name} kernel: bitwise equal to its plain version at "
+            f"{', '.join(str(tuple(a[0].shape)) for a in args)}")
+
+    # timings at the path's shapes
+    p, h, w = planes.shape
+    src_shear, s_rot = src0(n, SMAX_SHEAR), shifts(n, SMAX_ROTATE[1])
+    flat = planes.reshape(p, -1).long()
+    hist_index = (flat + 256 * torch.arange(p, device=DEV)[:, None]).reshape(-1)
+    timed = {
+        "plane_histogram": ((planes,), p * h * w + 4 * 256 * p, p * h * w,
+                            lambda: torch.bincount(hist_index,
+                                                   minlength=256 * p),
+                            "torch.bincount(plane * 256 + v)"),
+        "lut_apply": ((planes, lut), 2 * p * h * w + 4 * 256 * p, 0,
+                      lambda: torch.gather(lut, 1, flat),
+                      "torch.gather(lut, 1, planes)"),
+        "row_shift_cubic": ((rows, src_shear), 2 * n * SIZE + 4 * n,
+                            CUBIC_OPS_PER_PIXEL * n * SIZE, None, None),
+        "row_shift": ((rows, s_rot), 2 * n * SIZE + 4 * n, 0, None, None),
+    }
+    entries = []
+    for name, (a, nbytes, ops, library, library_name) in timed.items():
+        kernel = getattr(IK, name)
+        reference = getattr(IK, f"{name}_reference")
+        ms = event_ms(lambda: kernel(*a), reps=50)
+        plain_ms = event_ms(lambda: reference(*a), reps=10)
+        library_ms = event_ms(library, reps=50) if library else None
+        bound_ms, bound_by = bound(nbytes, ops, peaks)
+        log(f"{name} at {tuple(a[0].shape)}: {ms:.4f} ms (bound "
+            f"{bound_ms:.4f} ms, {bound_by}); plain {plain_ms:.4f} ms; "
+            + (f"library {library_ms:.4f} ms ({library_name})" if library
+               else "library: none (no single PyTorch call computes it)"))
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "imageretrievalresearch_tpu_torch/csrc/image_ops.cu",
+            "replaces": f"imageretrievalresearch_tpu/{IMAGE_KERNELS[name]}",
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+
+    # the whole triplet transform, warm, and its device time by kernel
+    aug_gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    t_ms = event_ms(lambda: transform(batch, aug_gen), reps=5)
+    log(f"AutoAugment triplet transform, warm: {t_ms:.2f} ms for "
+        f"{AUG_ROLES} x {AUG_BATCH} images ({t_ms / AUG_ROLES:.2f} ms per "
+        "role)")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = sync_time(lambda: transform(batch, aug_gen))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"profiled triplet transform: {wall_ms:.1f} ms wall, {busy_ms:.1f} "
+        "ms device busy; top kernels by device time:")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    ours = ("histogram_kernel", "lut_kernel", "row_shift_kernel",
+            "row_shift_cubic_kernel")
+    for e in events[:10] + [e for e in events[10:]
+                            if any(k in e.key for k in ours)]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+            f"{e.key[:90]}")
+    return entries
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
     log(f"card: {smi()}; {torch.cuda.device_count()} visible, this run "
         "drives card 0 only")
     t0 = time.perf_counter()
-    out = _cuda.build()
-    log(f"build fused_topk (f32, bf16, int8 split kernels + merge): "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in out.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  {line.strip()}")
+    # one nvcc per source, all started together (each waits in its thread)
+    with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
+        outputs = dict(zip(_cuda.SOURCES,
+                           pool.map(_cuda.build, _cuda.SOURCES)))
+    log(f"build {', '.join(outputs)} (fused_topk: f32, bf16, int8 split "
+        "kernels + merge; image_ops: histogram, LUT, row shifts), one nvcc "
+        f"each in parallel: {time.perf_counter() - t0:.1f} s")
+    for name, out in outputs.items():
+        for line in out.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  {name}: {line.strip()}")
 
     # 2. main path: model + gallery
     R.reset_launch_counts()
@@ -430,7 +662,9 @@ def main() -> None:
         })
         del g_in, kw
 
-    # 5. result: the one card this run drove
+    kernels += augment_phase(model, gen, peaks)
+
+    # 6. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

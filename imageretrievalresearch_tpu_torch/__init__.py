@@ -5,7 +5,11 @@ Slices 1 and 2 cover gallery serving: the EfficientNet embedding path,
 the ``GalleryIndex`` and ``RetrievalEngine`` library entry points in the
 float32, bfloat16, int8 and int8_rerank modes, and the fused streaming
 top-k, whose card path is a hand-written CUDA kernel with f32, bf16 and
-int8 score variants (``csrc/fused_topk.cu``).
+int8 score variants (``csrc/fused_topk.cu``). Slice 3 adds the training
+input path of the AutoAugment recipes: ``TransformSpec.train_autoaugment``
+through ``build_batch_transform`` / ``build_triplet_transform``, whose
+histogram, LUT and row-shift kernels are hand-written CUDA
+(``csrc/image_ops.cu``).
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,35 @@
-"""Device-side ops: preprocessing, pooling, retrieval (with the fused
-top-k CUDA kernels)."""
+"""Device-side ops: preprocessing with on-device AutoAugment, pooling,
+retrieval; the hand-written CUDA kernels of the fused top-k
+(``retrieval``) and of AutoAugment (``image_kernels``)."""
+
+from imageretrievalresearch_tpu_torch.ops.autoaugment import (
+    imagenet_policy_batch,
+)
+from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
+from imageretrievalresearch_tpu_torch.ops.preprocess import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    TransformSpec,
+    build_batch_transform,
+    build_triplet_transform,
+    square_pad,
+)
+from imageretrievalresearch_tpu_torch.ops.retrieval import (
+    cosine_topk,
+    fused_cosine_topk,
+    l2_normalize,
+)
+
+__all__ = [
+    "TransformSpec",
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "build_batch_transform",
+    "build_triplet_transform",
+    "square_pad",
+    "get_fm",
+    "cosine_topk",
+    "fused_cosine_topk",
+    "l2_normalize",
+    "imagenet_policy_batch",
+]

@@ -1,0 +1,223 @@
+"""Image kernels of on-device AutoAugment: per-plane histogram, per-plane
+LUT apply, integer and cubic per-row shifts.
+
+Counterpart of ``imageretrievalresearch_tpu/ops/pallas_image.py``. Each
+function launches its hand-written CUDA kernel (``csrc/image_ops.cu``) for
+a CUDA tensor, or raises; for a CPU tensor it runs its plain PyTorch
+version (``*_reference``), which fixes the semantics and which the card's
+comparisons use. The TPU kernels needed a static bound on the shifts
+(``smax``) to unroll their roll passes; these read any shift directly.
+
+All images are uint8. The plain versions count how often they ran on a
+CUDA tensor (``PLAIN_ON_CARD``), so a run can show that its main path
+went through the kernels only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+FILL = 128
+
+# launches of each hand-written kernel, counted where the wrapper launches it
+KERNEL_LAUNCHES = {"plane_histogram": 0, "lut_apply": 0,
+                   "row_shift_cubic": 0, "row_shift": 0}
+# calls of each plain version on a CUDA tensor
+PLAIN_ON_CARD = dict.fromkeys(KERNEL_LAUNCHES, 0)
+
+
+def reset_launch_counts() -> None:
+    for counts in (KERNEL_LAUNCHES, PLAIN_ON_CARD):
+        for name in counts:
+            counts[name] = 0
+
+
+def _plain(name: str, t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        PLAIN_ON_CARD[name] += 1
+
+
+def cubic_weight(t: torch.Tensor) -> torch.Tensor:
+    """PIL's *geometry* bicubic kernel (a = -1), the one weight function of
+    the shears (``autoaugment``) and of the cubic row shift, op for op as
+    JAX's ``autoaugment._cubic_kernel``: ``(a + 2) * s`` is ``s`` and ``* a``
+    a negation, both exact."""
+    s = t.abs()
+    near = (s - 2.0) * s * s + 1.0
+    far = -(((s - 5.0) * s + 8.0) * s - 4.0)
+    return torch.where(s < 1.0, near,
+                       torch.where(s < 2.0, far, torch.zeros_like(s)))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def plane_histogram_reference(planes: torch.Tensor) -> torch.Tensor:
+    """(P, H, W) uint8 -> (P, 256) int32 counts, by scatter-add."""
+    _plain("plane_histogram", planes)
+    flat = planes.reshape(planes.shape[0], -1).long()
+    out = torch.zeros((planes.shape[0], 256), dtype=torch.int32,
+                      device=planes.device)
+    return out.scatter_add_(1, flat, torch.ones_like(flat,
+                                                     dtype=torch.int32))
+
+
+def lut_apply_reference(planes: torch.Tensor,
+                        lut: torch.Tensor) -> torch.Tensor:
+    """(P, H, W) uint8 + (P, 256) int32 in [0, 255] -> (P, H, W) uint8,
+    ``out[p] = lut[p][planes[p]]``."""
+    _plain("lut_apply", planes)
+    p = planes.shape[0]
+    rows = torch.arange(p, device=planes.device)[:, None]
+    out = lut[rows, planes.reshape(p, -1).long()]
+    return out.reshape(planes.shape).to(torch.uint8)
+
+
+def row_shift_reference(rows: torch.Tensor, shifts: torch.Tensor, *,
+                        fill: int = FILL) -> torch.Tensor:
+    """(N, W) uint8 + (N,) int -> (N, W) uint8 with
+    ``out(n, x) = rows(n, x + shifts(n))``, ``fill`` outside [0, W)."""
+    _plain("row_shift", rows)
+    w = rows.shape[1]
+    src = (torch.arange(w, device=rows.device)[None, :]
+           + shifts.long()[:, None])
+    out = torch.gather(rows, 1, src.clamp(0, w - 1))
+    return out.masked_fill((src < 0) | (src > w - 1), fill)
+
+
+def row_shift_cubic_reference(rows: torch.Tensor, src0: torch.Tensor, *,
+                              fill: int = FILL) -> torch.Tensor:
+    """(N, W) uint8 + (N,) f32 source offsets -> (N, W) uint8: row n
+    resampled at ``x + src0(n)`` with the 4-tap a = -1 cubic, ``fill``
+    outside; the TPU kernel's arithmetic (taps summed in the order -1, 0,
+    1, 2; division by max(wsum, 1e-8); source positions outside
+    [-0.5, W - 0.5] filled; round half to even, clip)."""
+    _plain("row_shift_cubic", rows)
+    w = rows.shape[1]
+    fl = torch.floor(src0.float())
+    frac = (src0.float() - fl)[:, None]
+    shift = fl.long()[:, None]
+    col = torch.arange(w, device=rows.device)[None, :]
+    x = rows.float()
+    acc = torch.zeros(rows.shape, dtype=torch.float32, device=rows.device)
+    wsum = torch.zeros_like(frac)
+    for tap in (-1, 0, 1, 2):
+        c = cubic_weight(frac - tap)
+        idx = col + shift + tap
+        inside = (idx >= 0) & (idx <= w - 1)
+        pix = torch.gather(x, 1, idx.clamp(0, w - 1)).masked_fill(
+            ~inside, float(fill))
+        acc = acc + c * pix
+        wsum = wsum + c
+    out = acc / torch.clamp(wsum, min=1e-8)
+    srcx = (col.float() + fl[:, None]) + frac
+    out = out.masked_fill(~((srcx >= -0.5) & (srcx <= w - 0.5)), float(fill))
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> torch.Tensor:
+    if (t.device != device or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
+    """Call the C entry ``entry`` on the current stream of ``dev``; raise
+    on a CUDA error, else count the launch."""
+    from imageretrievalresearch_tpu_torch.ops import _cuda
+
+    lib = _cuda.load_library("image_ops")
+    p = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(
+            *(p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
+            p(stream))
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"({_cuda.error_string(err, 'image_ops')})")
+    KERNEL_LAUNCHES[name] += 1
+
+
+def plane_histogram(planes: torch.Tensor) -> torch.Tensor:
+    """Per-plane 256-bin histograms: (P, H, W) uint8 -> (P, 256) int32;
+    replaces ``pallas_histogram``."""
+    if _on_cpu(planes):
+        return plane_histogram_reference(planes)
+    p, h, w = planes.shape
+    _check("planes", planes, torch.uint8, (p, h, w), planes.device)
+    out = torch.zeros((p, 256), dtype=torch.int32, device=planes.device)
+    _launch("plane_histogram", "image_histogram", planes.device,
+            planes, p, h * w, out)
+    return out
+
+
+def lut_apply(planes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Per-plane 256-entry LUTs: (P, H, W) uint8 + (P, 256) int32 ->
+    (P, H, W) uint8; replaces ``pallas_lut_apply`` (which returns int32).
+    The entries must lie in [0, 255], as the equalize and autocontrast
+    LUTs do (both are clipped), so the planes stay uint8."""
+    if _on_cpu(planes):
+        return lut_apply_reference(planes, lut)
+    p, h, w = planes.shape
+    dev = planes.device
+    _check("planes", planes, torch.uint8, (p, h, w), dev)
+    _check("lut", lut, torch.int32, (p, 256), dev)
+    out = torch.empty_like(planes)
+    _launch("lut_apply", "image_lut_apply", dev, planes, lut, p, h * w, out)
+    return out
+
+
+def row_shift(rows: torch.Tensor, shifts: torch.Tensor, *,
+              fill: int = FILL) -> torch.Tensor:
+    """Per-row integer shift: (N, W) uint8 + (N,) int32 -> (N, W) uint8,
+    ``out(n, x) = rows(n, x + shifts(n))``, ``fill`` outside [0, W);
+    replaces ``pallas_row_shift``."""
+    if _on_cpu(rows):
+        return row_shift_reference(rows, shifts, fill=fill)
+    n, w = rows.shape
+    dev = rows.device
+    _check("rows", rows, torch.uint8, (n, w), dev)
+    _check("shifts", shifts, torch.int32, (n,), dev)
+    out = torch.empty_like(rows)
+    _launch("row_shift", "image_row_shift", dev, rows, shifts, n, w, fill,
+            out)
+    return out
+
+
+def row_shift_cubic(rows: torch.Tensor, src0: torch.Tensor, *,
+                    fill: int = FILL) -> torch.Tensor:
+    """Per-row fractional shift with PIL-bicubic resampling: (N, W) uint8 +
+    (N,) f32 -> (N, W) uint8 (:func:`row_shift_cubic_reference`);
+    replaces ``pallas_row_shift_cubic``."""
+    if _on_cpu(rows):
+        return row_shift_cubic_reference(rows, src0, fill=fill)
+    n, w = rows.shape
+    dev = rows.device
+    _check("rows", rows, torch.uint8, (n, w), dev)
+    _check("src0", src0, torch.float32, (n,), dev)
+    out = torch.empty_like(rows)
+    _launch("row_shift_cubic", "image_row_shift_cubic", dev, rows, src0, n,
+            w, fill, out)
+    return out

@@ -1,8 +1,9 @@
 """Batched image preprocessing on the device, NHWC in and out.
 
 Counterpart of ``imageretrievalresearch_tpu/ops/preprocess.py`` (and of
-``cli/inference.py::build_eval_transform``). ``ToTensor`` semantics:
-uint8 -> float / 255.
+``cli/inference.py::build_eval_transform``): the eval, plain training and
+AutoAugment training transforms (``ops/autoaugment.py``). ``ToTensor``
+semantics: uint8 -> float / 255.
 
 ``resize_bilinear`` reproduces ``jax.image.resize(method='bilinear',
 antialias=True)``, which is not ``F.interpolate(antialias=True)``: per
@@ -18,6 +19,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from imageretrievalresearch_tpu_torch._device import resolve_device
+from imageretrievalresearch_tpu_torch.ops.autoaugment import (
+    imagenet_policy_batch,
+)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -75,18 +81,25 @@ def resize_bilinear(images: torch.Tensor, size: tuple[int, int],
 
 @dataclasses.dataclass(frozen=True)
 class TransformSpec:
-    """Per-role transform: square_pad -> resize -> to float [0,1] ->
-    normalize. (AutoAugment is not ported yet.)"""
+    """Per-role transform: square_pad -> resize -> AutoAugment (on uint8)
+    -> to float [0, 1] -> normalize -> ``dtype``."""
 
     resize: tuple[int, int] | None = (224, 224)
-    square_pad_fill: int | None = None
-    autoaugment: bool = False
+    square_pad_fill: int | None = None       # None = no SquarePad
+    autoaugment: bool = False                # ImageNetPolicy
     normalize: tuple[tuple[float, ...], tuple[float, ...]] | None = None
+    dtype: str = "float32"                   # or "bfloat16"
 
     @staticmethod
     def train_plain(size: int = 224) -> "TransformSpec":
         """Resize + ToTensor (train/train.py:48-50)."""
         return TransformSpec(resize=(size, size))
+
+    @staticmethod
+    def train_autoaugment(size: int = 224) -> "TransformSpec":
+        """Resize + AutoAugment ImageNetPolicy + ToTensor
+        (train/train_efficientnet.py:49-64)."""
+        return TransformSpec(resize=(size, size), autoaugment=True)
 
     @staticmethod
     def eval_squarepad(size: int | None = None) -> "TransformSpec":
@@ -97,33 +110,91 @@ class TransformSpec:
                              normalize=(IMAGENET_MEAN, IMAGENET_STD))
 
 
-def build_batch_transform(spec: TransformSpec) -> Callable:
-    """``fn(uint8 NHWC batch) -> float32 NHWC`` on the batch's device."""
-    if spec.autoaugment:
-        raise NotImplementedError("AutoAugment is not ported yet")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    def fn(images: torch.Tensor) -> torch.Tensor:
-        x = images
-        if spec.square_pad_fill is not None:
-            x = square_pad(x, fill=spec.square_pad_fill)
-        if (spec.resize is not None
-                and (x.shape[1], x.shape[2]) != spec.resize):
-            x = resize_bilinear(x, spec.resize)
-        x = x.float() / 255.0
-        if spec.normalize is not None:
-            mean, std = (torch.tensor(v, dtype=torch.float32,
-                                      device=x.device)
-                         for v in spec.normalize)
-            x = (x - mean) / std
-        return x
+
+def _apply(spec: TransformSpec, images, generator: torch.Generator | None,
+           device) -> torch.Tensor:
+    # every batch goes to ``device``, the card when it is None (a CUDA
+    # tensor stays where it is); with no card and no device it raises
+    x = torch.as_tensor(images, device=resolve_device(device))
+    if spec.square_pad_fill is not None:
+        x = square_pad(x, fill=spec.square_pad_fill)
+    if spec.resize is not None and (x.shape[1], x.shape[2]) != spec.resize:
+        x = resize_bilinear(x, spec.resize)
+    if spec.autoaugment:
+        if generator is None:
+            raise ValueError("autoaugment transform requires a generator")
+        if x.dtype != torch.uint8:
+            # round (not truncate) post-resize floats back to the uint8
+            # domain AutoAugment operates in
+            x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+        x = imagenet_policy_batch(x, generator)
+    x = x.float() / 255.0
+    if spec.normalize is not None:
+        mean, std = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                     for v in spec.normalize)
+        x = (x - mean) / std
+    return x.to(_DTYPES[spec.dtype])
+
+
+def build_batch_transform(spec: TransformSpec, *,
+                          device: str | torch.device | None = None
+                          ) -> Callable:
+    """``fn(uint8 NHWC batch, generator=None) -> float NHWC`` on
+    ``device``, the card by default (with no card it raises unless
+    ``device='cpu'``). AutoAugment draws from ``generator``, a
+    ``torch.Generator`` on that device, and raises ``ValueError`` without
+    one."""
+    def fn(images, generator: torch.Generator | None = None
+           ) -> torch.Tensor:
+        return _apply(spec, images, generator, device)
 
     return fn
 
 
-def build_eval_transform(kind: str, input_size: int) -> Callable:
+def build_image_transform(spec: TransformSpec, *,
+                          device: str | torch.device | None = None
+                          ) -> Callable:
+    """``fn({'image': u8 NHWC, 'label': i32}, generator=None)`` for
+    single-image classification batches (the T5 recipe's
+    ``Compose([ToTensor()])`` plus the resize)."""
+    def fn(batch: dict, generator: torch.Generator | None = None) -> dict:
+        out = {"image": _apply(spec, batch["image"], generator, device)}
+        if "label" in batch:
+            out["label"] = batch["label"]
+        return out
+
+    return fn
+
+
+def build_triplet_transform(qry: TransformSpec, pos: TransformSpec,
+                            neg: TransformSpec, *,
+                            device: str | torch.device | None = None
+                            ) -> Callable:
+    """``fn({'qry': u8, 'pos': [u8...], 'neg': [u8...]}, generator=None)``
+    -> the same dict of float batches. AutoAugment roles draw from the one
+    generator in a fixed order: qry, then pos..., then neg...."""
+    def fn(batch: dict, generator: torch.Generator | None = None) -> dict:
+        out = {"qry": _apply(qry, batch["qry"], generator, device),
+               "pos": [_apply(pos, b, generator, device)
+                       for b in batch["pos"]],
+               "neg": [_apply(neg, b, generator, device)
+                       for b in batch["neg"]]}
+        for extra in ("cat_idx", "prod_idx"):
+            if extra in batch:
+                out[extra] = batch[extra]
+        return out
+
+    return fn
+
+
+def build_eval_transform(kind: str, input_size: int, *,
+                         device: str | torch.device | None = None
+                         ) -> Callable:
     """The inference CLI's batch transform: 'squarepad' (SquarePad(255) ->
     resize -> ToTensor -> Normalize(ImageNet)) or 'plain' (resize + /255,
     the trainer's plain pipeline)."""
-    if kind == "squarepad":
-        return build_batch_transform(TransformSpec.eval_squarepad(input_size))
-    return build_batch_transform(TransformSpec.train_plain(input_size))
+    spec = (TransformSpec.eval_squarepad(input_size) if kind == "squarepad"
+            else TransformSpec.train_plain(input_size))
+    return build_batch_transform(spec, device=device)

@@ -440,7 +440,7 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
     vals = torch.empty((q, k), device=dev, dtype=torch.float32)
     inds = torch.empty((q, k), device=dev, dtype=torch.int32)
     ok = torch.empty((q,), device=dev, dtype=torch.int32)
-    lib = _cuda.load_library()
+    lib = _cuda.load_library("fused_topk")
     p = ctypes.c_void_p
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -453,7 +453,7 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
             p(stream))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error "
-                           f"{err} ({_cuda.error_string(err)})")
+                           f"{err} ({_cuda.error_string(err, 'fused_topk')})")
     KERNEL_LAUNCHES[counter] += 1
     return vals, inds, ok
 

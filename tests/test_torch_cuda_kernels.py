@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from imageretrievalresearch_tpu_torch.ops import image_kernels as K
 from imageretrievalresearch_tpu_torch.ops import retrieval as T
 
 
@@ -131,3 +132,93 @@ def test_quantized_certificate_fails_on_bin_overflow(cuda_device, mode):
     dv, di = T.cosine_topk(qd, gd, 50, matmul_dtype=mode, method="dense")
     np.testing.assert_array_equal(inds.cpu().numpy(), di.cpu().numpy())
     np.testing.assert_array_equal(vals.cpu().numpy(), dv.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# AutoAugment kernels (csrc/image_ops.cu) against their plain versions:
+# bitwise. Shapes that are not multiples of the kernels' blocks (8,192
+# pixels of a plane; 8,192 bytes of rows), a single pixel, and rows wider
+# than one staged block.
+# ---------------------------------------------------------------------------
+
+_PLANE_SHAPES = [(13, 37, 41), (7, 300, 301), (1, 1, 1), (192, 64, 64)]
+_ROW_SHAPES = [(77, 41), (1, 1), (4097, 224), (3, 9000)]
+
+
+def _edge_planes(rng, shape):
+    """Random planes, with a constant plane first (equalize's step == 0)
+    and, where it fits, one that uses all 256 values."""
+    planes = rng.integers(0, 256, shape, dtype=np.uint8)
+    planes[0] = 9
+    if shape[0] > 1 and shape[1] * shape[2] >= 256:
+        planes[1].reshape(-1)[:256] = np.arange(256)
+    return planes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _PLANE_SHAPES)
+def test_histogram_and_lut_kernels_match_plain_version(cuda_device, shape):
+    rng = np.random.default_rng(3)
+    planes = torch.from_numpy(_edge_planes(rng, shape)).to(cuda_device)
+    lut = torch.from_numpy(rng.integers(0, 256, (shape[0], 256)).astype(
+        np.int32)).to(cuda_device)
+    before = dict(K.KERNEL_LAUNCHES)
+    hist = K.plane_histogram(planes)
+    out = K.lut_apply(planes, lut)
+    assert K.KERNEL_LAUNCHES["plane_histogram"] == before[
+        "plane_histogram"] + 1
+    assert K.KERNEL_LAUNCHES["lut_apply"] == before["lut_apply"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(hist, K.plane_histogram_reference(planes))
+    assert int(hist.sum()) == planes.numel()
+    assert torch.equal(out, K.lut_apply_reference(planes, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w", _ROW_SHAPES)
+def test_row_shift_kernels_match_plain_version(cuda_device, n, w):
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy(rng.integers(0, 256, (n, w), dtype=np.uint8)
+                            ).to(cuda_device)
+    smax = max(1, w // 3)
+    shifts = rng.integers(-smax, smax + 1, n).astype(np.int32)
+    src0 = rng.uniform(-smax, smax, n).astype(np.float32)
+    # the ends of the range, whole numbers, shifts past the row
+    for i, (s, f) in enumerate([(-smax, -smax), (smax, smax - 0.5),
+                                (w + 3, 0.0), (-w - 3, 2.0 - 2 ** -20)]):
+        if i < n:
+            shifts[i], src0[i] = s, f
+    shifts, src0 = (torch.from_numpy(a).to(cuda_device)
+                    for a in (shifts, src0))
+    before = dict(K.KERNEL_LAUNCHES)
+    out = K.row_shift(rows, shifts)
+    cubic = K.row_shift_cubic(rows, src0)
+    assert K.KERNEL_LAUNCHES["row_shift"] == before["row_shift"] + 1
+    assert K.KERNEL_LAUNCHES["row_shift_cubic"] == before[
+        "row_shift_cubic"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.row_shift_reference(rows, shifts))
+    assert torch.equal(cubic, K.row_shift_cubic_reference(rows, src0))
+
+
+@pytest.mark.cuda
+def test_policy_on_the_card_matches_the_cpu_table(cuda_device):
+    """The same draws through the card's table (kernels, 3-shear rotate)
+    and the CPU table (plain versions, gather rotate): equal on every image
+    that no rotate touched."""
+    from imageretrievalresearch_tpu_torch.ops import autoaugment as A
+
+    rng = np.random.default_rng(5)
+    imgs = torch.from_numpy(rng.integers(0, 256, (32, 48, 40, 3),
+                                         dtype=np.uint8))
+    draws = A.draw_policy(32, torch.Generator().manual_seed(0))
+    K.reset_launch_counts()
+    card = A.apply_policy(imgs.to(cuda_device),
+                          *(d.to(cuda_device) for d in draws)).cpu()
+    assert K.KERNEL_LAUNCHES == {"plane_histogram": 2, "lut_apply": 3,
+                                 "row_shift_cubic": 1, "row_shift": 6}
+    assert not any(K.PLAIN_ON_CARD.values())
+    cpu = A.apply_policy(imgs, *draws)
+    ops, _, do, _ = draws
+    rotated = ((ops == A.ROTATE) & do).any(dim=1)
+    assert torch.equal(card[~rotated], cpu[~rotated])

@@ -42,11 +42,8 @@ def test_resize_bilinear_matches_jax(rng, src, dst, antialias):
 def test_eval_transforms_match_jax(rng, kind):
     x = rng.integers(0, 256, (2, 45, 30, 3), dtype=np.uint8)
     ref = np.asarray(jax_eval_transform(kind, 24)(jnp.asarray(x)))
-    ours = T.build_eval_transform(kind, 24)(torch.from_numpy(x)).numpy()
+    ours = T.build_eval_transform(kind, 24, device="cpu")(
+        torch.from_numpy(x)).numpy()
     assert ours.dtype == np.float32 and ours.shape == ref.shape
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
 
-
-def test_autoaugment_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.build_batch_transform(T.TransformSpec(autoaugment=True))

@@ -84,7 +84,7 @@ def slice_run():
                          depth_mult=d, device="cpu")
     model.load_timm_state_dict(params_from_jax(variables, depth_mult=d))
     engine = RetrievalEngine(model, transform=build_eval_transform(
-        "squarepad", size), device="cpu")
+        "squarepad", size, device="cpu"), device="cpu")
     ours = engine.embed_batch(images).numpy()
 
     # gallery: 64 embedded items + 2,000 seeded rows (G >= 2048), 32
