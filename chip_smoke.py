@@ -4,9 +4,9 @@
 
 Phases (any failure exits non-zero, with no result line):
 
-1. Build the port's CUDA kernels (``csrc/fused_topk.cu`` and
-   ``csrc/image_ops.cu``, one nvcc process each, started together) and
-   print the card's name and power limit.
+1. Build the port's CUDA kernels (``csrc/fused_topk.cu``,
+   ``csrc/image_ops.cu`` and ``csrc/depthwise_conv.cu``, one nvcc process
+   each, started together) and print the card's name and power limit.
 2. Main path: ``efficientnet_b3a`` at full width with seeded random weights
    embeds 512 seeded uint8 224x224 images through the squarepad eval
    transform into a ``GalleryIndex``, which then takes 99,488 seeded unit
@@ -39,17 +39,42 @@ Phases (any failure exits non-zero, with no result line):
    Each image kernel against its plain version, bitwise, at the path's
    shapes and at ragged ones; kernel, plain and library times and bounds;
    the transform's time, and its device time by kernel.
-6. One JSON line of kernels, the nvidia-smi line, and the result line.
+6. T3 training with the depthwise kernels (IRT_FORCE_PALLAS_DW=1).
+   Kernels 9 and 10 against their plain versions at the 26 depthwise
+   layer shapes of b3a at 224 px (N = 8) and at ragged ones, in f32 and
+   bf16: the forward and dx bitwise, the tap gradients within 1e-6 of the
+   sum of absolute products (another summation order); then their
+   kernel, plain and library (cuDNN) times per pass at N = 192, summed
+   over the 26 layers, beside the bound, each kernel held against its
+   plain version there as well. Then ``Trainer.fit(max_epochs=1)``
+   of ``make_config("train_efficient_cos_con_ce_loss", batch_size=64)``
+   on ``efficientnet_b3a`` (125 classes, seeded weights) over in-memory
+   loaders (3 train batches, 1 val batch of seeded 256 px uint8
+   triplets), first with the opt-in, counts set to 0 just before and read
+   just after (kernel 9: 52 per train step and 26 per val batch, kernel
+   10: 26 per train step, kernels 5-8 at phase 5's counts per step, no
+   plain version on the card, no layout copy), then from the same weights
+   and seeds on cuDNN and with two planted wiring faults (``planted``):
+   per-step losses agree within the bf16 tolerance, and each faulted run
+   falls outside it; one f32 step (TF32 off) agrees in its loss and
+   depthwise weight gradients, and with each of three planted faults
+   falls outside those tolerances. Warm
+   epoch times of both paths (wall and CUDA events), peak memory, and one
+   profiled epoch each: top device ops and the idle share.
+7. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -60,8 +85,12 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device; nothing was run")
 
 from imageretrievalresearch_tpu_torch.models import create_model  # noqa: E402
+from imageretrievalresearch_tpu_torch.models.layers import (  # noqa: E402
+    DepthwiseConv2d,
+)
 from imageretrievalresearch_tpu_torch.ops import _cuda  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import autoaugment as A  # noqa: E402
+from imageretrievalresearch_tpu_torch.ops import depthwise as DW  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import image_kernels as IK  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import retrieval as R  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops.preprocess import (  # noqa: E402
@@ -70,9 +99,14 @@ from imageretrievalresearch_tpu_torch.ops.preprocess import (  # noqa: E402
     build_triplet_transform,
     resize_bilinear,
 )
+from imageretrievalresearch_tpu_torch.recipes import make_config  # noqa: E402
 from imageretrievalresearch_tpu_torch.retrieval import (  # noqa: E402
     GalleryIndex,
     RetrievalEngine,
+)
+from imageretrievalresearch_tpu_torch.train import (  # noqa: E402
+    Trainer,
+    build_train_step,
 )
 
 SEED = 0
@@ -106,6 +140,42 @@ SMAX_ROTATE = (int(np.tan(np.deg2rad(30.0) / 2.0) * (SIZE / 2.0)) + 1,
 # f32 operations per output pixel of the cubic row shift: 4 taps x (the
 # weight polynomial 6, the weighted sum 2, the weight sum 1) + the division
 CUBIC_OPS_PER_PIXEL = 37
+# the training phase: T3 on b3a with Sketchy's 125 categories, batches of
+# 64 seeded 256 px triplets; kernels 9 and 10 compared at N = 8 and timed
+# at N = 192 (one train step's depthwise batch)
+DW_KERNELS = {"depthwise_conv_forward": "ops/pallas_conv.py:181",
+              "depthwise_conv_grad_w": "ops/pallas_conv.py:189"}
+DW_SOURCE = "imageretrievalresearch_tpu_torch/csrc/depthwise_conv.cu"
+N_CLASSES, TRAIN_BATCH, TRAIN_SRC, TRAIN_STEPS = 125, 64, 256, 3
+DW_COMPARE_N, DW_TIME_N = 8, 3 * TRAIN_BATCH
+# (C, H, W, K, stride) beyond b3a's layers: odd H and W at stride 2, C not
+# a multiple of 32, K = 7
+DW_RAGGED = [(144, 13, 9, 5, 2), (40, 15, 15, 7, 2), (200, 9, 9, 7, 1),
+             (24, 57, 43, 3, 2)]
+# The kernel path against cuDNN, relative, each limit between the card's
+# sound reading and the nearest reading of a wiring fault planted into the
+# opt-in path (``planted``; NVIDIA H100 80GB HBM3, 700 W). The bf16 epoch's
+# train_loss per step: sound 0, 2.3e-3, 1.9e-2 (the same bits in every
+# run); forward on transposed taps 2.9e-2, 4.4e-2, 4.6e-2; dx with
+# unflipped taps 0, 1.2e-2, 2.7e-1. Both paths round every depthwise
+# output to bf16 from f32 sums in other orders, and AdamW's first updates
+# are sign-like (lr * g / (|g| + eps)), so a gradient element near zero
+# whose sign differs moves its parameter by up to 2 lr and the later
+# losses drift. Transposed tap gradients move the bf16 losses less than
+# that drift does (0, 9.3e-4, 1.3e-2): the f32 step, whose depthwise
+# weight gradients are compared directly, is the check that catches them.
+BF16_LOSS_RTOL = (5e-3, 5e-3, 3e-2)
+BF16_FAULTS = ("forward", "dx")
+# one f32 step (TF32 off): f32 sums in other orders; its loss, and the
+# depthwise weight gradients of three layers as a share of their largest
+# element (sound 3.9e-7 and 1.1e-4)
+F32_LOSS_RTOL, F32_GRAD_RTOL = 1e-4, 1e-3
+DW_FAULTS = ("forward", "dx", "dw")
+# the tap gradients' limit, as a share of the sum of |x| |g| over each
+# tap's terms: f32 sums in another order move a tap by a few 1e-8 of it; a
+# pixel dropped from every sum moves it by 1 / (N Ho Wo), 1e-5 at the
+# (40, 112) layer and N = 8
+DW_GRAD_W_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -363,6 +433,394 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     return entries
 
 
+class MemoryLoader:
+    """Seeded uint8 triplet batches in host memory, with the loader
+    interface the trainer takes (``__len__``, ``set_epoch``)."""
+
+    def __init__(self, rng: np.random.Generator, n_batches: int, b: int):
+        def u8():
+            return rng.integers(0, 256, (b, TRAIN_SRC, TRAIN_SRC, 3),
+                                dtype=np.uint8)
+        self.batches = [{"qry": u8(), "pos": [u8()], "neg": [u8()],
+                         "cat_idx": rng.integers(0, N_CLASSES, b),
+                         "prod_idx": rng.integers(0, N_CLASSES, b)}
+                        for _ in range(n_batches)]
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+
+def dw_layer_shapes(model) -> list:
+    """(C, H, W, K, stride) of each depthwise layer of ``model`` at SIZE."""
+    shapes, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, DepthwiseConv2d):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp: shapes.append(
+                    (mod.in_channels, inp[0].shape[2], inp[0].shape[3],
+                     mod.kernel_size[0], mod.stride[0]))))
+    with torch.no_grad():
+        model.embed(torch.zeros((1, SIZE, SIZE, 3), device=DEV))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def dw_operands(gen, n, shape, dtype):
+    c, h, w, k, s = shape
+    ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
+    x = torch.randn((n, h, w, c), generator=gen, device=DEV).to(dtype)
+    g = torch.randn((n, ho, wo, c), generator=gen, device=DEV).to(dtype)
+    wt = torch.randn((c, 1, k, k), generator=gen, device=DEV).to(dtype)
+    return x, g, wt
+
+
+def dw_plain_grad_x(g, taps, s, h, w):
+    return DW.depthwise_forward_reference(DW.dilate(g, s, h, w),
+                                          taps.flip(0, 1), 1)
+
+
+def dw_passes(x, g, taps, shape) -> dict:
+    """pass -> (kernel, plain version), callables on one layer's operands."""
+    c, h, w, k, s = shape
+    return {"forward": (lambda: DW.depthwise_forward(x, taps, s),
+                        lambda: DW.depthwise_forward_reference(x, taps, s)),
+            "dx": (lambda: DW.depthwise_grad_x(g, taps, s, h, w),
+                   lambda: dw_plain_grad_x(g, taps, s, h, w)),
+            "dw": (lambda: DW.depthwise_grad_w(x, g, k, s),
+                   lambda: DW.depthwise_grad_w_reference(x, g, k, s))}
+
+
+def dw_check(shape, x, g, passes: dict) -> tuple[float, float]:
+    """Each pass's kernel against its plain version, once: the forward and
+    dx bitwise, the tap gradients within DW_GRAD_W_RTOL of the sum of
+    |x| |g| over each tap's terms. Returns the tap gradients' largest
+    |kernel - plain| and its largest share of that sum."""
+    got = {p: kern() for p, (kern, _) in passes.items()}
+    want = {p: plain() for p, (_, plain) in passes.items()}
+    torch.cuda.synchronize()
+    where = (x.dtype, x.shape[0], shape)
+    for p in ("forward", "dx"):
+        assert torch.equal(got[p], want[p]), (p, *where)
+    scale = DW.depthwise_grad_w_reference(x.abs(), g.abs(), shape[3],
+                                          shape[4])
+    err = (got["dw"] - want["dw"]).abs()
+    rel = torch.where(scale > 0, err / scale, err).max().item()
+    assert rel <= DW_GRAD_W_RTOL, ("dw", *where, rel)
+    return err.max().item(), rel
+
+
+def dw_compare(shapes, gen) -> tuple[float, float]:
+    """Kernels 9 (forward, dx) and 10 against their plain versions on the
+    card at N = DW_COMPARE_N, f32 and bf16; returns the tap gradients'
+    largest |kernel - plain| and share (``dw_check``)."""
+    err = rel = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            x, g, wt = dw_operands(gen, DW_COMPARE_N, shape, dtype)
+            e, r = dw_check(shape, x, g,
+                            dw_passes(x, g, DW._taps(wt), shape))
+            err, rel = max(err, e), max(rel, r)
+    log(f"depthwise kernels vs plain versions, {len(shapes)} shapes x f32 "
+        f"and bf16 at N = {DW_COMPARE_N}: forward and dx bitwise equal; tap "
+        f"gradients: max |kernel - plain| {err:.3g}, at most {rel:.3g} of "
+        f"the sum of |x| |g| (limit {DW_GRAD_W_RTOL})")
+    return err, rel
+
+
+def dw_times(shapes, gen, peaks: dict) -> tuple[dict, float, float]:
+    """Per pass (forward, dx, dw) at N = DW_TIME_N in bf16, summed over
+    ``shapes``: kernel, plain and library (cuDNN) ms, and the bound; each
+    kernel is also held against its plain version on the same operands
+    (``dw_check``), whose largest tap-gradient error and share come back
+    with the times."""
+    conv_bwd = torch.ops.aten.convolution_backward
+    tot = {p: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bytes_ms", "ops_ms"), 0.0)
+           for p in ("forward", "dx", "dw")}
+    n = DW_TIME_N
+    err = rel = 0.0
+    log(f"depthwise passes at N = {n}, bf16, per layer (C, H, K, stride): "
+        "kernel / cuDNN ms for forward, dx, dw")
+    for shape in shapes:
+        c, h, w, k, s = shape
+        p = k // 2
+        ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
+        x, g, wt = dw_operands(gen, n, shape, torch.bfloat16)
+        passes = dw_passes(x, g, DW._taps(wt), shape)
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        library = {
+            "forward": lambda: torch.nn.functional.conv2d(
+                xc, wt, stride=s, padding=p, groups=c),
+            "dx": lambda: conv_bwd(gc, xc, wt, None, [s, s], [p, p], [1, 1],
+                                   False, [0, 0], c, [True, False, False]),
+            "dw": lambda: conv_bwd(gc, xc, wt, None, [s, s], [p, p], [1, 1],
+                                   False, [0, 0], c, [False, True, False])}
+        # every pass reads one activation and the taps and writes another
+        nbytes = 2 * n * (h * w + ho * wo) * c + 4 * k * k * c
+        ops = 2 * k * k * n * ho * wo * c
+        row = []
+        for name, (kern, plain) in passes.items():
+            t = tot[name]
+            ms = event_ms(kern, reps=10)
+            lib_ms = event_ms(library[name], reps=10)
+            t["ms"] += ms
+            t["library_ms"] += lib_ms
+            t["plain_ms"] += event_ms(plain, reps=2, warmup=1)
+            t["bytes_ms"] += nbytes / peaks["bytes"] * 1e3
+            t["ops_ms"] += ops / peaks["float32"] * 1e3
+            t["bound_ms"] += bound(nbytes, ops, peaks)[0]
+            row.append(f"{ms:.3f} / {lib_ms:.3f}")
+        e, r = dw_check(shape, x, g, passes)
+        err, rel = max(err, e), max(rel, r)
+        log(f"  ({c}, {h}, {k}, {s}): " + "; ".join(row))
+        del x, g, wt, xc, gc, passes, library
+    log(f"depthwise kernels vs plain versions at N = {n}, bf16, "
+        f"{len(shapes)} layers: forward and dx bitwise equal; tap "
+        f"gradients: max |kernel - plain| {err:.3g}, at most {rel:.3g} of "
+        f"the sum of |x| |g| (limit {DW_GRAD_W_RTOL})")
+    for name, t in tot.items():
+        log(f"depthwise {name} over {len(shapes)} layers at N = {n}, bf16: "
+            f"kernel {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (bytes "
+            f"{t['bytes_ms']:.3f}, operations {t['ops_ms']:.3f}), plain "
+            f"{t['plain_ms']:.3f} ms, cuDNN {t['library_ms']:.3f} ms")
+    return tot, err, rel
+
+
+def t3_config(checkpoint_dir: str | None, **kw):
+    return make_config("train_efficient_cos_con_ce_loss",
+                       batch_size=TRAIN_BATCH, image_size=SIZE,
+                       checkpoint_dir=checkpoint_dir, **kw)
+
+
+def set_opt_in(on: bool) -> None:
+    if on:
+        os.environ["IRT_FORCE_PALLAS_DW"] = "1"
+    else:
+        os.environ.pop("IRT_FORCE_PALLAS_DW", None)
+
+
+def fit_once(model, init: dict, train, val, kernels: bool,
+             label: str | None = None) -> dict:
+    """One epoch of ``Trainer.fit`` from ``init``, launch counts set to 0
+    just before and read just after; its per-step losses from
+    metrics.jsonl."""
+    set_opt_in(kernels)
+    model.load_state_dict(init)
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(t3_config(d, log_every_n_steps=1), model, train,
+                          val)
+        for mod in (DW, IK):
+            mod.reset_launch_counts()
+        (state, hist), ms = sync_time(lambda: trainer.fit(max_epochs=1))
+        counts = {"dw": dict(DW.KERNEL_LAUNCHES),
+                  "dw_plain": dict(DW.PLAIN_ON_CARD),
+                  "copies": dict(DW.LAYOUT_COPIES),
+                  "image": dict(IK.KERNEL_LAUNCHES),
+                  "image_plain": dict(IK.PLAIN_ON_CARD)}
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            losses = [r["train_loss"] for r in map(json.loads, f)
+                      if "train_loss" in r]
+        saved = {kind: os.listdir(os.path.join(d, kind))
+                 for kind in ("best", "last")}
+    epoch = hist["epochs"][0]
+    assert state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+    assert all(np.isfinite(v) for v in epoch.values()), epoch
+    assert saved == {"best": [str(TRAIN_STEPS)], "last": [str(TRAIN_STEPS)]}
+    log(f"T3 fit, 1 epoch ({TRAIN_STEPS} steps of {TRAIN_BATCH} triplets + 1 "
+        f"val batch), "
+        f"{label or ('depthwise kernels' if kernels else 'cuDNN')}: "
+        f"{ms:.0f} ms (first use, includes warm-up); train_loss per step "
+        f"{losses}; val_loss {epoch['val_loss']:.5g}, cos_sims "
+        f"{epoch['cos_sims']:.5g}; launches {counts}")
+    return {"losses": losses, "counts": counts}
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """The opt-in path with one slip of its autograd wiring, undone on
+    exit: "forward" runs the forward on transposed taps, "dx" leaves dx's
+    taps unflipped, "dw" transposes the tap gradients. The kernels stay
+    as they are."""
+    fwd = vars(DW._DepthwiseConv)["forward"]
+    grad_x, grad_w = DW.depthwise_grad_x, DW.depthwise_grad_w
+    if fault == "forward":
+        DW._DepthwiseConv.forward = staticmethod(
+            lambda ctx, x, w, s: fwd.__func__(ctx, x, w.transpose(2, 3), s))
+    elif fault == "dx":
+        DW.depthwise_grad_x = lambda g, taps, s, h, w: DW.depthwise_forward(
+            DW.dilate(g, s, h, w), taps, 1)
+    else:
+        DW.depthwise_grad_w = lambda x, g, k, s: grad_w(
+            x, g, k, s).transpose(0, 1).contiguous()
+    try:
+        yield
+    finally:
+        DW._DepthwiseConv.forward = fwd
+        DW.depthwise_grad_x, DW.depthwise_grad_w = grad_x, grad_w
+
+
+def f32_step(model, init: dict, train, kernels: bool, layers) -> tuple:
+    """One f32 train step (TF32 off) on 16 triplets from ``init``: the loss
+    and the gradients of the depthwise weights of ``layers``."""
+    set_opt_in(kernels)
+    model.load_state_dict(init)
+    cfg = t3_config(None, compute_dtype="float32")
+    trainer = Trainer(cfg, model, train)
+    raw = {k: ([a[:16] for a in v] if isinstance(v, list) else v[:16])
+           for k, v in train.batches[0].items()}
+    batch = trainer.transform(raw, torch.Generator(DEV).manual_seed(SEED))
+    batch = {**batch, **{k: torch.as_tensor(raw[k], device=DEV)
+                         for k in ("cat_idx", "prod_idx")}}
+    step = build_train_step(cfg, trainer.schedule)
+    _, metrics = step(trainer.init_state(), batch,
+                      torch.Generator(DEV).manual_seed(SEED))
+    return (float(metrics["train_loss"]),
+            [layers[i].weight.grad.clone() for i in range(len(layers))])
+
+
+def timed_epochs(model, init: dict, train, kernels: bool) -> dict:
+    """Warm epoch time of the T3 path (wall around a synchronised epoch
+    and CUDA events), peak memory, and one profiled epoch."""
+    set_opt_in(kernels)
+    model.load_state_dict(init)
+    trainer = Trainer(t3_config(None), model, train)
+    state = trainer.init_state()
+    trainer.train_epoch(state, 0)
+    torch.cuda.reset_peak_memory_stats()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    trainer.train_epoch(state, 1)
+    b.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    ev = a.elapsed_time(b) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, pwall = sync_time(lambda: trainer.train_epoch(state, 2))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    name = "depthwise kernels" if kernels else "cuDNN"
+    log(f"T3 train step, {name}, warm: {wall:.1f} ms wall, {ev:.1f} ms CUDA "
+        f"events per step of {TRAIN_BATCH} triplets (epoch of "
+        f"{TRAIN_STEPS}); peak {peak:.2f} GB; profiled epoch {pwall:.1f} ms "
+        f"wall, {busy:.1f} ms device busy, idle share "
+        f"{1 - busy / pwall:.3f}; top device ops:")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    for e in events[:12]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
+    return {"wall": wall, "events": ev, "peak": peak, "idle": 1 - busy / pwall}
+
+
+def training_phase(serving_model, gen, peaks: dict) -> list:
+    """Phase 6: kernels 9 and 10 against their plain versions and timed,
+    then the T3 training path with them and on cuDNN; returns their
+    entries of the ``kernels`` line."""
+    shapes = dw_layer_shapes(serving_model)
+    assert len(shapes) == 26, shapes
+    err_small, _ = dw_compare(shapes + DW_RAGGED, gen)
+    tot, err_path, _ = dw_times(shapes, gen, peaks)
+    errs = {"depthwise_conv_forward": 0.0,
+            "depthwise_conv_grad_w": max(err_small, err_path)}
+
+    model = create_model("efficientnet_b3a", num_classes=N_CLASSES,
+                         seed=SEED)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    train = MemoryLoader(rng, TRAIN_STEPS, TRAIN_BATCH)
+    val = MemoryLoader(rng, 1, TRAIN_BATCH)
+
+    # the main path: kernels 9 and 10 on every depthwise layer
+    ours = fit_once(model, init, train, val, kernels=True)
+    launches = ours["counts"]["dw"]
+    per_step = {k: 3 * n for k, n in launches_per_policy().items()}
+    assert launches == {
+        "depthwise_conv_forward": 52 * TRAIN_STEPS + 26,
+        "depthwise_conv_grad_w": 26 * TRAIN_STEPS}, launches
+    assert ours["counts"]["image"] == {
+        k: TRAIN_STEPS * n for k, n in per_step.items()}, ours["counts"]
+    for plain in ("dw_plain", "image_plain"):
+        assert not any(ours["counts"][plain].values()), ours["counts"]
+    # the activations reach the kernels as channels-last views
+    assert ours["counts"]["copies"] == {"nhwc": 0}, ours["counts"]
+    ref = fit_once(model, init, train, val, kernels=False)
+    assert not any(ref["counts"]["dw"].values()), ref["counts"]
+
+    def rel(run):
+        return [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                     ref["losses"])]
+    faulted = {}
+    for fault in BF16_FAULTS:
+        with planted(fault):
+            faulted[fault] = rel(fit_once(model, init, train, val, True,
+                                          f"planted fault: {fault}"))
+    log(f"T3 train_loss per step against cuDNN's (bf16), relative "
+        f"differences: depthwise kernels {rel(ours)}; planted faults "
+        f"{faulted}; tolerances {BF16_LOSS_RTOL}")
+    assert all(r <= t for r, t in zip(rel(ours), BF16_LOSS_RTOL)), rel(ours)
+    for fault, r in faulted.items():
+        assert any(a > t for a, t in zip(r, BF16_LOSS_RTOL)), (fault, r)
+
+    dws = [m for m in model.modules() if isinstance(m, DepthwiseConv2d)]
+    layers = [dws[0], dws[len(dws) // 2], dws[-1]]
+    l_r, g_r = f32_step(model, init, train, False, layers)
+
+    def f32_rel(fault=None):
+        with planted(fault) if fault else contextlib.nullcontext():
+            l_k, g_k = f32_step(model, init, train, True, layers)
+        return (abs(l_k - l_r) / abs(l_r),
+                max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(g_k, g_r)))
+    sound = f32_rel()
+    faulted = {fault: f32_rel(fault) for fault in DW_FAULTS}
+    log(f"one f32 T3 step on 16 triplets (TF32 off) against cuDNN's: loss "
+        f"{l_r:.7g}; relative loss difference and depthwise weight gradients "
+        f"of layers 0, 13, 25 (max |diff| / max |grad|): depthwise kernels "
+        f"{sound}; planted faults {faulted}; tolerances "
+        f"{(F32_LOSS_RTOL, F32_GRAD_RTOL)}")
+    assert sound[0] <= F32_LOSS_RTOL and sound[1] <= F32_GRAD_RTOL, sound
+    for fault, (dl, dg) in faulted.items():
+        assert dl > F32_LOSS_RTOL or dg > F32_GRAD_RTOL, (fault, dl, dg)
+
+    # warm step times, in turns: kernels, cuDNN, cuDNN, kernels
+    for kernels in (True, False, False, True):
+        timed_epochs(model, init, train, kernels)
+    set_opt_in(False)
+
+    entries = []
+    for name, passes in (("depthwise_conv_forward", ("forward", "dx")),
+                         ("depthwise_conv_grad_w", ("dw",))):
+        def total(key):
+            return sum(tot[p][key] for p in passes)
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": DW_SOURCE,
+            "replaces": f"imageretrievalresearch_tpu/{DW_KERNELS[name]}",
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": total("ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                         else "operations"),
+            "library_ms": total("library_ms"),
+        })
+    return entries
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
@@ -374,11 +832,13 @@ def main() -> None:
         outputs = dict(zip(_cuda.SOURCES,
                            pool.map(_cuda.build, _cuda.SOURCES)))
     log(f"build {', '.join(outputs)} (fused_topk: f32, bf16, int8 split "
-        "kernels + merge; image_ops: histogram, LUT, row shifts), one nvcc "
+        "kernels + merge; image_ops: histogram, LUT, row shifts; "
+        "depthwise_conv: forward, tap gradients + reduction), one nvcc "
         f"each in parallel: {time.perf_counter() - t0:.1f} s")
     for name, out in outputs.items():
         for line in out.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 log(f"  {name}: {line.strip()}")
 
     # 2. main path: model + gallery
@@ -663,8 +1123,9 @@ def main() -> None:
         del g_in, kw
 
     kernels += augment_phase(model, gen, peaks)
+    kernels += training_phase(model, gen, peaks)
 
-    # 6. result: the one card this run drove
+    # 7. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

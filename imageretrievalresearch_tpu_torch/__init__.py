@@ -9,7 +9,12 @@ int8 score variants (``csrc/fused_topk.cu``). Slice 3 adds the training
 input path of the AutoAugment recipes: ``TransformSpec.train_autoaugment``
 through ``build_batch_transform`` / ``build_triplet_transform``, whose
 histogram, LUT and row-shift kernels are hand-written CUDA
-(``csrc/image_ops.cu``).
+(``csrc/image_ops.cu``). Slice 4 adds training on one card: the losses and
+training metrics, ``config`` / ``recipes``, the optimizer and schedule,
+the train and eval steps and the ``Trainer`` (``train/``), checkpointing
+and logging (``utils/``), and the depthwise convolution's forward, input
+gradient and tap gradients as hand-written CUDA (``csrc/depthwise_conv.cu``,
+behind ``IRT_FORCE_PALLAS_DW=1`` as in JAX).
 """
 
 __version__ = "0.1.0"

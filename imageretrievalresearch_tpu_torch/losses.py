@@ -1,7 +1,9 @@
-"""The loss pieces the retrieval slice needs, with the reference semantics.
+"""Loss functions with the reference semantics.
 
-Counterpart of ``imageretrievalresearch_tpu/losses.py`` (``COSINE_SIM_EPS``,
-``cosine_similarity``, ``contrastive_loss``).
+Counterpart of ``imageretrievalresearch_tpu/losses.py``: the cosine
+similarity, ``CosineEmbeddingLoss``, the Euclidean contrastive loss,
+``CrossEntropyLoss`` over integer labels, and the triplet / contrastive pair
+combinations of the training recipes. Every loss is computed in f32.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ import torch
 # torch.nn.CosineSimilarity default eps used throughout the reference
 # (train/train.py:73: CosineSimilarity(dim=1, eps=1e-6)).
 COSINE_SIM_EPS = 1e-6
+# torch.nn.CosineEmbeddingLoss adds 1e-12 to each SQUARED norm inside the
+# denominator: cos = <x1,x2> / sqrt((||x1||^2+eps)(||x2||^2+eps)).
+_COS_EMBED_SQ_EPS = 1e-12
 # reference utils/contrastive_loss.py:34 (self.eps = 1e-9).
 CONTRASTIVE_EPS = 1e-9
 
@@ -41,3 +46,63 @@ def contrastive_loss(fm1: torch.Tensor, fm2: torch.Tensor,
     hinge = torch.relu(margin - torch.sqrt(dis + eps))
     losses = 0.5 * (label * dis + (1.0 - label) * torch.square(hinge))
     return losses.mean() if mean else losses.sum()
+
+
+def _reduce(losses: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return losses.mean()
+    if reduction == "sum":
+        return losses.sum()
+    if reduction == "none":
+        return losses
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def cosine_embedding_loss(x1: torch.Tensor, x2: torch.Tensor,
+                          target: torch.Tensor | float, *,
+                          margin: float = 0.0,
+                          reduction: str = "mean") -> torch.Tensor:
+    """torch.nn.CosineEmbeddingLoss: per row ``1 - cos`` for target 1 and
+    ``max(0, cos - margin)`` for target -1, with 1e-12 added to each
+    squared norm (not a norm clamp)."""
+    x1 = x1.float()
+    x2 = x2.float()
+    dot = torch.sum(x1 * x2, dim=-1)
+    sq1 = torch.sum(torch.square(x1), dim=-1) + _COS_EMBED_SQ_EPS
+    sq2 = torch.sum(torch.square(x2), dim=-1) + _COS_EMBED_SQ_EPS
+    cos = dot / torch.sqrt(sq1 * sq2)
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=cos.device).expand(cos.shape)
+    losses = torch.where(target > 0, 1.0 - cos,
+                         torch.clamp(cos - margin, min=0.0))
+    return _reduce(losses, reduction)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       reduction: str = "mean") -> torch.Tensor:
+    """torch.nn.CrossEntropyLoss over integer class labels, in f32."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(log_probs, 1, labels.long()[:, None])[:, 0]
+    return _reduce(nll, reduction)
+
+
+def triplet_losses(fm_qry: torch.Tensor, fm_pos: torch.Tensor,
+                   fm_neg: torch.Tensor, *,
+                   cos_margin: float) -> dict[str, torch.Tensor]:
+    """The cosine-embedding pair of every triplet recipe, targets +1 / -1
+    (reference train/train.py:214-216)."""
+    poss = cosine_embedding_loss(fm_qry, fm_pos, 1.0, margin=cos_margin)
+    negs = cosine_embedding_loss(fm_qry, fm_neg, -1.0, margin=cos_margin)
+    return {"loss_cos_poss": poss, "loss_cos_negs": negs,
+            "loss_cos": poss + negs}
+
+
+def contrastive_pair_losses(fm_qry: torch.Tensor, fm_pos: torch.Tensor,
+                            fm_neg: torch.Tensor, *,
+                            margin: float) -> dict[str, torch.Tensor]:
+    """Contrastive pos/neg pair, targets 1 / 0
+    (reference train/train_efficient_cos_con_ce_loss.py:233-238)."""
+    poss = contrastive_loss(fm_qry, fm_pos, 1.0, margin=margin)
+    negs = contrastive_loss(fm_qry, fm_neg, 0.0, margin=margin)
+    return {"loss_con_poss": poss, "loss_con_negs": negs,
+            "loss_con": poss + negs}

@@ -1,8 +1,13 @@
-"""Unique-class dedup of ranked retrievals (metric definition #3).
+"""Retrieval metrics: the reference's top-k definitions.
 
-Counterpart of ``imageretrievalresearch_tpu/metrics.py``
-(``unique_class_dedup``, ``dedup_and_score``), with the batch dimension
-written out where JAX uses ``vmap``.
+Counterpart of ``imageretrievalresearch_tpu/metrics.py``: the in-batch
+class match of training and validation (``inbatch_topk``), the gallery
+index match (``gallery_topk_index_match``), the unique-class dedup of
+ranked retrievals (``unique_class_dedup``, ``dedup_and_score``, with the
+batch dimension written out where JAX uses ``vmap``), the pairwise
+``cos_sims`` / ``cos_unsims`` that drive checkpointing and early stopping,
+and the classifier top-k. Top-k ties go to the lowest index, as
+``lax.top_k`` does (stable sorts; ``torch.topk`` does not promise it).
 """
 
 from __future__ import annotations
@@ -10,6 +15,65 @@ from __future__ import annotations
 import math
 
 import torch
+
+from imageretrievalresearch_tpu_torch.losses import (
+    COSINE_SIM_EPS,
+    cosine_similarity,
+)
+from imageretrievalresearch_tpu_torch.ops.retrieval import _stable_topk
+
+
+def cosine_sim_matrix(queries: torch.Tensor, gallery: torch.Tensor, *,
+                      eps: float = COSINE_SIM_EPS) -> torch.Tensor:
+    """All-pairs cosine similarity (Q, G): ``dots / max(|q| |g|, eps)``."""
+    queries = queries.float()
+    gallery = gallery.float()
+    qn = torch.linalg.vector_norm(queries, dim=-1, keepdim=True)
+    gn = torch.linalg.vector_norm(gallery, dim=-1, keepdim=True)
+    return (queries @ gallery.t()) / torch.clamp(qn * gn.t(), min=eps)
+
+
+def inbatch_topk(fm_qry: torch.Tensor, fm_pos: torch.Tensor,
+                 classes: torch.Tensor, *, k: int = 3
+                 ) -> dict[str, torch.Tensor]:
+    """In-batch class-match top-1/top-k (metric definition #1): each query
+    against every positive of the batch; k is clamped to the batch (a
+    partial final batch), the key keeps the requested k."""
+    sims = cosine_sim_matrix(fm_qry, fm_pos)
+    _, inds = _stable_topk(sims, min(k, sims.shape[-1]))
+    match = classes[inds] == classes[:, None]
+    return {f"top{k}": match.any(dim=1).float().mean(),
+            "top1": match[:, 0].float().mean()}
+
+
+def pairwise_cos_stats(fm_qry: torch.Tensor, fm_pos: torch.Tensor,
+                       fm_neg: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Mean pairwise cos(qry, pos) / cos(qry, neg): the logged
+    ``cos_sims`` (the checkpoint and early-stop monitor) / ``cos_unsims``."""
+    return {"cos_sims": cosine_similarity(fm_qry, fm_pos).mean(),
+            "cos_unsims": cosine_similarity(fm_qry, fm_neg).mean()}
+
+
+def gallery_topk_index_match(sims: torch.Tensor, *,
+                             ks: tuple[int, ...] = (1, 3)
+                             ) -> dict[str, torch.Tensor]:
+    """Gallery index-match top-k (metric definition #2): query i's true
+    positive sits at gallery index i."""
+    kmax = min(max(ks), sims.shape[-1])
+    _, inds = _stable_topk(sims, kmax)
+    hit = inds == torch.arange(sims.shape[0], device=sims.device)[:, None]
+    return {f"top{k}": hit[:, :k].any(dim=1).float().mean() for k in ks}
+
+
+def classifier_topk(logits: torch.Tensor, labels: torch.Tensor, *,
+                    k: int = 3) -> dict[str, torch.Tensor]:
+    """Classifier-logit top-k: hit iff the label is among the k largest
+    logits (reference train/train_vit_crossentropy.py:209-218, the
+    validation form)."""
+    _, inds = _stable_topk(logits.float(), k)
+    match = inds == labels.long()[:, None]
+    return {f"top{k}": match.any(dim=1).float().mean(),
+            "top1": match[:, 0].float().mean()}
 
 
 def unique_class_dedup(inds: torch.Tensor, vals: torch.Tensor,

@@ -4,8 +4,9 @@ Counterpart of ``imageretrievalresearch_tpu/models/backbone.py``.
 ``create_model(name, ...)`` mirrors ``timm.create_model`` and returns a
 :class:`Backbone` module: ``forward_features`` (NHWC map), ``head``
 (logits, or the pooled embedding when ``embed_only``), ``embed``
-(``get_fm(forward_features(x))``), with the optional ``conv_input`` stem.
-Only the EfficientNet family is ported so far.
+(``get_fm(forward_features(x))``), ``features_and_logits`` (embedding and
+logits from one pass, in train or eval mode), with the optional
+``conv_input`` stem. Only the EfficientNet family is ported so far.
 """
 
 from __future__ import annotations
@@ -20,7 +21,11 @@ from imageretrievalresearch_tpu_torch.models.efficientnet import (
     EFFICIENTNET_CONFIGS,
     EfficientNet,
 )
-from imageretrievalresearch_tpu_torch.models.layers import ConvStem
+from imageretrievalresearch_tpu_torch.models.layers import (
+    ConvStem,
+    Dropout,
+    DropPath,
+)
 from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
 
 _REGISTRY = {name: (EfficientNet, cfg)
@@ -63,6 +68,26 @@ class Backbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.forward_features(x))
+
+    def features_and_logits(self, x: torch.Tensor, *, train: bool = False,
+                            generator: torch.Generator | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pass -> (pooled embedding, logits). ``train`` switches the
+        module to training (BatchNorm on batch statistics, updating its
+        running ones; dropout on) or evaluation; the dropout layers draw
+        their masks from ``generator``, a ``torch.Generator`` on x's
+        device."""
+        self.train(train)
+        drops = [m for m in self.modules()
+                 if isinstance(m, (Dropout, DropPath))]
+        for m in drops:
+            m.generator = generator
+        try:
+            emb = self.embed(x)
+            return emb, self.head(emb)
+        finally:
+            for m in drops:
+                m.generator = None
 
     @property
     def num_features(self) -> int:

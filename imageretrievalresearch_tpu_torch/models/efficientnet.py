@@ -21,7 +21,9 @@ import torch
 from torch import nn
 
 from imageretrievalresearch_tpu_torch.models.layers import (
+    DepthwiseConv2d,
     DropPath,
+    Dropout,
     SqueezeExcite,
     batch_norm,
     conv2d,
@@ -60,7 +62,7 @@ class MBConv(nn.Module):
         rd = max(1, int(in_chs * se_ratio))
         self.act = nn.SiLU()
         if self.separable:
-            self.conv_dw = conv2d(mid, mid, kernel_size, stride, groups=mid)
+            self.conv_dw = DepthwiseConv2d(mid, kernel_size, stride)
             self.bn1 = batch_norm(mid)
             self.se = SqueezeExcite(mid, rd, act=nn.SiLU())
             self.conv_pw = conv2d(mid, out_chs, 1)
@@ -68,7 +70,7 @@ class MBConv(nn.Module):
         else:
             self.conv_pw = conv2d(in_chs, mid, 1)
             self.bn1 = batch_norm(mid)
-            self.conv_dw = conv2d(mid, mid, kernel_size, stride, groups=mid)
+            self.conv_dw = DepthwiseConv2d(mid, kernel_size, stride)
             self.bn2 = batch_norm(mid)
             self.se = SqueezeExcite(mid, rd, act=nn.SiLU())
             self.conv_pwl = conv2d(mid, out_chs, 1)
@@ -119,7 +121,7 @@ class EfficientNet(nn.Module):
         self.num_features = make_divisible(1280 * w)
         self.conv_head = conv2d(in_chs, self.num_features, 1)
         self.bn2 = batch_norm(self.num_features)
-        self.drop = nn.Dropout(drop_rate)
+        self.drop = Dropout(drop_rate)
         self.num_classes = num_classes
         self.classifier = (nn.Linear(self.num_features, num_classes)
                            if num_classes > 0 else nn.Identity())

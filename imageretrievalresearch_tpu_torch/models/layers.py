@@ -3,14 +3,26 @@
 Counterpart of ``imageretrievalresearch_tpu/models/layers.py``, with the
 reference's torch arithmetic: ``nn.Conv2d(padding=k//2)`` (symmetric), and
 ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``. Tensors are NCHW inside the
-modules; the depthwise conv is a grouped ``nn.Conv2d`` (cuDNN on the card),
-which is what the JAX package runs by default.
+modules (channels-last in memory: the model's input is an NHWC view). The
+depthwise conv is a grouped ``nn.Conv2d`` (cuDNN on the card), which is
+what the JAX package runs by default, or, with ``IRT_FORCE_PALLAS_DW=1``,
+the hand-written kernels of ``ops.depthwise``.
+
+The two random layers, ``DropPath`` and ``Dropout``, draw their masks from
+an explicit ``torch.Generator`` (their ``generator`` attribute, which
+``Backbone.features_and_logits`` sets for a pass), as JAX draws from the
+``dropout`` key; the streams do not follow ``jax.random``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from imageretrievalresearch_tpu_torch.ops.depthwise import (
+    depthwise_conv,
+    use_depthwise_kernel,
+)
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: int | None = None,
@@ -27,6 +39,23 @@ def conv2d(in_chs: int, out_chs: int, kernel_size: int, stride: int = 1,
            groups: int = 1, bias: bool = False) -> nn.Conv2d:
     return nn.Conv2d(in_chs, out_chs, kernel_size, stride=stride,
                      padding=kernel_size // 2, groups=groups, bias=bias)
+
+
+class DepthwiseConv2d(nn.Conv2d):
+    """``Conv2d(C, C, K, stride, padding=K//2, groups=C, bias=False)``:
+    the same parameter (``weight`` (C, 1, K, K)), so timm state dicts and
+    ``params_from_jax`` load unchanged. With the opt-in set it runs
+    ``ops.depthwise.depthwise_conv`` (the kernels on a CUDA tensor, their
+    plain versions on a CPU one); otherwise the grouped conv."""
+
+    def __init__(self, chs: int, kernel_size: int, stride: int = 1):
+        super().__init__(chs, chs, kernel_size, stride=stride,
+                         padding=kernel_size // 2, groups=chs, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if use_depthwise_kernel():
+            return depthwise_conv(x, self.weight, self.stride[0])
+        return super().forward(x)
 
 
 def batch_norm(chs: int) -> nn.BatchNorm2d:
@@ -66,20 +95,44 @@ class SqueezeExcite(nn.Module):
         return x * torch.sigmoid(se)
 
 
-class DropPath(nn.Module):
-    """Stochastic depth (per-sample residual drop); identity in eval."""
+class _Drop(nn.Module):
+    """Keeps an element with probability ``1 - rate`` and scales it by
+    ``1 / (1 - rate)`` in training (identity in eval); the mask has
+    ``_mask_shape(x)`` and comes from ``generator``."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        raise NotImplementedError
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if self.generator is None:
+            raise ValueError(f"{type(self).__name__} in training needs a "
+                             "generator (Backbone.features_and_logits)")
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+        mask = torch.rand(self._mask_shape(x), generator=self.generator,
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(_Drop):
+    """Stochastic depth: one mask value per sample of the residual."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.ndim - 1)
+
+
+class Dropout(_Drop):
+    """Element-wise dropout (flax ``nn.Dropout``); ``F.dropout`` takes no
+    generator, so the mask is drawn here."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
 
 
 class ConvStem(nn.Module):

@@ -1,10 +1,12 @@
 """Device-side ops: preprocessing with on-device AutoAugment, pooling,
-retrieval; the hand-written CUDA kernels of the fused top-k
-(``retrieval``) and of AutoAugment (``image_kernels``)."""
+retrieval, depthwise convolution; the hand-written CUDA kernels of the
+fused top-k (``retrieval``), of AutoAugment (``image_kernels``) and of the
+depthwise convolution (``depthwise``)."""
 
 from imageretrievalresearch_tpu_torch.ops.autoaugment import (
     imagenet_policy_batch,
 )
+from imageretrievalresearch_tpu_torch.ops.depthwise import depthwise_conv2d
 from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
 from imageretrievalresearch_tpu_torch.ops.preprocess import (
     IMAGENET_MEAN,
@@ -32,4 +34,5 @@ __all__ = [
     "fused_cosine_topk",
     "l2_normalize",
     "imagenet_policy_batch",
+    "depthwise_conv2d",
 ]

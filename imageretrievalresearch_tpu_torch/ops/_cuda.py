@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+"""Build, load and launch the port's CUDA kernels (plain C interface,
+ctypes).
 
 Each source under ``csrc/`` compiles with its own ``nvcc`` call into a
 shared library under ``imageretrievalresearch_tpu_torch/_build/`` (listed
 in ``.gitignore``), at the first use of that library, named by a hash of
 the source so an edited source rebuilds. Nothing here runs at import
 time: the CPU tests import every module, and a machine without the CUDA
-toolkit has no ``nvcc``.
+toolkit has no ``nvcc``. The kernels' wrappers share the device dispatch
+(``on_cpu``), the operand checks and ``launch``.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 # library name -> its source
 SOURCES = {"fused_topk": _PKG / "csrc" / "fused_topk.cu",
-           "image_ops": _PKG / "csrc" / "image_ops.cu"}
+           "image_ops": _PKG / "csrc" / "image_ops.cu",
+           "depthwise_conv": _PKG / "csrc" / "depthwise_conv.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -38,6 +43,10 @@ SIGNATURES = {
                   "image_lut_apply": [_P, _P, _I, _I, _P, _P],
                   "image_row_shift": [_P, _P, _I, _I, _I, _P, _P],
                   "image_row_shift_cubic": [_P, _P, _I, _I, _I, _P, _P]},
+    # tensors, then the geometry, the tile plan (and the tap-gradient
+    # split), the bf16 flag, the stream
+    "depthwise_conv": {"dw_conv_forward": [_P] * 3 + [_I] * 12 + [_P],
+                       "dw_conv_grad_w": [_P] * 4 + [_I] * 14 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -99,3 +108,45 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def error_string(err: int, name: str) -> str:
     return getattr(load_library(name), f"{name}_error_string")(err).decode()
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain version), False
+    for a CUDA one (it launches its kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def check_operand(name: str, t: torch.Tensor,
+                  dtype: torch.dtype | tuple[torch.dtype, ...], shape: tuple,
+                  device: torch.device) -> torch.Tensor:
+    """Raise unless ``t`` is contiguous, of ``dtype`` (or one of them) and
+    ``shape``, on ``device``; returns ``t``."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if (t.device != device or t.dtype not in dtypes
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))} "
+                         f"{tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call entry point ``entry`` of library ``name`` on the current stream
+    of ``device``, tensors passed as pointers and ints as ints; raise on
+    the CUDA error it returns."""
+    lib = load_library(name)
+    p = ctypes.c_void_p
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(
+            *(p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
+            p(stream))
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"({error_string(err, name)})")

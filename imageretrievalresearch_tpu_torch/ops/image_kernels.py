@@ -15,9 +15,9 @@ went through the kernels only.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from imageretrievalresearch_tpu_torch.ops import _cuda
 
 FILL = 128
 
@@ -122,51 +122,19 @@ def row_shift_cubic_reference(rows: torch.Tensor, src0: torch.Tensor, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> torch.Tensor:
-    if (t.device != device or t.dtype != dtype
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
-
-
 def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
-    """Call the C entry ``entry`` on the current stream of ``dev``; raise
-    on a CUDA error, else count the launch."""
-    from imageretrievalresearch_tpu_torch.ops import _cuda
-
-    lib = _cuda.load_library("image_ops")
-    p = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            *(p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
-            p(stream))
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
-                           f"({_cuda.error_string(err, 'image_ops')})")
+    _cuda.launch("image_ops", entry, dev, *args)
     KERNEL_LAUNCHES[name] += 1
 
 
 def plane_histogram(planes: torch.Tensor) -> torch.Tensor:
     """Per-plane 256-bin histograms: (P, H, W) uint8 -> (P, 256) int32;
     replaces ``pallas_histogram``."""
-    if _on_cpu(planes):
+    if _cuda.on_cpu(planes):
         return plane_histogram_reference(planes)
     p, h, w = planes.shape
-    _check("planes", planes, torch.uint8, (p, h, w), planes.device)
+    _cuda.check_operand("planes", planes, torch.uint8, (p, h, w),
+                        planes.device)
     out = torch.zeros((p, 256), dtype=torch.int32, device=planes.device)
     _launch("plane_histogram", "image_histogram", planes.device,
             planes, p, h * w, out)
@@ -178,12 +146,12 @@ def lut_apply(planes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     (P, H, W) uint8; replaces ``pallas_lut_apply`` (which returns int32).
     The entries must lie in [0, 255], as the equalize and autocontrast
     LUTs do (both are clipped), so the planes stay uint8."""
-    if _on_cpu(planes):
+    if _cuda.on_cpu(planes):
         return lut_apply_reference(planes, lut)
     p, h, w = planes.shape
     dev = planes.device
-    _check("planes", planes, torch.uint8, (p, h, w), dev)
-    _check("lut", lut, torch.int32, (p, 256), dev)
+    _cuda.check_operand("planes", planes, torch.uint8, (p, h, w), dev)
+    _cuda.check_operand("lut", lut, torch.int32, (p, 256), dev)
     out = torch.empty_like(planes)
     _launch("lut_apply", "image_lut_apply", dev, planes, lut, p, h * w, out)
     return out
@@ -194,12 +162,12 @@ def row_shift(rows: torch.Tensor, shifts: torch.Tensor, *,
     """Per-row integer shift: (N, W) uint8 + (N,) int32 -> (N, W) uint8,
     ``out(n, x) = rows(n, x + shifts(n))``, ``fill`` outside [0, W);
     replaces ``pallas_row_shift``."""
-    if _on_cpu(rows):
+    if _cuda.on_cpu(rows):
         return row_shift_reference(rows, shifts, fill=fill)
     n, w = rows.shape
     dev = rows.device
-    _check("rows", rows, torch.uint8, (n, w), dev)
-    _check("shifts", shifts, torch.int32, (n,), dev)
+    _cuda.check_operand("rows", rows, torch.uint8, (n, w), dev)
+    _cuda.check_operand("shifts", shifts, torch.int32, (n,), dev)
     out = torch.empty_like(rows)
     _launch("row_shift", "image_row_shift", dev, rows, shifts, n, w, fill,
             out)
@@ -211,12 +179,12 @@ def row_shift_cubic(rows: torch.Tensor, src0: torch.Tensor, *,
     """Per-row fractional shift with PIL-bicubic resampling: (N, W) uint8 +
     (N,) f32 -> (N, W) uint8 (:func:`row_shift_cubic_reference`);
     replaces ``pallas_row_shift_cubic``."""
-    if _on_cpu(rows):
+    if _cuda.on_cpu(rows):
         return row_shift_cubic_reference(rows, src0, fill=fill)
     n, w = rows.shape
     dev = rows.device
-    _check("rows", rows, torch.uint8, (n, w), dev)
-    _check("src0", src0, torch.float32, (n,), dev)
+    _cuda.check_operand("rows", rows, torch.uint8, (n, w), dev)
+    _cuda.check_operand("src0", src0, torch.float32, (n,), dev)
     out = torch.empty_like(rows)
     _launch("row_shift_cubic", "image_row_shift_cubic", dev, rows, src0, n,
             w, fill, out)

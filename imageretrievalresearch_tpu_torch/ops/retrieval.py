@@ -30,13 +30,13 @@ Ties go to the lowest gallery index everywhere (``lax.top_k`` order).
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Callable
 
 import torch
 
 from imageretrievalresearch_tpu_torch.losses import COSINE_SIM_EPS
+from imageretrievalresearch_tpu_torch.ops import _cuda
 
 # Geometry of the CUDA kernels (compile-time constants of csrc/fused_topk.cu;
 # the launcher rejects a mismatch). The TPU kernels used 512 bins of depth 6.
@@ -390,18 +390,6 @@ def fused_splits(q: int, g: int, k: int, device: torch.device) -> int:
     return _n_splits(g, splits, FUSED_BINS)
 
 
-def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
-                   shape: tuple, device: torch.device) -> torch.Tensor:
-    if (t.device != device or t.dtype != dtype
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t
-
-
 # kernel variant per gallery dtype: (mode, C entry point, launch counter)
 _VARIANTS = {
     torch.float32: ("float32", "fused_topk_f32", "fused_cosine_topk"),
@@ -411,26 +399,26 @@ _VARIANTS = {
 
 def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
                             gallery_scale):
-    from imageretrievalresearch_tpu_torch.ops import _cuda
-
     dev = queries_hat.device
     _, entry, counter = _VARIANTS[gallery.dtype]
     q, d = queries_hat.shape
     g = gallery.shape[0]
-    _check_operand("queries_hat", queries_hat, torch.float32, (q, d), dev)
-    _check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
+    _cuda.check_operand("queries_hat", queries_hat, torch.float32, (q, d),
+                        dev)
+    _cuda.check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
     if gallery.dtype == torch.float32:
         if gallery_norms is None:
             gallery_norms = torch.linalg.vector_norm(gallery, dim=1)
-        aux = (_check_operand("gallery_norms", gallery_norms.reshape(-1),
-                              torch.float32, (g,), dev),)
+        aux = (_cuda.check_operand("gallery_norms",
+                                   gallery_norms.reshape(-1), torch.float32,
+                                   (g,), dev),)
         q_in = queries_hat
     elif gallery.dtype == torch.bfloat16:
         aux = ()
         q_in = queries_hat.to(torch.bfloat16)
     else:
         q_in, q_scale = quantize_rows_int8(queries_hat)
-        aux = (q_scale, _check_operand(
+        aux = (q_scale, _cuda.check_operand(
             "gallery_scale", gallery_scale.reshape(-1, 1), torch.float32,
             (g, 1), dev))
     n_split = fused_splits(q, g, k, dev)
@@ -440,20 +428,9 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
     vals = torch.empty((q, k), device=dev, dtype=torch.float32)
     inds = torch.empty((q, k), device=dev, dtype=torch.int32)
     ok = torch.empty((q,), device=dev, dtype=torch.int32)
-    lib = _cuda.load_library("fused_topk")
-    p = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            p(q_in.data_ptr()), p(gallery.data_ptr()),
-            *(p(a.data_ptr()) for a in aux), q, g, d, k, n_split,
-            FUSED_BINS, FUSED_T_DEPTH,
-            p(cand_v.data_ptr()), p(cand_i.data_ptr()), p(tth.data_ptr()),
-            p(vals.data_ptr()), p(inds.data_ptr()), p(ok.data_ptr()),
-            p(stream))
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error "
-                           f"{err} ({_cuda.error_string(err, 'fused_topk')})")
+    _cuda.launch("fused_topk", entry, dev, q_in, gallery, *aux, q, g, d, k,
+                 n_split, FUSED_BINS, FUSED_T_DEPTH, cand_v, cand_i, tth,
+                 vals, inds, ok)
     KERNEL_LAUNCHES[counter] += 1
     return vals, inds, ok
 

@@ -222,3 +222,124 @@ def test_policy_on_the_card_matches_the_cpu_table(cuda_device):
     ops, _, do, _ = draws
     rotated = ((ops == A.ROTATE) & do).any(dim=1)
     assert torch.equal(card[~rotated], cpu[~rotated])
+
+
+# ---------------------------------------------------------------------------
+# Depthwise conv kernels (csrc/depthwise_conv.cu) against their plain
+# versions. The forward (and so dx) is bitwise: the kernel rounds each
+# product and sum as the plain version does, in its order. The tap
+# gradients sum in another order: each tap within 1e-6 of the sum of the
+# absolute products (|x| against |g|); f32 reordering moves a sum by a few
+# 1e-8 of it, a dropped pixel by 1/(N Ho Wo) of it. Repeated runs are
+# bitwise equal. Shapes: C not a multiple of 32 or of the 64-channel block,
+# odd H with stride 2, K = 1 and 7, planes smaller than one tile and wider
+# than one; the last two give the tap-gradient kernel several (image, tile)
+# items per block (grad_w_splits), the first of them with a shorter last
+# split, as every b3a layer has at a train step's N = 192.
+# ---------------------------------------------------------------------------
+
+from imageretrievalresearch_tpu_torch.ops import depthwise as DW  # noqa: E402
+
+_DW_SHAPES = [(2, 16, 16, 8, 3, 1), (4, 14, 14, 40, 3, 2),
+              (2, 13, 9, 144, 5, 2), (3, 7, 7, 1392, 5, 1),
+              (2, 9, 9, 8, 7, 1), (2, 15, 11, 72, 7, 2),
+              (1, 57, 43, 24, 3, 2), (2, 28, 28, 200, 1, 1),
+              (5, 112, 112, 40, 3, 1), (43, 112, 112, 40, 3, 1),
+              (16, 56, 56, 300, 5, 2)]
+
+
+def _dw_splits(shape):
+    """The tap-gradient kernel's (nsplit, items_per_split) for ``shape``."""
+    n, h, w, c, k, s = shape
+    ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
+    th, tw, cb = DW.tile_plan(ho, wo, c, k, s)
+    return DW.grad_w_splits(n, -(-ho // th) * -(-wo // tw), -(-c // cb))
+
+
+def test_depthwise_shapes_cover_multi_item_splits():
+    """Runs without a card: the shapes above reach the kernel's loop over
+    several items per block, with and without a shorter last split."""
+    assert _dw_splits(_DW_SHAPES[-2]) == (1405, 3)   # 43 x 98 = 4214 items
+    assert _dw_splits(_DW_SHAPES[-1]) == (128, 2)    # 10 channel blocks
+    assert _dw_splits(_DW_SHAPES[0])[1] == 1
+
+
+def _dw_inputs(rng, shape, dtype, device):
+    n, h, w, c, k, s = shape
+    ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
+    x = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, ho, wo, c)).astype(np.float32))
+    taps = torch.from_numpy(rng.normal(size=(k, k, c)).astype(np.float32))
+    return (x.to(device, dtype), g.to(device, dtype),
+            taps.to(dtype).float().to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _DW_SHAPES)
+def test_depthwise_kernels_match_plain_version(cuda_device, shape, dtype):
+    rng = np.random.default_rng(6)
+    x, g, taps = _dw_inputs(rng, shape, dtype, cuda_device)
+    k, s = shape[4], shape[5]
+    DW.reset_launch_counts()
+    y = DW.depthwise_forward(x, taps, s)
+    dw = DW.depthwise_grad_w(x, g, k, s)
+    dw_again = DW.depthwise_grad_w(x, g, k, s)
+    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
+                                  "depthwise_conv_grad_w": 2}
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    assert torch.equal(y, DW.depthwise_forward_reference(x, taps, s))
+    want = DW.depthwise_grad_w_reference(x, g, k, s)
+    scale = DW.depthwise_grad_w_reference(x.abs(), g.abs(), k, s)
+    assert ((dw - want).abs() <= 1e-6 * scale).all()
+    assert torch.equal(dw, dw_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 13, 9, 144, 5, 2),
+                                   (4, 14, 14, 40, 3, 2),
+                                   (2, 9, 9, 8, 7, 1)])
+def test_depthwise_function_gradients_through_the_kernels(cuda_device,
+                                                          shape):
+    """The autograd Function on the card: forward, dx (flipped taps on the
+    dilated cotangent) and dw, each against cuDNN's grouped conv in true
+    f32 (TF32 off), within f32 rounding."""
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, c, k, s = shape
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32)
+                         ).to(cuda_device).permute(0, 3, 1, 2)
+    x.requires_grad_(True)
+    wt = torch.from_numpy(rng.normal(size=(c, 1, k, k)).astype(np.float32)
+                          ).to(cuda_device).requires_grad_(True)
+    DW.reset_launch_counts()
+    y = DW.depthwise_conv(x, wt, s)
+    ref = F.conv2d(x, wt, stride=s, padding=k // 2, groups=c)
+    # a channels-last cotangent, as the model's are: no layout copy
+    cot = torch.randn(ref.shape, device=cuda_device).contiguous(
+        memory_format=torch.channels_last)
+    dx, dw = torch.autograd.grad((y * cot).sum(), (x, wt))
+    ex, ew = torch.autograd.grad((ref * cot).sum(), (x, wt))
+    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 2,
+                                  "depthwise_conv_grad_w": 1}
+    assert not any(DW.PLAIN_ON_CARD.values())
+    assert DW.LAYOUT_COPIES["nhwc"] == 0
+    for got, want in ((y, ref), (dx, ex), (dw, ew)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_depthwise_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 8, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        DW.depthwise_forward(x, torch.zeros((4, 4, 16), device=cuda_device),
+                             1)
+    with pytest.raises(ValueError):
+        DW.depthwise_forward(x, torch.zeros((3, 3, 16), device=cuda_device),
+                             3)
+    with pytest.raises(ValueError):
+        DW.depthwise_forward(x.half(), torch.zeros((3, 3, 16),
+                                                   device=cuda_device), 1)

@@ -1,0 +1,224 @@
+"""The port's depthwise conv (``ops/depthwise.py``) against the JAX
+package's Pallas depthwise kernel in interpret mode (``_dw_op(...,
+interpret=True)``), forward and both gradients, at JAX's tolerances on
+JAX's own cases; the layer's opt-in and its state-dict layout; the
+kernels' tile plan. On the CPU the port's Function runs the kernels' plain
+versions through the same wiring (flip, dilation, high pad) as on the card.
+"""
+
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from imageretrievalresearch_tpu.ops.pallas_conv import _dw_op
+from imageretrievalresearch_tpu_torch.models import create_model
+from imageretrievalresearch_tpu_torch.models.layers import DepthwiseConv2d
+from imageretrievalresearch_tpu_torch.ops import depthwise as DW
+
+# tests/test_pallas_conv.py's cases: (N, H, W, C, K, stride)
+CASES = [
+    (2, 16, 16, 8, 3, 1),
+    (4, 14, 14, 40, 3, 2),
+    (1, 15, 15, 8, 5, 1),
+    (2, 13, 9, 144, 5, 2),
+    (8, 7, 7, 160, 3, 1),
+    (2, 9, 9, 8, 7, 1),
+]
+GOLDEN = Path(__file__).resolve().parent / "golden"
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Each case through the Pallas kernel (interpret mode) once: seeded
+    numpy x, w and cotangent -> the output and the vjp's dx, dw."""
+    rng = np.random.default_rng(0)
+    runs = {}
+    for case in CASES:
+        n, h, w, c, k, s = case
+        ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
+        x = rng.normal(size=(n, h, w, c)).astype(np.float32)
+        wt = rng.normal(size=(k, k, 1, c)).astype(np.float32)
+        cot = rng.normal(size=(n, ho, wo, c)).astype(np.float32)
+        out, vjp = jax.vjp(lambda a, b, s=s: _dw_op(a, b, s, True),
+                           jnp.asarray(x), jnp.asarray(wt))
+        dx, dw = vjp(jnp.asarray(cot))
+        runs[case] = {"x": x, "w": wt, "cot": cot, "out": np.asarray(out),
+                      "dx": np.asarray(dx), "dw": np.asarray(dw)}
+    return runs
+
+
+def _port(run, s):
+    x = torch.from_numpy(run["x"]).requires_grad_(True)
+    w = torch.from_numpy(run["w"]).requires_grad_(True)
+    out = DW.depthwise_conv2d(x, w, stride=s)
+    dx, dw = torch.autograd.grad(out, (x, w),
+                                 torch.from_numpy(run["cot"]))
+    return out.detach().numpy(), dx.numpy(), dw.numpy()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_matches_jax_kernel(jax_runs, case):
+    run = jax_runs[case]
+    out, _, _ = _port(run, case[5])
+    assert out.shape == run["out"].shape
+    np.testing.assert_allclose(out, run["out"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_grads_match_jax_kernel(jax_runs, case):
+    run = jax_runs[case]
+    _, dx, dw = _port(run, case[5])
+    assert dx.shape == run["x"].shape and dw.shape == run["w"].shape
+    np.testing.assert_allclose(dx, run["dx"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dw, run["dw"], rtol=1e-4, atol=1e-4)
+
+
+def test_conv_dw_key_and_shape_unchanged():
+    """The b3a state dict keeps timm's keys and shapes: ``conv_dw.weight``
+    is (C, 1, K, K), so timm dicts and params_from_jax load unchanged."""
+    model = create_model("efficientnet_b3a", device="cpu", seed=None)
+    got = {k: list(v.shape) for k, v in model.net.state_dict().items()}
+    golden = json.loads((GOLDEN / "efficientnet_b3a.keys.json").read_text())
+    assert got == {k: list(v) for k, v in golden.items()}
+    dws = [m for m in model.modules() if isinstance(m, DepthwiseConv2d)]
+    assert len(dws) == 26
+    assert model.net.blocks[1][0].conv_dw.weight.shape == (144, 1, 3, 3)
+
+
+def _tiny_model():
+    return create_model("efficientnet_b3a", num_classes=5, width_mult=0.5,
+                        depth_mult=0.1, drop_rate=0.0, device="cpu", seed=3)
+
+
+def test_opt_in_runs_the_plain_versions_on_a_cpu_tensor(monkeypatch):
+    """With IRT_FORCE_PALLAS_DW set, a CPU tensor goes through the
+    Function's plain versions, never the grouped conv, and agrees with the
+    grouped conv's forward and gradients (eval mode: BatchNorm over the
+    tiny model's 1 x 1 maps of 4 images would amplify rounding)."""
+    model = _tiny_model()
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (4, 32, 32, 3), dtype=np.float32))
+
+    def run():
+        model.zero_grad()
+        out = model(x)
+        out.square().sum().backward()
+        return out.detach(), [p.grad.clone() for p in model.parameters()]
+
+    monkeypatch.delenv("IRT_FORCE_PALLAS_DW", raising=False)
+    want, want_g = run()
+    monkeypatch.setenv("IRT_FORCE_PALLAS_DW", "1")
+
+    def no_grouped_conv(*args):
+        raise AssertionError("the grouped conv ran with the opt-in set")
+
+    monkeypatch.setattr(DepthwiseConv2d, "_conv_forward", no_grouped_conv)
+    DW.reset_launch_counts()
+    got, got_g = run()
+    assert not any(DW.KERNEL_LAUNCHES.values())
+    assert DW.LAYOUT_COPIES["nhwc"] == 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+def test_opt_in_raises_on_a_device_it_does_not_take(monkeypatch):
+    """Neither CPU nor CUDA: the wrappers raise, nothing falls back."""
+    monkeypatch.setenv("IRT_FORCE_PALLAS_DW", "1")
+    layer = DepthwiseConv2d(8, 3).to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        layer(torch.empty((1, 8, 6, 6), device="meta"))
+
+
+@pytest.mark.parametrize("k,s", [(4, 1), (9, 1), (3, 3)])
+def test_rejects_what_the_kernels_do_not_take(k, s):
+    x = torch.zeros((1, 8, 8, 4))
+    with pytest.raises(ValueError):
+        DW.depthwise_forward(x, torch.zeros((k, k, 4)), s)
+    with pytest.raises(ValueError):
+        DW.depthwise_conv(x.permute(0, 3, 1, 2), torch.zeros((4, 1, k, k)),
+                          s)
+
+
+def test_autocast_gives_the_op_bf16_and_the_parameter_an_f32_gradient(
+        monkeypatch):
+    """Under autocast the op takes x and the weight in bf16, as a conv's
+    inputs are cast; the f32 parameter gets an f32 gradient close to the
+    grouped conv's under the same autocast."""
+    rng = np.random.default_rng(2)
+    layer = DepthwiseConv2d(24, 5, stride=2)
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(
+            rng.normal(size=(24, 1, 5, 5)).astype(np.float32)))
+    x = torch.from_numpy(rng.normal(size=(2, 11, 13, 24)).astype(
+        np.float32)).permute(0, 3, 1, 2)
+
+    def run(opt_in):
+        if opt_in:
+            monkeypatch.setenv("IRT_FORCE_PALLAS_DW", "1")
+        else:
+            monkeypatch.delenv("IRT_FORCE_PALLAS_DW", raising=False)
+        layer.zero_grad()
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            y = layer(x)
+        y.float().square().sum().backward()
+        return y, layer.weight.grad.clone()
+
+    y, g = run(True)
+    ry, rg = run(False)
+    assert y.dtype == ry.dtype == torch.bfloat16
+    assert g.dtype == torch.float32
+    torch.testing.assert_close(y.float(), ry.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(g, rg, rtol=3e-2, atol=3e-2 * rg.abs().max())
+
+
+# b3a's depthwise layers at 224 px, (C, H, K, stride), and ragged ones
+_PLAN_SHAPES = [(40, 112, 3, 1), (24, 112, 3, 1), (144, 112, 3, 2),
+                (192, 56, 3, 1), (192, 56, 5, 2), (288, 28, 5, 1),
+                (288, 28, 3, 2), (576, 14, 3, 1), (576, 14, 5, 1),
+                (816, 14, 5, 1), (816, 14, 5, 2), (1392, 7, 5, 1),
+                (1392, 7, 3, 1), (2304, 7, 3, 1), (8, 9, 7, 1),
+                (72, 15, 7, 2), (3, 1, 1, 1), (200, 2, 7, 2)]
+
+
+@pytest.mark.parametrize("c,h,k,s", _PLAN_SHAPES)
+def test_tile_plan_fits_and_covers(c, h, k, s):
+    ho = DW.out_len(h, k, s)
+    th, tw, cb = DW.tile_plan(ho, ho, c, k, s)
+    assert 1 <= th <= ho and 1 <= tw <= ho and 1 <= cb <= min(c, 64)
+    assert DW._smem(th, tw, cb, k, s) <= DW.MAX_SMEM
+    tiles = -(-ho // th) * -(-ho // tw)
+    for n in (1, 8, 192):
+        nsplit, per = DW.grad_w_splits(n, tiles, -(-c // cb))
+        # every (image, tile) item in exactly one split, none empty
+        assert nsplit * per >= n * tiles > (nsplit - 1) * per
+
+
+def test_dilate_restores_the_dropped_rows():
+    """Stride 2 on an odd and an even size: the dilated cotangent has the
+    input's size, g's rows at even positions, zeros elsewhere."""
+    g = torch.arange(1, 1 + 2 * 3 * 4 * 5, dtype=torch.float32).reshape(
+        2, 3, 4, 5)
+    for h, w in ((5, 7), (6, 8)):
+        assert DW.out_len(h, 3, 2) == 3 and DW.out_len(w, 3, 2) == 4
+        d = DW.dilate(g, 2, h, w)
+        assert d.shape == (2, h, w, 5)
+        assert torch.equal(d[:, 0:5:2, 0:7:2], g)
+        assert d.sum() == g.sum()
+    assert DW.dilate(g, 1, 3, 4) is g
+
+
+def test_plain_forward_matches_the_grouped_conv():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(3, 10, 7, 16)).astype(np.float32))
+    taps = torch.from_numpy(rng.normal(size=(5, 5, 16)).astype(np.float32))
+    got = DW.depthwise_forward_reference(x, taps, 2)
+    want = F.conv2d(x.permute(0, 3, 1, 2), taps.permute(2, 0, 1)[:, None],
+                    stride=2, padding=2, groups=16).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

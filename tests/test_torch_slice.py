@@ -31,10 +31,11 @@ from imageretrievalresearch_tpu_torch.retrieval import (
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "imageretrievalresearch_tpu_torch"
-# jax, flax, ml_dtypes, PIL, and the JAX package — whose name is a prefix
-# of the port's, hence the lookahead
+# jax, flax, optax, orbax, ml_dtypes, PIL, yaml, and the JAX package —
+# whose name is a prefix of the port's, hence the lookahead
 FORBIDDEN = re.compile(
-    r"^(jax|flax|ml_dtypes|PIL|imageretrievalresearch_tpu(?!_torch))(\.|$)")
+    r"^(jax|flax|optax|orbax|ml_dtypes|PIL|yaml"
+    r"|imageretrievalresearch_tpu(?!_torch))(\.|$)")
 
 
 def _near_tie_agreement(v, i, rv, ri, atol=1e-5):
@@ -150,9 +151,11 @@ def test_port_imports_nothing_of_jax():
     assert not FORBIDDEN.match("imageretrievalresearch_tpu_torch.ops")
     code = ("import sys, imageretrievalresearch_tpu_torch.retrieval, "
             "imageretrievalresearch_tpu_torch.models.convert, "
-            "imageretrievalresearch_tpu_torch.ops.preprocess; "
+            "imageretrievalresearch_tpu_torch.ops.preprocess, "
+            "imageretrievalresearch_tpu_torch.train, "
+            "imageretrievalresearch_tpu_torch.recipes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'ml_dtypes', 'PIL', "
+            "('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'PIL', 'yaml', "
             "'imageretrievalresearch_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 
