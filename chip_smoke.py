@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero, with no result line):
 
 1. Build the port's CUDA kernels (``csrc/fused_topk.cu``,
-   ``csrc/image_ops.cu`` and ``csrc/depthwise_conv.cu``, one nvcc process
-   each, started together) and print the card's name and power limit.
+   ``csrc/image_ops.cu``, ``csrc/depthwise_conv.cu`` and
+   ``csrc/stream_probe.cu``, one nvcc process each, started together) and
+   print the card's name and power limit.
 2. Main path: ``efficientnet_b3a`` at full width with seeded random weights
    embeds 512 seeded uint8 224x224 images through the squarepad eval
    transform into a ``GalleryIndex``, which then takes 99,488 seeded unit
@@ -61,7 +62,24 @@ Phases (any failure exits non-zero, with no result line):
    falls outside those tolerances. Warm
    epoch times of both paths (wall and CUDA events), peak memory, and one
    profiled epoch each: top device ops and the idle share.
-7. One JSON line of kernels, the nvidia-smi line, and the result line.
+7. Inference evaluation on the scores kernel (kernel 4), and the
+   profiling tool's kernels. ``RetrievalEngine(use_pallas=True)`` on the
+   phase 2 b3a: ``embed_triplet_loader`` over 8 batches of 64 seeded
+   256 px triplets, then ``evaluate_class_dedup`` (k=150, num_unique=3)
+   and ``evaluate_index_match``, counts set to 0 just before and read just
+   after (one scores launch per evaluation, no top-k kernel, no plain
+   version on the card); the same evaluations with ``use_pallas=False``
+   give equal top1 / top3. ``search`` over the 100,000 x 1536 gallery at
+   Q = 64 and 8 agrees with the fused kernel 1 (near-tie rule); its warm
+   time. Kernel 4 against its plain version (bitwise on ±1 rows, within
+   1e-5 on float rows) at Q = 64 and 512 over that gallery and at a ragged
+   shape; its kernel, plain and library (cuBLAS + normalize) times. The
+   ladder's rungs (kernel 11, f32 and bf16) against their plain versions,
+   then ``tools.profile_fused_kernel.run_ladder`` at Q = 64 with the
+   attribution by differences and one burst under ``utils.profiling.
+   trace``; the stream probe (kernel 12) against its plain version and its
+   read rate at four block heights, beside a torch read+write pass.
+8. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -72,7 +90,6 @@ import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -104,10 +121,14 @@ from imageretrievalresearch_tpu_torch.retrieval import (  # noqa: E402
     GalleryIndex,
     RetrievalEngine,
 )
+from imageretrievalresearch_tpu_torch.tools import (  # noqa: E402
+    profile_fused_kernel as PF,
+)
 from imageretrievalresearch_tpu_torch.train import (  # noqa: E402
     Trainer,
     build_train_step,
 )
+from imageretrievalresearch_tpu_torch.utils.profiling import trace  # noqa: E402
 
 SEED = 0
 G_TOTAL, N_IMAGES, DIM, K, SIZE = 100_000, 512, 1536, 150, 224
@@ -176,17 +197,16 @@ DW_FAULTS = ("forward", "dx", "dw")
 # pixel dropped from every sum moves it by 1 / (N Ho Wo), 1e-5 at the
 # (40, 112) layer and N = 8
 DW_GRAD_W_RTOL = 1e-6
+# the inference evaluation (phase 7): 8 batches of 64 seeded triplets, so
+# 512 queries against a gallery of 512 positives; kernel 4's ragged shape
+# (Q, G, D); the line of each ladder rung in the JAX tool
+EVAL_BATCHES = 8
+SCORES_RAGGED = (37, 1001, 1000)
+LADDER = {"stream_only": 104, "matmul_only": 116, "insert_only": 131}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def sync_time(fn):
@@ -228,6 +248,21 @@ def pm1_rows(gen: torch.Generator, n: int, d: int, nnz: int = 256):
     out = torch.zeros((n, d), device=DEV)
     out.scatter_(1, pos[:, :nnz], sign.float())
     return out
+
+
+def near_tie_rows(inds, ref_inds, scores, kth, where) -> int:
+    """The number of rows whose top-k index sets differ from the
+    reference's; every index in a difference must score within 1e-5 of
+    the row's k-th value (a near-tie)."""
+    n_diff = 0
+    for r in range(inds.shape[0]):
+        diff = set(inds[r].tolist()) ^ set(ref_inds[r].tolist())
+        if diff:
+            n_diff += 1
+            d = torch.tensor(sorted(diff), device=DEV)
+            assert (scores[r, d] - kth[r]).abs().max().item() <= 1e-5, (
+                *where, r)
+    return n_diff
 
 
 def kernel_args(mode: str, form: tuple):
@@ -821,10 +856,308 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
     return entries
 
 
+def scores_bound(q: int, g: int, d: int, peaks: dict) -> tuple[float, str]:
+    """Kernel 4's bound, by JAX's cost estimate: bytes (Q·D + G·D + Q·G)·4
+    against 2·Q·G·D f32 operations."""
+    return bound(4 * (q * d + g * d + q * g), 2 * q * g * d, peaks)
+
+
+def scores_check(qh, g, exact: bool) -> float:
+    """Kernel 4 against its plain version on the card, one launch each
+    (not counted): bitwise where ``exact``, else within 1e-5. Returns the
+    largest |kernel - plain|."""
+    R.reset_launch_counts()
+    got, want = R.fused_cosine_scores(qh, g), R.cosine_scores_reference(qh, g)
+    torch.cuda.synchronize()
+    assert got.shape == (qh.shape[0], g.shape[0])
+    err = (got - want).abs().max().item()
+    if exact:
+        assert torch.equal(got, want), (tuple(qh.shape), tuple(g.shape), err)
+    assert err <= 1e-5, (tuple(qh.shape), tuple(g.shape), err)
+    return err
+
+
+def inference_phase(model, index, paths, gen, peaks) -> list:
+    """Phase 7: the inference evaluation on the scores kernel (kernel 4),
+    kernel 4 at the main path's gallery and against its plain version, and
+    the profiling tool's ladder (kernel 11) and stream probe (kernel 12);
+    returns their entries of the ``kernels`` line."""
+    eval_tf = build_eval_transform("squarepad", SIZE)
+    engines = {flag: RetrievalEngine(model, transform=eval_tf,
+                                     use_pallas=flag)
+               for flag in (True, False)}
+    loader = MemoryLoader(np.random.default_rng(SEED + 7), EVAL_BATCHES,
+                          TRAIN_BATCH)
+    n_eval = EVAL_BATCHES * TRAIN_BATCH
+
+    # 7.1 the inference CLI's evaluation on kernel 4: embed_triplet_loader
+    # -> evaluate_class_dedup / evaluate_index_match, counts set to 0 just
+    # before and read just after
+    R.reset_launch_counts()
+    embeds, embed_ms = sync_time(
+        lambda: engines[True].embed_triplet_loader(loader))
+    assert not any(R.KERNEL_LAUNCHES.values()), R.KERNEL_LAUNCHES
+    dedup, dedup_ms = sync_time(lambda: engines[True].evaluate_class_dedup(
+        embeds, k=K, num_unique=3))
+    assert R.KERNEL_LAUNCHES["fused_cosine_scores"] == 1, R.KERNEL_LAUNCHES
+    match, match_ms = sync_time(
+        lambda: engines[True].evaluate_index_match(embeds))
+    launches = dict(R.KERNEL_LAUNCHES)
+    plain = dict(R.PLAIN_ON_CARD)
+    log(f"inference evaluation, use_pallas=True: embed_triplet_loader "
+        f"({EVAL_BATCHES} batches of {TRAIN_BATCH} seeded {TRAIN_SRC} px "
+        f"triplets, b3a at {SIZE} px) {embed_ms:.1f} ms; "
+        f"evaluate_class_dedup (k={K}, Q=G={n_eval}) {dedup_ms:.1f} ms; "
+        f"evaluate_index_match {match_ms:.1f} ms; launches {launches}")
+    # one query block of 512 per evaluation: one launch each
+    assert launches["fused_cosine_scores"] == 2, launches
+    assert sum(launches.values()) == 2, launches
+    assert not any(plain.values()), f"plain versions ran on the card: {plain}"
+    for key in ("fms_ims_all", "fms_poss_all", "fms_negs_all"):
+        assert embeds[key].shape == (n_eval, DIM), embeds[key].shape
+        assert np.isfinite(embeds[key]).all()
+    assert embeds["classes_all"].shape == (n_eval,)
+    ref_dedup = engines[False].evaluate_class_dedup(embeds, k=K,
+                                                    num_unique=3)
+    ref_match = engines[False].evaluate_index_match(embeds)
+    for key in ("top1", "top3"):
+        assert dedup[key] == ref_dedup[key], (key, dedup[key],
+                                              ref_dedup[key])
+        assert match[key] == ref_match[key], (key, match[key],
+                                              ref_match[key])
+    verr = np.abs(dedup["top_vals"] - ref_dedup["top_vals"]).max()
+    assert verr <= 1e-5, verr
+    n_pos = int((dedup["topk_inds"] != ref_dedup["topk_inds"]).sum())
+    assert abs(match["loss"] - ref_match["loss"]) <= 1e-5
+    log(f"  against use_pallas=False (fused kernel 1 / dense): top1 "
+        f"{dedup['top1']:.4f} / {ref_dedup['top1']:.4f}, top3 "
+        f"{dedup['top3']:.4f} / {ref_dedup['top3']:.4f} (class dedup); "
+        f"index match top1 {match['top1']:.4f}, top3 {match['top3']:.4f}, "
+        f"loss {match['loss']:.6f} / {ref_match['loss']:.6f}; {n_pos} "
+        f"deduped positions differ, values within {verr:.3g}")
+
+    # 7.2 kernel 4 on the main path's gallery: RetrievalEngine.search
+    gal, norms = index._gallery_on_device()
+    for n, emb in ((64, paths["float32"][0][0]), (8, paths["float32"][2][0])):
+        assert emb.shape == (n, DIM)
+        R.reset_launch_counts()
+        _, cold_ms = sync_time(lambda: engines[True].search(emb, gal, k=K))
+        (v, i), warm_ms = sync_time(
+            lambda: engines[True].search(emb, gal, k=K))
+        counts, plain = dict(R.KERNEL_LAUNCHES), dict(R.PLAIN_ON_CARD)
+        assert counts["fused_cosine_scores"] == 2, counts
+        assert sum(counts.values()) == 2, counts
+        assert not any(plain.values()), plain
+        qh = R.l2_normalize(emb)
+        fv, fi = R.cosine_topk(emb, gal, K, gallery_norms=norms,
+                               method="fused")
+        v, i = torch.from_numpy(v).to(DEV), torch.from_numpy(i).to(DEV)
+        verr = (v - fv).abs().max().item()
+        assert verr <= 1e-5, (n, verr)
+        n_diff = near_tie_rows(
+            i, fi, R.dense_scores(qh, gal, gallery_norms=norms),
+            fv[:, K - 1:K], ("search", n))
+        log(f"RetrievalEngine(use_pallas=True).search, Q={n}, G={G_TOTAL}, "
+            f"k={K}: {cold_ms:.2f} ms first, {warm_ms:.2f} ms warm (host "
+            f"clock, synchronised); launches {counts}; against the fused "
+            f"kernel 1: max |vals| diff {verr:.3g}, {n_diff} of {n} rows "
+            "with index sets that differ, only at near-ties")
+
+    # 7.3 kernel 4 against its plain version: ±1 rows with 16 nonzeros
+    # (norm 4, every partial sum exact) bitwise, seeded float rows within
+    # 1e-5, at the path's Q = 64 and 512 over G = 100,000 and at a ragged
+    # shape; then its times
+    err = 0.0
+    pg = pm1_rows(gen, G_TOTAL, DIM, nnz=16)
+    for q in (64, 512):
+        err = max(err, scores_check(R.l2_normalize(pm1_rows(gen, q, DIM, 16)),
+                                    pg, exact=True))
+        err = max(err, scores_check(R.l2_normalize(torch.randn(
+            (q, DIM), generator=gen, device=DEV)), gal, exact=False))
+    del pg
+    q, g, d = SCORES_RAGGED
+    err = max(err, scores_check(R.l2_normalize(pm1_rows(gen, q, d, 16)),
+                                pm1_rows(gen, g, d, 16), exact=True))
+    err = max(err, scores_check(R.l2_normalize(torch.randn(
+        (q, d), generator=gen, device=DEV)), torch.randn(
+        (g, d), generator=gen, device=DEV) * 3, exact=False))
+    log(f"scores kernel vs plain version at Q=64 and 512 x G={G_TOTAL} x "
+        f"D={DIM} and at {SCORES_RAGGED}: bitwise on ±1 rows, max "
+        f"|kernel - plain| {err:.3g} on float rows (limit 1e-5)")
+    entries = []
+    for q in (64, 512):
+        qh = R.l2_normalize(paths["float32"][0][0]) if q == 64 else \
+            R.l2_normalize(torch.randn((q, DIM), generator=gen, device=DEV))
+        ms = event_ms(lambda: R.fused_cosine_scores(qh, gal), reps=20)
+        plain_ms = event_ms(lambda: R.cosine_scores_reference(qh, gal),
+                            reps=10)
+        library_ms = event_ms(lambda: torch.matmul(
+            qh, R.l2_normalize(gal).t()), reps=10)
+        bound_ms, bound_by = scores_bound(q, G_TOTAL, DIM, peaks)
+        log(f"fused_cosine_scores Q={q} G={G_TOTAL} D={DIM}: {ms:.3f} ms "
+            f"(bound {bound_ms:.3f} ms, {bound_by}); plain {plain_ms:.3f} "
+            f"ms; library {library_ms:.3f} ms (torch.matmul(q̂, "
+            "l2_normalize(g)ᵀ), f32, TF32 off)")
+        if q == 64:
+            entries.append({
+                "name": "fused_cosine_scores", "route": "cuda",
+                "source": "imageretrievalresearch_tpu_torch/csrc/"
+                          "fused_topk.cu",
+                "replaces": "imageretrievalresearch_tpu/ops/retrieval.py:109",
+                "launches": launches["fused_cosine_scores"],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms})
+
+    # 7.4 kernel 11, the ladder: each rung against its plain version on ±1
+    # data (every word, sum and score exact: bitwise) and stream_only on
+    # the float gallery within its stated bound; then the tool's ladder at
+    # Q = 64 over the resident f32 and bf16 galleries, counts set to 0
+    # just before and read just after
+    q_hat = R.l2_normalize(paths["float32"][0][0])
+    pq, pg = R.l2_normalize(pm1_rows(gen, 64, DIM)), pm1_rows(gen, G_TOTAL,
+                                                              DIM)
+    variants = PF.build_variants()
+    forms = {"float32": (gal, norms),
+             "bfloat16": (index._gallery_on_device("bfloat16")[0], None)}
+    errs = {}
+    splits = R.fused_splits(64, G_TOTAL, K, DEV)
+    for mode in forms:
+        g_pm1 = pg if mode == "float32" else R._prepare_gallery(pg, mode)[0]
+        for rung in PF.RUNGS:
+            got = variants[rung].kernel(pq, g_pm1, K)
+            want = variants[rung].plain(pq, g_pm1, K, splits=splits)
+            torch.cuda.synchronize()
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert torch.equal(a, b), (mode, rung)
+            errs[(mode, rung)] = 0.0
+        g_in, n_in = forms[mode]
+        got = variants["stream_only"].kernel(q_hat, g_in, K,
+                                             gallery_norms=n_in)
+        want = variants["stream_only"].plain(q_hat, g_in, K,
+                                             gallery_norms=n_in,
+                                             splits=splits)
+        scale = variants["stream_only"].plain(
+            q_hat.abs(), g_in.abs(), K, gallery_norms=n_in, splits=splits)
+        err = (got - want).abs()
+        rtol = PF.stream_only_rtol(G_TOTAL, DIM, splits)
+        assert (err <= rtol * scale).all(), (mode, (err / scale).max())
+        errs[(mode, "stream_only")] = err.max().item()
+        log(f"ladder ({mode}): stream_only, matmul_only, insert_only "
+            f"bitwise equal to their plain versions on ±1 data; stream_only "
+            f"on the served gallery within {(err / scale).max().item():.3g} "
+            f"of the sum of |words| (limit {rtol:.3g})")
+    del pq, pg, g_pm1
+
+    PF.reset_launch_counts()
+    R.reset_launch_counts()
+    ladder = {mode: PF.run_ladder(q_hat, g_in, K, gallery_norms=n_in)
+              for mode, (g_in, n_in) in forms.items()}
+    ladder_launches = dict(PF.KERNEL_LAUNCHES)
+    assert not any(R.PLAIN_ON_CARD.values())
+    for mode, times in ladder.items():
+        tag = "f32" if mode == "float32" else "bf16"
+        for rung in PF.RUNGS:
+            assert ladder_launches[f"fused_topk_{tag}_{rung}"] > 0
+        log(f"ladder ({mode}), Q=64 G={G_TOTAL} D={DIM} k={K}, back-to-back "
+            f"launches (CUDA events): " + ", ".join(
+                f"{n} {t:.3f} ms" for n, t in times.items()))
+        for phase, t in PF.attribution(times).items():
+            log(f"  {phase:26s} {t:8.3f} ms")
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d) as prof:
+            # two bursts: the profiler missed the first rung's launches at
+            # the start of its window in a run on the card
+            for _ in range(2):
+                PF.run_ladder(q_hat, gal, K, gallery_norms=norms, n_iter=2,
+                              repeats=1)
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "fused_topk_split_kernel" in e.key]
+        assert len(os.listdir(d)) == 1 and len(names) == 4, names
+    log(f"utils.profiling.trace of one ladder burst: the four split-kernel "
+        f"phases on the device: {names}")
+    for mode, (g_in, n_in) in forms.items():
+        tag = "f32" if mode == "float32" else "bf16"
+        g_bytes = g_in.numel() * g_in.element_size() + (
+            0 if n_in is None else 4 * G_TOTAL)
+        for rung in PF.RUNGS:
+            plain_ms = event_ms(lambda: variants[rung].plain(
+                q_hat, g_in, K, gallery_norms=n_in, splits=splits), reps=3,
+                warmup=1)
+            out_bytes = 4 * 64 * splits * (2 * K if rung == "insert_only"
+                                           else 1)
+            nbytes = 4 * 64 * DIM + g_bytes + out_bytes
+            t_bytes = nbytes / peaks["bytes"] * 1e3
+            t_ops = (0.0 if rung == "stream_only"
+                     else 2 * 64 * G_TOTAL * DIM / peaks[mode] * 1e3)
+            entries.append({
+                "name": f"fused_topk_{tag}_{rung}", "route": "cuda",
+                "source": "imageretrievalresearch_tpu_torch/csrc/"
+                          "fused_topk.cu",
+                "replaces": f"tools/profile_fused_kernel.py:{LADDER[rung]}",
+                "launches": ladder_launches[f"fused_topk_{tag}_{rung}"],
+                "max_abs_err": errs[(mode, rung)],
+                "ms": ladder[mode][rung], "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "library_ms": None})
+
+    # 7.5 kernel 12, the stream probe over a (100,352, 1536) f32 array:
+    # bitwise on small integers (exact in f32), within its stated bound on
+    # float data; then the tool's probes, counts set to 0 just before and
+    # read just after, and the torch read+write pass
+    x = torch.randint(-3, 4, (PF.G_PAD, DIM), generator=gen, device=DEV
+                      ).float()
+    for rows in PF.PROBE_ROWS:
+        assert torch.equal(PF.stream_probe(x, rows),
+                           PF.stream_probe_reference(x, rows)), rows
+    x.normal_(generator=gen)
+    perr = 0.0
+    for rows in PF.PROBE_ROWS:
+        err = (PF.stream_probe(x, rows)
+               - PF.stream_probe_reference(x, rows)).abs()
+        scale = PF.stream_probe_reference(x.abs(), rows)
+        rtol = PF.stream_probe_rtol(PF.G_PAD, DIM, rows)
+        assert (err <= rtol * scale).all(), (rows, (err / scale).max())
+        perr = max(perr, err.max().item())
+    torch.cuda.synchronize()
+    log(f"stream probe vs plain version at rows {PF.PROBE_ROWS}: bitwise on "
+        f"small integers; float data within the stated bound (max |diff| "
+        f"{perr:.3g})")
+    PF.reset_launch_counts()
+    probes = PF.run_probes(x)
+    probe_launches = PF.KERNEL_LAUNCHES["stream_probe"]
+    assert probe_launches > 0
+    x_bytes = x.numel() * 4
+    for rows, ms in probes.items():
+        log(f"stream probe, blocks of ({rows}, {DIM}) over "
+            f"{x_bytes / 1e6:.1f} MB: {ms:.4f} ms = "
+            f"{x_bytes / ms / 1e6:.1f} GB/s read")
+    rw_ms = PF.torch_stream_ms(x)
+    log(f"torch elementwise read+write pass (torch.mul(x, c, out=y)): "
+        f"{rw_ms:.4f} ms = {2 * x_bytes / rw_ms / 1e6:.1f} GB/s")
+    rows = min(probes, key=probes.get)   # the fastest height
+    sum_ms = event_ms(lambda: PF.stream_probe_reference(x, rows), reps=10)
+    log(f"stream probe row: rows={rows}; plain = library = one torch call "
+        f"x.reshape(-1, rows, D).sum((0, 2)): {sum_ms:.4f} ms")
+    bound_ms, bound_by = bound(x_bytes + 4 * rows, x.numel(), peaks)
+    entries.append({
+        "name": "stream_probe", "route": "cuda",
+        "source": "imageretrievalresearch_tpu_torch/csrc/stream_probe.cu",
+        "replaces": "tools/profile_fused_kernel.py:212",
+        "launches": probe_launches, "max_abs_err": perr,
+        "ms": probes[rows], "plain_ms": sum_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": sum_ms})
+    del x
+    return entries
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
-    log(f"card: {smi()}; {torch.cuda.device_count()} visible, this run "
+    log(f"card: {PF.card()}; {torch.cuda.device_count()} visible, this run "
         "drives card 0 only")
     t0 = time.perf_counter()
     # one nvcc per source, all started together (each waits in its thread)
@@ -832,8 +1165,9 @@ def main() -> None:
         outputs = dict(zip(_cuda.SOURCES,
                            pool.map(_cuda.build, _cuda.SOURCES)))
     log(f"build {', '.join(outputs)} (fused_topk: f32, bf16, int8 split "
-        "kernels + merge; image_ops: histogram, LUT, row shifts; "
-        "depthwise_conv: forward, tap gradients + reduction), one nvcc "
+        "kernels + merge, the f32 and bf16 ladder rungs, the scores kernel; "
+        "image_ops: histogram, LUT, row shifts; depthwise_conv: forward, tap "
+        "gradients + reduction; stream_probe: row sums + fold), one nvcc "
         f"each in parallel: {time.perf_counter() - t0:.1f} s")
     for name, out in outputs.items():
         for line in out.splitlines():
@@ -1026,16 +1360,8 @@ def main() -> None:
                     f"{n_ok} rows certified")
                 continue
             assert e <= 1e-5, (mode, what, e)
-            scores = R.dense_scores(qh, g_in, mode)
-            kth = rv[:, K - 1:K]
-            n_diff = 0
-            for r in range(kv.shape[0]):
-                diff = set(ki[r].tolist()) ^ set(ri[r].tolist())
-                if diff:
-                    n_diff += 1
-                    d = torch.tensor(sorted(diff), device=DEV)
-                    assert (scores[r, d] - kth[r]).abs().max().item() <= 1e-5, (
-                        mode, what, r)
+            n_diff = near_tie_rows(ki, ri, R.dense_scores(qh, g_in, mode),
+                                   rv[:, K - 1:K], (mode, what))
             log(f"{mode} kernel, float gallery, {what}: max |vals - plain| "
                 f"= {e:.3g}; {n_diff} of {kv.shape[0]} rows have index sets "
                 "that differ, only at near-ties of the k-th value; "
@@ -1124,10 +1450,11 @@ def main() -> None:
 
     kernels += augment_phase(model, gen, peaks)
     kernels += training_phase(model, gen, peaks)
+    kernels += inference_phase(model, index, paths, gen, peaks)
 
-    # 7. result: the one card this run drove
+    # 8. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
-    print(smi())
+    print(PF.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": 1}}), flush=True)
 

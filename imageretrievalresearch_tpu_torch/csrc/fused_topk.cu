@@ -18,8 +18,17 @@
 //   into int32 (exact; zero-padded past D), then
 //   s = (float)acc * (qs[q] * gs[g]) rounded as JAX orders it, so the
 //   scores equal the dense int8 path's bit for bit.
-// Plain version and wrapper: imageretrievalresearch_tpu_torch/ops/
-// retrieval.py (fused_cosine_topk, fused_cosine_topk_reference).
+// - cosine_scores_f32 <- _scores_kernel (pallas_cosine_scores): the dense
+//   (Q, G) f32 cosine scores of q̂ against the raw f32 gallery, each gallery
+//   tile normalized inside the kernel (below).
+// - fused_topk_{f32,bf16}_{stream_only,matmul_only,insert_only} <- the
+//   ablation ladder of tools/profile_fused_kernel.py (build_variants): the
+//   split kernel cut after one of its phases (below).
+// Plain versions and wrappers: imageretrievalresearch_tpu_torch/ops/
+// retrieval.py (fused_cosine_topk, fused_cosine_topk_reference,
+// fused_cosine_scores, cosine_scores_reference) and
+// imageretrievalresearch_tpu_torch/tools/profile_fused_kernel.py (the
+// ladder).
 //
 // Bounds at Q=64, G=100,000, D=1536, k=150 on the H100 SXM at 700 W
 // (3.35 TB/s; 67 TFLOP/s f32 without tensor cores, 989 TFLOP/s bf16 and
@@ -55,6 +64,32 @@
 //   the split's deepest stored value. A second kernel merges the splits'
 //   sorted candidate lists per row (k-way, in shared memory) and sets
 //   ok = AND over splits of (deepest value < final k-th value).
+//
+// The ladder (phase P of the split kernel; FULL is the production
+// instance, the three others exist to attribute its time): STREAM does
+// FULL's global loads and shared-memory staging and folds every loaded
+// word (and norm) into per-row f32 sums, so no load can be dropped;
+// MATMUL adds the division by the norm and the product, and keeps the
+// split's max score per query row; INSERT adds the insertion chain and
+// writes the first k buffer lanes verbatim (no extraction, no merge).
+// Each rung keeps FULL's launch geometry and shared memory, so the
+// occupancy is the same; the differences of their times are the costs of
+// the phases that the others do not hide.
+//
+// Kernel 4 (cosine_scores_f32, phase SCORES of the split kernel). Bound
+// at Q=64, G=100,000, D=1536: bytes (Q·D + G·D + Q·G)·4 = 640 MB, 0.19 ms;
+// 2·Q·G·D = 19.7 GFLOP of f32 FMA, 0.29 ms: bound by operations, like
+// kernel 1, and by the same SIMT product. Design: one block per (64-row
+// gallery tile, 64-query tile), so blocks are independent and the output
+// needs no second pass; with no buffers a block needs 17 KB of shared
+// memory, so two fit an SM. The block first sums the squares of its 64
+// gallery rows over the whole of D (one warp per row, fmaf in lane order
+// then a butterfly), keeps max(sqrt, eps) in shared memory, then runs the
+// split kernel's staging and 4x4 micro-tile over the tile (the same
+// division as each word is staged) and writes its (64, 64) block of scores
+// straight into the (Q, G) output, masking the ragged edges: no padded
+// copies. The second read of the gallery tile comes from L2. TF32 is not
+// used: true f32.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -80,6 +115,8 @@ static_assert(QT == GT, "one staging layout serves both operands");
 static_assert(QT == 64 && THREADS == 256, "4x4 micro-tile per thread");
 
 enum Mode { F32 = 0, BF16 = 1, I8 = 2 };
+// the ladder's rungs, FULL (the production kernel) and SCORES (kernel 4)
+enum Phase { STREAM = 0, MATMUL = 1, INSERT = 2, FULL = 3, SCORES = 4 };
 
 // the staged word (f32 element, bf16 element widened, or four int8 codes)
 // and the accumulator of each mode
@@ -126,7 +163,17 @@ __device__ __forceinline__ Word<M> load_word(const void* base, int r,
 
 // gaux: f32 -> gallery norms (G,); int8 -> gallery scales (G,); bf16 -> unused.
 // qscale: int8 -> query scales (Q,); otherwise unused.
-template <int M>
+// Phase P (top of file): FULL writes cand_v / cand_i (Q, nsplit, k) and
+// tth (Q, nsplit); STREAM and MATMUL write one value per (query row,
+// split) into tth; INSERT writes the first k buffer lanes into cand_v /
+// cand_i. SCORES (kernel 4, f32 only) runs one block per (gallery tile,
+// query tile), grid (tiles, query tiles) with nsplit = tiles, computes its
+// tile's norms itself (gaux unused) and writes its scores into cand_v
+// (Q, G); it has no buffers, so its shared memory is the staging alone.
+// The production code is FULL's; every other phase only adds or leaves
+// out steps under `if constexpr`, so FULL compiles as it did before the
+// phases existed.
+template <int M, int P>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_topk_split_kernel(const void* __restrict__ q,
                         const void* __restrict__ g,
@@ -136,25 +183,46 @@ fused_topk_split_kernel(const void* __restrict__ q,
                         float* __restrict__ cand_v,
                         int* __restrict__ cand_i, float* __restrict__ tth) {
   using W = Word<M>;
+  static_assert(P == FULL || M != I8, "the ladder is built for f32, bf16");
+  static_assert(P != SCORES || M == F32, "the scores kernel is f32");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* bufv = reinterpret_cast<float*>(smem_raw);   // [TD][QT][BINS]
   int* bufi = reinterpret_cast<int*>(bufv + TD * QT * BINS);
-  W* qs = reinterpret_cast<W*>(bufi + TD * QT * BINS);  // [BK][PADW]
+  W* qs;                                                // [BK][PADW]
+  if constexpr (P == SCORES)
+    qs = reinterpret_cast<W*>(smem_raw);
+  else
+    qs = reinterpret_cast<W*>(bufi + TD * QT * BINS);
   W* gs = qs + BK * PADW;                               // [BK][PADW]
   float* gn = reinterpret_cast<float*>(gs + BK * PADW);  // [GT] norm/scale
   float* qsc = gn + GT;                                   // [QT] int8 scales
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * QT;
-  const int split = blockIdx.y;
+  const int q0 = (P == SCORES ? blockIdx.y : blockIdx.x) * QT;
+  const int split = P == SCORES ? blockIdx.x : blockIdx.y;
 
-  for (int e = tid; e < TD * QT * BINS; e += THREADS) {
-    bufv[e] = -CUDART_INF_F;
-    bufi[e] = 0;
+  if constexpr (P == INSERT || P == FULL) {
+    for (int e = tid; e < TD * QT * BINS; e += THREADS) {
+      bufv[e] = -CUDART_INF_F;
+      bufi[e] = 0;
+    }
   }
   if constexpr (M == I8)
     if (tid < QT) qsc[tid] = q0 + tid < Q ? qscale[q0 + tid] : 0.f;
+
+  // STREAM: per tile row (tid / 32 + 8p), the words this thread loads, and
+  // for thread tid < GT the norms of tile row tid. MATMUL: the max score
+  // of each of the thread's four query rows.
+  [[maybe_unused]] float rowsum[LOADS], normsum = 0.f, rowmax[4];
+  if constexpr (P == STREAM) {
+#pragma unroll
+    for (int p = 0; p < LOADS; ++p) rowsum[p] = 0.f;
+  }
+  if constexpr (P == MATMUL) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rowmax[i] = -CUDART_INF_F;
+  }
 
   const int words = M == I8 ? (D + 3) / 4 : D;
   const int nsteps = (words + BK - 1) / BK;
@@ -162,11 +230,27 @@ fused_topk_split_kernel(const void* __restrict__ q,
        tb += (long long)nsplit * GT) {
     const int base = (int)tb;
     __syncthreads();  // the previous tile is done with gn
-    if constexpr (M != BF16) {
+    if constexpr (P == SCORES) {
+      // the tile's norms: one warp per row, fmaf in lane order, butterfly
+      const int w = tid / 32, l = tid % 32;
+      for (int r = w; r < GT; r += WARPS) {
+        float ss = 0.f;
+        if (base + r < G) {
+          const float* row = static_cast<const float*>(g) +
+                             (size_t)(base + r) * D;
+          for (int c = l; c < D; c += 32) ss = fmaf(row[c], row[c], ss);
+        }
+#pragma unroll
+        for (int off = 16; off; off >>= 1)
+          ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        if (l == 0) gn[r] = base + r < G ? fmaxf(__fsqrt_rn(ss), EPS) : 1.f;
+      }
+    } else if constexpr (M != BF16) {
       if (tid < GT) {
         const int r = base + tid;
         const float x = r < G ? gaux[r] : 1.f;
         gn[tid] = M == F32 ? fmaxf(x, EPS) : x;
+        if constexpr (P == STREAM) normsum += r < G ? x : 0.f;
       }
     }
 
@@ -192,10 +276,14 @@ fused_topk_split_kernel(const void* __restrict__ q,
       for (int p = 0; p < LOADS; ++p) {
         const int e = tid + THREADS * p, r = e / BK, c = e % BK;
         qs[c * PADW + r] = qreg[p];
-        if constexpr (M == F32)
+        if constexpr (M == F32 && P != STREAM)
           gs[c * PADW + r] = __fdiv_rn(greg[p], gn[r]);
         else
           gs[c * PADW + r] = greg[p];
+        if constexpr (P == STREAM) {
+          rowsum[p] += qreg[p];
+          rowsum[p] += greg[p];
+        }
       }
       __syncthreads();
       if (s + 1 < nsteps) {
@@ -207,104 +295,167 @@ fused_topk_split_kernel(const void* __restrict__ q,
           greg[p] = load_word<M>(g, base + r, G, c, D, vec);
         }
       }
+      if constexpr (P != STREAM) {
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        W a[4], b[4];
+        for (int kk = 0; kk < BK; ++kk) {
+          W a[4], b[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[kk * PADW + ty + 16 * i];
+          for (int i = 0; i < 4; ++i) a[i] = qs[kk * PADW + ty + 16 * i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = gs[kk * PADW + tx + 16 * j];
+          for (int j = 0; j < 4; ++j) b[j] = gs[kk * PADW + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if constexpr (M == I8)
-              acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-            else
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (M == I8)
+                acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+              else
+                acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+            }
+        }
       }
     }
 
-    // insertion chain: the new value sinks below stored values >= it
+    if constexpr (P == MATMUL) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = ty + 16 * i, bin = tx + 16 * j, idx = base + bin;
-        float v;
-        if constexpr (M == I8)
-          v = __fmul_rn(__int2float_rn(acc[i][j]),
-                        __fmul_rn(qsc[ql], gn[bin]));
-        else
-          v = acc[i][j];
-        if (idx >= G) v = -CUDART_INF_F;
-        int vi = idx;
+        for (int j = 0; j < 4; ++j)
+          if (base + tx + 16 * j < G) rowmax[i] = fmaxf(rowmax[i], acc[i][j]);
+    }
+    if constexpr (P == SCORES) {
+      // the (Q, G) scores, ragged edges masked
 #pragma unroll
-        for (int t = 0; t < TD; ++t) {
-          const int a = (t * QT + ql) * BINS + bin;
-          const float ov = bufv[a];
-          const int oi = bufi[a];
-          if (v > ov) {
-            bufv[a] = v;
-            bufi[a] = vi;
-            v = ov;
-            vi = oi;
+      for (int i = 0; i < 4; ++i) {
+        const int qg = q0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int gc = base + tx + 16 * j;
+          if (qg < Q && gc < G) cand_v[(size_t)qg * G + gc] = acc[i][j];
+        }
+      }
+    }
+    if constexpr (P == INSERT || P == FULL) {
+      // insertion chain: the new value sinks below stored values >= it
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ql = ty + 16 * i, bin = tx + 16 * j, idx = base + bin;
+          float v;
+          if constexpr (M == I8)
+            v = __fmul_rn(__int2float_rn(acc[i][j]),
+                          __fmul_rn(qsc[ql], gn[bin]));
+          else
+            v = acc[i][j];
+          if (idx >= G) v = -CUDART_INF_F;
+          int vi = idx;
+#pragma unroll
+          for (int t = 0; t < TD; ++t) {
+            const int a = (t * QT + ql) * BINS + bin;
+            const float ov = bufv[a];
+            const int oi = bufi[a];
+            if (v > ov) {
+              bufv[a] = v;
+              bufi[a] = vi;
+              v = ov;
+              vi = oi;
+            }
           }
         }
       }
     }
   }
+  if constexpr (P == SCORES) return;
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
-  for (int ql = warp; ql < QT; ql += WARPS) {
-    const int qg = q0 + ql;
-    if (qg >= Q) break;  // warp-uniform
-    float deepest = -CUDART_INF_F;
-    for (int b = lane; b < BINS; b += 32)
-      deepest = fmaxf(deepest, bufv[((TD - 1) * QT + ql) * BINS + b]);
+  if constexpr (P == STREAM) {
+    // tile row warp + 8p: its words were loaded by the 32 lanes of `warp`
+    float* srow = bufv;  // [QT]; the buffers are unused in this phase
 #pragma unroll
-    for (int off = 16; off; off >>= 1)
-      deepest = fmaxf(deepest, __shfl_xor_sync(0xffffffffu, deepest, off));
+    for (int p = 0; p < LOADS; ++p) {
+      float v = rowsum[p];
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) srow[warp + 8 * p] = v;
+    }
+    __syncthreads();
+    if (tid < QT && q0 + tid < Q)
+      tth[(size_t)(q0 + tid) * nsplit + split] = srow[tid] + normsum;
+  } else if constexpr (P == MATMUL) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m = rowmax[i];
+#pragma unroll
+      for (int off = 8; off; off >>= 1)  // over the 16 lanes of one ty
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const int qg = q0 + ty + 16 * i;
+      if (tx == 0 && qg < Q) tth[(size_t)qg * nsplit + split] = m;
+    }
+  } else if constexpr (P == INSERT) {
+    // extraction ablated: the first k buffer lanes (depth slot t, bin b of
+    // lane t * BINS + b), verbatim
+    for (int ql = warp; ql < QT; ql += WARPS) {
+      const int qg = q0 + ql;
+      if (qg >= Q) break;  // warp-uniform
+      const size_t out = ((size_t)qg * nsplit + split) * k;
+      for (int n = lane; n < k; n += 32) {
+        const int a = ((n / BINS) * QT + ql) * BINS + n % BINS;
+        cand_v[out + n] = bufv[a];
+        cand_i[out + n] = bufi[a];
+      }
+    }
+  } else {
+    for (int ql = warp; ql < QT; ql += WARPS) {
+      const int qg = q0 + ql;
+      if (qg >= Q) break;  // warp-uniform
+      float deepest = -CUDART_INF_F;
+      for (int b = lane; b < BINS; b += 32)
+        deepest = fmaxf(deepest, bufv[((TD - 1) * QT + ql) * BINS + b]);
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        deepest = fmaxf(deepest, __shfl_xor_sync(0xffffffffu, deepest, off));
 
-    float v[ENTRIES];
-    int ix[ENTRIES];
+      float v[ENTRIES];
+      int ix[ENTRIES];
 #pragma unroll
-    for (int e = 0; e < ENTRIES; ++e) {
-      const int slot = lane + 32 * e, t = slot / BINS, b = slot % BINS;
-      v[e] = bufv[(t * QT + ql) * BINS + b];
-      ix[e] = bufi[(t * QT + ql) * BINS + b];
-    }
-    const size_t out = ((size_t)qg * nsplit + split) * k;
-    for (int n = 0; n < k; ++n) {
-      float bv = v[0];
-      int bi = ix[0];
+      for (int e = 0; e < ENTRIES; ++e) {
+        const int slot = lane + 32 * e, t = slot / BINS, b = slot % BINS;
+        v[e] = bufv[(t * QT + ql) * BINS + b];
+        ix[e] = bufi[(t * QT + ql) * BINS + b];
+      }
+      const size_t out = ((size_t)qg * nsplit + split) * k;
+      for (int n = 0; n < k; ++n) {
+        float bv = v[0];
+        int bi = ix[0];
 #pragma unroll
-      for (int e = 1; e < ENTRIES; ++e)
-        if (better(v[e], ix[e], bv, bi)) {
-          bv = v[e];
-          bi = ix[e];
+        for (int e = 1; e < ENTRIES; ++e)
+          if (better(v[e], ix[e], bv, bi)) {
+            bv = v[e];
+            bi = ix[e];
+          }
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+          if (better(ov, oi, bv, bi)) {
+            bv = ov;
+            bi = oi;
+          }
         }
+        // removed entries become -inf and keep their index (as on the TPU)
 #pragma unroll
-      for (int off = 16; off; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
+        for (int e = 0; e < ENTRIES; ++e)
+          if (v[e] == bv && ix[e] == bi) v[e] = -CUDART_INF_F;
+        if (lane == 0) {
+          cand_v[out + n] = bv;
+          cand_i[out + n] = bi;
         }
       }
-      // removed entries become -inf and keep their index (as on the TPU)
-#pragma unroll
-      for (int e = 0; e < ENTRIES; ++e)
-        if (v[e] == bv && ix[e] == bi) v[e] = -CUDART_INF_F;
-      if (lane == 0) {
-        cand_v[out + n] = bv;
-        cand_i[out + n] = bi;
-      }
+      if (lane == 0) tth[(size_t)qg * nsplit + split] = deepest;
     }
-    if (lane == 0) tth[(size_t)qg * nsplit + split] = deepest;
   }
 }
 
@@ -376,6 +527,32 @@ fused_topk_merge_kernel(const float* __restrict__ cand_v,
   if (lane == 0) ok[qg] = good;
 }
 
+bool bad_geometry(int Q, int G, int D, int k, int nsplit) {
+  return k < 1 || k > TD * BINS || Q < 1 || G < 1 || D < 1 || nsplit < 1 ||
+         nsplit > (G + GT - 1) / GT;
+}
+
+// Launches phase P of the split kernel of mode M on `stream`, one block per
+// (query tile, split) with all of its shared memory; returns
+// cudaGetLastError() (0 = ok).
+template <int M, int P>
+cudaError_t launch_split(const void* q, const void* g, const float* gaux,
+                         const float* qscale, int Q, int G, int D, int k,
+                         int nsplit, float* cand_v, int* cand_i, float* tth,
+                         cudaStream_t st) {
+  const bool vec = D % 4 == 0 && (uintptr_t)q % 4 == 0 &&
+                   (uintptr_t)g % 4 == 0;
+  const size_t smem1 = split_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_topk_split_kernel<M, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err != cudaSuccess) return err;
+  dim3 grid1((Q + QT - 1) / QT, nsplit);
+  fused_topk_split_kernel<M, P><<<grid1, THREADS, smem1, st>>>(
+      q, g, gaux, qscale, Q, G, D, k, nsplit, vec, cand_v, cand_i, tth);
+  return cudaGetLastError();
+}
+
 // Launches the split kernel of mode M and the merge kernel on `stream`;
 // returns cudaGetLastError() (0 = ok).
 template <int M>
@@ -383,21 +560,11 @@ int launch(const void* q, const void* g, const float* gaux,
            const float* qscale, int Q, int G, int D, int k, int nsplit,
            int bins, int t_depth, float* cand_v, int* cand_i, float* tth,
            float* vals, int* inds, int* ok, void* stream) {
-  if (bins != BINS || t_depth != TD || k < 1 || k > TD * BINS || Q < 1 ||
-      G < 1 || D < 1 || nsplit < 1 || nsplit > (G + GT - 1) / GT)
+  if (bins != BINS || t_depth != TD || bad_geometry(Q, G, D, k, nsplit))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool vec = D % 4 == 0 && (uintptr_t)q % 4 == 0 &&
-                   (uintptr_t)g % 4 == 0;
-  const size_t smem1 = split_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_split_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid1((Q + QT - 1) / QT, nsplit);
-  fused_topk_split_kernel<M><<<grid1, THREADS, smem1, st>>>(
-      q, g, gaux, qscale, Q, G, D, k, nsplit, vec, cand_v, cand_i, tth);
-  err = cudaGetLastError();
+  cudaError_t err = launch_split<M, FULL>(q, g, gaux, qscale, Q, G, D, k,
+                                          nsplit, cand_v, cand_i, tth, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = (size_t)nsplit * k * (sizeof(float) + sizeof(int)) +
                        (size_t)nsplit * sizeof(int);
@@ -408,6 +575,18 @@ int launch(const void* q, const void* g, const float* gaux,
   fused_topk_merge_kernel<<<Q, 32, smem2, st>>>(cand_v, cand_i, tth, k,
                                                 nsplit, vals, inds, ok);
   return (int)cudaGetLastError();
+}
+
+// One rung of the ladder: phase P alone (no merge). out_v is (Q, nsplit)
+// for STREAM and MATMUL; (Q, nsplit, k) with out_i for INSERT.
+template <int M, int P>
+int launch_rung(const void* q, const void* g, const float* gaux, int Q,
+                int G, int D, int k, int nsplit, float* out_v, int* out_i,
+                void* stream) {
+  if (bad_geometry(Q, G, D, k, nsplit)) return (int)cudaErrorInvalidValue;
+  return (int)launch_split<M, P>(q, g, gaux, nullptr, Q, G, D, k, nsplit,
+                                 out_v, out_i, out_v,
+                                 reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -446,6 +625,39 @@ int fused_topk_int8(const void* q, const void* g, const float* qscale,
                     void* stream) {
   return launch<I8>(q, g, gscale, qscale, Q, G, D, k, nsplit, bins, t_depth,
                     cand_v, cand_i, tth, vals, inds, ok, stream);
+}
+
+// The ladder: q̂ (Q, D) f32 with the raw gallery (G, D) f32 and its row
+// norms (G,), or q̂ and the pre-normalized gallery in bf16 (gnorm unused).
+#define LADDER_RUNG(name, M, P)                                            \
+  int name(const void* q, const void* g, const float* gnorm, int Q, int G, \
+           int D, int k, int nsplit, float* out_v, int* out_i,            \
+           void* stream) {                                                \
+    return launch_rung<M, P>(q, g, gnorm, Q, G, D, k, nsplit, out_v, out_i, \
+                             stream);                                     \
+  }
+LADDER_RUNG(fused_topk_f32_stream_only, F32, STREAM)
+LADDER_RUNG(fused_topk_f32_matmul_only, F32, MATMUL)
+LADDER_RUNG(fused_topk_f32_insert_only, F32, INSERT)
+LADDER_RUNG(fused_topk_bf16_stream_only, BF16, STREAM)
+LADDER_RUNG(fused_topk_bf16_matmul_only, BF16, MATMUL)
+LADDER_RUNG(fused_topk_bf16_insert_only, BF16, INSERT)
+#undef LADDER_RUNG
+
+// Kernel 4: the (Q, G) f32 cosine scores of q̂ (Q, D) against the raw
+// gallery (G, D), both f32, into out; returns cudaGetLastError().
+int cosine_scores_f32(const float* q, const float* g, int Q, int G, int D,
+                      float* out, void* stream) {
+  if (Q < 1 || G < 1 || D < 1 || (Q + QT - 1) / QT > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (G + GT - 1) / GT;
+  const size_t smem = (size_t)2 * BK * PADW * 4 + (size_t)(GT + QT) * 4;
+  fused_topk_split_kernel<F32, SCORES>
+      <<<dim3(tiles, (Q + QT - 1) / QT), THREADS, smem,
+         reinterpret_cast<cudaStream_t>(stream)>>>(
+          q, g, nullptr, nullptr, Q, G, D, 0, tiles, false, out, nullptr,
+          nullptr);
+  return (int)cudaGetLastError();
 }
 
 const char* fused_topk_error_string(int err) {

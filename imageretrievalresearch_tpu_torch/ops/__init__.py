@@ -1,7 +1,7 @@
 """Device-side ops: preprocessing with on-device AutoAugment, pooling,
 retrieval, depthwise convolution; the hand-written CUDA kernels of the
-fused top-k (``retrieval``), of AutoAugment (``image_kernels``) and of the
-depthwise convolution (``depthwise``)."""
+fused top-k and the dense cosine scores (``retrieval``), of AutoAugment
+(``image_kernels``) and of the depthwise convolution (``depthwise``)."""
 
 from imageretrievalresearch_tpu_torch.ops.autoaugment import (
     imagenet_policy_batch,
@@ -17,7 +17,9 @@ from imageretrievalresearch_tpu_torch.ops.preprocess import (
     square_pad,
 )
 from imageretrievalresearch_tpu_torch.ops.retrieval import (
+    cosine_scores,
     cosine_topk,
+    fused_cosine_scores,
     fused_cosine_topk,
     l2_normalize,
 )
@@ -30,7 +32,9 @@ __all__ = [
     "build_triplet_transform",
     "square_pad",
     "get_fm",
+    "cosine_scores",
     "cosine_topk",
+    "fused_cosine_scores",
     "fused_cosine_topk",
     "l2_normalize",
     "imagenet_policy_batch",

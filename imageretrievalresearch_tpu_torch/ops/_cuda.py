@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 # library name -> its source
 SOURCES = {"fused_topk": _PKG / "csrc" / "fused_topk.cu",
            "image_ops": _PKG / "csrc" / "image_ops.cu",
-           "depthwise_conv": _PKG / "csrc" / "depthwise_conv.cu"}
+           "depthwise_conv": _PKG / "csrc" / "depthwise_conv.cu",
+           "stream_probe": _PKG / "csrc" / "stream_probe.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -38,7 +39,16 @@ SIGNATURES = {
     # scratch, the stream
     "fused_topk": {"fused_topk_f32": [_P] * 3 + [_I] * 7 + [_P] * 7,
                    "fused_topk_bf16": [_P] * 2 + [_I] * 7 + [_P] * 7,
-                   "fused_topk_int8": [_P] * 4 + [_I] * 7 + [_P] * 7},
+                   "fused_topk_int8": [_P] * 4 + [_I] * 7 + [_P] * 7,
+                   # q̂, the raw gallery, Q, G, D, the scores, the stream
+                   "cosine_scores_f32": [_P] * 2 + [_I] * 3 + [_P] * 2,
+                   # the ladder: q̂, gallery, norms, Q, G, D, k, splits,
+                   # the two outputs, the stream
+                   **{f"fused_topk_{mode}_{rung}": [_P] * 3 + [_I] * 5
+                      + [_P] * 3
+                      for mode in ("f32", "bf16")
+                      for rung in ("stream_only", "matmul_only",
+                                   "insert_only")}},
     "image_ops": {"image_histogram": [_P, _I, _I, _P, _P],
                   "image_lut_apply": [_P, _P, _I, _I, _P, _P],
                   "image_row_shift": [_P, _P, _I, _I, _I, _P, _P],
@@ -47,6 +57,8 @@ SIGNATURES = {
     # split), the bf16 flag, the stream
     "depthwise_conv": {"dw_conv_forward": [_P] * 3 + [_I] * 12 + [_P],
                        "dw_conv_grad_w": [_P] * 4 + [_I] * 14 + [_P]},
+    # x, N, D, rows, the row sums, the output, the stream
+    "stream_probe": {"stream_probe_f32": [_P] + [_I] * 3 + [_P] * 3},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -5,7 +5,10 @@ Counterpart of ``imageretrievalresearch_tpu/ops/retrieval.py``. The fused
 streaming top-k (``fused_cosine_topk``) launches one of the hand-written
 CUDA kernels in ``csrc/fused_topk.cu`` for CUDA tensors (the variant
 follows the gallery's dtype) and runs its plain PyTorch version
-(``fused_cosine_topk_reference``) for CPU tensors only.
+(``fused_cosine_topk_reference``) for CPU tensors only. The dense f32
+scores with the gallery normalized inside the kernel
+(``fused_cosine_scores``, the ``use_pallas`` path) work the same way, with
+``cosine_scores_reference`` as the plain version.
 
 Score arithmetic per ``matmul_dtype`` (one definition, :func:`dense_scores`,
 shared by the dense path, the certificate repair and the plain fused
@@ -53,12 +56,15 @@ _DENSE_GALLERY_TILE = 16384
 
 # launches of each hand-written kernel, counted where the wrapper launches it
 KERNEL_LAUNCHES = {"fused_cosine_topk": 0, "fused_cosine_topk_bf16": 0,
-                   "fused_cosine_topk_int8": 0}
+                   "fused_cosine_topk_int8": 0, "fused_cosine_scores": 0}
+# calls of the plain version of the scores kernel on a CUDA tensor
+PLAIN_ON_CARD = {"fused_cosine_scores": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    for counts in (KERNEL_LAUNCHES, PLAIN_ON_CARD):
+        for name in counts:
+            counts[name] = 0
 
 
 def _not_ported(what: str):
@@ -294,26 +300,34 @@ def dense_scores(q_hat, gallery, matmul_dtype: str = "float32",
 
 def _bin_buffers(s: torch.Tensor, bins: int, t_depth: int, splits: int):
     """(Q, G) scores -> per-split, per-bin depth-T buffers (Q, S, T, bins),
-    the state the insertion chain leaves: each bin's top-T in descending
-    order, ties in arrival (index) order, empty slots (-inf, 0)."""
+    the state the kernels' insertion chain leaves, run as they run it:
+    each split takes its tiles in index order, and each score sinks below
+    the stored values that are >= it, swapping with the first one it
+    beats; the score it displaces goes on down the same way. So each bin
+    holds its top-T in descending order with ties in arrival (index)
+    order, except that a displaced score sinks past a stored score equal
+    to it (and falls out first when the bin is full). Empty slots are
+    (-inf, 0); -inf never enters (-inf > -inf is false)."""
     q, g = s.shape
     rounds = -(-g // (bins * splits))
     pad = rounds * splits * bins - g
     if pad:
         s = torch.nn.functional.pad(s, (0, pad), value=-math.inf)
     s = s.reshape(q, rounds, splits, bins)      # tile = round * S + split
-    v, rnd = torch.sort(s, dim=1, descending=True, stable=True)
-    v, rnd = v[:, :t_depth], rnd[:, :t_depth]
-    split = torch.arange(splits, device=s.device)[:, None]
-    idx = (rnd * splits + split) * bins + torch.arange(bins, device=s.device)
-    # -inf never enters the chain (-inf > -inf is false): init slots stay
-    idx = torch.where(v == -math.inf, torch.zeros_like(idx), idx)
-    if v.shape[1] < t_depth:
-        fill = t_depth - v.shape[1]
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, fill),
-                                    value=-math.inf)
-        idx = torch.nn.functional.pad(idx, (0, 0, 0, 0, 0, fill), value=0)
-    return v.transpose(1, 2), idx.transpose(1, 2).to(torch.int32)
+    idx = ((torch.arange(rounds, device=s.device)[:, None, None] * splits
+            + torch.arange(splits, device=s.device)[:, None]) * bins
+           + torch.arange(bins, device=s.device)).to(torch.int32)
+    bv = torch.full((t_depth, q, splits, bins), -math.inf, device=s.device)
+    bi = torch.zeros((t_depth, q, splits, bins), dtype=torch.int32,
+                     device=s.device)
+    for r in range(rounds):
+        v, vi = s[:, r], idx[r].expand(q, splits, bins)
+        for t in range(t_depth):
+            take = v > bv[t]
+            bv[t], v = torch.where(take, v, bv[t]), torch.where(take, bv[t], v)
+            bi[t], vi = (torch.where(take, vi, bi[t]),
+                         torch.where(take, bi[t], vi))
+    return bv.permute(1, 2, 0, 3), bi.permute(1, 2, 0, 3)
 
 
 def _extract(bv: torch.Tensor, bi: torch.Tensor, k: int):
@@ -483,6 +497,67 @@ def _fused(queries_hat, gallery, k, gallery_norms, gallery_scale):
 
 
 # ---------------------------------------------------------------------------
+# Dense f32 scores with the gallery normalized in the kernel (use_pallas)
+# ---------------------------------------------------------------------------
+
+def cosine_scores_reference(queries_hat: torch.Tensor,
+                            gallery: torch.Tensor) -> torch.Tensor:
+    """Plain version of the scores kernel: ``q̂ @ (g / max(|g|, eps))ᵀ`` in
+    f32, the eps clamp of :func:`l2_normalize` (TF32 is off on the card,
+    ``_device.set_float32_precision``)."""
+    if queries_hat.device.type == "cuda":
+        PLAIN_ON_CARD["fused_cosine_scores"] += 1
+    return torch.matmul(queries_hat.float(),
+                        _normalized_gallery(gallery, None).t())
+
+
+def fused_cosine_scores(queries_hat: torch.Tensor, gallery: torch.Tensor,
+                        *, precision: str = "default") -> torch.Tensor:
+    """(Q, D) normalized f32 queries x (G, D) raw f32 gallery -> (Q, G) f32
+    cosine scores, the gallery rows normalized inside the kernel; replaces
+    ``pallas_cosine_scores``. CUDA tensors launch ``cosine_scores_f32`` of
+    ``csrc/fused_topk.cu`` or raise; CPU tensors run
+    :func:`cosine_scores_reference`. Both ``precision`` settings are true
+    f32 (module docstring). The kernel sums each row's squares in its own
+    order, so its scores may differ from the plain version's by an ulp on
+    float data (they are equal where every partial sum is exact)."""
+    _dot_precision(precision)
+    q, d = queries_hat.shape
+    g = gallery.shape[0]
+    for name, t in (("queries_hat", queries_hat), ("gallery", gallery)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != d:
+            raise ValueError(f"{name}: expected float32 (N, {d}), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if _cuda.on_cpu(queries_hat):
+        return cosine_scores_reference(queries_hat, gallery)
+    dev = queries_hat.device
+    _cuda.check_operand("queries_hat", queries_hat, torch.float32, (q, d),
+                        dev)
+    _cuda.check_operand("gallery", gallery, torch.float32, (g, d), dev)
+    out = torch.empty((q, g), device=dev, dtype=torch.float32)
+    _cuda.launch("fused_topk", "cosine_scores_f32", dev, queries_hat,
+                 gallery, q, g, d, out)
+    KERNEL_LAUNCHES["fused_cosine_scores"] += 1
+    return out
+
+
+def cosine_scores(queries: torch.Tensor, gallery: torch.Tensor, *,
+                  use_pallas: bool = False, precision: str = "default"
+                  ) -> torch.Tensor:
+    """Full (Q, G) cosine matrix of raw queries and gallery (for small
+    galleries / in-batch metrics). ``use_pallas`` scores through
+    :func:`fused_cosine_scores` (the scores kernel on the card); otherwise
+    one f32 matmul of the normalized rows. Both ``precision`` settings are
+    true f32 here."""
+    q_hat = l2_normalize(queries)
+    if use_pallas:
+        return fused_cosine_scores(q_hat, gallery.float(),
+                                   precision=precision)
+    _dot_precision(precision)
+    return torch.matmul(q_hat, l2_normalize(gallery).t())
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -551,6 +626,19 @@ def _dense_topk(q_hat, gallery, k, matmul_dtype, *, gallery_scale=None,
     return torch.cat(out_v), torch.cat(out_i)
 
 
+def _scores_kernel_topk(q_hat, gallery, k, query_block: int = 512):
+    """The ``use_pallas`` dense path: for each block of ``query_block``
+    queries, one scores-kernel launch writes the (block, G) f32 scores
+    over the raw gallery, ranked by :func:`chunked_topk`."""
+    out_v, out_i = [], []
+    for lo in range(0, q_hat.shape[0], query_block):
+        v, i = chunked_topk(
+            fused_cosine_scores(q_hat[lo:lo + query_block], gallery), k)
+        out_v.append(v)
+        out_i.append(i)
+    return torch.cat(out_v), torch.cat(out_i)
+
+
 def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                 *, query_block: int = 512, method: str = "exact",
                 matmul_dtype: str = "float32",
@@ -573,8 +661,13 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
       float32 mode.
     - ``precision``: 'default' and 'highest' are both true f32 here;
       'highest' is refused for bf16/int8.
+    - ``use_pallas``: the dense path scores each query block with the
+      scores kernel (:func:`fused_cosine_scores`), which normalizes the
+      raw f32 gallery itself; the fused top-k is then never taken by
+      ``method='exact'``. It needs a raw f32 gallery in float32 mode and
+      takes no ``gallery_norms`` (JAX ignores them there; the port raises).
 
-    ``method='approx'`` and ``use_pallas`` are not ported yet."""
+    ``method='approx'`` is not ported yet."""
     _check_matmul_dtype(matmul_dtype)
     if gallery_norms is not None and (gallery.dtype != torch.float32
                                       or matmul_dtype != "float32"):
@@ -582,8 +675,14 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                          "float32 mode only")
     _check_prepared(gallery, matmul_dtype, gallery_scale)
     _check_precision(precision, matmul_dtype)
-    if use_pallas:
-        raise _not_ported("use_pallas")
+    if use_pallas and gallery.dtype != torch.float32:
+        raise ValueError("use_pallas scores need a raw f32 gallery")
+    if use_pallas and matmul_dtype != "float32":
+        raise ValueError("use_pallas scores are f32-only; drop use_pallas "
+                         f"or matmul_dtype={matmul_dtype!r}")
+    if use_pallas and gallery_norms is not None:
+        raise ValueError("use_pallas scores normalize the gallery in the "
+                         "kernel; gallery_norms would be ignored")
     if method == "approx":
         raise _not_ported("method='approx'")
     if method not in ("exact", "dense", "fused"):
@@ -595,7 +694,7 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
     if method == "fused":
         _check_fused_k(k)
     fused = method == "fused" or (
-        method == "exact" and q_hat.device.type == "cuda"
+        method == "exact" and q_hat.device.type == "cuda" and not use_pallas
         and _fused_eligible(q, g, d, k, FUSED_BINS, FUSED_T_DEPTH))
     if matmul_dtype == "float32":
         # the f32 kernel normalizes the raw rows itself
@@ -605,6 +704,8 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                                          gallery_scale)
 
     def dense_rank():
+        if use_pallas:
+            return _scores_kernel_topk(q_hat, g_in, k, query_block)
         return _dense_topk(q_hat, g_in, k, matmul_dtype,
                            gallery_scale=g_scale, gallery_norms=gallery_norms,
                            query_block=query_block)

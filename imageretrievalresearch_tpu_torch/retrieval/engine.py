@@ -1,16 +1,18 @@
 """RetrievalEngine — batched embedding + exact ranking, both eval variants.
 
 Counterpart of ``imageretrievalresearch_tpu/retrieval/engine.py``
-(``embed_batch``, ``search``, ``evaluate_class_dedup``,
-``evaluate_index_match``) with an explicit device: ``None`` means
-``cuda``. Ranking goes through :func:`ops.retrieval.cosine_topk`, whose
-'exact' method takes the fused CUDA kernel on the card when eligible.
+(``embed_batch``, ``embed_triplet_loader``, ``search``,
+``evaluate_class_dedup``, ``evaluate_index_match``) with an explicit
+device: ``None`` means ``cuda``. Ranking goes through
+:func:`ops.retrieval.cosine_topk`, whose 'exact' method takes the fused
+CUDA kernel on the card when eligible, or, with ``use_pallas``, scores
+each query block with the scores kernel (``fused_cosine_scores``).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -31,10 +33,15 @@ from imageretrievalresearch_tpu_torch.ops.retrieval import (
 class RetrievalEngine:
     def __init__(self, backbone: Backbone, *,
                  transform: Callable | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 use_pallas: bool = False):
+        """``use_pallas``: :meth:`search` ranks through the scores kernel
+        (``cosine_topk(use_pallas=True)``). JAX's ``interpret`` flag has
+        no counterpart: on a CPU device the kernels' plain versions run."""
         self.device = resolve_device(device)
         self.backbone = backbone.to(self.device).eval()
         self.transform = transform
+        self.use_pallas = use_pallas
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
@@ -51,6 +58,34 @@ class RetrievalEngine:
             x = self.transform(x)
         return self.backbone.embed(x.float())
 
+    def embed_triplet_loader(self, loader: Iterable, *,
+                             keep_images: bool = False) -> dict:
+        """Embed a triplet loader's qry / pos / neg streams (notebook cell
+        2). ``loader`` yields raw batch dicts: ``qry``, ``pos`` and ``neg``
+        (an array, or a list whose first entry is used) and ``cat_idx``.
+        Returns numpy ``fms_ims_all``, ``fms_poss_all``, ``fms_negs_all``,
+        ``classes_all`` and, with ``keep_images``, the images as ``ims``,
+        ``poss``, ``negs``."""
+        streams = {"qry": ([], []), "pos": ([], []), "neg": ([], [])}
+        classes = []
+        for batch in loader:
+            for key, (fms, ims) in streams.items():
+                arr = batch[key]
+                arr = arr[0] if isinstance(arr, list) else arr
+                fms.append(self.embed_batch(arr).cpu().numpy())
+                if keep_images:
+                    ims.append(_numpy(arr))
+            classes.append(_numpy(batch["cat_idx"]))
+        out = {"fms_ims_all": np.concatenate(streams["qry"][0]),
+               "fms_poss_all": np.concatenate(streams["pos"][0]),
+               "fms_negs_all": np.concatenate(streams["neg"][0]),
+               "classes_all": np.concatenate(classes)}
+        if keep_images:
+            for name, key in (("ims", "qry"), ("poss", "pos"),
+                              ("negs", "neg")):
+                out[name] = np.concatenate(streams[key][1])
+        return out
+
     # --- ranking ---
 
     def search(self, queries, gallery, k: int = 150, *,
@@ -58,10 +93,12 @@ class RetrievalEngine:
                ) -> tuple[np.ndarray, np.ndarray]:
         """Rank the raw f32 ``gallery`` for each query; numpy ``(vals,
         inds)``. ``matmul_dtype`` ('float32', 'bfloat16' or 'int8') picks
-        the score arithmetic of :func:`ops.retrieval.cosine_topk`."""
+        the score arithmetic of :func:`ops.retrieval.cosine_topk`; with
+        ``use_pallas`` only 'float32' is taken."""
         vals, inds = cosine_topk(self._tensor(queries).float(),
                                  self._tensor(gallery).float(), k,
-                                 matmul_dtype=matmul_dtype)
+                                 matmul_dtype=matmul_dtype,
+                                 use_pallas=self.use_pallas)
         return vals.cpu().numpy(), inds.cpu().numpy()
 
     # --- full evaluations ---
@@ -109,6 +146,10 @@ class RetrievalEngine:
             ("scores", float(np.mean(_pairwise_cos(self, q, g)))),
             ("normalized_embeddings", l2_normalize(q).cpu().numpy()),
         ])
+
+
+def _numpy(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def _pairwise_cos(engine: RetrievalEngine, a, b) -> np.ndarray:

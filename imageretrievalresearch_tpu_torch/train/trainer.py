@@ -138,8 +138,8 @@ class Trainer:
         self.device = resolve_device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the trainer runs on the GPU "
-                               "by default; pass device='cpu' explicitly to "
-                               "run on the CPU")
+                               'by default; pass TrainConfig(device="cpu") '
+                               "to run on the CPU")
         if cfg.param_sharding not in ("replicated", "fsdp"):
             raise ValueError(f"param_sharding must be 'replicated' or "
                              f"'fsdp', got {cfg.param_sharding!r}")

@@ -1,4 +1,5 @@
-"""Utilities: metric logging and checkpointing."""
+"""Utilities: metric logging, checkpointing and profiling
+(``utils.profiling``)."""
 
 from imageretrievalresearch_tpu_torch.utils.checkpoint import (
     CheckpointManager,

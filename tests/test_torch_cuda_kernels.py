@@ -12,6 +12,7 @@ import torch
 
 from imageretrievalresearch_tpu_torch.ops import image_kernels as K
 from imageretrievalresearch_tpu_torch.ops import retrieval as T
+from imageretrievalresearch_tpu_torch.tools import profile_fused_kernel as P
 
 
 @pytest.fixture
@@ -132,6 +133,85 @@ def test_quantized_certificate_fails_on_bin_overflow(cuda_device, mode):
     dv, di = T.cosine_topk(qd, gd, 50, matmul_dtype=mode, method="dense")
     np.testing.assert_array_equal(inds.cpu().numpy(), di.cpu().numpy())
     np.testing.assert_array_equal(vals.cpu().numpy(), dv.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The scores kernel (kernel 4), the ladder of the split kernel and the
+# stream probe (csrc/fused_topk.cu, csrc/stream_probe.cu) against their
+# plain versions. Shapes ragged on every axis: Q, G not multiples of the
+# 64-row tiles, D not a multiple of the 32-word staging step.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,g,d", [(37, 1001, 1000), (64, 2100, 96),
+                                   (130, 70, 17), (1, 1, 16)])
+def test_scores_kernel_matches_plain_version(cuda_device, q, g, d):
+    rng = np.random.default_rng(3)
+    # ±1 rows: every norm and partial sum exact, so bitwise
+    qh = T.l2_normalize(torch.from_numpy(_pm1_rows(rng, q, d))).to(
+        cuda_device)
+    gd = torch.from_numpy(_pm1_rows(rng, g, d)).to(cuda_device)
+    before = T.KERNEL_LAUNCHES["fused_cosine_scores"]
+    got = T.fused_cosine_scores(qh, gd)
+    assert T.KERNEL_LAUNCHES["fused_cosine_scores"] == before + 1
+    want = T.cosine_scores_reference(qh, gd)
+    torch.cuda.synchronize()
+    assert got.shape == (q, g)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    # float rows: the norms summed in another order, within 1e-5
+    qh = T.l2_normalize(torch.randn((q, d), device=cuda_device))
+    gd = torch.randn((g, d), device=cuda_device) * 3
+    torch.testing.assert_close(T.fused_cosine_scores(qh, gd),
+                               T.cosine_scores_reference(qh, gd),
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        T.fused_cosine_scores(qh, gd.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,g,d,k", [(40, 60, 32, 20), (70, 5000, 96, 150),
+                                     (64, 30000, 37, 384)])
+def test_ladder_rungs_match_plain_versions(cuda_device, mode, q, g, d, k):
+    rng = np.random.default_rng(4)
+    qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)
+    ga[min(64, g - 1)] = ga[3]           # tied scores
+    qh = T.l2_normalize(torch.from_numpy(qa)).to(cuda_device)
+    gd = torch.from_numpy(ga).to(cuda_device)
+    if mode == "bfloat16":
+        gd = T._prepare_gallery(gd, mode)[0]
+    splits = T.fused_splits(q, g, k, cuda_device)
+    P.reset_launch_counts()
+    for name, rung in P.build_variants().items():
+        got = rung.kernel(qh, gd, k)
+        want = rung.plain(qh, gd, k, splits=splits)
+        torch.cuda.synchronize()
+        # ±1 data: every word, sum and score exact, so bitwise
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    launched = {n: c for n, c in P.KERNEL_LAUNCHES.items() if c}
+    tag = "f32" if mode == "float32" else "bf16"
+    assert launched == {f"fused_topk_{tag}_{r}": 1 for r in P.RUNGS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,rows", [(2048, 1536, 256), (1024, 37, 512),
+                                      (4096, 100, 2048), (7, 5, 7)])
+def test_stream_probe_matches_plain_version(cuda_device, n, d, rows):
+    rng = np.random.default_rng(5)
+    ints = torch.from_numpy(rng.integers(-3, 4, (n, d)).astype(np.float32)
+                            ).to(cuda_device)
+    got = P.stream_probe(ints, rows)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  P.stream_probe_reference(ints, rows)
+                                  .cpu().numpy())
+    x = torch.randn((n, d), device=cuda_device)
+    err = (P.stream_probe(x, rows) - P.stream_probe_reference(x, rows)).abs()
+    scale = P.stream_probe_reference(x.abs(), rows)
+    assert (err <= P.stream_probe_rtol(n, d, rows) * scale).all()
+    # repeatable bit for bit: fixed summation order, no atomics
+    assert torch.equal(P.stream_probe(x, rows), P.stream_probe(x, rows))
 
 
 # ---------------------------------------------------------------------------

@@ -99,6 +99,28 @@ def test_plain_fused_matches_pallas_bitwise_at_tpu_geometry(rng):
     np.testing.assert_array_equal(tok, jok)
 
 
+def test_plain_fused_carries_tied_scores_as_the_pallas_chain(rng):
+    # bin 0 fills with six equal scores, then a higher one arrives: the
+    # chain swaps it into slot 0 and carries the displaced score past the
+    # five equal ones below it, so the FIRST of the six falls out (a
+    # stable sort of the bin would drop the last). Kernel, Pallas and
+    # plain version must keep the same five.
+    q, g = _int_qg(rng, q=8, g=7 * J.FUSED_G_TILE)
+    q[:] = 0.0
+    q[:, :16] = 1.0
+    for t in range(7):
+        row = np.zeros((32,), np.float32)
+        row[:12 if t == 6 else 8] = 1.0
+        row[16:20 if t == 6 else 24] = 1.0
+        g[t * J.FUSED_G_TILE] = row
+    jv, ji, jok = _jax_fused(q, g, 150)
+    tv, ti, tok = _torch_ref(q, g, 150, bins=512, t_depth=6, splits=1)
+    assert 0 not in ji and J.FUSED_G_TILE in ji and 6 * J.FUSED_G_TILE in ji
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tok, jok)
+
+
 def test_bin_overflow_fails_certificate_and_wrapper_stays_exact(rng):
     n_strong = J.FUSED_T_DEPTH + 2
     q, g = _int_qg(rng, q=8, g=max(4096, J.FUSED_G_TILE * n_strong))
@@ -176,12 +198,27 @@ def test_gallery_norms_bit_identical_and_checked(rng):
 
 def test_unported_modes_raise(rng):
     q, g = _qg(rng)
+    jq, jg = jnp.asarray(q), jnp.asarray(g)
     q, g = _t(q), _t(g)
-    for kw in ({"method": "approx"}, {"use_pallas": True},
-               {"method": "approx", "matmul_dtype": "int8"},
-               {"use_pallas": True, "matmul_dtype": "bfloat16"}):
+    for kw in ({"method": "approx"},
+               {"method": "approx", "matmul_dtype": "int8"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             T.cosine_topk(q, g, 5, **kw)
+    # use_pallas raises where JAX does: it scores a raw f32 gallery in
+    # float32 mode only
+    for gal, jgal, kw, match in (
+            (g.to(torch.bfloat16), jg.astype(jnp.bfloat16),
+             {"matmul_dtype": "bfloat16"}, "raw f32 gallery"),
+            (g, jg, {"matmul_dtype": "bfloat16"}, "f32-only"),
+            (g, jg, {"matmul_dtype": "int8"}, "f32-only")):
+        with pytest.raises(ValueError, match=match):
+            T.cosine_topk(q, gal, 5, use_pallas=True, **kw)
+        with pytest.raises(ValueError, match=match):
+            J.cosine_topk(jq, jgal, 5, use_pallas=True, **kw)
+    # ... and, unlike JAX (which ignores them there), for gallery_norms
+    with pytest.raises(ValueError, match="gallery_norms"):
+        T.cosine_topk(q, g, 5, use_pallas=True,
+                      gallery_norms=torch.linalg.vector_norm(g, dim=1))
     with pytest.raises(ValueError, match="unknown matmul_dtype"):
         T.cosine_topk(q, g, 5, matmul_dtype="float16")
     with pytest.raises(ValueError, match="unknown precision"):
@@ -199,6 +236,67 @@ def test_unported_modes_raise(rng):
     v1, i1 = T.cosine_topk(q, g, 10, precision="highest")
     np.testing.assert_array_equal(v0.numpy(), v1.numpy())
     np.testing.assert_array_equal(i0.numpy(), i1.numpy())
+
+
+# kernel 4 (the scores kernel): the shape of tests/test_retrieval_ops.py::
+# TestPallasScores and a ragged one; JAX pads both to its 128 x 512 tiles
+@pytest.mark.parametrize("q,g,d", [(20, 300, 128), (37, 500, 64)])
+def test_fused_cosine_scores_matches_pallas(rng, q, g, d):
+    qa, ga = _qg(rng, q, g, d)
+    qh = np.asarray(J.l2_normalize(jnp.asarray(qa)))
+    ref = np.asarray(J.pallas_cosine_scores(qh, ga, interpret=True))
+    for precision in ("default", "highest"):
+        ours = T.fused_cosine_scores(_t(qh), _t(ga), precision=precision)
+        assert ours.dtype == torch.float32 and tuple(ours.shape) == (q, g)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-5)
+        for use_pallas in (True, False):
+            ours = T.cosine_scores(_t(qa), _t(ga), use_pallas=use_pallas,
+                                   precision=precision)
+            theirs = J.cosine_scores(qa, ga, use_pallas=use_pallas,
+                                     precision=precision, interpret=True)
+            np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_fused_cosine_scores_bitwise_on_pm1_and_checked(rng):
+    q, g = _int_qg(rng, q=37, g=500)
+    qh = np.asarray(J.l2_normalize(jnp.asarray(q)))
+    ref = np.asarray(J.pallas_cosine_scores(qh, g, interpret=True))
+    np.testing.assert_array_equal(
+        T.fused_cosine_scores(_t(qh), _t(g)).numpy(), ref)
+    np.testing.assert_array_equal(
+        T.cosine_scores(_t(q), _t(g), use_pallas=True).numpy(), ref)
+    with pytest.raises(ValueError, match="float32"):
+        T.fused_cosine_scores(_t(qh), _t(g).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float32"):
+        T.fused_cosine_scores(_t(qh), _t(g)[:, :8])
+    with pytest.raises(ValueError, match="unknown precision"):
+        T.fused_cosine_scores(_t(qh), _t(g), precision="tf32")
+
+
+# cosine_topk(use_pallas=True) against JAX's: the shapes of
+# tests/test_retrieval_ops.py::test_pallas_topk_pipeline, and ±1 rows with
+# duplicated rows (tied scores); several query blocks in the second
+@pytest.mark.parametrize("case", ["float", "pm1"])
+def test_cosine_topk_use_pallas_matches_jax(rng, case):
+    if case == "float":
+        q, g = _qg(rng, q=16, g=256, d=64)
+        k, block = 5, 512
+    else:
+        q, g = _int_qg(rng)
+        g[500] = g[3]
+        g[1700] = g[3]
+        k, block = 150, 8
+    jv, ji = [np.asarray(a) for a in J.cosine_topk(
+        jnp.asarray(q), jnp.asarray(g), k, use_pallas=True, interpret=True)]
+    for method in ("exact", "dense"):
+        v, i = T.cosine_topk(_t(q), _t(g), k, use_pallas=True,
+                             method=method, query_block=block)
+        np.testing.assert_array_equal(i.numpy(), ji)
+        if case == "pm1":
+            np.testing.assert_array_equal(v.numpy(), jv)
+        else:
+            np.testing.assert_allclose(v.numpy(), jv, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])

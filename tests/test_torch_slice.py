@@ -1,6 +1,8 @@
 """The whole slice on the CPU, held against the JAX package: seeded uint8
 images -> eval transform -> shrunken EfficientNet embed -> GalleryIndex ->
-query_class_dedup. Plus the port's import hygiene and device default."""
+query_class_dedup, and the inference evaluation (embed_triplet_loader ->
+evaluate_class_dedup / evaluate_index_match) on the use_pallas path. Plus
+the port's import hygiene and device default."""
 
 import ast
 import re
@@ -19,6 +21,7 @@ from imageretrievalresearch_tpu.cli.inference import (
 )
 from imageretrievalresearch_tpu.models import create_model as jax_create
 from imageretrievalresearch_tpu.retrieval import GalleryIndex as JaxIndex
+from imageretrievalresearch_tpu.retrieval import RetrievalEngine as JaxEngine
 from imageretrievalresearch_tpu_torch.models import create_model
 from imageretrievalresearch_tpu_torch.models.convert import params_from_jax
 from imageretrievalresearch_tpu_torch.ops.preprocess import (
@@ -98,7 +101,8 @@ def slice_run():
     gallery = np.concatenate([feats[:64], extra])
     classes = rng.integers(0, 50, len(gallery)).astype(np.int32)
     return {"ref": ref, "ours": ours, "engine": engine, "dim": dim,
-            "gallery": gallery, "classes": classes, "queries": feats[64:]}
+            "gallery": gallery, "classes": classes, "queries": feats[64:],
+            "jax": (bb, variables, jax_tf), "images": images, "size": size}
 
 
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16", "int8",
@@ -133,6 +137,58 @@ def test_slice_end_to_end_matches_jax(slice_run, matmul_dtype):
         _near_tie_agreement(sv, si, jv, ji, atol)
 
 
+def test_engine_use_pallas_evaluation_matches_jax(slice_run):
+    """RetrievalEngine(use_pallas=True): embed_triplet_loader over 2
+    batches of 4 seeded triplets, then both evaluations, against the JAX
+    engine with use_pallas=True in Pallas interpret mode, from shared
+    weights."""
+    bb, variables, jax_tf = slice_run["jax"]
+    images, size = slice_run["images"], slice_run["size"]
+    loader = [{"qry": images[8 * b:8 * b + 4],
+               "pos": [images[8 * b + 4:8 * b + 8]],
+               "neg": [images[48 + 4 * b:52 + 4 * b]],
+               "cat_idx": np.array([0, 1, 2, 1]) + b}
+              for b in range(2)]
+    jeng = JaxEngine(bb, variables, transform=jax_tf, use_pallas=True,
+                     interpret=True)
+    teng = RetrievalEngine(slice_run["engine"].backbone,
+                           transform=build_eval_transform(
+                               "squarepad", size, device="cpu"),
+                           device="cpu", use_pallas=True)
+    jemb = jeng.embed_triplet_loader(loader, keep_images=True)
+    temb = teng.embed_triplet_loader(loader, keep_images=True)
+    assert sorted(temb) == sorted(jemb)
+    for key in ("fms_ims_all", "fms_poss_all", "fms_negs_all"):
+        assert temb[key].shape == (8, slice_run["dim"])
+        np.testing.assert_allclose(temb[key], jemb[key], rtol=1e-4,
+                                   atol=1e-4)
+    for key in ("classes_all", "ims", "poss", "negs"):
+        np.testing.assert_array_equal(temb[key], jemb[key])
+
+    # both evaluations on the same (JAX) embeddings, shifted by the
+    # gallery's mean: a random-weight network maps every image to nearly
+    # one direction, which would make every ranking a near-tie
+    shift = jemb["fms_poss_all"].mean(axis=0)
+    embeds = {k: (v - shift if k.startswith("fms") else v)
+              for k, v in jemb.items()}
+    jd = jeng.evaluate_class_dedup(embeds, k=150, num_unique=3)
+    td = teng.evaluate_class_dedup(embeds, k=150, num_unique=3)
+    assert list(td) == list(jd)
+    for key in ("top1", "top3"):
+        assert td[key] == jd[key]
+    np.testing.assert_array_equal(td["topk_inds"], jd["topk_inds"])
+    np.testing.assert_array_equal(td["top_r_list"], jd["top_r_list"])
+    for key in ("top_vals", "scores", "neg_scores"):
+        np.testing.assert_allclose(td[key], jd[key], rtol=0, atol=1e-5)
+    jm = jeng.evaluate_index_match(embeds)
+    tm = teng.evaluate_index_match(embeds)
+    assert list(tm) == list(jm)
+    for key in ("top1", "top3"):
+        assert tm[key] == jm[key]
+    for key in ("loss", "scores", "normalized_embeddings"):
+        np.testing.assert_allclose(tm[key], jm[key], rtol=0, atol=1e-5)
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -144,6 +200,8 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for module in ("tools/profile_fused_kernel.py", "utils/profiling.py"):
+        assert PORT / module in files
     bad = [(f.name, m) for f in files for m in _imports(f)
            if FORBIDDEN.match(m)]
     assert not bad, bad
@@ -153,7 +211,9 @@ def test_port_imports_nothing_of_jax():
             "imageretrievalresearch_tpu_torch.models.convert, "
             "imageretrievalresearch_tpu_torch.ops.preprocess, "
             "imageretrievalresearch_tpu_torch.train, "
-            "imageretrievalresearch_tpu_torch.recipes; "
+            "imageretrievalresearch_tpu_torch.recipes, "
+            "imageretrievalresearch_tpu_torch.utils.profiling, "
+            "imageretrievalresearch_tpu_torch.tools.profile_fused_kernel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'PIL', 'yaml', "
             "'imageretrievalresearch_tpu')]; assert not bad, bad")

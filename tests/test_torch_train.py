@@ -548,3 +548,14 @@ def test_trainer_raises_without_a_device_and_without_cuda(monkeypatch,
     for bad in (dict(num_devices=2), dict(param_sharding="fsdp")):
         with pytest.raises(NotImplementedError):
             Trainer(_t3(tmp_path, **bad), model, MemoryLoader(0, [B]))
+
+
+
+def test_trainer_no_card_message_names_the_config_field(monkeypatch):
+    # the device comes from the config alone: the message must name it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_config("train_efficient_cos_con_ce_loss")
+    with pytest.raises(RuntimeError) as info:
+        Trainer(cfg, _tiny(), MemoryLoader(0, [B]))
+    assert 'pass TrainConfig(device="cpu")' in str(info.value)
+    assert "device='cpu'" not in str(info.value)
