@@ -25,9 +25,10 @@ Phases (any failure exits non-zero, with no result line):
    shapes: bitwise on ±1 data with a planted bin overflow that fails and
    is repaired exactly; on the float gallery (served queries, and seeded
    unit rows with wider top-k gaps) the near-tie rule for f32 and bf16,
-   bitwise for int8 at k=150 and at int8_rerank's shortlist c=256.
-   Fidelity of each mode against f32 exact on the unit-row queries.
-   Kernel, plain and library times (CUDA events) and each kernel's bound.
+   bitwise for int8 at k=150 and at int8_rerank's shortlist c=256; the
+   bf16 certificate pass rate beside the plain version's. Fidelity of
+   each mode against f32 exact on the unit-row queries. Kernel, plain and
+   library times and each kernel's bound.
 5. AutoAugment training input: a seeded triplet batch (qry, one pos, one
    neg; 64 x 256 x 256 x 3 uint8 each) through
    ``build_triplet_transform`` with three ``train_autoaugment(224)``
@@ -44,9 +45,10 @@ Phases (any failure exits non-zero, with no result line):
    Kernels 9 and 10 against their plain versions at the 26 depthwise
    layer shapes of b3a at 224 px (N = 8) and at ragged ones, in f32 and
    bf16: the forward and dx bitwise, the tap gradients within 1e-6 of the
-   sum of absolute products (another summation order); then their
-   kernel, plain and library (cuDNN) times per pass at N = 192, summed
-   over the 26 layers, beside the bound, each kernel held against its
+   sum of absolute products (another summation order) and two launches
+   of them bitwise equal; then their kernel, plain and library (cuDNN)
+   times per pass at N = 192, summed over the 26 layers, beside the
+   bound, each kernel held against its
    plain version there as well. Then ``Trainer.fit(max_epochs=1)``
    of ``make_config("train_efficient_cos_con_ce_loss", batch_size=64)``
    on ``efficientnet_b3a`` (125 classes, seeded weights) over in-memory
@@ -80,6 +82,15 @@ Phases (any failure exits non-zero, with no result line):
    trace``; the stream probe (kernel 12) against its plain version and its
    read rate at four block heights, beside a torch read+write pass.
 8. One JSON line of kernels, the nvidia-smi line, and the result line.
+
+Times are CUDA events. Each row of the kernels line has ``ms`` and
+``library_ms`` measured as every earlier version of this script measured
+them (``ms_by``): the median of single calls for kernels 1-10, back-to-back
+launches (``pipelined_ms``) for the ladder's rungs and the stream probe
+(whose ``library_ms`` is a single-call median); and for every row
+``burst_ms`` and ``library_burst_ms``, back-to-back launches (the fastest
+of 5 bursts of 20), where the host's dispatch overlaps the previous
+call's device time.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -170,9 +181,10 @@ DW_SOURCE = "imageretrievalresearch_tpu_torch/csrc/depthwise_conv.cu"
 N_CLASSES, TRAIN_BATCH, TRAIN_SRC, TRAIN_STEPS = 125, 64, 256, 3
 DW_COMPARE_N, DW_TIME_N = 8, 3 * TRAIN_BATCH
 # (C, H, W, K, stride) beyond b3a's layers: odd H and W at stride 2, C not
-# a multiple of 32, K = 7
+# a multiple of 32, K = 7, and C not a multiple of 8 (the tap-gradient
+# kernel's masked loads)
 DW_RAGGED = [(144, 13, 9, 5, 2), (40, 15, 15, 7, 2), (200, 9, 9, 7, 1),
-             (24, 57, 43, 3, 2)]
+             (24, 57, 43, 3, 2), (36, 15, 15, 3, 2)]
 # The kernel path against cuDNN, relative, each limit between the card's
 # sound reading and the nearest reading of a wiring fault planted into the
 # opt-in path (``planted``; NVIDIA H100 80GB HBM3, 700 W). The bf16 epoch's
@@ -422,12 +434,16 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
         kernel = getattr(IK, name)
         reference = getattr(IK, f"{name}_reference")
         ms = event_ms(lambda: kernel(*a), reps=50)
+        b_ms = PF.pipelined_ms(lambda: kernel(*a))
         plain_ms = event_ms(lambda: reference(*a), reps=10)
         library_ms = event_ms(library, reps=50) if library else None
+        lib_b_ms = PF.pipelined_ms(library) if library else None
         bound_ms, bound_by = bound(nbytes, ops, peaks)
-        log(f"{name} at {tuple(a[0].shape)}: {ms:.4f} ms (bound "
-            f"{bound_ms:.4f} ms, {bound_by}); plain {plain_ms:.4f} ms; "
-            + (f"library {library_ms:.4f} ms ({library_name})" if library
+        log(f"{name} at {tuple(a[0].shape)}: {ms:.4f} ms, back-to-back "
+            f"{b_ms:.4f} (bound {bound_ms:.4f} ms, {bound_by}); plain "
+            f"{plain_ms:.4f} ms; "
+            + (f"library {library_ms:.4f} ms, back-to-back {lib_b_ms:.4f} "
+               f"({library_name})" if library
                else "library: none (no single PyTorch call computes it)"))
         entries.append({
             "name": name,
@@ -441,6 +457,9 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
+            "ms_by": "single call",
+            "burst_ms": b_ms,
+            "library_burst_ms": lib_b_ms,
         })
 
     # the whole triplet transform, warm, and its device time by kernel
@@ -535,14 +554,17 @@ def dw_passes(x, g, taps, shape) -> dict:
 def dw_check(shape, x, g, passes: dict) -> tuple[float, float]:
     """Each pass's kernel against its plain version, once: the forward and
     dx bitwise, the tap gradients within DW_GRAD_W_RTOL of the sum of
-    |x| |g| over each tap's terms. Returns the tap gradients' largest
+    |x| |g| over each tap's terms, and a second launch of the tap-gradient
+    kernel bitwise equal to the first. Returns the tap gradients' largest
     |kernel - plain| and its largest share of that sum."""
     got = {p: kern() for p, (kern, _) in passes.items()}
+    again = passes["dw"][0]()
     want = {p: plain() for p, (_, plain) in passes.items()}
     torch.cuda.synchronize()
     where = (x.dtype, x.shape[0], shape)
     for p in ("forward", "dx"):
         assert torch.equal(got[p], want[p]), (p, *where)
+    assert torch.equal(got["dw"], again), ("dw run to run", *where)
     scale = DW.depthwise_grad_w_reference(x.abs(), g.abs(), shape[3],
                                           shape[4])
     err = (got["dw"] - want["dw"]).abs()
@@ -564,8 +586,9 @@ def dw_compare(shapes, gen) -> tuple[float, float]:
             err, rel = max(err, e), max(rel, r)
     log(f"depthwise kernels vs plain versions, {len(shapes)} shapes x f32 "
         f"and bf16 at N = {DW_COMPARE_N}: forward and dx bitwise equal; tap "
-        f"gradients: max |kernel - plain| {err:.3g}, at most {rel:.3g} of "
-        f"the sum of |x| |g| (limit {DW_GRAD_W_RTOL})")
+        f"gradients: two launches bitwise equal, max |kernel - plain| "
+        f"{err:.3g}, at most {rel:.3g} of the sum of |x| |g| (limit "
+        f"{DW_GRAD_W_RTOL})")
     return err, rel
 
 
@@ -577,12 +600,13 @@ def dw_times(shapes, gen, peaks: dict) -> tuple[dict, float, float]:
     with the times."""
     conv_bwd = torch.ops.aten.convolution_backward
     tot = {p: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                             "bytes_ms", "ops_ms"), 0.0)
+                             "bytes_ms", "ops_ms", "burst_ms",
+                             "library_burst_ms"), 0.0)
            for p in ("forward", "dx", "dw")}
     n = DW_TIME_N
     err = rel = 0.0
     log(f"depthwise passes at N = {n}, bf16, per layer (C, H, K, stride): "
-        "kernel / cuDNN ms for forward, dx, dw")
+        "kernel / cuDNN ms for forward, dx, dw (single call; back-to-back)")
     for shape in shapes:
         c, h, w, k, s = shape
         p = k // 2
@@ -605,26 +629,34 @@ def dw_times(shapes, gen, peaks: dict) -> tuple[dict, float, float]:
             t = tot[name]
             ms = event_ms(kern, reps=10)
             lib_ms = event_ms(library[name], reps=10)
+            b_ms = PF.pipelined_ms(kern)
+            lib_b_ms = PF.pipelined_ms(library[name])
             t["ms"] += ms
             t["library_ms"] += lib_ms
+            t["burst_ms"] += b_ms
+            t["library_burst_ms"] += lib_b_ms
             t["plain_ms"] += event_ms(plain, reps=2, warmup=1)
             t["bytes_ms"] += nbytes / peaks["bytes"] * 1e3
             t["ops_ms"] += ops / peaks["float32"] * 1e3
             t["bound_ms"] += bound(nbytes, ops, peaks)[0]
-            row.append(f"{ms:.3f} / {lib_ms:.3f}")
+            row.append(f"{ms:.3f} / {lib_ms:.3f}; {b_ms:.3f} / "
+                       f"{lib_b_ms:.3f}")
         e, r = dw_check(shape, x, g, passes)
         err, rel = max(err, e), max(rel, r)
         log(f"  ({c}, {h}, {k}, {s}): " + "; ".join(row))
         del x, g, wt, xc, gc, passes, library
     log(f"depthwise kernels vs plain versions at N = {n}, bf16, "
         f"{len(shapes)} layers: forward and dx bitwise equal; tap "
-        f"gradients: max |kernel - plain| {err:.3g}, at most {rel:.3g} of "
-        f"the sum of |x| |g| (limit {DW_GRAD_W_RTOL})")
+        f"gradients: two launches bitwise equal, max |kernel - plain| "
+        f"{err:.3g}, at most {rel:.3g} of the sum of |x| |g| (limit "
+        f"{DW_GRAD_W_RTOL})")
     for name, t in tot.items():
         log(f"depthwise {name} over {len(shapes)} layers at N = {n}, bf16: "
             f"kernel {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms (bytes "
             f"{t['bytes_ms']:.3f}, operations {t['ops_ms']:.3f}), plain "
-            f"{t['plain_ms']:.3f} ms, cuDNN {t['library_ms']:.3f} ms")
+            f"{t['plain_ms']:.3f} ms, cuDNN {t['library_ms']:.3f} ms; "
+            f"back-to-back: kernel {t['burst_ms']:.3f} ms, cuDNN "
+            f"{t['library_burst_ms']:.3f} ms")
     return tot, err, rel
 
 
@@ -852,6 +884,9 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
             "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
                          else "operations"),
             "library_ms": total("library_ms"),
+            "ms_by": "single call",
+            "burst_ms": total("burst_ms"),
+            "library_burst_ms": total("library_burst_ms"),
         })
     return entries
 
@@ -988,15 +1023,18 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     for q in (64, 512):
         qh = R.l2_normalize(paths["float32"][0][0]) if q == 64 else \
             R.l2_normalize(torch.randn((q, DIM), generator=gen, device=DEV))
-        ms = event_ms(lambda: R.fused_cosine_scores(qh, gal), reps=20)
+        call = (lambda: R.fused_cosine_scores(qh, gal))
+        lib_call = (lambda: torch.matmul(qh, R.l2_normalize(gal).t()))
+        ms, b_ms = event_ms(call, reps=20), PF.pipelined_ms(call)
         plain_ms = event_ms(lambda: R.cosine_scores_reference(qh, gal),
                             reps=10)
-        library_ms = event_ms(lambda: torch.matmul(
-            qh, R.l2_normalize(gal).t()), reps=10)
+        library_ms = event_ms(lib_call, reps=10)
+        lib_b_ms = PF.pipelined_ms(lib_call)
         bound_ms, bound_by = scores_bound(q, G_TOTAL, DIM, peaks)
-        log(f"fused_cosine_scores Q={q} G={G_TOTAL} D={DIM}: {ms:.3f} ms "
-            f"(bound {bound_ms:.3f} ms, {bound_by}); plain {plain_ms:.3f} "
-            f"ms; library {library_ms:.3f} ms (torch.matmul(q̂, "
+        log(f"fused_cosine_scores Q={q} G={G_TOTAL} D={DIM}: {ms:.3f} ms, "
+            f"back-to-back {b_ms:.3f} (bound {bound_ms:.3f} ms, {bound_by}); "
+            f"plain {plain_ms:.3f} ms; library {library_ms:.3f} ms, "
+            f"back-to-back {lib_b_ms:.3f} (torch.matmul(q̂, "
             "l2_normalize(g)ᵀ), f32, TF32 off)")
         if q == 64:
             entries.append({
@@ -1007,7 +1045,8 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                 "launches": launches["fused_cosine_scores"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms})
+                "library_ms": library_ms, "ms_by": "single call",
+                "burst_ms": b_ms, "library_burst_ms": lib_b_ms})
 
     # 7.4 kernel 11, the ladder: each rung against its plain version on ±1
     # data (every word, sum and score exact: bitwise) and stream_only on
@@ -1041,7 +1080,7 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
         scale = variants["stream_only"].plain(
             q_hat.abs(), g_in.abs(), K, gallery_norms=n_in, splits=splits)
         err = (got - want).abs()
-        rtol = PF.stream_only_rtol(G_TOTAL, DIM, splits)
+        rtol = PF.stream_only_rtol(G_TOTAL, DIM, splits, g_in.dtype)
         assert (err <= rtol * scale).all(), (mode, (err / scale).max())
         errs[(mode, "stream_only")] = err.max().item()
         log(f"ladder ({mode}): stream_only, matmul_only, insert_only "
@@ -1102,7 +1141,8 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                 "ms": ladder[mode][rung], "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                "library_ms": None})
+                "library_ms": None, "ms_by": "back-to-back",
+                "burst_ms": ladder[mode][rung], "library_burst_ms": None})
 
     # 7.5 kernel 12, the stream probe over a (100,352, 1536) f32 array:
     # bitwise on small integers (exact in f32), within its stated bound on
@@ -1140,8 +1180,10 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
         f"{rw_ms:.4f} ms = {2 * x_bytes / rw_ms / 1e6:.1f} GB/s")
     rows = min(probes, key=probes.get)   # the fastest height
     sum_ms = event_ms(lambda: PF.stream_probe_reference(x, rows), reps=10)
+    sum_b_ms = PF.pipelined_ms(lambda: PF.stream_probe_reference(x, rows))
     log(f"stream probe row: rows={rows}; plain = library = one torch call "
-        f"x.reshape(-1, rows, D).sum((0, 2)): {sum_ms:.4f} ms")
+        f"x.reshape(-1, rows, D).sum((0, 2)): {sum_ms:.4f} ms, "
+        f"back-to-back {sum_b_ms:.4f}")
     bound_ms, bound_by = bound(x_bytes + 4 * rows, x.numel(), peaks)
     entries.append({
         "name": "stream_probe", "route": "cuda",
@@ -1149,7 +1191,8 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
         "replaces": "tools/profile_fused_kernel.py:212",
         "launches": probe_launches, "max_abs_err": perr,
         "ms": probes[rows], "plain_ms": sum_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": sum_ms})
+        "bound_by": bound_by, "library_ms": sum_ms, "ms_by": "back-to-back",
+        "burst_ms": probes[rows], "library_burst_ms": sum_b_ms})
     del x
     return entries
 
@@ -1164,11 +1207,12 @@ def main() -> None:
     with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
         outputs = dict(zip(_cuda.SOURCES,
                            pool.map(_cuda.build, _cuda.SOURCES)))
-    log(f"build {', '.join(outputs)} (fused_topk: f32, bf16, int8 split "
-        "kernels + merge, the f32 and bf16 ladder rungs, the scores kernel; "
-        "image_ops: histogram, LUT, row shifts; depthwise_conv: forward, tap "
-        "gradients + reduction; stream_probe: row sums + fold), one nvcc "
-        f"each in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"build {', '.join(outputs)} (fused_topk: f32 and int8 split "
+        "kernels + merge, the bf16 split kernel + selection merge, the f32 "
+        "and bf16 ladder rungs, the scores kernel; image_ops: histogram, "
+        "LUT, row shifts; depthwise_conv: forward, tap gradients + "
+        "reduction; stream_probe: row sums + fold), one nvcc each in "
+        f"parallel: {time.perf_counter() - t0:.1f} s")
     for name, out in outputs.items():
         for line in out.splitlines():
             if any(w in line for w in ("registers", "Compiling entry",
@@ -1367,6 +1411,11 @@ def main() -> None:
                 "that differ, only at near-ties of the k-th value; "
                 f"{n_ok} rows certified by the kernel and its plain version "
                 "alike")
+            if mode == "bfloat16":
+                log(f"bf16 certificate pass rate, {what}: {n_ok} of "
+                    f"{kv.shape[0]} rows with ok = 1; the contract's (the "
+                    f"plain version's, which every design of the kernel is "
+                    f"held to): {n_rok} of {kv.shape[0]}")
         del g_in, kw
 
     # fidelity of each serving mode against f32 exact, unit-row queries
@@ -1400,30 +1449,32 @@ def main() -> None:
     kernels = []
     for mode, (name, replaces) in KERNELS.items():
         g_in, kw = resident(mode)
-        ms = event_ms(lambda: R.fused_cosine_topk(q_hat, g_in, K, **kw),
-                      reps=20)
+        call = (lambda: R.fused_cosine_topk(q_hat, g_in, K, **kw))
+        ms, b_ms = event_ms(call, reps=20), PF.pipelined_ms(call)
         plain_ms = event_ms(lambda: R.fused_cosine_topk_reference(
             q_hat, g_in, K, matmul_dtype=mode, splits=splits, **kw),
             reps=5, warmup=1)
         if mode == "float32":
             library = "torch.topk(torch.matmul(q̂, ĝᵀ), 150), f32"
-            library_ms = event_ms(lambda: torch.topk(
-                torch.matmul(q_hat, g_hat.t()), K), reps=20)
+            lib_call = (lambda: torch.topk(torch.matmul(q_hat, g_hat.t()),
+                                           K))
             g_bytes = 4 * (G_TOTAL * DIM + G_TOTAL)
         elif mode == "bfloat16":
             library = ("torch.topk(torch.matmul(q̂16, ĝ16ᵀ).float(), 150); "
                        "cuBLAS rounds its output to bf16")
-            library_ms = event_ms(lambda: torch.topk(
-                torch.matmul(q16, g_in.t()).float(), K), reps=20)
+            lib_call = (lambda: torch.topk(
+                torch.matmul(q16, g_in.t()).float(), K))
             g_bytes = 2 * G_TOTAL * DIM
         else:
             library = ("torch._int_mm(q8, g8ᵀ) -> rescale -> torch.topk, "
                        "int8 tensor cores")
             gs = kw["gallery_scale"]
-            library_ms = event_ms(lambda: torch.topk(
-                torch._int_mm(qq, g_in.t()).float() * (qs * gs.reshape(1, -1)),
-                K), reps=20)
+            lib_call = (lambda: torch.topk(
+                torch._int_mm(qq, g_in.t()).float()
+                * (qs * gs.reshape(1, -1)), K))
             g_bytes = G_TOTAL * DIM + 4 * G_TOTAL
+        library_ms = event_ms(lib_call, reps=20)
+        lib_b_ms = PF.pipelined_ms(lib_call)
         nbytes = 4 * q * DIM + g_bytes + 8 * q * K + 4 * q
         ops = 2 * q * G_TOTAL * DIM
         bound_bytes = nbytes / peaks["bytes"] * 1e3
@@ -1432,7 +1483,8 @@ def main() -> None:
         log(f"{name} Q={q} G={G_TOTAL} D={DIM} k={K}: {ms:.3f} ms "
             f"(bound {bound:.3f} ms: bytes {bound_bytes:.3f}, operations "
             f"{bound_ops:.3f}); plain {plain_ms:.3f} ms; library "
-            f"{library_ms:.3f} ms ({library})")
+            f"{library_ms:.3f} ms ({library}); back-to-back: kernel "
+            f"{b_ms:.3f} ms, library {lib_b_ms:.3f} ms")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1445,6 +1497,9 @@ def main() -> None:
             "bound_ms": bound,
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "library_ms": library_ms,
+            "ms_by": "single call",
+            "burst_ms": b_ms,
+            "library_burst_ms": lib_b_ms,
         })
         del g_in, kw
 

@@ -39,12 +39,28 @@
 //
 // Design, tap gradients: on the TPU one output block is revisited by a
 // sequential grid and accumulated in place. Here blocks run in parallel and
-// in no order, so each block writes its own partial sums: block (split,
-// channel block) walks a fixed range of (image, tile) items, staging each x
-// tile as the forward does; each thread accumulates x * g for its channel
-// and pixels into K*K f32 registers; the threads of one channel are summed
-// in slot order through shared memory, and a second kernel sums the splits
-// in order. Every sum has a fixed order, so repeated runs are bitwise equal.
+// in no order, so each block writes its own partial sums, and a second
+// kernel sums the splits in order. Every sum has a fixed order (no
+// atomics), so repeated runs are bitwise equal. The pass is bound by bytes
+// (4.6 GB at b3a's N = 192, ~1.4 ms), and what the design does for that:
+// - An item is a band of th output rows of one image, across the whole
+//   width, for one block of cb channels; a block walks a fixed range of
+//   items, two blocks per SM (the wrapper's plan, grad_w_plan and
+//   grad_w_splits, sizes th and cb to ~112 KB of dynamic shared memory per
+//   block, opted in above 48 KB, and the grid to one wave).
+// - The band's x rows (with the halo) and g rows are copied raw (bf16
+//   stays bf16) into shared memory by 16-byte cp.async, 8 bf16 channels per
+//   copy, zero-filled outside the image, double-buffered: item i + 1's
+//   copies are in flight while item i is summed. Each thread walks its
+//   copies by carries, with no division per element. C not a multiple of
+//   the 16-byte chunk takes masked single-element loads into the same
+//   layout.
+// - A thread owns a channel pair (bf16x2 words) and runs of RUN = 4
+//   neighbouring output pixels of a row: per tap row it reads the run's
+//   (RUN - 1) * s + K input pairs once and forms all RUN * K products from
+//   registers, into K*K f32 accumulators per channel.
+// - The threads of one channel pair are summed in slot order through shared
+//   memory (one barrier), then the ordered split reduction.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,61 +150,233 @@ dw_forward_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tap gradients (kernel 10; top of file)
+// ---------------------------------------------------------------------------
+
+constexpr int RUN = 4;             // output pixels of a row per thread step
+constexpr int GRAD_MAX_SMEM = 232448;
+
+// The tap-gradient geometry: items are (image, band of th output rows);
+// a block stages the band's x rows (with the halo) and g rows across the
+// whole width, for cb channels, in dynamic shared memory.
+struct GradGeom {
+  int n, h, w, c, ho, wo;
+  int th, cb;        // output rows per item, channels per block
+  int rows_in;       // staged x rows: (th - 1) * s + k
+  int xw, gw;        // staged x columns (with the padding), g columns
+  int rpr;           // runs of RUN pixels per output row
+  int bands, items;  // bands per image, n * bands
+  int np, nslot;     // channel pairs per block, threads per channel pair
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// a channel pair (2c, 2c + 1) as two f32
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// A thread's walk over a (rows, cols, chunks) box, THREADS entries apart:
+// the first entry by division once, every later one by carries.
+struct BoxWalk {
+  int row, col, cg;        // the current entry
+  int d_row, d_col, d_cg;  // the step of THREADS entries
+  __device__ BoxWalk(int cols, int cpc) {
+    const int t = threadIdx.x, per_row = cols * cpc;
+    row = t / per_row;
+    col = t % per_row / cpc;
+    cg = t % cpc;
+    d_row = THREADS / per_row;
+    d_col = THREADS % per_row / cpc;
+    d_cg = THREADS % cpc;
+  }
+  __device__ __forceinline__ void next(int cols, int cpc) {
+    cg += d_cg;
+    if (cg >= cpc) {
+      cg -= cpc;
+      ++col;
+    }
+    col += d_col;
+    if (col >= cols) {
+      col -= cols;
+      ++row;
+    }
+    row += d_row;
+  }
+};
+
+// Stages item (image n, band starting at output row r0) into buffer `xs`
+// (x: [rows_in][xw][cb], its rows from r0 * S - K/2, its columns shifted
+// by K/2) and `gs` (g: [th][gw][cb]): 16-byte cp.async per chunk of
+// E = 16 / sizeof(T) channels when `vec`, zero-filled for rows outside the
+// image and channels past C; else masked loads of single elements. The
+// padding columns and the runs' tail columns are never written here (they
+// stay zero).
 template <typename T, int K, int S>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void stage_grad_item(
+    const T* __restrict__ x, const T* __restrict__ gy, const GradGeom& g,
+    int n, int r0, int c0, int cn, bool vec, T* xs, T* gs) {
+  constexpr int E = 16 / sizeof(T), P = K / 2;
+  const int cpc = g.cb / E;
+  const int xr0 = r0 * S - P;
+  for (BoxWalk b(g.w, cpc); b.row < g.rows_in; b.next(g.w, cpc)) {
+    const int hh = xr0 + b.row, cc = b.cg * E;
+    const T* src = x + (((size_t)n * g.h + hh) * g.w + b.col) * g.c + c0 + cc;
+    T* dst = xs + ((size_t)b.row * g.xw + b.col + P) * g.cb + cc;
+    const bool row_in = hh >= 0 && hh < g.h;
+    if (vec) {
+      const bool in = row_in && cc < cn;
+      cp_async16(dst, in ? src : x, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        dst[e] = row_in && cc + e < cn ? src[e] : T(0.0f);
+    }
+  }
+  for (BoxWalk b(g.wo, cpc); b.row < g.th; b.next(g.wo, cpc)) {
+    const int rr = r0 + b.row, cc = b.cg * E;
+    const T* src =
+        gy + (((size_t)n * g.ho + rr) * g.wo + b.col) * g.c + c0 + cc;
+    T* dst = gs + ((size_t)b.row * g.gw + b.col) * g.cb + cc;
+    const bool row_in = rr < g.ho;
+    if (vec) {
+      const bool in = row_in && cc < cn;
+      cp_async16(dst, in ? src : gy, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        dst[e] = row_in && cc + e < cn ? src[e] : T(0.0f);
+    }
+  }
+}
+
+template <typename T, int K, int S>
+__global__ void __launch_bounds__(THREADS, K <= 5 ? 2 : 1)
 dw_grad_w_kernel(const T* __restrict__ x, const T* __restrict__ gy,
-                 float* __restrict__ partial, Geom g, int items_per_split) {
-  extern __shared__ float tile[];
-  const int split = blockIdx.x;
-  const int c0 = blockIdx.y * g.cb;
-  const int cc = threadIdx.x % g.cb;
-  const int slot = threadIdx.x / g.cb;
-  const int slots = THREADS / g.cb;
-  const bool active = slot < slots && c0 + cc < g.c;
-  const int tw_in = (g.tw - 1) * S + K;
-  float acc[K * K];
-#pragma unroll
-  for (int tap = 0; tap < K * K; ++tap) acc[tap] = 0.0f;
+                 float* __restrict__ partial, GradGeom g, int items_per_split,
+                 bool vec) {
+  constexpr int KK = K * K, RX = (RUN - 1) * S + K;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  const int tid = threadIdx.x, split = blockIdx.x;
+  const int c0 = blockIdx.y * g.cb, cn = min(g.cb, g.c - c0);
+  const size_t buf = (size_t)(g.rows_in * g.xw + g.th * g.gw) * g.cb;
+  T* bufs = reinterpret_cast<T*>(dw_smem);
+
+  // both buffers zeroed once: the padding stays zero
+  {
+    const int n16 = (int)(2 * buf * sizeof(T) / 16);
+    for (int i = tid; i < n16; i += THREADS)
+      reinterpret_cast<uint4*>(dw_smem)[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
   const int item0 = split * items_per_split;
-  const int item1 = min(item0 + items_per_split, g.n * g.tiles);
-  for (int item = item0; item < item1; ++item) {
-    const int n = item / g.tiles;
-    const int t = item % g.tiles;
-    stage_tile<T, K, S>(x, g, n, t, c0, tile);
-    __syncthreads();
-    if (active) {
-      const int ho0 = (t / g.tiles_w) * g.th, wo0 = (t % g.tiles_w) * g.tw;
-      const int rows = min(g.th, g.ho - ho0), cols = min(g.tw, g.wo - wo0);
-      for (int p = slot; p < rows * cols; p += slots) {
-        const int r = p / cols, q = p % cols;
-        const float gv = to_f32(
-            gy[(((size_t)n * g.ho + ho0 + r) * g.wo + wo0 + q) * g.c + c0 +
-               cc]);
-        const float* base = tile + ((r * S) * tw_in + q * S) * g.cb + cc;
+  const int item1 = min(item0 + items_per_split, g.items);
+  int ld_n = item0 / g.bands, ld_b = item0 % g.bands;  // the next to stage
+  auto stage = [&](int slot) {
+    T* xs = bufs + slot * buf;
+    stage_grad_item<T, K, S>(x, gy, g, ld_n, ld_b * g.th, c0, cn, vec, xs,
+                             xs + (size_t)g.rows_in * g.xw * g.cb);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (++ld_b == g.bands) {
+      ld_b = 0;
+      ++ld_n;
+    }
+  };
+
+  // this thread: channel pair cp, and the runs slot, slot + nslot, ... of
+  // each band (run = RUN pixels of one output row)
+  const int cp = tid % g.np, slot = tid / g.np;
+  const bool active = slot < g.nslot;
+  const int runs = g.th * g.rpr;
+  const int r_first = slot / g.rpr, w_first = slot % g.rpr;
+  const int d_r = g.nslot / g.rpr, d_w = g.nslot % g.rpr;
+
+  float acc[KK][2];
 #pragma unroll
-        for (int i = 0; i < K; ++i)
+  for (int t = 0; t < KK; ++t) acc[t][0] = acc[t][1] = 0.f;
+
+  stage(0);
+  for (int it = item0; it < item1; ++it) {
+    // item it + 1's copies go out before the wait for item it, so both
+    // buffers are in flight while the block waits
+    if (it > item0) __syncthreads();  // every warp is done with it - 1
+    if (it + 1 < item1) {
+      stage((it + 1 - item0) & 1);  // into its buffer
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // item `it` is in, every thread's copies of it
+    const T* xs = bufs + ((it - item0) & 1) * buf;
+    const T* gs = xs + (size_t)g.rows_in * g.xw * g.cb;
+    if (!active) continue;
+    int r = r_first, wr = w_first;
+    for (int ru = slot; ru < runs; ru += g.nslot) {
+      const int w0 = wr * RUN;
+      float2 gv[RUN];
+      const T* gp = gs + ((size_t)r * g.gw + w0) * g.cb + 2 * cp;
 #pragma unroll
-          for (int j = 0; j < K; ++j)
-            acc[i * K + j] =
-                fmaf(base[(i * tw_in + j) * g.cb], gv, acc[i * K + j]);
+      for (int u = 0; u < RUN; ++u) gv[u] = load_pair(gp + u * g.cb);
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const T* xp =
+            xs + ((size_t)(r * S + i) * g.xw + w0 * S) * g.cb + 2 * cp;
+        float2 xv[RX];
+#pragma unroll
+        for (int q = 0; q < RX; ++q) xv[q] = load_pair(xp + q * g.cb);
+#pragma unroll
+        for (int u = 0; u < RUN; ++u)
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            acc[i * K + j][0] =
+                fmaf(xv[u * S + j].x, gv[u].x, acc[i * K + j][0]);
+            acc[i * K + j][1] =
+                fmaf(xv[u * S + j].y, gv[u].y, acc[i * K + j][1]);
+          }
       }
+      wr += d_w;
+      if (wr >= g.rpr) {
+        wr -= g.rpr;
+        ++r;
+      }
+      r += d_r;
     }
-    __syncthreads();
   }
-  // the slots of each channel, summed in slot order (the tile is free now
-  // and holds at least THREADS floats)
-  const int kk = K * K;
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // the slots of each channel, summed in slot order
+  float* red = reinterpret_cast<float*>(dw_smem);  // [nslot][KK][cb]
+  if (active) {
 #pragma unroll
-  for (int tap = 0; tap < K * K; ++tap) {
-    if (slot < slots) tile[slot * g.cb + cc] = acc[tap];
-    __syncthreads();
-    if (slot == 0 && c0 + cc < g.c) {
-      float s = 0.0f;
-      for (int k = 0; k < slots; ++k) s += tile[k * g.cb + cc];
-      partial[((size_t)split * kk + tap) * g.c + c0 + cc] = s;
+    for (int t = 0; t < KK; ++t) {
+      red[((size_t)slot * KK + t) * g.cb + 2 * cp] = acc[t][0];
+      red[((size_t)slot * KK + t) * g.cb + 2 * cp + 1] = acc[t][1];
     }
-    __syncthreads();
   }
+  __syncthreads();
+  for (int t = 0; t < KK; ++t)
+    for (int ch = tid; ch < cn; ch += THREADS) {
+      float s = 0.f;
+      for (int k = 0; k < g.nslot; ++k)
+        s += red[((size_t)k * KK + t) * g.cb + ch];
+      partial[((size_t)split * KK + t) * g.c + c0 + ch] = s;
+    }
 }
 
 // out[i] = sum over the splits, in order, of partial[split][i]
@@ -236,15 +424,50 @@ int launch_forward(const void* x, const float* taps, void* out, const Geom& g,
   return (int)cudaGetLastError();
 }
 
+// The tap-gradient geometry the wrapper planned (band height th, cb
+// channels per block), with the shared memory it needs, or false when the
+// kernels do not take it.
+bool make_grad_geom(int n, int h, int w, int c, int ho, int wo, int k, int s,
+                    int th, int cb, size_t esize, GradGeom* g, size_t* smem) {
+  if (n < 1 || h < 1 || w < 1 || c < 1 || k < 1 || k > 7 || k % 2 == 0 ||
+      (s != 1 && s != 2) || ho != out_len(h, k, s) || wo != out_len(w, k, s) ||
+      ho < 1 || wo < 1 || th < 1 || th > ho || cb < 8 || cb % 8 ||
+      cb > 2 * THREADS || (c + cb - 1) / cb > 65535)
+    return false;
+  g->n = n; g->h = h; g->w = w; g->c = c; g->ho = ho; g->wo = wo;
+  g->th = th; g->cb = cb;
+  g->rows_in = (th - 1) * s + k;
+  g->rpr = (wo + RUN - 1) / RUN;
+  g->gw = g->rpr * RUN;
+  const int span = (g->gw - 1) * s + k, padded = w + 2 * (k / 2);
+  g->xw = span > padded ? span : padded;
+  g->bands = (ho + th - 1) / th;
+  g->np = cb / 2;
+  g->nslot = THREADS / g->np;
+  if ((long long)n * g->bands >= (1LL << 31)) return false;
+  g->items = n * g->bands;
+  const size_t buf =
+      (size_t)(g->rows_in * g->xw + th * g->gw) * cb * esize;
+  const size_t red = (size_t)g->nslot * k * k * cb * sizeof(float);
+  *smem = 2 * buf > red ? 2 * buf : red;
+  return *smem <= GRAD_MAX_SMEM;
+}
+
 template <typename T, int K, int S>
 int launch_grad_w(const void* x, const void* gy, float* partial, float* out,
-                  const Geom& g, int nsplit, int items_per_split,
-                  cudaStream_t stream) {
+                  const GradGeom& g, size_t smem, int nsplit,
+                  int items_per_split, cudaStream_t stream) {
+  const bool vec = g.c % (16 / sizeof(T)) == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)gy % 16 == 0;
+  int err = (int)cudaFuncSetAttribute(
+      dw_grad_w_kernel<T, K, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err) return err;
   dim3 grid(nsplit, (g.c + g.cb - 1) / g.cb);
-  dw_grad_w_kernel<T, K, S><<<grid, THREADS, smem_bytes(g, K, S), stream>>>(
+  dw_grad_w_kernel<T, K, S><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(gy), partial, g,
-      items_per_split);
-  int err = (int)cudaGetLastError();
+      items_per_split, vec);
+  err = (int)cudaGetLastError();
   if (err) return err;
   const int total = K * K * g.c;
   dw_grad_w_reduce_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0,
@@ -276,9 +499,9 @@ struct Forward {
 template <typename T, int K, int S>
 struct GradW {
   static int run(const void* x, const void* gy, float* partial, float* out,
-                 Geom g, int nsplit, int items_per_split,
+                 GradGeom g, size_t smem, int nsplit, int items_per_split,
                  cudaStream_t stream) {
-    return launch_grad_w<T, K, S>(x, gy, partial, out, g, nsplit,
+    return launch_grad_w<T, K, S>(x, gy, partial, out, g, smem, nsplit,
                                   items_per_split, stream);
   }
 };
@@ -304,20 +527,23 @@ int dw_conv_forward(const void* x, const float* taps, void* out, int n, int h,
 }
 
 // x (N, H, W, C), gy (N, Ho, Wo, C) -> out (K*K, C) f32, through
-// partial (nsplit, K*K, C) f32; split s covers the (image, tile) items
-// [s * items_per_split, (s + 1) * items_per_split).
+// partial (nsplit, K*K, C) f32. Items are (image, band of th output rows),
+// n * ceil(Ho / th) of them, for each block of cb channels; split s covers
+// items [s * items_per_split, (s + 1) * items_per_split).
 int dw_conv_grad_w(const void* x, const void* gy, float* partial, float* out,
                    int n, int h, int w, int c, int ho, int wo, int k,
-                   int stride, int th, int tw, int cb, int nsplit,
+                   int stride, int th, int cb, int nsplit,
                    int items_per_split, int bf16, void* stream) {
-  Geom g;
-  if (!make_geom(n, h, w, c, ho, wo, k, stride, th, tw, cb, &g) ||
+  GradGeom g;
+  size_t smem;
+  if (!make_grad_geom(n, h, w, c, ho, wo, k, stride, th, cb, bf16 ? 2 : 4,
+                      &g, &smem) ||
       nsplit < 1 || items_per_split < 1 ||
-      (long long)nsplit * items_per_split < (long long)n * g.tiles ||
-      (long long)(nsplit - 1) * items_per_split >= (long long)n * g.tiles)
+      (long long)nsplit * items_per_split < (long long)g.items ||
+      (long long)(nsplit - 1) * items_per_split >= (long long)g.items)
     return (int)cudaErrorInvalidValue;
-  return dispatch<GradW>(bf16, k, stride, x, gy, partial, out, g, nsplit,
-                         items_per_split,
+  return dispatch<GradW>(bf16, k, stride, x, gy, partial, out, g, smem,
+                         nsplit, items_per_split,
                          reinterpret_cast<cudaStream_t>(stream));
 }
 

@@ -9,10 +9,11 @@
 //   its norms; each gallery element is divided by max(norm, eps) as it is
 //   stored in shared memory, then f32 FMAs.
 // - fused_topk_bf16 <- _fused_topk_kernel_bf16: pre-normalized bf16 gallery
-//   and bf16 q̂, no norm input; elements are loaded at 2 bytes and widened
-//   to f32 as they are stored, then f32 FMAs. A bf16 x bf16 product is
-//   exact in f32, so the scores are the dense bf16 path's (an f32 product
-//   of the upcast operands) apart from the order of accumulation.
+//   and bf16 q̂, no norm input; a kernel of its own (fused_topk_bf16_kernel
+//   and fused_topk_select_merge_kernel, below). A bf16 x bf16 product is
+//   exact in f32, so its tensor-core scores are the dense bf16 path's (an
+//   f32 product of the upcast operands) apart from the order of
+//   accumulation.
 // - fused_topk_int8 <- _fused_topk_kernel_int8: int8 codes of q̂ and ĝ with
 //   per-row scales qs (Q,1), gs (G,1); four codes per 32-bit word, __dp4a
 //   into int32 (exact; zero-padded past D), then
@@ -23,7 +24,7 @@
 //   tile normalized inside the kernel (below).
 // - fused_topk_{f32,bf16}_{stream_only,matmul_only,insert_only} <- the
 //   ablation ladder of tools/profile_fused_kernel.py (build_variants): the
-//   split kernel cut after one of its phases (below).
+//   f32 or the bf16 split kernel cut after one of its phases (below).
 // Plain versions and wrappers: imageretrievalresearch_tpu_torch/ops/
 // retrieval.py (fused_cosine_topk, fused_cosine_topk_reference,
 // fused_cosine_scores, cosine_scores_reference) and
@@ -39,12 +40,14 @@
 //         bound by bytes at ~0.092 ms;
 // - int8: codes 154 MB ~0.046 ms; 0.010 ms on int8 tensor cores, so bound
 //         by bytes at ~0.046 ms.
-// The product here is SIMT (f32 FMA, or dp4a at 4 multiply-adds per
-// instruction), not tensor cores, so the bf16 and int8 variants sit far
-// above their byte bounds; the distance is recorded in PERF.md.
+// The f32 and int8 products here are SIMT (f32 FMA, or dp4a at 4
+// multiply-adds per instruction), not tensor cores, so the int8 variant
+// sits far above its byte bound; the distance is recorded in PERF.md.
 // A card with a lower power limit, or the PCIe part, has lower peaks.
 //
-// Design (simple first; wgmma/TMA/warp specialisation are later work):
+// Design of the f32 and int8 kernels (fused_topk_split_kernel; simple
+// first: vector loads, tensor cores and a cheaper extraction are later
+// work for them, as the bf16 kernel below has them):
 // - One query tile of QT=64 rows covers Q=64, so the gallery streams from
 //   device memory once. The grid is (query tiles x gallery splits); the
 //   wrapper picks one split per SM (132 on the H100 SXM).
@@ -65,16 +68,59 @@
 //   sorted candidate lists per row (k-way, in shared memory) and sets
 //   ok = AND over splits of (deepest value < final k-th value).
 //
-// The ladder (phase P of the split kernel; FULL is the production
-// instance, the three others exist to attribute its time): STREAM does
-// FULL's global loads and shared-memory staging and folds every loaded
-// word (and norm) into per-row f32 sums, so no load can be dropped;
+// The ladder (phase P of the f32 split kernel and of the bf16 kernel; FULL
+// is the production instance, the three others exist to attribute its
+// time): STREAM does FULL's global loads and shared-memory staging and
+// folds every loaded word (and norm) into per-row f32 sums, so no load can
+// be dropped;
 // MATMUL adds the division by the norm and the product, and keeps the
 // split's max score per query row; INSERT adds the insertion chain and
 // writes the first k buffer lanes verbatim (no extraction, no merge).
 // Each rung keeps FULL's launch geometry and shared memory, so the
 // occupancy is the same; the differences of their times are the costs of
 // the phases that the others do not hide.
+//
+// Kernel 2, the bf16 kernel (fused_topk_bf16_kernel + the selection
+// merge), redesigned for the card. Bound by bytes (0.092 ms for the 307 MB
+// gallery); what holds a streaming kernel back on an SM is the bytes it
+// keeps in flight (~25-30 KB of gallery at 3.35 TB/s over 132 SMs), and
+// the shared memory the buffers leave for that. The design:
+// - The same contract and geometry as the f32 kernel: 64 bins, depth 6,
+//   fused_splits splits with tiles dealt round-robin, one query tile of 64
+//   rows per block, the insertion chain in index order.
+// - Buffers: f32 values and, in place of 32-bit indices, 16-bit tile
+//   ordinals within the split (index = (ordinal x nsplit + split) x 64 +
+//   bin; an empty slot, value -inf, decodes to index 0), so 144 KB, not
+//   192. The launcher refuses more than 65,536 tiles per split.
+// - The freed shared memory holds a ring of 5 stages, each a 64 x 64 bf16
+//   tile of q̂ and one of the gallery (16 KB; bf16 stays bf16). A producer
+//   warp fills it: per stage one thread issues two TMA box copies (the
+//   tensor maps' 128-byte swizzle, zeros past Q, G and D) that complete on
+//   the stage's mbarrier; a D that is not a multiple of 8 takes the warp's
+//   masked 2-byte loads into the same layout. The 8 consumer warps wait on
+//   a stage's "full" mbarrier and release it on its "empty" one, with no
+//   block-wide barrier per stage, so the producer keeps up to 5 stages
+//   (40 KB of gallery) in flight while the consumers compute.
+// - The product runs on tensor cores: mma.sync m16n8k16 bf16 with f32
+//   accumulators, fed by ldmatrix from rows swizzled by 16-byte chunk
+//   (chunk c of row r at c ^ (r % 8)); each of 8 warps owns 16 query rows
+//   x 32 bins, two accumulator sets (even and odd 16-word steps) halve the
+//   dependent chains. The mma fragment gives every (query, bin) pair to
+//   exactly one thread, for every tile, so the insertion chain needs no
+//   synchronisation, as before.
+// - A tile's 8 score pairs per thread are inserted one pair per step of
+//   the next tile (the chain reads its 6 slots at once and runs in
+//   registers), so the insertion does not stall the ring.
+// - Extraction: one warp per query row holds its 384 entries as order-
+//   preserving 32-bit keys, finds the k-th key bit by bit (32 warp counts,
+//   __reduce_add_sync), breaks a tie at it by the lowest indices (31 more
+//   counts, only when needed) and writes the split's top-k set unsorted.
+//   The selection merge kernel does the same over the nsplit x k
+//   candidates of a row (one block, the candidates in registers), places
+//   each selected entry by its rank in (value desc, index asc), and sets
+//   ok = AND over splits of (deepest stored < final k-th value). The
+//   output equals the k argmax passes' (any exact method does), including
+//   the (-inf, 0) filler of a row with fewer than k finite entries.
 //
 // Kernel 4 (cosine_scores_f32, phase SCORES of the split kernel). Bound
 // at Q=64, G=100,000, D=1536: bytes (Q·D + G·D + Q·G)·4 = 640 MB, 0.19 ms;
@@ -91,9 +137,11 @@
 // copies. The second read of the gallery tile comes from L2. TF32 is not
 // used: true f32.
 
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -114,7 +162,9 @@ constexpr float EPS = 1e-6f;
 static_assert(QT == GT, "one staging layout serves both operands");
 static_assert(QT == 64 && THREADS == 256, "4x4 micro-tile per thread");
 
-enum Mode { F32 = 0, BF16 = 1, I8 = 2 };
+// (the values name the compiled instances; the bf16 mode has a kernel of
+// its own, fused_topk_bf16_kernel)
+enum Mode { F32 = 0, I8 = 2 };
 // the ladder's rungs, FULL (the production kernel) and SCORES (kernel 4)
 enum Phase { STREAM = 0, MATMUL = 1, INSERT = 2, FULL = 3, SCORES = 4 };
 
@@ -144,10 +194,6 @@ __device__ __forceinline__ Word<M> load_word(const void* base, int r,
     return (r < rows && w < D)
                ? static_cast<const float*>(base)[(size_t)r * D + w]
                : 0.f;
-  } else if constexpr (M == BF16) {
-    if (r >= rows || w >= D) return 0.f;
-    const uint16_t u = static_cast<const uint16_t*>(base)[(size_t)r * D + w];
-    return __uint_as_float((uint32_t)u << 16);  // exact widening
   } else {
     const int c = 4 * w;
     if (r >= rows || c >= D) return 0;
@@ -183,7 +229,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
                         float* __restrict__ cand_v,
                         int* __restrict__ cand_i, float* __restrict__ tth) {
   using W = Word<M>;
-  static_assert(P == FULL || M != I8, "the ladder is built for f32, bf16");
+  static_assert(P == FULL || M == F32, "the ladder's rungs here are f32");
   static_assert(P != SCORES || M == F32, "the scores kernel is f32");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* bufv = reinterpret_cast<float*>(smem_raw);   // [TD][QT][BINS]
@@ -245,7 +291,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
           ss += __shfl_xor_sync(0xffffffffu, ss, off);
         if (l == 0) gn[r] = base + r < G ? fmaxf(__fsqrt_rn(ss), EPS) : 1.f;
       }
-    } else if constexpr (M != BF16) {
+    } else {
       if (tid < GT) {
         const int r = base + tid;
         const float x = r < G ? gaux[r] : 1.f;
@@ -589,6 +635,750 @@ int launch_rung(const void* q, const void* g, const float* gaux, int Q,
                                  reinterpret_cast<cudaStream_t>(stream));
 }
 
+
+// ---------------------------------------------------------------------------
+// Kernel 2: the bf16 split kernel and its selection merge (top of file)
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 64;                        // elements per row per stage
+constexpr int STAGES = 5;                     // ring depth
+constexpr int TILE_BYTES = QT * KC * 2;       // one operand's tile, 8 KB
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // q̂ tile, then gallery tile
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int BUF = TD * QT * BINS;           // buffer entries
+constexpr int DS = QT * BINS / 2;             // depth stride in entry pairs
+constexpr int BF16_THREADS = THREADS + 32;  // 8 consumer warps, 1 producer
+// slack to align the ring to 1024 B (the 128-byte swizzle's period), the
+// ring, the buffers, then a full and an empty mbarrier per stage
+constexpr size_t BF16_SMEM = 1024 + (size_t)RING_BYTES + (size_t)BUF * 6 +
+                             (size_t)2 * STAGES * 8;
+constexpr int MAX_ORDINALS = 1 << 16;         // 16-bit tile ordinals
+constexpr int MERGE_THREADS = 512;
+constexpr int MERGE_PER = 40;                 // candidates per merge thread
+constexpr int MERGE_MAX = MERGE_THREADS * MERGE_PER;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+static_assert(BF16_SMEM <= 232448, "one block per SM");
+static_assert(QT == 64 && THREADS == 256, "8 warps of 16 x 32 scores");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n"
+               : "=l"(state)
+               : "r"(bar)
+               : "memory");
+}
+// one arrival that also expects `bytes` of TMA copies to land
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\n"
+               : "=l"(state)
+               : "r"(bar), "r"(bytes)
+               : "memory");
+}
+// TMA: the box at (column x, row y) of the 2-D tensor map into `dst`,
+// completing `bytes` on the mbarrier `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+// Waits for the phase of `parity` of the mbarrier to complete; traps (a
+// launch error, not a hang) if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1LL << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an unsigned key in the order of the float (-0 taken as +0; no NaN here)
+__device__ __forceinline__ uint32_t f2key(float v) {
+  const uint32_t u = __float_as_uint(v + 0.f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key2f(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Stage (tile at gallery row `base`, columns col0 .. col0 + KC) of the ring
+// by the producer warp's masked 2-byte loads, for a D that is not a
+// multiple of 8 (or rows not 16-byte aligned), where TMA cannot copy: the
+// layout TMA's 128-byte swizzle gives, 64 x 64 q̂ tile at `dst`, gallery
+// tile at dst + TILE_BYTES, rows of 128 B with 16-byte chunk c of row r at
+// chunk c ^ (r % 8), zeros past Q, G and D. Lane l moves chunk l % 8 of
+// rows l / 8 + 4i of each operand.
+__device__ __forceinline__ void load_stage_masked(uint32_t dst,
+                                                  const uint16_t* q,
+                                                  const uint16_t* g, int q0,
+                                                  int Q, int base, int G,
+                                                  int D, int col0, int lane) {
+#pragma unroll 4
+  for (int p = 0; p < 32; ++p) {
+    const bool isq = p < 16;
+    const uint16_t* src = isq ? q : g;
+    const int rows = isq ? Q : G;
+    const int r = (lane >> 3) + 4 * (p & 15), c = lane & 7;
+    const int row = (isq ? q0 : base) + r, col = col0 + 8 * c;
+    const uint32_t d = dst + (isq ? 0 : TILE_BYTES) + r * (KC * 2) +
+                       ((c ^ (r & 7)) << 4);
+    uint32_t w[4] = {0, 0, 0, 0};
+    if (row < rows) {
+      const uint16_t* s = src + (size_t)row * D;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (col + e < D) w[e >> 1] |= (uint32_t)s[col + e] << (16 * (e & 1));
+    }
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]));
+  }
+}
+
+// The sum of the 8 bf16 of the 16-byte chunk at shared address `a`, as a
+// tree of f32 additions.
+__device__ __forceinline__ float chunk_sum(uint32_t a) {
+  uint32_t w[4];
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+               : "r"(a));
+  float s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = bf16_lo(w[i]) + bf16_hi(w[i]);
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// The insertion chain of two neighbouring bins of one query row (pair
+// entries at `bv`, 16-bit tile ordinals at `bo`, depth stride DS): each
+// value sinks below the stored values >= it, the displaced value going on
+// down. The TD slots are read at once and the chain runs in registers, so
+// the chain costs one round trip to shared memory, not TD.
+__device__ __forceinline__ void insert_pair(float2* bv, uint32_t* bo,
+                                            float a, float b, uint32_t ord) {
+  float2 cur[TD];
+  uint32_t co[TD];
+#pragma unroll
+  for (int t = 0; t < TD; ++t) {
+    cur[t] = bv[t * DS];
+    co[t] = bo[t * DS];
+  }
+  uint32_t oa = ord, ob = ord;
+#pragma unroll
+  for (int t = 0; t < TD; ++t) {
+    const bool ta = a > cur[t].x, tb = b > cur[t].y;
+    const uint32_t lo = co[t] & 0xffffu, hi = co[t] >> 16;
+    if (ta || tb) {
+      bv[t * DS] = make_float2(ta ? a : cur[t].x, tb ? b : cur[t].y);
+      bo[t * DS] = (ta ? oa : lo) | ((tb ? ob : hi) << 16);
+    }
+    if (ta) {
+      a = cur[t].x;
+      oa = lo;
+    }
+    if (tb) {
+      b = cur[t].y;
+      ob = hi;
+    }
+  }
+}
+
+// The bf16 split kernel, phase P (STREAM, MATMUL, INSERT or FULL; the
+// outputs of each as for fused_topk_split_kernel). Grid (query tiles,
+// nsplit), BF16_THREADS threads (8 consumer warps, then the producer warp
+// that fills the ring), BF16_SMEM bytes: the ring, then the buffers
+// (values f32 [TD][QT][BINS], tile ordinals u16 likewise; bin b of row q at
+// b ^ (8 * (q % 4)), which keeps the two neighbouring bins of an entry
+// pair together and spreads a warp's rows over the banks).
+template <int P>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                       const __grid_constant__ CUtensorMap tmg,
+                       const uint16_t* __restrict__ q,
+                       const uint16_t* __restrict__ g, int Q, int G, int D,
+                       int k, int nsplit, bool tma, float* __restrict__ cand_v,
+                       int* __restrict__ cand_i, float* __restrict__ tth) {
+  static_assert(P >= STREAM && P <= FULL, "a phase of the split kernel");
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  // the ring at the first 1024-byte boundary, then the buffers
+  unsigned char* sm = smem_bf16 + ((1024 - smem_u32(smem_bf16) % 1024) % 1024);
+  float* bufv = reinterpret_cast<float*>(sm + RING_BYTES);
+  uint16_t* bufo = reinterpret_cast<uint16_t*>(bufv + BUF);
+  const uint32_t ring = smem_u32(sm);
+  // stage s is in: full[s] (TMA: one arrival and the stage's bytes; else
+  // 32 arrivals of the producer's lanes); every consumer warp is done with
+  // it: empty[s] (8 arrivals)
+  const uint32_t full = smem_u32(bufo + BUF), empty = full + 8 * STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * QT, split = blockIdx.y;
+  // this thread's scores: rows qa and qa + 8, bins bn + 8j + {0, 1}
+  const int wq = warp >> 1, wn = warp & 1;
+  const int qa = 16 * wq + (lane >> 2), bn = 32 * wn + 2 * (lane & 3);
+
+  if constexpr (P >= INSERT) {
+    for (int e = tid; e < BUF; e += BF16_THREADS) {
+      bufv[e] = -CUDART_INF_F;
+      bufo[e] = 0;
+    }
+  }
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, tma ? 1 : 32);
+      mbar_init(empty + 8 * st, WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ntiles = (G + GT - 1) / GT;
+  const int my_tiles = (ntiles - split + nsplit - 1) / nsplit;
+  const int nk = (D + KC - 1) / KC;
+  const int total = my_tiles * nk;
+
+  if (warp == WARPS) {
+    // the producer: stage s into slot s % STAGES once the consumers have
+    // released the slot's previous stage; two TMA boxes (q̂ and gallery)
+    // from lane 0, or the warp's masked loads
+    int ord = 0, kc = 0, slot = 0;
+    uint32_t round = 0;
+    for (int st = 0; st < total; ++st) {
+      if (round) mbar_wait(empty + 8 * slot, (round - 1) & 1);
+      const uint32_t dst = ring + slot * STAGE_BYTES, bar = full + 8 * slot;
+      const int base = (split + ord * nsplit) * GT;
+      if (tma) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(bar, STAGE_BYTES);
+          tma_load_2d(dst, &tmq, kc * KC, q0, bar);
+          tma_load_2d(dst + TILE_BYTES, &tmg, kc * KC, base, bar);
+        }
+      } else {
+        load_stage_masked(dst, q, g, q0, Q, base, G, D, kc * KC, lane);
+        mbar_arrive(bar);
+      }
+      if (++kc == nk) {
+        kc = 0;
+        ++ord;
+      }
+      if (++slot == STAGES) {
+        slot = 0;
+        ++round;
+      }
+    }
+    __syncwarp();
+    __syncthreads();  // the consumers' last barrier
+    return;
+  }
+
+  // ldmatrix row addresses (chunk 0) and their swizzle
+  const int sw = lane & 7;
+  const uint32_t a_row = (16 * wq + (lane & 15)) * (KC * 2);
+  const int a_c = lane >> 4;
+  uint32_t b_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    b_row[h] = (32 * wn + 16 * h + (lane & 7) + ((lane >> 4) << 3)) * (KC * 2);
+  const int b_c = (lane >> 3) & 1;
+
+  // two sets of accumulators (even and odd 16-word steps), so that each
+  // chain of dependent mma is half as long; a score is their sum
+  float acc[2][4][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[e][j][c] = 0.f;
+  // the previous tile's 8 score pairs, inserted one pair per stage
+  [[maybe_unused]] float pv[8][2] = {};
+  [[maybe_unused]] int pend = 0;
+  [[maybe_unused]] uint32_t pend_ord = 0;
+  [[maybe_unused]] float rowsum[2] = {0.f, 0.f};
+  [[maybe_unused]] float rowmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
+
+  // entry pair p = 2j + hh of the pending tile: row qa + 8hh, bins bn + 8j
+  auto insert_next = [&]() {
+    const int p = 8 - pend;
+    const int ql = qa + 8 * (p & 1), bin = bn + 8 * (p >> 1);
+    const int e = (ql * BINS + (bin ^ ((ql & 3) << 3))) >> 1;
+    insert_pair(reinterpret_cast<float2*>(bufv) + e,
+                reinterpret_cast<uint32_t*>(bufo) + e, pv[0][0], pv[0][1],
+                pend_ord);
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      pv[i][0] = pv[i + 1][0];
+      pv[i][1] = pv[i + 1][1];
+    }
+    --pend;
+  };
+
+  int ord = 0, kc = 0, slot = 0;
+  uint32_t round = 0;
+  for (int it = 0; it < total; ++it) {
+    mbar_wait(full + 8 * slot, round & 1);
+    const uint32_t sq = ring + slot * STAGE_BYTES;
+    const uint32_t sg = sq + TILE_BYTES;
+    if constexpr (P == STREAM) {
+      // every word this thread loaded, folded into its rows' sums
+      const int r = tid >> 3, c = tid & 7;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = r + 32 * h;
+        const uint32_t off = rr * (KC * 2) + ((c ^ (rr & 7)) << 4);
+        rowsum[h] += chunk_sum(sq + off) + chunk_sum(sg + off);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4(sq + a_row + (((2 * ks + a_c) ^ sw) << 4), a[0], a[1],
+                    a[2], a[3]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(sg + b_row[h] + (((2 * ks + b_c) ^ sw) << 4), b0, b1,
+                      b2, b3);
+          mma_bf16(acc[ks & 1][2 * h], a, b0, b1);
+          mma_bf16(acc[ks & 1][2 * h + 1], a, b2, b3);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);  // the slot is free
+    if (++slot == STAGES) {
+      slot = 0;
+      ++round;
+    }
+    // one pending pair, after the release: the producer refills the slot
+    // meanwhile
+    if constexpr (P >= INSERT)
+      if (pend) insert_next();
+    if (++kc == nk) {  // the tile is complete
+      kc = 0;
+      const int base = (split + ord * nsplit) * GT;
+      if constexpr (P == MATMUL) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (base + bn + 8 * j + (c & 1) < G)
+              rowmax[c >> 1] =
+                  fmaxf(rowmax[c >> 1], acc[0][j][c] + acc[1][j][c]);
+      }
+      if constexpr (P >= INSERT) {
+        while (pend) insert_next();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            pv[2 * j + (c >> 1)][c & 1] = base + bn + 8 * j + (c & 1) < G
+                                              ? acc[0][j][c] + acc[1][j][c]
+                                              : -CUDART_INF_F;
+        pend = 8;
+        pend_ord = ord;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[e][j][c] = 0.f;
+      ++ord;
+    }
+  }
+  if constexpr (P >= INSERT)
+    while (pend) insert_next();
+  __syncthreads();  // with the producer's last; every buffer is final
+
+  if constexpr (P == STREAM) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = rowsum[h];
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        v += __shfl_xor_sync(FULL_MASK, v, off);
+      const int qg = q0 + (tid >> 3) + 32 * h;
+      if ((tid & 7) == 0 && qg < Q) tth[(size_t)qg * nsplit + split] = v;
+    }
+    return;
+  } else if constexpr (P == MATMUL) {
+    float* red = reinterpret_cast<float*>(sm);  // [2][QT]; the ring is free
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = rowmax[h];
+      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 2));
+      if ((lane & 3) == 0) red[wn * QT + qa + 8 * h] = m;
+    }
+    // the consumer warps alone (the producer has left): named barrier 1
+    asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+    if (tid < QT && q0 + tid < Q)
+      tth[(size_t)(q0 + tid) * nsplit + split] =
+          fmaxf(red[tid], red[QT + tid]);
+    return;
+  } else {
+    for (int ql = warp; ql < QT; ql += WARPS) {
+      const int qg = q0 + ql;
+      if (qg >= Q) break;  // warp-uniform
+      const size_t out = ((size_t)qg * nsplit + split) * k;
+      const int swz = (ql & 3) << 3;
+      if constexpr (P == INSERT) {
+        // the first k buffer lanes (depth n / BINS, bin n % BINS), verbatim
+        for (int n = lane; n < k; n += 32) {
+          const int t = n / BINS, b = n % BINS;
+          const int a = t * QT * BINS + ql * BINS + (b ^ swz);
+          const float v = bufv[a];
+          cand_v[out + n] = v;
+          cand_i[out + n] =
+              v == -CUDART_INF_F
+                  ? 0
+                  : (((int)bufo[a] * nsplit + split) * BINS + b);
+        }
+      } else {
+        // the row's 384 entries: lane holds bins 2 lane, 2 lane + 1 at
+        // every depth, as (key, index)
+        uint32_t key[2 * TD];
+        int idx[2 * TD];
+        float deepest = -CUDART_INF_F;
+        const int e0 = (ql * BINS + ((2 * lane) ^ swz)) >> 1;
+#pragma unroll
+        for (int t = 0; t < TD; ++t) {
+          const float2 v = reinterpret_cast<const float2*>(bufv)[e0 + t * DS];
+          const uint32_t o =
+              reinterpret_cast<const uint32_t*>(bufo)[e0 + t * DS];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = c ? v.y : v.x;
+            key[2 * t + c] = f2key(x);
+            idx[2 * t + c] =
+                x == -CUDART_INF_F
+                    ? 0
+                    : ((int)((c ? o >> 16 : o & 0xffffu) * nsplit + split) *
+                           BINS +
+                       2 * lane + c);
+            if (t == TD - 1) deepest = fmaxf(deepest, x);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off; off >>= 1)
+          deepest = fmaxf(deepest, __shfl_xor_sync(FULL_MASK, deepest, off));
+        // the k-th largest key, bit by bit
+        uint32_t T = 0;
+        for (int bit = 31; bit >= 0; --bit) {
+          const uint32_t cand = T | (1u << bit);
+          unsigned n = 0;
+#pragma unroll
+          for (int e = 0; e < 2 * TD; ++e) n += key[e] >= cand;
+          if ((int)__reduce_add_sync(FULL_MASK, n) >= k) T = cand;
+        }
+        unsigned gt = 0, eq = 0;
+#pragma unroll
+        for (int e = 0; e < 2 * TD; ++e) {
+          gt += key[e] > T;
+          eq += key[e] == T;
+        }
+        const int need = k - (int)__reduce_add_sync(FULL_MASK, gt);
+        const bool tie = (int)__reduce_add_sync(FULL_MASK, eq) > need;
+        // at a tie, the need lowest indices of key T: all below R, then
+        // `dup` of the (equal) entries at R
+        uint32_t R = 0xffffffffu;
+        int dup = 0;
+        if (tie) {
+          R = 0;
+          for (int bit = 30; bit >= 0; --bit) {
+            const uint32_t cand = R + (1u << bit);
+            unsigned n = 0;
+#pragma unroll
+            for (int e = 0; e < 2 * TD; ++e)
+              n += key[e] == T && (uint32_t)idx[e] < cand;
+            if ((int)__reduce_add_sync(FULL_MASK, n) < need) R = cand;
+          }
+          unsigned lt = 0;
+#pragma unroll
+          for (int e = 0; e < 2 * TD; ++e)
+            lt += key[e] == T && (uint32_t)idx[e] < R;
+          dup = need - (int)__reduce_add_sync(FULL_MASK, lt);
+        }
+        // the selected entries, in (entry, lane) order
+        const unsigned below = (1u << lane) - 1u;
+        int pos = 0, dtaken = 0;
+#pragma unroll
+        for (int e = 0; e < 2 * TD; ++e) {
+          const bool d = tie && key[e] == T && (uint32_t)idx[e] == R;
+          const unsigned bd = __ballot_sync(FULL_MASK, d);
+          const bool s = key[e] > T ||
+                         (key[e] == T && (uint32_t)idx[e] < R) ||
+                         (d && dtaken + __popc(bd & below) < dup);
+          dtaken += __popc(bd);
+          const unsigned bs = __ballot_sync(FULL_MASK, s);
+          if (s) {
+            const int at = pos + __popc(bs & below);
+            cand_v[out + at] = key2f(key[e]);
+            cand_i[out + at] = idx[e];
+          }
+          pos += __popc(bs);
+        }
+        if (lane == 0) tth[(size_t)qg * nsplit + split] = deepest;
+      }
+    }
+  }
+}
+
+// The sum over the block of each thread's `n` (the same value returned to
+// every thread); `part` holds two rounds of per-warp partials, so one
+// barrier per call suffices.
+__device__ __forceinline__ int block_count(unsigned n, int* part, int& round) {
+  const int w = threadIdx.x >> 5;
+  n = __reduce_add_sync(FULL_MASK, n);
+  int* p = part + round * (MERGE_THREADS / 32);
+  if ((threadIdx.x & 31) == 0) p[w] = (int)n;
+  __syncthreads();
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < MERGE_THREADS / 32; ++i) s += p[i];
+  round ^= 1;
+  return s;
+}
+
+// Exclusive prefix over the block of each thread's `n`.
+__device__ __forceinline__ int block_prefix(int n, int* scan) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = n;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, x, off);
+    if (lane >= off) x += y;
+  }
+  __syncthreads();  // the previous use of scan is over
+  if (lane == 31) scan[w] = x;
+  __syncthreads();
+  int before = 0;
+  for (int i = 0; i < w; ++i) before += scan[i];
+  return before + x - n;
+}
+
+// One block per query row: the exact top-k of the splits' nsplit * k
+// candidates (each split's top-k set, in any order) by the same bit-by-bit
+// selection of the k-th key, ties at it to the lowest indices, then each
+// selected entry placed by its rank; ok = AND over splits of (deepest <
+// final k-th value).
+__global__ void __launch_bounds__(MERGE_THREADS)
+fused_topk_select_merge_kernel(const float* __restrict__ cand_v,
+                               const int* __restrict__ cand_i,
+                               const float* __restrict__ tth, int k,
+                               int nsplit, float* __restrict__ vals,
+                               int* __restrict__ inds, int* __restrict__ ok) {
+  __shared__ uint32_t sk[TD * BINS];
+  __shared__ int si[TD * BINS];
+  __shared__ int part[2 * MERGE_THREADS / 32];
+  __shared__ int scan[MERGE_THREADS / 32];
+  __shared__ float last;
+  const int tid = threadIdx.x, qg = blockIdx.x, n_cand = nsplit * k;
+  const size_t off = (size_t)qg * n_cand;
+  uint32_t key[MERGE_PER];
+  int idx[MERGE_PER];
+#pragma unroll
+  for (int e = 0; e < MERGE_PER; ++e) {
+    const int c = tid + MERGE_THREADS * e;
+    key[e] = c < n_cand ? f2key(cand_v[off + c]) : 0u;  // 0: no candidate
+    idx[e] = c < n_cand ? cand_i[off + c] : 0;
+  }
+  int round = 0;
+  uint32_t T = 0;
+  for (int bit = 31; bit >= 0; --bit) {
+    const uint32_t cand = T | (1u << bit);
+    unsigned n = 0;
+#pragma unroll
+    for (int e = 0; e < MERGE_PER; ++e) n += key[e] >= cand;
+    if (block_count(n, part, round) >= k) T = cand;
+  }
+  unsigned gt = 0, eq = 0;
+#pragma unroll
+  for (int e = 0; e < MERGE_PER; ++e) {
+    gt += key[e] > T;
+    eq += key[e] == T;
+  }
+  const int need = k - block_count(gt, part, round);
+  const bool tie = block_count(eq, part, round) > need;
+  uint32_t R = 0xffffffffu;
+  int dup = 0;
+  if (tie) {
+    R = 0;
+    for (int bit = 30; bit >= 0; --bit) {
+      const uint32_t cand = R + (1u << bit);
+      unsigned n = 0;
+#pragma unroll
+      for (int e = 0; e < MERGE_PER; ++e)
+        n += key[e] == T && (uint32_t)idx[e] < cand;
+      if (block_count(n, part, round) < need) R = cand;
+    }
+    unsigned lt = 0;
+#pragma unroll
+    for (int e = 0; e < MERGE_PER; ++e)
+      lt += key[e] == T && (uint32_t)idx[e] < R;
+    dup = need - block_count(lt, part, round);
+  }
+  // compaction: the entries above the cut, then `dup` entries at it
+  int n_sel = 0, n_dup = 0;
+#pragma unroll
+  for (int e = 0; e < MERGE_PER; ++e) {
+    n_sel += key[e] > T || (key[e] == T && (uint32_t)idx[e] < R);
+    n_dup += tie && key[e] == T && (uint32_t)idx[e] == R;
+  }
+  int at = block_prefix(n_sel, scan);
+  int dat = block_prefix(n_dup, scan);
+  const int n_above = k - dup;
+#pragma unroll
+  for (int e = 0; e < MERGE_PER; ++e) {
+    if (key[e] > T || (key[e] == T && (uint32_t)idx[e] < R)) {
+      sk[at] = key[e];
+      si[at++] = idx[e];
+    } else if (tie && key[e] == T && (uint32_t)idx[e] == R) {
+      if (dat < dup) {
+        sk[n_above + dat] = key[e];
+        si[n_above + dat] = idx[e];
+      }
+      ++dat;
+    }
+  }
+  __syncthreads();
+  // rank of entry i: the entries before it in (key desc, index asc,
+  // position) order
+  if (tid < k) {
+    const uint32_t ki = sk[tid];
+    const int ii = si[tid];
+    int rank = 0;
+    for (int j = 0; j < k; ++j) {
+      const uint32_t kj = sk[j];
+      const int ij = si[j];
+      rank += kj > ki || (kj == ki && (ij < ii || (ij == ii && j < tid)));
+    }
+    vals[(size_t)qg * k + rank] = key2f(ki);
+    inds[(size_t)qg * k + rank] = ii;
+    if (rank == k - 1) last = key2f(ki);
+  }
+  __syncthreads();
+  int good = 1;
+  for (int s = tid; s < nsplit; s += MERGE_THREADS)
+    good &= tth[(size_t)qg * nsplit + s] < last;
+  good = __syncthreads_and(good);
+  if (tid == 0) ok[qg] = good;
+}
+
+// The bf16 geometry, or false: 16-bit tile ordinals, and the merge's
+// candidates in its registers.
+bool bad_bf16_geometry(int Q, int G, int D, int k, int nsplit) {
+  if (bad_geometry(Q, G, D, k, nsplit)) return true;
+  const int ntiles = (G + GT - 1) / GT;
+  return (ntiles + nsplit - 1) / nsplit > MAX_ORDINALS ||
+         nsplit * k > MERGE_MAX;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to
+// libcuda), or null
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a (rows, D) bf16 operand in 64 x 64 boxes with the
+// 128-byte swizzle, zeros past its edges.
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int D) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {KC, QT};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches phase P of the bf16 split kernel on `st`: TMA when D is a
+// multiple of 8 and both operands 16-byte aligned, else masked loads.
+template <int P>
+cudaError_t launch_bf16(const void* q, const void* g, int Q, int G, int D,
+                        int k, int nsplit, float* cand_v, int* cand_i,
+                        float* tth, cudaStream_t st) {
+  CUtensorMap tmq, tmg;
+  memset(&tmq, 0, sizeof tmq);
+  memset(&tmg, 0, sizeof tmg);
+  const bool tma = D % 8 == 0 && (uintptr_t)q % 16 == 0 &&
+                   (uintptr_t)g % 16 == 0;
+  if (tma && (!bf16_map(&tmq, q, Q, D) || !bf16_map(&tmg, g, G, D)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_topk_bf16_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BF16_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Q + QT - 1) / QT, nsplit);
+  fused_topk_bf16_kernel<P><<<grid, BF16_THREADS, BF16_SMEM, st>>>(
+      tmq, tmg, static_cast<const uint16_t*>(q),
+      static_cast<const uint16_t*>(g), Q, G, D, k, nsplit, tma, cand_v,
+      cand_i, tth);
+  return cudaGetLastError();
+}
 }  // namespace
 
 extern "C" {
@@ -607,13 +1397,22 @@ int fused_topk_f32(const float* q, const float* g, const float* gnorm,
                      t_depth, cand_v, cand_i, tth, vals, inds, ok, stream);
 }
 
-// q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16.
+// q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16; also needs at most
+// 65,536 gallery tiles per split and nsplit * k <= 20,480. cand_v/cand_i
+// hold each split's top-k set, in no order.
 int fused_topk_bf16(const void* q, const void* g, int Q, int G, int D,
                     int k, int nsplit, int bins, int t_depth, float* cand_v,
                     int* cand_i, float* tth, float* vals, int* inds, int* ok,
                     void* stream) {
-  return launch<BF16>(q, g, nullptr, nullptr, Q, G, D, k, nsplit, bins,
-                      t_depth, cand_v, cand_i, tth, vals, inds, ok, stream);
+  if (bins != BINS || t_depth != TD || bad_bf16_geometry(Q, G, D, k, nsplit))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_bf16<FULL>(q, g, Q, G, D, k, nsplit, cand_v,
+                                      cand_i, tth, st);
+  if (err != cudaSuccess) return (int)err;
+  fused_topk_select_merge_kernel<<<Q, MERGE_THREADS, 0, st>>>(
+      cand_v, cand_i, tth, k, nsplit, vals, inds, ok);
+  return (int)cudaGetLastError();
 }
 
 // int8 codes of q̂ (Q, D) and of the gallery (G, D), scales qs (Q,),
@@ -639,10 +1438,20 @@ int fused_topk_int8(const void* q, const void* g, const float* qscale,
 LADDER_RUNG(fused_topk_f32_stream_only, F32, STREAM)
 LADDER_RUNG(fused_topk_f32_matmul_only, F32, MATMUL)
 LADDER_RUNG(fused_topk_f32_insert_only, F32, INSERT)
-LADDER_RUNG(fused_topk_bf16_stream_only, BF16, STREAM)
-LADDER_RUNG(fused_topk_bf16_matmul_only, BF16, MATMUL)
-LADDER_RUNG(fused_topk_bf16_insert_only, BF16, INSERT)
 #undef LADDER_RUNG
+#define LADDER_RUNG_BF16(name, P)                                          \
+  int name(const void* q, const void* g, const float*, int Q, int G, int D, \
+           int k, int nsplit, float* out_v, int* out_i, void* stream) {   \
+    if (bad_bf16_geometry(Q, G, D, k, nsplit))                            \
+      return (int)cudaErrorInvalidValue;                                  \
+    return (int)launch_bf16<P>(q, g, Q, G, D, k, nsplit, out_v, out_i,    \
+                               out_v,                                     \
+                               reinterpret_cast<cudaStream_t>(stream));   \
+  }
+LADDER_RUNG_BF16(fused_topk_bf16_stream_only, STREAM)
+LADDER_RUNG_BF16(fused_topk_bf16_matmul_only, MATMUL)
+LADDER_RUNG_BF16(fused_topk_bf16_insert_only, INSERT)
+#undef LADDER_RUNG_BF16
 
 // Kernel 4: the (Q, G) f32 cosine scores of q̂ (Q, D) against the raw
 // gallery (G, D), both f32, into out; returns cudaGetLastError().

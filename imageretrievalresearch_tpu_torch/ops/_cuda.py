@@ -53,10 +53,11 @@ SIGNATURES = {
                   "image_lut_apply": [_P, _P, _I, _I, _P, _P],
                   "image_row_shift": [_P, _P, _I, _I, _I, _P, _P],
                   "image_row_shift_cubic": [_P, _P, _I, _I, _I, _P, _P]},
-    # tensors, then the geometry, the tile plan (and the tap-gradient
-    # split), the bf16 flag, the stream
+    # tensors, then the geometry, the plan (forward: the tile; tap
+    # gradients: band height, channels, the split), the bf16 flag, the
+    # stream
     "depthwise_conv": {"dw_conv_forward": [_P] * 3 + [_I] * 12 + [_P],
-                       "dw_conv_grad_w": [_P] * 4 + [_I] * 14 + [_P]},
+                       "dw_conv_grad_w": [_P] * 4 + [_I] * 13 + [_P]},
     # x, N, D, rows, the row sums, the output, the stream
     "stream_probe": {"stream_probe_f32": [_P] + [_I] * 3 + [_P] * 3},
 }

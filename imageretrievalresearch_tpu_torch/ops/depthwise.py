@@ -30,6 +30,7 @@ the card), as JAX's default is XLA's grouped conv.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -38,11 +39,15 @@ import torch.nn.functional as F
 from imageretrievalresearch_tpu_torch.ops import _cuda
 
 THREADS = 256
-# shared memory a block may use without opting in to more (the tile plan
-# stays under it)
+# shared memory a block may use without opting in to more (the forward's
+# tile plan stays under it)
 MAX_SMEM = 48 * 1024
-# blocks the tap-gradient kernel aims for (splits x channel blocks)
-GRAD_W_BLOCKS = 2048
+# the tap-gradient kernel: output pixels of a row per thread step, shared
+# memory per block (two blocks per SM, opted in above MAX_SMEM), and blocks
+# per SM of its one-wave grid (splits x channel blocks)
+GRAD_W_RUN = 4
+GRAD_W_SMEM = 112 * 1024
+GRAD_W_BLOCKS_PER_SM = 2
 
 KERNEL_LAUNCHES = {"depthwise_conv_forward": 0, "depthwise_conv_grad_w": 0}
 PLAIN_ON_CARD = dict.fromkeys(KERNEL_LAUNCHES, 0)
@@ -94,12 +99,71 @@ def tile_plan(ho: int, wo: int, c: int, k: int, stride: int
     return th, tw, cb
 
 
-def grad_w_splits(n: int, tiles: int, c_blocks: int) -> tuple[int, int]:
+def grad_w_smem(th: int, cb: int, w: int, wo: int, k: int, stride: int,
+                itemsize: int) -> tuple[int, int]:
+    """``(block, buffer)`` bytes of the tap-gradient kernel's shared memory
+    (``make_grad_geom`` in the source): one buffer holds an item's x rows,
+    (th - 1)·s + K of them with the padding columns, and its th g rows,
+    both across the width padded to whole runs of ``GRAD_W_RUN`` pixels,
+    for cb channels; the block holds two, or the slots' partial sums if
+    they need more. The launcher computes the same and refuses a plan
+    over its cap; a CPU test holds the constants to the source's."""
+    runs_w = -(-wo // GRAD_W_RUN) * GRAD_W_RUN
+    xw = max((runs_w - 1) * stride + k, w + 2 * (k // 2))
+    buf = (((th - 1) * stride + k) * xw + th * runs_w) * cb * itemsize
+    red = THREADS // (cb // 2) * k * k * cb * 4
+    return max(2 * buf, red), buf
+
+
+@functools.lru_cache(maxsize=None)
+def grad_w_plan(h: int, w: int, c: int, k: int, stride: int,
+                itemsize: int) -> tuple[int, int]:
+    """``(th, cb)`` of the tap-gradient kernel: items are bands of th
+    output rows across the width, blocks take cb channels (a multiple of
+    8, at most 512). For each cb that splits C into equal blocks, the
+    fewest bands under ``GRAD_W_SMEM``, of equal height (the last band
+    runs as many rows as the others, so a short one would compute on
+    zero rows); of those, the plan that reads the
+    fewest bytes per image (halo rows read again, phantom channels of a
+    last short block counted) over the share of the block's threads that
+    own a channel pair, ties to the larger cb. Blocks of at least 64
+    channels (or all of C) come first: a warp's 32 channel pairs then read
+    one pixel's contiguous 128 bytes, with no bank conflict. Cached: the
+    search runs once per layer shape, not at every launch."""
+    ho, wo = out_len(h, k, stride), out_len(w, k, stride)
+    p = k // 2
+    c8 = -(-c // 8) * 8
+    plans = []
+    for nb in range(-(-c8 // 512), c8 // 8 + 1):
+        cb = 8 * -(-(c8 // 8) // nb)
+        th = next((t for t in range(ho, 0, -1)
+                   if grad_w_smem(t, cb, w, wo, k, stride, itemsize)[0]
+                   <= GRAD_W_SMEM), 0)
+        if not th:
+            continue
+        bands = -(-ho // th)
+        th = -(-ho // bands)  # as many bands, evened out: no empty rows
+        x_rows = sum(min(h, (min(ho, (b + 1) * th) - 1) * stride - p + k)
+                     - max(0, b * th * stride - p) for b in range(bands))
+        pairs = cb // 2
+        used = pairs * (THREADS // pairs)
+        read = -(-c // cb) * cb * (x_rows * w + ho * wo)
+        plans.append((cb < min(c8, 64), read * THREADS / used, -cb, th))
+    if not plans:
+        raise ValueError(f"no tap-gradient plan fits {GRAD_W_SMEM} bytes "
+                         f"for C={c}, H={h}, W={w}, K={k}")
+    _, _, cb, th = min(plans)
+    return th, -cb
+
+
+def grad_w_splits(n: int, tiles: int, c_blocks: int,
+                  blocks: int) -> tuple[int, int]:
     """``(nsplit, items_per_split)``: the tap-gradient kernel's split of
-    the n x tiles (image, tile) items of each channel block, for about
-    ``GRAD_W_BLOCKS`` blocks."""
+    the n x tiles (image, band) items of each channel block, so that
+    nsplit x c_blocks stays within ``blocks`` (one wave when that is
+    what the card holds at once), every item in exactly one split."""
     items = n * tiles
-    per = max(1, -(-items * c_blocks // GRAD_W_BLOCKS))
+    per = -(-items // max(1, blocks // c_blocks))
     return -(-items // per), per
 
 
@@ -189,7 +253,8 @@ def depthwise_grad_w(x: torch.Tensor, g: torch.Tensor, k: int,
     """Tap gradients: (N, H, W, C) input + (N, Ho, Wo, C) cotangent of its
     type -> (K, K, C) f32; replaces ``_pallas_dw_grad_w``. Per-block
     partial sums and a fixed-order reduction: repeated runs are bitwise
-    equal."""
+    equal. The kernel's plan: :func:`grad_w_plan`, :func:`grad_w_splits`
+    over ``GRAD_W_BLOCKS_PER_SM`` blocks per SM of the card."""
     _check_conv(k, stride)
     if _cuda.on_cpu(x):
         return depthwise_grad_w_reference(x, g, k, stride)
@@ -197,14 +262,15 @@ def depthwise_grad_w(x: torch.Tensor, g: torch.Tensor, k: int,
     ho, wo = out_len(h, k, stride), out_len(w, k, stride)
     _cuda.check_operand("x", x, _FLOATS, (n, h, w, c), x.device)
     _cuda.check_operand("g", g, x.dtype, (n, ho, wo, c), x.device)
-    th, tw, cb = tile_plan(ho, wo, c, k, stride)
-    tiles = -(-ho // th) * -(-wo // tw)
-    nsplit, per = grad_w_splits(n, tiles, -(-c // cb))
+    th, cb = grad_w_plan(h, w, c, k, stride, x.element_size())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit, per = grad_w_splits(n, -(-ho // th), -(-c // cb),
+                                GRAD_W_BLOCKS_PER_SM * sms)
     partial = torch.empty((nsplit, k * k, c), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((k, k, c), dtype=torch.float32, device=x.device)
     _launch("depthwise_conv_grad_w", "dw_conv_grad_w", x.device, x, g,
-            partial, out, n, h, w, c, ho, wo, k, stride, th, tw, cb, nsplit,
+            partial, out, n, h, w, c, ho, wo, k, stride, th, cb, nsplit,
             per, int(x.dtype == torch.bfloat16))
     return out
 

@@ -45,8 +45,12 @@ from imageretrievalresearch_tpu_torch.ops import _cuda
 # the launcher rejects a mismatch). The TPU kernels used 512 bins of depth 6.
 FUSED_BINS = 64
 FUSED_T_DEPTH = 6
-# per-row candidates the merge kernel stages in shared memory (bytes)
+# per-row candidates the merge kernel stages in shared memory (bytes); the
+# bf16 kernel's merge holds the same nsplit * k candidates in registers
 _MERGE_SMEM_BUDGET = 160 * 1024
+# the bf16 kernel keeps each buffer entry's gallery tile as a 16-bit
+# ordinal within its split (csrc/fused_topk.cu): tiles per split it takes
+BF16_MAX_TILE_ORDINALS = 1 << 16
 MATMUL_DTYPES = ("float32", "bfloat16", "int8")
 # columns per exact f32 partial product of int8 codes: 127² · 1024 < 2²⁴
 _INT8_EXACT_CHUNK = 1024
@@ -404,6 +408,18 @@ def fused_splits(q: int, g: int, k: int, device: torch.device) -> int:
     return _n_splits(g, splits, FUSED_BINS)
 
 
+def check_tile_ordinals(g: int, n_split: int) -> None:
+    """Raise unless each of ``n_split`` splits of a G-row gallery holds at
+    most ``BF16_MAX_TILE_ORDINALS`` tiles of ``FUSED_BINS`` rows, the bf16
+    kernel's 16-bit tile ordinals (4,194,304 rows per split)."""
+    tiles = -(-g // FUSED_BINS)
+    if -(-tiles // n_split) > BF16_MAX_TILE_ORDINALS:
+        raise ValueError(
+            f"G={g} over {n_split} splits needs {-(-tiles // n_split)} "
+            f"tiles per split; the bf16 kernel takes at most "
+            f"{BF16_MAX_TILE_ORDINALS} (16-bit tile ordinals)")
+
+
 # kernel variant per gallery dtype: (mode, C entry point, launch counter)
 _VARIANTS = {
     torch.float32: ("float32", "fused_topk_f32", "fused_cosine_topk"),
@@ -420,6 +436,7 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
     _cuda.check_operand("queries_hat", queries_hat, torch.float32, (q, d),
                         dev)
     _cuda.check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
+    n_split = fused_splits(q, g, k, dev)
     if gallery.dtype == torch.float32:
         if gallery_norms is None:
             gallery_norms = torch.linalg.vector_norm(gallery, dim=1)
@@ -430,12 +447,12 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
     elif gallery.dtype == torch.bfloat16:
         aux = ()
         q_in = queries_hat.to(torch.bfloat16)
+        check_tile_ordinals(g, n_split)
     else:
         q_in, q_scale = quantize_rows_int8(queries_hat)
         aux = (q_scale, _cuda.check_operand(
             "gallery_scale", gallery_scale.reshape(-1, 1), torch.float32,
             (g, 1), dev))
-    n_split = fused_splits(q, g, k, dev)
     cand_v = torch.empty((q, n_split, k), device=dev, dtype=torch.float32)
     cand_i = torch.empty((q, n_split, k), device=dev, dtype=torch.int32)
     tth = torch.empty((q, n_split), device=dev, dtype=torch.float32)

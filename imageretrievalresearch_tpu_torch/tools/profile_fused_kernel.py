@@ -8,14 +8,17 @@ Counterpart of the JAX package's ``tools/profile_fused_kernel.py``, at its
 shapes (G = 100,000, D = 1536, Q = 2048, k = 150). Times are CUDA events
 around back-to-back launches with one synchronise (``pipelined_ms``).
 
-1. The ablation ladder of the split kernel (``csrc/fused_topk.cu``, its
-   phase flag), in f32 and in bf16, each rung at the production kernel's
-   geometry and shared memory:
+1. The ablation ladder of the split kernels (``csrc/fused_topk.cu``, the
+   phase flag of ``fused_topk_split_kernel`` for f32 and of
+   ``fused_topk_bf16_kernel`` for bf16), each rung at its production
+   kernel's geometry and shared memory:
 
-   - ``stream_only``: the production kernel's global loads and staging,
-     every loaded word folded into per-row sums;
-   - ``matmul_only``: + the division by the norms and the product; each
-     split's max score per query row;
+   - ``stream_only``: the production kernel's global loads and staging
+     (f32: words staged through registers; bf16: 16-byte ``cp.async``
+     into the ring), every loaded word folded into per-row sums;
+   - ``matmul_only``: + the division by the norms (f32) and the product
+     (f32: SIMT; bf16: tensor cores); each split's max score per query
+     row;
    - ``insert_only``: + the insertion chain; the first k buffer lanes,
      with no extraction and no merge;
    - ``full``: the production kernel (split + merge,
@@ -148,13 +151,19 @@ def stream_only_reference(q_hat, gallery, k, gallery_norms=None,
     return out.float()
 
 
-def stream_only_rtol(g: int, d: int, splits: int) -> float:
+def stream_only_rtol(g: int, d: int, splits: int,
+                     dtype: torch.dtype = torch.float32) -> float:
     """Bound on |kernel - exact| of ``stream_only`` as a share of the same
     sum of absolute values: the kernel's longest chain of f32 additions
-    (one lane adds a q word and a gallery word per step of 32 words, per
-    tile; a 32-lane butterfly; the norms' sum) times 2⁻²⁴."""
+    times 2⁻²⁴. f32: one lane adds a q word and a gallery word per step of
+    32 words, per tile; a 32-lane butterfly; the norms' sum. bf16: a
+    thread adds, per ring stage of 64 words, the tree sums of its 8-word
+    chunks of q and of the gallery row (4 levels) to its row's sum; an
+    8-lane butterfly."""
     tiles = -(-g // R.FUSED_BINS)
     per_split = -(-tiles // splits)
+    if dtype == torch.bfloat16:
+        return (-(-d // 64) * per_split + 7) * 2.0 ** -24
     steps = -(-d // 32)
     return (2 * steps * per_split + 6) * 2.0 ** -24
 
@@ -224,6 +233,8 @@ def _rung(name: str, q_hat: torch.Tensor, gallery: torch.Tensor, k: int,
         _cuda.check_operand("gallery_norms", norms, torch.float32, (g,), dev)
     q_in = q_hat if mode == "float32" else q_hat.to(torch.bfloat16)
     n_split = _n_split(q_hat, gallery, k, None)
+    if mode == "bfloat16":
+        R.check_tile_ordinals(g, n_split)
     if name == "insert_only":
         out = (torch.empty((q, n_split, k), device=dev, dtype=torch.float32),
                torch.empty((q, n_split, k), device=dev, dtype=torch.int32))

@@ -135,6 +135,48 @@ def test_quantized_certificate_fails_on_bin_overflow(cuda_device, mode):
     np.testing.assert_array_equal(vals.cpu().numpy(), dv.cpu().numpy())
 
 
+# The bf16 kernel's ring stages 64 words of a row per 16-byte cp.async
+# chunk set: D = 37 and 100 are not multiples of 8 (masked loads), D = 1000
+# is but not of 64 (a zero-filled chunk); G off the 64-row tile; k up to
+# the 384 buffer entries of a row (53 splits); one ragged tile of 100 rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,g,d,k", [(64, 5001, 37, 150),
+                                     (40, 20001, 1000, 384),
+                                     (70, 3000, 100, 20),
+                                     (64, 100, 1536, 150)])
+def test_bf16_kernel_ragged_shapes_match_plain_version(cuda_device, q, g, d,
+                                                       k):
+    rng = np.random.default_rng(5)
+    qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)
+    ga[min(64, g - 1)] = ga[3]
+    _launch_and_compare(qa, ga, k, cuda_device, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1536, 1000])
+def test_bf16_kernel_float_data_differs_only_at_near_ties(cuda_device, d):
+    """Float rows: the tensor-core product sums in another order than the
+    plain f32 matmul of the widened operands, so values agree within 1e-5
+    and index sets may differ only at near-ties of the k-th value."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    qh = T.l2_normalize(torch.randn((64, d), generator=gen,
+                                    device=cuda_device))
+    gd = T.l2_normalize(torch.randn((30000, d), generator=gen,
+                                    device=cuda_device)).to(torch.bfloat16)
+    kv, ki, _ = T.fused_cosine_topk(qh, gd, 150)
+    rv, ri, _ = T.fused_cosine_topk_reference(
+        qh, gd, 150, matmul_dtype="bfloat16",
+        splits=T.fused_splits(64, 30000, 150, cuda_device))
+    scores = T.dense_scores(qh, gd, "bfloat16")
+    torch.cuda.synchronize()
+    assert (kv - rv).abs().max().item() <= 1e-5
+    for r in range(64):
+        diff = set(ki[r].tolist()) ^ set(ri[r].tolist())
+        if diff:
+            d_idx = torch.tensor(sorted(diff), device=cuda_device)
+            assert (scores[r, d_idx] - rv[r, -1]).abs().max() <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # The scores kernel (kernel 4), the ladder of the split kernel and the
 # stream probe (csrc/fused_topk.cu, csrc/stream_probe.cu) against their
@@ -313,9 +355,9 @@ def test_policy_on_the_card_matches_the_cpu_table(cuda_device):
 # 1e-8 of it, a dropped pixel by 1/(N Ho Wo) of it. Repeated runs are
 # bitwise equal. Shapes: C not a multiple of 32 or of the 64-channel block,
 # odd H with stride 2, K = 1 and 7, planes smaller than one tile and wider
-# than one; the last two give the tap-gradient kernel several (image, tile)
-# items per block (grad_w_splits), the first of them with a shorter last
-# split, as every b3a layer has at a train step's N = 192.
+# than one; the last two give the tap-gradient kernel several (image, band)
+# items per block (grad_w_plan, grad_w_splits), both with a shorter last
+# split, as b3a's layers have at a train step's N = 192.
 # ---------------------------------------------------------------------------
 
 from imageretrievalresearch_tpu_torch.ops import depthwise as DW  # noqa: E402
@@ -328,19 +370,20 @@ _DW_SHAPES = [(2, 16, 16, 8, 3, 1), (4, 14, 14, 40, 3, 2),
               (16, 56, 56, 300, 5, 2)]
 
 
-def _dw_splits(shape):
-    """The tap-gradient kernel's (nsplit, items_per_split) for ``shape``."""
+def _dw_splits(shape, itemsize=2):
+    """The tap-gradient kernel's (nsplit, items_per_split) for ``shape`` in
+    bf16 on an H100 SXM (132 SMs)."""
     n, h, w, c, k, s = shape
-    ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
-    th, tw, cb = DW.tile_plan(ho, wo, c, k, s)
-    return DW.grad_w_splits(n, -(-ho // th) * -(-wo // tw), -(-c // cb))
+    th, cb = DW.grad_w_plan(h, w, c, k, s, itemsize)
+    return DW.grad_w_splits(n, -(-DW.out_len(h, k, s) // th), -(-c // cb),
+                            DW.GRAD_W_BLOCKS_PER_SM * 132)
 
 
 def test_depthwise_shapes_cover_multi_item_splits():
     """Runs without a card: the shapes above reach the kernel's loop over
     several items per block, with and without a shorter last split."""
-    assert _dw_splits(_DW_SHAPES[-2]) == (1405, 3)   # 43 x 98 = 4214 items
-    assert _dw_splits(_DW_SHAPES[-1]) == (128, 2)    # 10 channel blocks
+    assert _dw_splits(_DW_SHAPES[-2]) == (241, 10)   # 43 x 56 = 2408 items
+    assert _dw_splits(_DW_SHAPES[-1]) == (50, 9)     # 5 channel blocks
     assert _dw_splits(_DW_SHAPES[0])[1] == 1
 
 
@@ -423,3 +466,28 @@ def test_depthwise_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         DW.depthwise_forward(x.half(), torch.zeros((3, 3, 16),
                                                    device=cuda_device), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [36, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,s", [(1, 1), (1, 2), (3, 1), (3, 2), (5, 1),
+                                 (5, 2), (7, 1), (7, 2)])
+def test_depthwise_grad_w_every_tap_size_and_stride(cuda_device, k, s,
+                                                    dtype, c):
+    """Kernel 10 at every (K, stride) it takes, on an odd plane whose rows
+    end inside a run of pixels; C = 36 is not a multiple of the 16-byte
+    chunk in bf16 (masked loads), C = 64 is (cp.async). Within 1e-6 of
+    the sum of |x| |g| of its plain version, and bitwise run to run."""
+    rng = np.random.default_rng(8)
+    x, g, _ = _dw_inputs(rng, (3, 19, 17, c, k, s), dtype, cuda_device)
+    DW.reset_launch_counts()
+    dw = DW.depthwise_grad_w(x, g, k, s)
+    again = DW.depthwise_grad_w(x, g, k, s)
+    assert DW.KERNEL_LAUNCHES["depthwise_conv_grad_w"] == 2
+    want = DW.depthwise_grad_w_reference(x, g, k, s)
+    scale = DW.depthwise_grad_w_reference(x.abs(), g.abs(), k, s)
+    torch.cuda.synchronize()
+    assert dw.shape == (k, k, c) and dw.dtype == torch.float32
+    assert ((dw - want).abs() <= 1e-6 * scale).all()
+    assert torch.equal(dw, again)

@@ -7,6 +7,7 @@ versions through the same wiring (flip, dilation, high pad) as on the card.
 """
 
 import json
+import re
 from pathlib import Path
 
 import jax
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from imageretrievalresearch_tpu.ops.pallas_conv import _dw_op
 from imageretrievalresearch_tpu_torch.models import create_model
 from imageretrievalresearch_tpu_torch.models.layers import DepthwiseConv2d
+from imageretrievalresearch_tpu_torch.ops import _cuda
 from imageretrievalresearch_tpu_torch.ops import depthwise as DW
 
 # tests/test_pallas_conv.py's cases: (N, H, W, C, K, stride)
@@ -195,7 +197,8 @@ def test_tile_plan_fits_and_covers(c, h, k, s):
     assert DW._smem(th, tw, cb, k, s) <= DW.MAX_SMEM
     tiles = -(-ho // th) * -(-ho // tw)
     for n in (1, 8, 192):
-        nsplit, per = DW.grad_w_splits(n, tiles, -(-c // cb))
+        nsplit, per = DW.grad_w_splits(n, tiles, -(-c // cb),
+                                       DW.GRAD_W_BLOCKS_PER_SM * 132)
         # every (image, tile) item in exactly one split, none empty
         assert nsplit * per >= n * tiles > (nsplit - 1) * per
 
@@ -222,3 +225,62 @@ def test_plain_forward_matches_the_grouped_conv():
     want = F.conv2d(x.permute(0, 3, 1, 2), taps.permute(2, 0, 1)[:, None],
                     stride=2, padding=2, groups=16).permute(0, 2, 3, 1)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("c,h,k,s", _PLAN_SHAPES + [(36, 15, 3, 2)])
+def test_grad_w_plan_fits_and_covers(c, h, k, s, itemsize):
+    """The tap-gradient kernel's plan (bf16 and f32): channel blocks of a
+    multiple of 8 covering C with one short block at most, a band height
+    within the output, a block's shared memory within GRAD_W_SMEM (two
+    blocks per SM); the split puts every (image, band) item of a channel
+    block in exactly one split, none empty, and the grid within the
+    card's blocks (132 SMs of the H100 SXM, 114 of the PCIe part)."""
+    ho = DW.out_len(h, k, s)
+    th, cb = DW.grad_w_plan(h, h, c, k, s, itemsize)
+    assert 1 <= th <= ho and cb % 8 == 0 and 8 <= cb <= 512
+    c_blocks = -(-c // cb)
+    assert (c_blocks - 1) * cb < c <= c_blocks * cb
+    smem, buf = DW.grad_w_smem(th, cb, h, ho, k, s, itemsize)
+    assert smem <= DW.GRAD_W_SMEM and smem >= 2 * buf
+    bands = -(-ho // th)
+    for n in (1, 8, 192):
+        for sms in (132, 114):
+            blocks = DW.GRAD_W_BLOCKS_PER_SM * sms
+            nsplit, per = DW.grad_w_splits(n, bands, c_blocks, blocks)
+            items = n * bands
+            owner = [i // per for i in range(items)]
+            assert sorted(set(owner)) == list(range(nsplit))
+            assert nsplit * c_blocks <= max(blocks, c_blocks)
+
+
+def test_grad_w_plan_takes_the_fewest_even_bands_of_wide_blocks():
+    """At b3a's layer shapes in bf16 the plan keeps channel blocks of at
+    least 64 channels (or all of C), each with the fewest bands that fit
+    GRAD_W_SMEM, of even height (no band shorter by a row or more)."""
+    for c, h, k, s in _PLAN_SHAPES[:14]:
+        ho = DW.out_len(h, k, s)
+        th, cb = DW.grad_w_plan(h, h, c, k, s, 2)
+        assert cb >= min(-(-c // 8) * 8, 64), (c, h, k, s, cb)
+        bands = -(-ho // th)
+        assert bands * th - ho < bands, (c, h, k, s, th)
+        fewer = -(-ho // (bands - 1)) if bands > 1 else None
+        assert fewer is None or DW.grad_w_smem(fewer, cb, h, ho, k, s, 2)[
+            0] > DW.GRAD_W_SMEM, (c, h, k, s, th, cb)
+
+
+def test_grad_w_plan_constants_match_the_source():
+    """The plan's restatement of the tap-gradient kernel's layout reads the
+    source's own constants: the run of output pixels per thread step and
+    the threads per block; a block's budget stays under the launcher's
+    cap, and two blocks fit an SM's 228 KB (1 KB of it reserved per
+    block)."""
+    src = _cuda.SOURCES["depthwise_conv"].read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert DW.GRAD_W_RUN == const("RUN")
+    assert DW.THREADS == const("THREADS")
+    assert DW.GRAD_W_SMEM <= const("GRAD_MAX_SMEM")
+    assert DW.GRAD_W_BLOCKS_PER_SM * (DW.GRAD_W_SMEM + 1024) <= 228 * 1024

@@ -197,3 +197,92 @@ def test_tool_main_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.main([])
     assert P.G_PAD == 100_352 and P.G_PAD % max(P.PROBE_ROWS) == 0
+
+
+def _bf16_words(a):
+    """bf16 values as f32 numpy (exact)."""
+    return a.float().numpy()
+
+
+def _bf16_stream_kernel_order(qb, gb, n_split):
+    """The bf16 split kernel's stream_only rung restated in numpy f32, in
+    its order: per split, per tile, per ring stage of 64 words, the thread
+    of (tile row r, chunk c) adds (its q chunk's tree sum + its gallery
+    chunk's tree sum) to its running sum (8 words a chunk, summed as
+    ((w0+w1)+(w2+w3))+((w4+w5)+(w6+w7))); then the 8 threads of a row
+    fold by xor 1, 2, 4. Words past D, Q and G are zero."""
+    q, d = qb.shape
+    g = gb.shape[0]
+    nk = -(-d // 64)
+    tiles = -(-g // BINS)
+    qp = np.zeros((BINS, nk * 64), np.float32)
+    qp[:q, :d] = qb
+    gp = np.zeros((tiles * BINS, nk * 64), np.float32)
+    gp[:g, :d] = gb
+
+    def tree(chunks):                        # (..., 8) -> (...)
+        p = chunks[..., 0::2] + chunks[..., 1::2]
+        return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+    out = np.zeros((q, n_split), np.float32)
+    for sp in range(n_split):
+        acc = np.zeros((BINS, 8), np.float32)
+        for t in _tiles_of(sp, n_split, g):
+            for kc in range(nk):
+                cols = slice(kc * 64, kc * 64 + 64)
+                tq = tree(qp[:, cols].reshape(BINS, 8, 8))
+                tg = tree(gp[t * BINS:(t + 1) * BINS, cols].reshape(
+                    BINS, 8, 8))
+                acc = acc + (tq + tg)
+        for off in (1, 2, 4):
+            acc = acc + acc[:, np.arange(8) ^ off]
+        out[:, sp] = acc[:q, 0]
+    return out
+
+
+def test_ladder_bf16_stream_only_within_its_bound_in_kernel_order(rng):
+    """The bf16 stream_only rung's plain version (exact sums) against the
+    kernel's f32 order restated: bitwise on ±1 words, and within
+    stream_only_rtol(..., bf16) of the sum of |words| on float words, at
+    a D that is not a multiple of 8."""
+    qh, g = _pm1_case(rng, q=10, g=700, d=40)
+    gb = R.l2_normalize(g).to(torch.bfloat16)
+    qb = qh.to(torch.bfloat16)
+    want = P.stream_only_reference(qh, gb, 20, splits=3).numpy()
+    got = _bf16_stream_kernel_order(_bf16_words(qb), _bf16_words(gb), 3)
+    np.testing.assert_array_equal(got, want)
+    qf = torch.from_numpy(rng.normal(size=(10, 100)).astype(np.float32))
+    gf = torch.from_numpy(rng.normal(size=(700, 100)).astype(np.float32))
+    gb = gf.to(torch.bfloat16)
+    want = P.stream_only_reference(qf, gb, 20, splits=3).numpy()
+    scale = P.stream_only_reference(qf.abs(), gb.abs(), 20,
+                                    splits=3).numpy()
+    got = _bf16_stream_kernel_order(_bf16_words(qf.to(torch.bfloat16)),
+                                    _bf16_words(gb), 3)
+    rtol = P.stream_only_rtol(700, 100, 3, torch.bfloat16)
+    assert (np.abs(got - want) <= rtol * scale).all()
+    assert 0 < P.stream_only_rtol(100_000, 1536, 132, torch.bfloat16) < 1e-4
+
+
+@pytest.mark.parametrize("splits,k", [(1, 150), (3, 384)])
+def test_ladder_bf16_insert_only_is_the_insertion_chain(rng, splits, k):
+    """The bf16 rung's plain version is the chain run on the bf16 scores
+    (q̂ rounded to bf16 against the bf16 rows, f32 sums), as the kernel's
+    16-bit tile ordinals decode: index = (ordinal x S + split) x BINS +
+    bin, empty slots (-inf, 0)."""
+    qh, g = _pm1_case(rng)
+    gb = R.l2_normalize(g).to(torch.bfloat16)
+    s = R.dense_scores(qh, gb, "bfloat16").numpy()
+    bv, bi = _insertion_chain(s, splits)
+    v, i = P.insert_only_reference(qh, gb, k, splits=splits)
+    np.testing.assert_array_equal(v.numpy(),
+                                  bv.reshape(10, splits, -1)[..., :k])
+    np.testing.assert_array_equal(i.numpy(),
+                                  bi.reshape(10, splits, -1)[..., :k])
+    filled = np.isfinite(bv)
+    ordinal = bi // (BINS * splits)
+    assert (ordinal[filled] < R.BF16_MAX_TILE_ORDINALS).all()
+    for sp in range(splits):
+        lanes = bi[:, sp][filled[:, sp]]
+        assert ((lanes // BINS) % splits == sp).all()
+    assert (bi[~filled] == 0).all()

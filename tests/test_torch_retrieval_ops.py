@@ -533,3 +533,18 @@ def test_fused_eligibility_thresholds():
     assert not e(64, 4096, 2049, 150, 64, 6)
     assert not e(64, 4096, 1536, 385, 64, 6)
     assert not e(64, 100000, 1536, 1025, 512, 6)
+
+
+def test_bf16_tile_ordinals_bound_raises():
+    """The bf16 kernel packs each buffer entry's tile as a 16-bit ordinal
+    within its split: up to 2^16 tiles of 64 rows per split pass, one more
+    raises (the card's wrapper checks before it launches; no fallback)."""
+    limit = T.BF16_MAX_TILE_ORDINALS
+    assert limit == 1 << 16
+    T.check_tile_ordinals(T.FUSED_BINS * limit, 1)
+    T.check_tile_ordinals(132 * T.FUSED_BINS * limit, 132)
+    T.check_tile_ordinals(100_000, 132)
+    with pytest.raises(ValueError, match="16-bit tile ordinals"):
+        T.check_tile_ordinals(T.FUSED_BINS * limit + 1, 1)
+    with pytest.raises(ValueError, match="16-bit tile ordinals"):
+        T.check_tile_ordinals(132 * T.FUSED_BINS * limit + 1, 132)
