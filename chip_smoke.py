@@ -26,9 +26,16 @@ Phases (any failure exits non-zero, with no result line):
    is repaired exactly; on the float gallery (served queries, and seeded
    unit rows with wider top-k gaps) the near-tie rule for f32 and bf16,
    bitwise for int8 at k=150 and at int8_rerank's shortlist c=256; the
-   bf16 certificate pass rate beside the plain version's. Fidelity of
-   each mode against f32 exact on the unit-row queries. Kernel, plain and
-   library times and each kernel's bound.
+   bf16 certificate pass rate beside the plain version's; kernel 3's
+   query quantization (its first launch) bitwise against
+   ``quantize_rows_int8``. Fidelity of each mode against f32 exact on the
+   unit-row queries. Kernel, plain and library times and each kernel's
+   bound; the bf16 and int8 library calls timed from q̂ as well (the cast
+   or the quantization inside the timed call), and the host's time in
+   each step of the bf16 and int8 wrappers (host clock), beside the steps
+   that the earlier wrapper ran in their place (an eager quantization, one
+   allocation per buffer, the SM count read at each call, a device
+   context).
 5. AutoAugment training input: a seeded triplet batch (qry, one pos, one
    neg; 64 x 256 x 256 x 3 uint8 each) through
    ``build_triplet_transform`` with three ``train_autoaugment(224)``
@@ -42,11 +49,13 @@ Phases (any failure exits non-zero, with no result line):
    shapes and at ragged ones; kernel, plain and library times and bounds;
    the transform's time, and its device time by kernel.
 6. T3 training with the depthwise kernels (IRT_FORCE_PALLAS_DW=1).
-   Kernels 9 and 10 against their plain versions at the 26 depthwise
-   layer shapes of b3a at 224 px (N = 8) and at ragged ones, in f32 and
-   bf16: the forward and dx bitwise, the tap gradients within 1e-6 of the
-   sum of absolute products (another summation order) and two launches
-   of them bitwise equal; then their kernel, plain and library (cuDNN)
+   Kernels 9 (forward and dx) and 10 against their plain versions at the
+   26 depthwise layer shapes of b3a at 224 px (N = 8) and at ragged ones,
+   in f32 and bf16: the forward and dx bitwise, the tap gradients within
+   1e-6 of the sum of absolute products (another summation order) and two
+   launches of them bitwise equal; dx profiled at the stride-2 layers,
+   where its own kernel is the only device kernel (no dilated copy, no
+   flip); then their kernel, plain and library (cuDNN)
    times per pass at N = 192, summed over the 26 layers, beside the
    bound, each kernel held against its
    plain version there as well. Then ``Trainer.fit(max_epochs=1)``
@@ -54,9 +63,10 @@ Phases (any failure exits non-zero, with no result line):
    on ``efficientnet_b3a`` (125 classes, seeded weights) over in-memory
    loaders (3 train batches, 1 val batch of seeded 256 px uint8
    triplets), first with the opt-in, counts set to 0 just before and read
-   just after (kernel 9: 52 per train step and 26 per val batch, kernel
-   10: 26 per train step, kernels 5-8 at phase 5's counts per step, no
-   plain version on the card, no layout copy), then from the same weights
+   just after (kernel 9: the forward 26 per train step and 26 per val
+   batch, dx 26 per train step; kernel 10: 26 per train step; kernels
+   5-8 at phase 5's counts per step; no plain version on the card, no
+   layout copy), then from the same weights
    and seeds on cuDNN and with two planted wiring faults (``planted``):
    per-step losses agree within the bf16 tolerance, and each faulted run
    falls outside it; one f32 step (TF32 off) agrees in its loss and
@@ -76,8 +86,9 @@ Phases (any failure exits non-zero, with no result line):
    time. Kernel 4 against its plain version (bitwise on ±1 rows, within
    1e-5 on float rows) at Q = 64 and 512 over that gallery and at a ragged
    shape; its kernel, plain and library (cuBLAS + normalize) times. The
-   ladder's rungs (kernel 11, f32 and bf16) against their plain versions,
-   then ``tools.profile_fused_kernel.run_ladder`` at Q = 64 with the
+   ladder's rungs (kernel 11: f32 and bf16, and the port's own int8
+   ladder of kernel 3) against their plain versions, then
+   ``tools.profile_fused_kernel.run_ladder`` at Q = 64 with the
    attribution by differences and one burst under ``utils.profiling.
    trace``; the stream probe (kernel 12) against its plain version and its
    read rate at four block heights, beside a torch read+write pass.
@@ -98,6 +109,7 @@ Imports nothing of JAX. Needs one CUDA card.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -295,6 +307,99 @@ def bound(nbytes: float, ops: float, peaks: dict) -> tuple[float, str]:
     t_ops = ops / peaks["float32"] * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                  else "bytes")
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host-clock µs per call of ``fn`` (what the host spends issuing it):
+    one warm-up call, then ``reps`` calls, then one synchronise outside
+    the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_dispatch(mode: str, q_hat, g_in, kw) -> dict:
+    """The host's time (µs per call) in each step of the fused top-k
+    wrapper (``ops.retrieval._fused_cosine_topk_cuda``, over
+    ``_cuda.launch``) for kernel 2 or 3 at the main path's shapes: the
+    steps as this version runs them, the ones the earlier wrapper ran in
+    their place (eager quantization, six ``torch.empty``, the SM count read
+    each call, a ``torch.cuda.device`` context), and the whole call."""
+    dev = q_hat.device
+    q, d = q_hat.shape
+    g = g_in.shape[0]
+    gs = kw.get("gallery_scale")
+    n_split = R.fused_splits(q, g, K, dev)
+    int8 = mode == "int8"
+    entry = R._VARIANTS[g_in.dtype][1]
+    words = R._work_words(q, d, K, n_split, int8)
+    work = torch.empty(words, device=dev, dtype=torch.int32)
+    q_in = q_hat.to(torch.bfloat16) if mode == "bfloat16" else q_hat
+    aux = gs.reshape(-1) if int8 else None
+    fn = getattr(_cuda.load_library("fused_topk"), entry)
+    args = [q_in.data_ptr(), g_in.data_ptr(),
+            aux.data_ptr() if aux is not None else None, q, g, d, K,
+            n_split, R.FUSED_BINS, R.FUSED_T_DEPTH, work.data_ptr(), words]
+
+    def checks():
+        _cuda.check_operand("queries_hat", q_hat, torch.float32, (q, d), dev)
+        _cuda.check_operand("gallery", g_in, g_in.dtype, (g, d), dev)
+        if int8:
+            _cuda.check_operand("gallery_scale", gs.reshape(-1),
+                                torch.float32, (g,), dev)
+        R.check_tile_ordinals(g, n_split)
+
+    def six_empties():
+        for shape, dt in (((q, n_split, K), torch.float32),
+                          ((q, n_split, K), torch.int32),
+                          ((q, n_split), torch.float32),
+                          ((q, K), torch.float32), ((q, K), torch.int32),
+                          ((q,), torch.int32)):
+            torch.empty(shape, device=dev, dtype=dt)
+
+    def workspace():
+        w = torch.empty(words, device=dev, dtype=torch.int32)
+        out = w[:2 * q * K].view(2, q, K)
+        return out[0].view(torch.float32), out[1], w[2 * q * K:2 * q * K + q]
+
+    def device_guard():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {"checks": host_us(checks)}
+    if not int8:   # int8 quantizes q̂ inside the C entry, on the device
+        steps["query cast"] = host_us(lambda: q_hat.to(torch.bfloat16))
+    steps.update({
+        "allocation: one workspace + views": host_us(workspace),
+        "fused_splits (SM count cached)":
+            host_us(lambda: R.fused_splits(q, g, K, dev)),
+        "stream lookup":
+            host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "ctypes call (the C entry: maps, launches)":
+            host_us(lambda: fn(*args, torch.cuda.current_stream(
+                dev).cuda_stream)),
+        "whole call": host_us(lambda: R.fused_cosine_topk(q_hat, g_in, K,
+                                                           **kw)),
+    })
+    tensors = [q_hat, g_in] + [work] * 8
+    before = {
+        "allocations: six torch.empty": host_us(six_empties),
+        "fused_splits, SM count read each call": host_us(
+            lambda: torch.cuda.get_device_properties(
+                dev).multi_processor_count),
+        "device guard (torch.cuda.device context)": host_us(device_guard),
+        "ctypes.c_void_p per tensor argument (10)": host_us(
+            lambda: [ctypes.c_void_p(t.data_ptr()) for t in tensors]),
+    }
+    if int8:
+        before["query quantization, eager"] = host_us(
+            lambda: R.quantize_rows_int8(q_hat))
+    return {"now": steps, "earlier_steps": before}
 
 
 def launches_per_policy() -> dict:
@@ -535,18 +640,13 @@ def dw_operands(gen, n, shape, dtype):
     return x, g, wt
 
 
-def dw_plain_grad_x(g, taps, s, h, w):
-    return DW.depthwise_forward_reference(DW.dilate(g, s, h, w),
-                                          taps.flip(0, 1), 1)
-
-
 def dw_passes(x, g, taps, shape) -> dict:
     """pass -> (kernel, plain version), callables on one layer's operands."""
     c, h, w, k, s = shape
     return {"forward": (lambda: DW.depthwise_forward(x, taps, s),
                         lambda: DW.depthwise_forward_reference(x, taps, s)),
             "dx": (lambda: DW.depthwise_grad_x(g, taps, s, h, w),
-                   lambda: dw_plain_grad_x(g, taps, s, h, w)),
+                   lambda: DW.depthwise_grad_x_reference(g, taps, s, h, w)),
             "dw": (lambda: DW.depthwise_grad_w(x, g, k, s),
                    lambda: DW.depthwise_grad_w_reference(x, g, k, s))}
 
@@ -658,6 +758,50 @@ def dw_times(shapes, gen, peaks: dict) -> tuple[dict, float, float]:
             f"back-to-back: kernel {t['burst_ms']:.3f} ms, cuDNN "
             f"{t['library_burst_ms']:.3f} ms")
     return tot, err, rel
+
+
+def dw_host_us(gen) -> None:
+    """The host's time (µs per call, host clock) of each depthwise pass
+    through its kernel wrapper and through cuDNN, and of one layer's
+    forward + backward through the opt-in Function and through the grouped
+    conv, at a small layer (N = 8, 40 channels at 28 px, bf16), where the
+    device's work is short and the host's issue time shows."""
+    shape = (40, 28, 28, 3, 1)
+    c, h, w, k, s = shape
+    x, g, wt = dw_operands(gen, DW_COMPARE_N, shape, torch.bfloat16)
+    taps = DW._taps(wt)
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    conv_bwd = torch.ops.aten.convolution_backward
+    xl = xc.detach().requires_grad_(True)
+    wl = wt.float().detach().requires_grad_(True)
+
+    def layer(kernels: bool):
+        def run():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                y = (DW.depthwise_conv(xl, wl, s) if kernels else
+                     torch.nn.functional.conv2d(xl, wl, stride=s,
+                                                padding=k // 2, groups=c))
+            torch.autograd.grad(y.float().sum(), (xl, wl))
+        return run
+
+    timed = {
+        "forward": (lambda: DW.depthwise_forward(x, taps, s),
+                    lambda: torch.nn.functional.conv2d(
+                        xc, wt, stride=s, padding=k // 2, groups=c)),
+        "dx": (lambda: DW.depthwise_grad_x(g, taps, s, h, w),
+               lambda: conv_bwd(gc, xc, wt, None, [s, s], [k // 2] * 2,
+                                [1, 1], False, [0, 0], c,
+                                [True, False, False])),
+        "dw": (lambda: DW.depthwise_grad_w(x, g, k, s),
+               lambda: conv_bwd(gc, xc, wt, None, [s, s], [k // 2] * 2,
+                                [1, 1], False, [0, 0], c,
+                                [False, True, False])),
+        "layer forward + backward (autocast)": (layer(True), layer(False)),
+    }
+    log(f"host time per call at {shape}, N = {DW_COMPARE_N}, bf16 (µs, host "
+        "clock; kernel wrapper / cuDNN): " + "; ".join(
+            f"{name} {host_us(a):.1f} / {host_us(b):.1f}"
+            for name, (a, b) in timed.items()))
 
 
 def t3_config(checkpoint_dir: str | None, **kw):
@@ -788,7 +932,41 @@ def timed_epochs(model, init: dict, train, kernels: bool) -> dict:
     for e in events[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} "
             f"{e.key[:90]}")
+    # where the host's time goes (the step is host-bound where the device
+    # idles): the top host ops by self time
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    log("  top host ops by self time: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+        for e in host[:8]))
     return {"wall": wall, "events": ev, "peak": peak, "idle": 1 - busy / pwall}
+
+
+def dx_kernels_only(shapes, gen) -> None:
+    """The dx path on the card launches its own kernel and nothing else
+    (no dilated copy, no flip): the device kernels of ``depthwise_grad_x``
+    at each stride-2 layer, N = DW_COMPARE_N, in one profiled window that
+    runs them twice (the profiler has missed launches at the start of its
+    window on the card)."""
+    calls = []
+    for c, h, w, k, s in shapes:
+        if s == 2:
+            _, g, wt = dw_operands(gen, DW_COMPARE_N, (c, h, w, k, s),
+                                   torch.bfloat16)
+            calls.append((g, DW._taps(wt), s, h, w))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for args in calls:
+                DW.depthwise_grad_x(*args)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert names and all("dw_band_kernel" in n for n in names), names
+    log(f"dx on the card, profiled twice at b3a's {len(calls)} stride-2 "
+        f"layers: device kernels {sorted(n[:60] for n in names)} only (no "
+        "dilate, no flip)")
 
 
 def training_phase(serving_model, gen, peaks: dict) -> list:
@@ -798,6 +976,8 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
     shapes = dw_layer_shapes(serving_model)
     assert len(shapes) == 26, shapes
     err_small, _ = dw_compare(shapes + DW_RAGGED, gen)
+    dx_kernels_only(shapes, gen)
+    dw_host_us(gen)
     tot, err_path, _ = dw_times(shapes, gen, peaks)
     errs = {"depthwise_conv_forward": 0.0,
             "depthwise_conv_grad_w": max(err_small, err_path)}
@@ -814,7 +994,8 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
     launches = ours["counts"]["dw"]
     per_step = {k: 3 * n for k, n in launches_per_policy().items()}
     assert launches == {
-        "depthwise_conv_forward": 52 * TRAIN_STEPS + 26,
+        "depthwise_conv_forward": 26 * TRAIN_STEPS + 26,
+        "depthwise_conv_grad_x": 26 * TRAIN_STEPS,
         "depthwise_conv_grad_w": 26 * TRAIN_STEPS}, launches
     assert ours["counts"]["image"] == {
         k: TRAIN_STEPS * n for k, n in per_step.items()}, ours["counts"]
@@ -867,8 +1048,12 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
     set_opt_in(False)
 
     entries = []
-    for name, passes in (("depthwise_conv_forward", ("forward", "dx")),
-                         ("depthwise_conv_grad_w", ("dw",))):
+    # kernel 9 (the TPU's _dw_fwd_kernel, which JAX runs for dx too): the
+    # forward and dx kernels' launches and times together
+    for name, passes, counters in (
+            ("depthwise_conv_forward", ("forward", "dx"),
+             ("depthwise_conv_forward", "depthwise_conv_grad_x")),
+            ("depthwise_conv_grad_w", ("dw",), ("depthwise_conv_grad_w",))):
         def total(key):
             return sum(tot[p][key] for p in passes)
         entries.append({
@@ -876,7 +1061,7 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
             "route": "cuda",
             "source": DW_SOURCE,
             "replaces": f"imageretrievalresearch_tpu/{DW_KERNELS[name]}",
-            "launches": launches[name],
+            "launches": sum(launches[c] for c in counters),
             "max_abs_err": errs[name],
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
@@ -1057,28 +1242,33 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     pq, pg = R.l2_normalize(pm1_rows(gen, 64, DIM)), pm1_rows(gen, G_TOTAL,
                                                               DIM)
     variants = PF.build_variants()
-    forms = {"float32": (gal, norms),
-             "bfloat16": (index._gallery_on_device("bfloat16")[0], None)}
+    # each mode's resident form: (gallery, the rungs' keyword arguments);
+    # the int8 ladder is the port's own (kernel 3; JAX's tool has none)
+    g8, gs8 = index._gallery_on_device("int8")
+    forms = {"float32": (gal, {"gallery_norms": norms}),
+             "bfloat16": (index._gallery_on_device("bfloat16")[0], {}),
+             "int8": (g8, {"gallery_scale": gs8})}
+    tags = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}
     errs = {}
     splits = R.fused_splits(64, G_TOTAL, K, DEV)
     for mode in forms:
-        g_pm1 = pg if mode == "float32" else R._prepare_gallery(pg, mode)[0]
+        g_pm1, s_pm1 = ((pg, None) if mode == "float32"
+                        else R._prepare_gallery(pg, mode))
         for rung in PF.RUNGS:
-            got = variants[rung].kernel(pq, g_pm1, K)
-            want = variants[rung].plain(pq, g_pm1, K, splits=splits)
+            got = variants[rung].kernel(pq, g_pm1, K, gallery_scale=s_pm1)
+            want = variants[rung].plain(pq, g_pm1, K, splits=splits,
+                                        gallery_scale=s_pm1)
             torch.cuda.synchronize()
             for a, b in zip(got if isinstance(got, tuple) else (got,),
                             want if isinstance(want, tuple) else (want,)):
                 assert torch.equal(a, b), (mode, rung)
             errs[(mode, rung)] = 0.0
-        g_in, n_in = forms[mode]
-        got = variants["stream_only"].kernel(q_hat, g_in, K,
-                                             gallery_norms=n_in)
-        want = variants["stream_only"].plain(q_hat, g_in, K,
-                                             gallery_norms=n_in,
-                                             splits=splits)
+        g_in, aux = forms[mode]
+        got = variants["stream_only"].kernel(q_hat, g_in, K, **aux)
+        want = variants["stream_only"].plain(q_hat, g_in, K, splits=splits,
+                                             **aux)
         scale = variants["stream_only"].plain(
-            q_hat.abs(), g_in.abs(), K, gallery_norms=n_in, splits=splits)
+            q_hat.abs(), g_in.abs(), K, splits=splits, **aux)
         err = (got - want).abs()
         rtol = PF.stream_only_rtol(G_TOTAL, DIM, splits, g_in.dtype)
         assert (err <= rtol * scale).all(), (mode, (err / scale).max())
@@ -1087,16 +1277,16 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
             f"bitwise equal to their plain versions on ±1 data; stream_only "
             f"on the served gallery within {(err / scale).max().item():.3g} "
             f"of the sum of |words| (limit {rtol:.3g})")
-    del pq, pg, g_pm1
+    del pq, pg, g_pm1, s_pm1
 
     PF.reset_launch_counts()
     R.reset_launch_counts()
-    ladder = {mode: PF.run_ladder(q_hat, g_in, K, gallery_norms=n_in)
-              for mode, (g_in, n_in) in forms.items()}
+    ladder = {mode: PF.run_ladder(q_hat, g_in, K, **aux)
+              for mode, (g_in, aux) in forms.items()}
     ladder_launches = dict(PF.KERNEL_LAUNCHES)
     assert not any(R.PLAIN_ON_CARD.values())
     for mode, times in ladder.items():
-        tag = "f32" if mode == "float32" else "bf16"
+        tag = tags[mode]
         for rung in PF.RUNGS:
             assert ladder_launches[f"fused_topk_{tag}_{rung}"] > 0
         log(f"ladder ({mode}), Q=64 G={G_TOTAL} D={DIM} k={K}, back-to-back "
@@ -1117,14 +1307,12 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
         assert len(os.listdir(d)) == 1 and len(names) == 4, names
     log(f"utils.profiling.trace of one ladder burst: the four split-kernel "
         f"phases on the device: {names}")
-    for mode, (g_in, n_in) in forms.items():
-        tag = "f32" if mode == "float32" else "bf16"
-        g_bytes = g_in.numel() * g_in.element_size() + (
-            0 if n_in is None else 4 * G_TOTAL)
+    for mode, (g_in, aux) in forms.items():
+        tag = tags[mode]
+        g_bytes = g_in.numel() * g_in.element_size() + 4 * G_TOTAL * len(aux)
         for rung in PF.RUNGS:
             plain_ms = event_ms(lambda: variants[rung].plain(
-                q_hat, g_in, K, gallery_norms=n_in, splits=splits), reps=3,
-                warmup=1)
+                q_hat, g_in, K, splits=splits, **aux), reps=3, warmup=1)
             out_bytes = 4 * 64 * splits * (2 * K if rung == "insert_only"
                                            else 1)
             nbytes = 4 * 64 * DIM + g_bytes + out_bytes
@@ -1207,10 +1395,11 @@ def main() -> None:
     with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
         outputs = dict(zip(_cuda.SOURCES,
                            pool.map(_cuda.build, _cuda.SOURCES)))
-    log(f"build {', '.join(outputs)} (fused_topk: f32 and int8 split "
-        "kernels + merge, the bf16 split kernel + selection merge, the f32 "
-        "and bf16 ladder rungs, the scores kernel; image_ops: histogram, "
-        "LUT, row shifts; depthwise_conv: forward, tap gradients + "
+    log(f"build {', '.join(outputs)} (fused_topk: the f32 split kernel + "
+        "merge, the tensor-core split kernel in bf16 and int8 + selection "
+        "merge, the int8 query quantization, the f32, bf16 and int8 ladder "
+        "rungs, the scores kernel; image_ops: histogram, LUT, row shifts; "
+        "depthwise_conv: the band kernel (forward and dx), tap gradients + "
         "reduction; stream_probe: row sums + fold), one nvcc each in "
         f"parallel: {time.perf_counter() - t0:.1f} s")
     for name, out in outputs.items():
@@ -1502,6 +1691,44 @@ def main() -> None:
             "library_burst_ms": lib_b_ms,
         })
         del g_in, kw
+
+    # kernel 3's query quantization (its first launch) against its plain
+    # version, bitwise, on the served queries and the unit rows
+    for qh in (q_hat, unit_q):
+        got, want = R.quantize_queries_int8(qh), R.quantize_rows_int8(qh)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    log("int8 query quantization kernel: codes and scales bitwise equal to "
+        "quantize_rows_int8 on the served queries and the unit rows")
+
+    # the library yardstick from q̂, as the kernels start: the cast or the
+    # quantization inside the timed call
+    g16 = resident("bfloat16")[0]
+    g8, kw8 = resident("int8")
+    gs8 = kw8["gallery_scale"]
+
+    def lib_int8_from_qhat():
+        qq8, qs8 = R.quantize_rows_int8(q_hat)
+        return torch.topk(torch._int_mm(qq8, g8.t()).float()
+                          * (qs8 * gs8.reshape(1, -1)), K)
+
+    for mode, lib_call in (
+            ("bfloat16", lambda: torch.topk(torch.matmul(
+                q_hat.to(torch.bfloat16), g16.t()).float(), K)),
+            ("int8", lib_int8_from_qhat)):
+        log(f"library from q̂ ({mode}; cast or quantize_rows_int8 inside the "
+            f"timed call): {event_ms(lib_call, reps=20):.3f} ms single call, "
+            f"{PF.pipelined_ms(lib_call):.3f} ms back-to-back")
+    # the host's time in the wrappers of kernels 2 and 3, step by step
+    for mode, (g_in, kw) in (("bfloat16", (g16, {})), ("int8", (g8, kw8))):
+        att = host_dispatch(mode, q_hat, g_in, kw)
+        log(f"host dispatch, {mode} fused top-k at Q=64 (µs per call, host "
+            "clock): " + "; ".join(f"{n} {t:.1f}"
+                                   for n, t in att["now"].items()))
+        log("  steps the earlier wrapper ran in their place (µs): "
+            + "; ".join(f"{n} {t:.1f}"
+                        for n, t in att["earlier_steps"].items()))
+    del g16, g8, kw8, gs8
 
     kernels += augment_phase(model, gen, peaks)
     kernels += training_phase(model, gen, peaks)

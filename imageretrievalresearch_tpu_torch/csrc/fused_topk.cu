@@ -9,22 +9,24 @@
 //   its norms; each gallery element is divided by max(norm, eps) as it is
 //   stored in shared memory, then f32 FMAs.
 // - fused_topk_bf16 <- _fused_topk_kernel_bf16: pre-normalized bf16 gallery
-//   and bf16 q̂, no norm input; a kernel of its own (fused_topk_bf16_kernel
-//   and fused_topk_select_merge_kernel, below). A bf16 x bf16 product is
-//   exact in f32, so its tensor-core scores are the dense bf16 path's (an
-//   f32 product of the upcast operands) apart from the order of
-//   accumulation.
-// - fused_topk_int8 <- _fused_topk_kernel_int8: int8 codes of q̂ and ĝ with
-//   per-row scales qs (Q,1), gs (G,1); four codes per 32-bit word, __dp4a
-//   into int32 (exact; zero-padded past D), then
-//   s = (float)acc * (qs[q] * gs[g]) rounded as JAX orders it, so the
-//   scores equal the dense int8 path's bit for bit.
+//   and bf16 q̂, no norm input; the BF16 instance of the tensor-core kernel
+//   (fused_topk_tc_kernel, then fused_topk_select_merge_kernel, below). A
+//   bf16 x bf16 product is exact in f32, so its tensor-core scores are the
+//   dense bf16 path's (an f32 product of the upcast operands) apart from
+//   the order of accumulation.
+// - fused_topk_int8 <- _fused_topk_kernel_int8: f32 q̂, quantized first by
+//   quantize_rows_int8_kernel (one launch, bitwise quantize_rows_int8), and
+//   the int8 codes of ĝ with per-row scales gs (G,); the I8 instance of
+//   the same kernel: an exact int32 dot on int8 tensor cores (zero-padded
+//   past D), then s = (float)acc * (qs[q] * gs[g]) rounded as JAX orders
+//   it, so the scores equal the dense int8 path's bit for bit.
 // - cosine_scores_f32 <- _scores_kernel (pallas_cosine_scores): the dense
 //   (Q, G) f32 cosine scores of q̂ against the raw f32 gallery, each gallery
 //   tile normalized inside the kernel (below).
 // - fused_topk_{f32,bf16}_{stream_only,matmul_only,insert_only} <- the
 //   ablation ladder of tools/profile_fused_kernel.py (build_variants): the
-//   f32 or the bf16 split kernel cut after one of its phases (below).
+//   f32 or the bf16 split kernel cut after one of its phases (below); the
+//   fused_topk_int8_* rungs are the port's own (JAX has no int8 ladder).
 // Plain versions and wrappers: imageretrievalresearch_tpu_torch/ops/
 // retrieval.py (fused_cosine_topk, fused_cosine_topk_reference,
 // fused_cosine_scores, cosine_scores_reference) and
@@ -40,24 +42,23 @@
 //         bound by bytes at ~0.092 ms;
 // - int8: codes 154 MB ~0.046 ms; 0.010 ms on int8 tensor cores, so bound
 //         by bytes at ~0.046 ms.
-// The f32 and int8 products here are SIMT (f32 FMA, or dp4a at 4
-// multiply-adds per instruction), not tensor cores, so the int8 variant
-// sits far above its byte bound; the distance is recorded in PERF.md.
-// A card with a lower power limit, or the PCIe part, has lower peaks.
+// The f32 product here is SIMT (f32 FMA), not tensor cores; bf16 and int8
+// run on tensor cores. A card with a lower power limit, or the PCIe part,
+// has lower peaks.
 //
-// Design of the f32 and int8 kernels (fused_topk_split_kernel; simple
-// first: vector loads, tensor cores and a cheaper extraction are later
-// work for them, as the bf16 kernel below has them):
+// Design of the f32 kernel (fused_topk_split_kernel; simple first: vector
+// loads, tensor cores and a cheaper extraction are later work for it, as
+// the tensor-core kernel below has them):
 // - One query tile of QT=64 rows covers Q=64, so the gallery streams from
 //   device memory once. The grid is (query tiles x gallery splits); the
 //   wrapper picks one split per SM (132 on the H100 SXM).
 // - The gallery is cut into GT=64-row tiles, dealt round-robin to the
 //   splits (tile t to split t mod S), so consecutive near-duplicates land
 //   in different splits as well as different bins. Each block walks its
-//   split's tiles in index order. Per tile it stages BK=32 words (one
-//   element; int8: four codes) of each query and gallery row in shared
-//   memory at a time, prefetching the next words into registers, and each
-//   of 256 threads accumulates a 4x4 block of scores.
+//   split's tiles in index order. Per tile it stages BK=32 elements of
+//   each query and gallery row in shared memory at a time, prefetching the
+//   next ones into registers, and each of 256 threads accumulates a 4x4
+//   block of scores.
 // - BINS == GT and every tile starts at a multiple of BINS, so row j of a
 //   tile is bin j: the 16 (query, bin) buffers a thread folds its scores
 //   into are its own, and the insertion chain needs no synchronisation.
@@ -68,23 +69,26 @@
 //   sorted candidate lists per row (k-way, in shared memory) and sets
 //   ok = AND over splits of (deepest value < final k-th value).
 //
-// The ladder (phase P of the f32 split kernel and of the bf16 kernel; FULL
-// is the production instance, the three others exist to attribute its
-// time): STREAM does FULL's global loads and shared-memory staging and
-// folds every loaded word (and norm) into per-row f32 sums, so no load can
-// be dropped;
-// MATMUL adds the division by the norm and the product, and keeps the
-// split's max score per query row; INSERT adds the insertion chain and
-// writes the first k buffer lanes verbatim (no extraction, no merge).
+// The ladder (phase P of the f32 split kernel and of the tensor-core
+// kernel; FULL is the production instance, the three others exist to
+// attribute its time): STREAM does FULL's global loads and shared-memory
+// staging and folds every loaded word (and norm) into per-row sums (f32;
+// int8 codes exactly in int32), so no load can be dropped;
+// MATMUL adds the division by the norm (f32) or the rescale (int8) and the
+// product, and keeps the split's max score per query row; INSERT adds the
+// insertion chain and writes the first k buffer lanes verbatim (no
+// extraction, no merge).
 // Each rung keeps FULL's launch geometry and shared memory, so the
 // occupancy is the same; the differences of their times are the costs of
 // the phases that the others do not hide.
 //
-// Kernel 2, the bf16 kernel (fused_topk_bf16_kernel + the selection
-// merge), redesigned for the card. Bound by bytes (0.092 ms for the 307 MB
-// gallery); what holds a streaming kernel back on an SM is the bytes it
-// keeps in flight (~25-30 KB of gallery at 3.35 TB/s over 132 SMs), and
-// the shared memory the buffers leave for that. The design:
+// Kernels 2 and 3, the tensor-core kernel (fused_topk_tc_kernel<M, P>,
+// score stage M = BF16 or I8, + the selection merge), designed for the
+// card. Bound by bytes (bf16: 0.092 ms for the 307 MB gallery; int8:
+// 0.046 ms for 154 MB of codes); what holds a streaming kernel back on an
+// SM is the bytes it keeps in flight (~25-30 KB of gallery at 3.35 TB/s
+// over 132 SMs), and the shared memory the buffers leave for that. The
+// design:
 // - The same contract and geometry as the f32 kernel: 64 bins, depth 6,
 //   fused_splits splits with tiles dealt round-robin, one query tile of 64
 //   rows per block, the insertion chain in index order.
@@ -92,22 +96,28 @@
 //   ordinals within the split (index = (ordinal x nsplit + split) x 64 +
 //   bin; an empty slot, value -inf, decodes to index 0), so 144 KB, not
 //   192. The launcher refuses more than 65,536 tiles per split.
-// - The freed shared memory holds a ring of 5 stages, each a 64 x 64 bf16
-//   tile of q̂ and one of the gallery (16 KB; bf16 stays bf16). A producer
-//   warp fills it: per stage one thread issues two TMA box copies (the
-//   tensor maps' 128-byte swizzle, zeros past Q, G and D) that complete on
-//   the stage's mbarrier; a D that is not a multiple of 8 takes the warp's
-//   masked 2-byte loads into the same layout. The 8 consumer warps wait on
-//   a stage's "full" mbarrier and release it on its "empty" one, with no
-//   block-wide barrier per stage, so the producer keeps up to 5 stages
-//   (40 KB of gallery) in flight while the consumers compute.
-// - The product runs on tensor cores: mma.sync m16n8k16 bf16 with f32
-//   accumulators, fed by ldmatrix from rows swizzled by 16-byte chunk
-//   (chunk c of row r at c ^ (r % 8)); each of 8 warps owns 16 query rows
-//   x 32 bins, two accumulator sets (even and odd 16-word steps) halve the
-//   dependent chains. The mma fragment gives every (query, bin) pair to
-//   exactly one thread, for every tile, so the insertion chain needs no
-//   synchronisation, as before.
+// - The freed shared memory holds a ring of 5 stages (as many as the 144
+//   KB of buffers leave room for), each 128 bytes of 64 rows of q̂ and of
+//   the gallery (16 KB: a 64 x 64 bf16 tile, or 64 x 128 int8 codes). A
+//   producer warp fills it: per stage one thread issues two TMA box copies
+//   (the tensor maps' 128-byte swizzle, zeros past Q, G and D) that
+//   complete on the stage's mbarrier; a row that is not a whole number of
+//   16-byte chunks (D % 8 bf16, D % 16 int8) takes the warp's masked loads
+//   into the same layout. The 8 consumer warps wait on a stage's "full"
+//   mbarrier and release it on its "empty" one, with no block-wide barrier
+//   per stage, so the producer keeps up to 5 stages (40 KB of gallery) in
+//   flight while the consumers compute.
+// - The product runs on tensor cores, fed by ldmatrix from rows swizzled
+//   by 16-byte chunk (chunk c of row r at c ^ (r % 8)): mma.sync m16n8k16
+//   bf16 with f32 accumulators, or m16n8k32 s8 with exact s32
+//   accumulators, whose fragments hold the same bytes, so one set of
+//   ldmatrix addresses feeds both. Each of 8 warps owns 16 query rows x 32
+//   bins, two accumulator sets (even and odd 32-byte steps) halve the
+//   dependent chains. int8 rescales each score before its insertion, with
+//   the query scales read once and the tile's gallery scales read at its
+//   first stage, from device memory. The mma fragment gives every (query,
+//   bin) pair to exactly one thread, for every tile, so the insertion
+//   chain needs no synchronisation, as before.
 // - A tile's 8 score pairs per thread are inserted one pair per step of
 //   the next tile (the chain reads its 6 slots at once and runs in
 //   registers), so the insertion does not stall the ring.
@@ -121,6 +131,11 @@
 //   ok = AND over splits of (deepest stored < final k-th value). The
 //   output equals the k argmax passes' (any exact method does), including
 //   the (-inf, 0) filler of a row with fewer than k finite entries.
+// - The host's part: a call of one C entry point launches every kernel of
+//   the variant (int8: the query quantization, the split kernel, the
+//   merge) into one workspace that the wrapper allocates once (Work,
+//   below), so a call costs the host one allocation and one ctypes call,
+//   not an eager quantization, six allocations and a device switch.
 //
 // Kernel 4 (cosine_scores_f32, phase SCORES of the split kernel). Bound
 // at Q=64, G=100,000, D=1536: bytes (Q·D + G·D + Q·G)·4 = 640 MB, 0.19 ms;
@@ -162,16 +177,10 @@ constexpr float EPS = 1e-6f;
 static_assert(QT == GT, "one staging layout serves both operands");
 static_assert(QT == 64 && THREADS == 256, "4x4 micro-tile per thread");
 
-// (the values name the compiled instances; the bf16 mode has a kernel of
-// its own, fused_topk_bf16_kernel)
-enum Mode { F32 = 0, I8 = 2 };
+// the score stage of the tensor-core kernel (kernels 2 and 3)
+enum Mode { BF16 = 1, I8 = 2 };
 // the ladder's rungs, FULL (the production kernel) and SCORES (kernel 4)
 enum Phase { STREAM = 0, MATMUL = 1, INSERT = 2, FULL = 3, SCORES = 4 };
-
-// the staged word (f32 element, bf16 element widened, or four int8 codes)
-// and the accumulator of each mode
-template <int M>
-using Word = std::conditional_t<M == I8, int, float>;
 
 // strict total order: value descending, then index ascending
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
@@ -180,35 +189,21 @@ __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
 
 constexpr size_t split_smem_bytes() {
   return (size_t)TD * QT * BINS * (sizeof(float) + sizeof(int)) +
-         (size_t)2 * BK * PADW * 4 + (size_t)(GT + QT) * sizeof(float);
+         (size_t)2 * BK * PADW * 4 + (size_t)GT * sizeof(float);
 }
 
-// Word w of row r of a (rows, D) operand, zero past the edges. `vec`: D is
-// a multiple of 4 and the int8 base is 4-byte aligned, so four codes load
-// as one int.
-template <int M>
-__device__ __forceinline__ Word<M> load_word(const void* base, int r,
-                                             int rows, int w, int D,
-                                             bool vec) {
-  if constexpr (M == F32) {
-    return (r < rows && w < D)
-               ? static_cast<const float*>(base)[(size_t)r * D + w]
-               : 0.f;
-  } else {
-    const int c = 4 * w;
-    if (r >= rows || c >= D) return 0;
-    const int8_t* row = static_cast<const int8_t*>(base) + (size_t)r * D;
-    if (vec) return *reinterpret_cast<const int*>(row + c);
-    uint32_t word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (c + b < D) word |= (uint32_t)(uint8_t)row[c + b] << (8 * b);
-    return (int)word;
-  }
+// Element w of row r of a (rows, D) f32 operand, zero past the edges.
+__device__ __forceinline__ float load_word(const void* base, int r, int rows,
+                                           int w, int D) {
+  return (r < rows && w < D)
+             ? static_cast<const float*>(base)[(size_t)r * D + w]
+             : 0.f;
 }
 
-// gaux: f32 -> gallery norms (G,); int8 -> gallery scales (G,); bf16 -> unused.
-// qscale: int8 -> query scales (Q,); otherwise unused.
+// gaux: the gallery norms (G,). qscale and vec are unused: they held the
+// int8 instance's query scales and word loads, which kernel 3's tensor-core
+// kernel has taken over, and stay so that the f32 instances keep their
+// parameter layout (and their SASS).
 // Phase P (top of file): FULL writes cand_v / cand_i (Q, nsplit, k) and
 // tth (Q, nsplit); STREAM and MATMUL write one value per (query row,
 // split) into tth; INSERT writes the first k buffer lanes into cand_v /
@@ -219,7 +214,7 @@ __device__ __forceinline__ Word<M> load_word(const void* base, int r,
 // The production code is FULL's; every other phase only adds or leaves
 // out steps under `if constexpr`, so FULL compiles as it did before the
 // phases existed.
-template <int M, int P>
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_topk_split_kernel(const void* __restrict__ q,
                         const void* __restrict__ g,
@@ -228,9 +223,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
                         int D, int k, int nsplit, bool vec,
                         float* __restrict__ cand_v,
                         int* __restrict__ cand_i, float* __restrict__ tth) {
-  using W = Word<M>;
-  static_assert(P == FULL || M == F32, "the ladder's rungs here are f32");
-  static_assert(P != SCORES || M == F32, "the scores kernel is f32");
+  using W = float;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* bufv = reinterpret_cast<float*>(smem_raw);   // [TD][QT][BINS]
   int* bufi = reinterpret_cast<int*>(bufv + TD * QT * BINS);
@@ -240,8 +233,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
   else
     qs = reinterpret_cast<W*>(bufi + TD * QT * BINS);
   W* gs = qs + BK * PADW;                               // [BK][PADW]
-  float* gn = reinterpret_cast<float*>(gs + BK * PADW);  // [GT] norm/scale
-  float* qsc = gn + GT;                                   // [QT] int8 scales
+  float* gn = reinterpret_cast<float*>(gs + BK * PADW);  // [GT] norms
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -254,8 +246,6 @@ fused_topk_split_kernel(const void* __restrict__ q,
       bufi[e] = 0;
     }
   }
-  if constexpr (M == I8)
-    if (tid < QT) qsc[tid] = q0 + tid < Q ? qscale[q0 + tid] : 0.f;
 
   // STREAM: per tile row (tid / 32 + 8p), the words this thread loads, and
   // for thread tid < GT the norms of tile row tid. MATMUL: the max score
@@ -270,8 +260,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
     for (int i = 0; i < 4; ++i) rowmax[i] = -CUDART_INF_F;
   }
 
-  const int words = M == I8 ? (D + 3) / 4 : D;
-  const int nsteps = (words + BK - 1) / BK;
+  const int nsteps = (D + BK - 1) / BK;
   for (long long tb = (long long)split * GT; tb < G;
        tb += (long long)nsplit * GT) {
     const int base = (int)tb;
@@ -295,7 +284,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
       if (tid < GT) {
         const int r = base + tid;
         const float x = r < G ? gaux[r] : 1.f;
-        gn[tid] = M == F32 ? fmaxf(x, EPS) : x;
+        gn[tid] = fmaxf(x, EPS);
         if constexpr (P == STREAM) normsum += r < G ? x : 0.f;
       }
     }
@@ -312,8 +301,8 @@ fused_topk_split_kernel(const void* __restrict__ q,
 #pragma unroll
     for (int p = 0; p < LOADS; ++p) {
       const int e = tid + THREADS * p, r = e / BK, c = e % BK;
-      qreg[p] = load_word<M>(q, q0 + r, Q, c, D, vec);
-      greg[p] = load_word<M>(g, base + r, G, c, D, vec);
+      qreg[p] = load_word(q, q0 + r, Q, c, D);
+      greg[p] = load_word(g, base + r, G, c, D);
     }
 
     for (int s = 0; s < nsteps; ++s) {
@@ -322,7 +311,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
       for (int p = 0; p < LOADS; ++p) {
         const int e = tid + THREADS * p, r = e / BK, c = e % BK;
         qs[c * PADW + r] = qreg[p];
-        if constexpr (M == F32 && P != STREAM)
+        if constexpr (P != STREAM)
           gs[c * PADW + r] = __fdiv_rn(greg[p], gn[r]);
         else
           gs[c * PADW + r] = greg[p];
@@ -337,8 +326,8 @@ fused_topk_split_kernel(const void* __restrict__ q,
 #pragma unroll
         for (int p = 0; p < LOADS; ++p) {
           const int e = tid + THREADS * p, r = e / BK, c = w0 + e % BK;
-          qreg[p] = load_word<M>(q, q0 + r, Q, c, D, vec);
-          greg[p] = load_word<M>(g, base + r, G, c, D, vec);
+          qreg[p] = load_word(q, q0 + r, Q, c, D);
+          greg[p] = load_word(g, base + r, G, c, D);
         }
       }
       if constexpr (P != STREAM) {
@@ -353,10 +342,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              if constexpr (M == I8)
-                acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-              else
-                acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
             }
         }
       }
@@ -388,12 +374,7 @@ fused_topk_split_kernel(const void* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int ql = ty + 16 * i, bin = tx + 16 * j, idx = base + bin;
-          float v;
-          if constexpr (M == I8)
-            v = __fmul_rn(__int2float_rn(acc[i][j]),
-                          __fmul_rn(qsc[ql], gn[bin]));
-          else
-            v = acc[i][j];
+          float v = acc[i][j];
           if (idx >= G) v = -CUDART_INF_F;
           int vi = idx;
 #pragma unroll
@@ -578,86 +559,61 @@ bool bad_geometry(int Q, int G, int D, int k, int nsplit) {
          nsplit > (G + GT - 1) / GT;
 }
 
-// Launches phase P of the split kernel of mode M on `stream`, one block per
+// Launches phase P of the f32 split kernel on `stream`, one block per
 // (query tile, split) with all of its shared memory; returns
 // cudaGetLastError() (0 = ok).
-template <int M, int P>
+template <int P>
 cudaError_t launch_split(const void* q, const void* g, const float* gaux,
-                         const float* qscale, int Q, int G, int D, int k,
-                         int nsplit, float* cand_v, int* cand_i, float* tth,
+                         int Q, int G, int D, int k, int nsplit,
+                         float* cand_v, int* cand_i, float* tth,
                          cudaStream_t st) {
-  const bool vec = D % 4 == 0 && (uintptr_t)q % 4 == 0 &&
-                   (uintptr_t)g % 4 == 0;
   const size_t smem1 = split_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_split_kernel<M, P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+      fused_topk_split_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
   if (err != cudaSuccess) return err;
   dim3 grid1((Q + QT - 1) / QT, nsplit);
-  fused_topk_split_kernel<M, P><<<grid1, THREADS, smem1, st>>>(
-      q, g, gaux, qscale, Q, G, D, k, nsplit, vec, cand_v, cand_i, tth);
+  fused_topk_split_kernel<P><<<grid1, THREADS, smem1, st>>>(
+      q, g, gaux, nullptr, Q, G, D, k, nsplit, false, cand_v, cand_i, tth);
   return cudaGetLastError();
 }
 
-// Launches the split kernel of mode M and the merge kernel on `stream`;
-// returns cudaGetLastError() (0 = ok).
-template <int M>
-int launch(const void* q, const void* g, const float* gaux,
-           const float* qscale, int Q, int G, int D, int k, int nsplit,
-           int bins, int t_depth, float* cand_v, int* cand_i, float* tth,
-           float* vals, int* inds, int* ok, void* stream) {
-  if (bins != BINS || t_depth != TD || bad_geometry(Q, G, D, k, nsplit))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_split<M, FULL>(q, g, gaux, qscale, Q, G, D, k,
-                                          nsplit, cand_v, cand_i, tth, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = (size_t)nsplit * k * (sizeof(float) + sizeof(int)) +
-                       (size_t)nsplit * sizeof(int);
-  err = cudaFuncSetAttribute(fused_topk_merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  fused_topk_merge_kernel<<<Q, 32, smem2, st>>>(cand_v, cand_i, tth, k,
-                                                nsplit, vals, inds, ok);
-  return (int)cudaGetLastError();
-}
-
-// One rung of the ladder: phase P alone (no merge). out_v is (Q, nsplit)
+// One rung of the f32 ladder: phase P alone (no merge). out_v is (Q, nsplit)
 // for STREAM and MATMUL; (Q, nsplit, k) with out_i for INSERT.
-template <int M, int P>
+template <int P>
 int launch_rung(const void* q, const void* g, const float* gaux, int Q,
                 int G, int D, int k, int nsplit, float* out_v, int* out_i,
                 void* stream) {
   if (bad_geometry(Q, G, D, k, nsplit)) return (int)cudaErrorInvalidValue;
-  return (int)launch_split<M, P>(q, g, gaux, nullptr, Q, G, D, k, nsplit,
-                                 out_v, out_i, out_v,
-                                 reinterpret_cast<cudaStream_t>(stream));
+  return (int)launch_split<P>(q, g, gaux, Q, G, D, k, nsplit, out_v, out_i,
+                              out_v, reinterpret_cast<cudaStream_t>(stream));
 }
 
 
 // ---------------------------------------------------------------------------
-// Kernel 2: the bf16 split kernel and its selection merge (top of file)
+// Kernels 2 and 3: the tensor-core split kernel (bf16 or int8) and its
+// selection merge (top of file)
 // ---------------------------------------------------------------------------
 
-constexpr int KC = 64;                        // elements per row per stage
+constexpr int KC = 64;                        // bf16 elements per row per stage
+constexpr int KC_I8 = 128;                    // int8 codes per row per stage
 constexpr int STAGES = 5;                     // ring depth
 constexpr int TILE_BYTES = QT * KC * 2;       // one operand's tile, 8 KB
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // q̂ tile, then gallery tile
 constexpr int RING_BYTES = STAGES * STAGE_BYTES;
 constexpr int BUF = TD * QT * BINS;           // buffer entries
 constexpr int DS = QT * BINS / 2;             // depth stride in entry pairs
-constexpr int BF16_THREADS = THREADS + 32;  // 8 consumer warps, 1 producer
+constexpr int TC_THREADS = THREADS + 32;  // 8 consumer warps, 1 producer
 // slack to align the ring to 1024 B (the 128-byte swizzle's period), the
 // ring, the buffers, then a full and an empty mbarrier per stage
-constexpr size_t BF16_SMEM = 1024 + (size_t)RING_BYTES + (size_t)BUF * 6 +
+constexpr size_t TC_SMEM = 1024 + (size_t)RING_BYTES + (size_t)BUF * 6 +
                              (size_t)2 * STAGES * 8;
 constexpr int MAX_ORDINALS = 1 << 16;         // 16-bit tile ordinals
 constexpr int MERGE_THREADS = 512;
 constexpr int MERGE_PER = 40;                 // candidates per merge thread
 constexpr int MERGE_MAX = MERGE_THREADS * MERGE_PER;
 constexpr unsigned FULL_MASK = 0xffffffffu;
-static_assert(BF16_SMEM <= 232448, "one block per SM");
+static_assert(TC_SMEM <= 232448, "one block per SM");
 static_assert(QT == 64 && THREADS == 256, "8 warps of 16 x 32 scores");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -731,6 +687,19 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16x32 s8, row) * b (32x8 s8, col), s32 accumulators (exact). The
+// fragments hold the same bytes as mma_bf16's 16x16 and 16x8 bf16 ones, so
+// the same ldmatrix addresses feed it, 32 codes per step.
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // an unsigned key in the order of the float (-0 taken as +0; no NaN here)
 __device__ __forceinline__ uint32_t f2key(float v) {
   const uint32_t u = __float_as_uint(v + 0.f);
@@ -780,6 +749,49 @@ __device__ __forceinline__ void load_stage_masked(uint32_t dst,
   }
 }
 
+// The int8 counterpart of load_stage_masked, for a D that is not a multiple
+// of 16 (or rows not 16-byte aligned): the same layout, 128 codes a row,
+// lane l moving chunk l % 8 (16 codes) of rows l / 8 + 4i of each operand.
+__device__ __forceinline__ void load_stage_masked_i8(uint32_t dst,
+                                                     const uint8_t* q,
+                                                     const uint8_t* g, int q0,
+                                                     int Q, int base, int G,
+                                                     int D, int col0,
+                                                     int lane) {
+#pragma unroll 4
+  for (int p = 0; p < 32; ++p) {
+    const bool isq = p < 16;
+    const uint8_t* src = isq ? q : g;
+    const int rows = isq ? Q : G;
+    const int r = (lane >> 3) + 4 * (p & 15), c = lane & 7;
+    const int row = (isq ? q0 : base) + r, col = col0 + 16 * c;
+    const uint32_t d = dst + (isq ? 0 : TILE_BYTES) + r * KC_I8 +
+                       ((c ^ (r & 7)) << 4);
+    uint32_t w[4] = {0, 0, 0, 0};
+    if (row < rows) {
+      const uint8_t* s = src + (size_t)row * D;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (col + e < D) w[e >> 2] |= (uint32_t)s[col + e] << (8 * (e & 3));
+    }
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]));
+  }
+}
+
+// The sum of the 16 int8 codes of the 16-byte chunk at shared address `a`
+// (exact, in int32).
+__device__ __forceinline__ int chunk_sum_i8(uint32_t a) {
+  uint32_t w[4];
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+               : "r"(a));
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s = __dp4a((int)w[i], 0x01010101, s);
+  return s;
+}
+
 // The sum of the 8 bf16 of the 16-byte chunk at shared address `a`, as a
 // tree of f32 additions.
 __device__ __forceinline__ float chunk_sum(uint32_t a) {
@@ -827,22 +839,32 @@ __device__ __forceinline__ void insert_pair(float2* bv, uint32_t* bo,
   }
 }
 
-// The bf16 split kernel, phase P (STREAM, MATMUL, INSERT or FULL; the
-// outputs of each as for fused_topk_split_kernel). Grid (query tiles,
-// nsplit), BF16_THREADS threads (8 consumer warps, then the producer warp
-// that fills the ring), BF16_SMEM bytes: the ring, then the buffers
-// (values f32 [TD][QT][BINS], tile ordinals u16 likewise; bin b of row q at
-// b ^ (8 * (q % 4)), which keeps the two neighbouring bins of an entry
-// pair together and spreads a warp's rows over the banks).
-template <int P>
-__global__ void __launch_bounds__(BF16_THREADS, 1)
-fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
-                       const __grid_constant__ CUtensorMap tmg,
-                       const uint16_t* __restrict__ q,
-                       const uint16_t* __restrict__ g, int Q, int G, int D,
-                       int k, int nsplit, bool tma, float* __restrict__ cand_v,
-                       int* __restrict__ cand_i, float* __restrict__ tth) {
+// The tensor-core split kernel of score stage M (BF16: kernel 2, I8:
+// kernel 3), phase P (STREAM, MATMUL, INSERT or FULL; the outputs of each
+// as for fused_topk_split_kernel). Grid (query tiles, nsplit), TC_THREADS
+// threads (8 consumer warps, then the producer warp that fills the ring),
+// TC_SMEM bytes: the ring, then the buffers (values f32 [TD][QT][BINS],
+// tile ordinals u16 likewise; bin b of row q at b ^ (8 * (q % 4)), which
+// keeps the two neighbouring bins of an entry pair together and spreads a
+// warp's rows over the banks). A stage holds 128 bytes of each row: 64
+// bf16 or 128 int8 codes. I8 only: qscale (Q,) and gscale (G,), each score
+// (float)acc * (qscale[q] * gscale[g]); the int8 rows' STREAM sums are the
+// exact int32 sums of their codes. The parameters of the bf16 instance
+// come first, so that it keeps its layout (and its SASS).
+template <int M, int P>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
+                     const __grid_constant__ CUtensorMap tmg,
+                     const uint16_t* __restrict__ q,
+                     const uint16_t* __restrict__ g, int Q, int G, int D,
+                     int k, int nsplit, bool tma, float* __restrict__ cand_v,
+                     int* __restrict__ cand_i, float* __restrict__ tth,
+                     const float* __restrict__ qscale,
+                     const float* __restrict__ gscale) {
   static_assert(P >= STREAM && P <= FULL, "a phase of the split kernel");
+  static_assert(M == BF16 || M == I8, "a tensor-core score stage");
+  constexpr int KE = M == I8 ? KC_I8 : KC;  // elements per row per stage
+  using Acc = std::conditional_t<M == I8, int, float>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   // the ring at the first 1024-byte boundary, then the buffers
   unsigned char* sm = smem_bf16 + ((1024 - smem_u32(smem_bf16) % 1024) % 1024);
@@ -861,7 +883,7 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   const int qa = 16 * wq + (lane >> 2), bn = 32 * wn + 2 * (lane & 3);
 
   if constexpr (P >= INSERT) {
-    for (int e = tid; e < BUF; e += BF16_THREADS) {
+    for (int e = tid; e < BUF; e += TC_THREADS) {
       bufv[e] = -CUDART_INF_F;
       bufo[e] = 0;
     }
@@ -877,7 +899,7 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 
   const int ntiles = (G + GT - 1) / GT;
   const int my_tiles = (ntiles - split + nsplit - 1) / nsplit;
-  const int nk = (D + KC - 1) / KC;
+  const int nk = (D + KE - 1) / KE;
   const int total = my_tiles * nk;
 
   if (warp == WARPS) {
@@ -893,11 +915,16 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       if (tma) {
         if (lane == 0) {
           mbar_arrive_expect_tx(bar, STAGE_BYTES);
-          tma_load_2d(dst, &tmq, kc * KC, q0, bar);
-          tma_load_2d(dst + TILE_BYTES, &tmg, kc * KC, base, bar);
+          tma_load_2d(dst, &tmq, kc * KE, q0, bar);
+          tma_load_2d(dst + TILE_BYTES, &tmg, kc * KE, base, bar);
         }
       } else {
-        load_stage_masked(dst, q, g, q0, Q, base, G, D, kc * KC, lane);
+        if constexpr (M == I8)
+          load_stage_masked_i8(dst, reinterpret_cast<const uint8_t*>(q),
+                               reinterpret_cast<const uint8_t*>(g), q0, Q,
+                               base, G, D, kc * KE, lane);
+        else
+          load_stage_masked(dst, q, g, q0, Q, base, G, D, kc * KC, lane);
         mbar_arrive(bar);
       }
       if (++kc == nk) {
@@ -926,19 +953,35 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 
   // two sets of accumulators (even and odd 16-word steps), so that each
   // chain of dependent mma is half as long; a score is their sum
-  float acc[2][4][4];
+  Acc acc[2][4][4];
 #pragma unroll
   for (int e = 0; e < 2; ++e)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[e][j][c] = 0.f;
+      for (int c = 0; c < 4; ++c) acc[e][j][c] = Acc(0);
   // the previous tile's 8 score pairs, inserted one pair per stage
   [[maybe_unused]] float pv[8][2] = {};
   [[maybe_unused]] int pend = 0;
   [[maybe_unused]] uint32_t pend_ord = 0;
-  [[maybe_unused]] float rowsum[2] = {0.f, 0.f};
+  [[maybe_unused]] Acc rowsum[2] = {Acc(0), Acc(0)};
   [[maybe_unused]] float rowmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  // int8: the scales of this thread's rows qa, qa + 8, and of its bins of
+  // the current tile (read at the tile's first stage, used at its last)
+  [[maybe_unused]] float qsv[2] = {0.f, 0.f}, gsv[8] = {};
+  if constexpr (M == I8 && P != STREAM) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qsv[h] = q0 + qa + 8 * h < Q ? qscale[q0 + qa + 8 * h] : 0.f;
+  }
+  // the score of accumulator (j, c): rows qa + 8 (c / 2), bin bn + 8j + c % 2
+  auto score = [&](int j, int c) -> float {
+    if constexpr (M == I8)
+      return __fmul_rn(__int2float_rn(acc[0][j][c] + acc[1][j][c]),
+                       __fmul_rn(qsv[c >> 1], gsv[2 * j + (c & 1)]));
+    else
+      return acc[0][j][c] + acc[1][j][c];
+  };
 
   // entry pair p = 2j + hh of the pending tile: row qa + 8hh, bins bn + 8j
   auto insert_next = [&]() {
@@ -959,6 +1002,18 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   int ord = 0, kc = 0, slot = 0;
   uint32_t round = 0;
   for (int it = 0; it < total; ++it) {
+    if constexpr (M == I8 && P != STREAM) {
+      if (kc == 0) {  // the tile's gallery scales, in flight while it streams
+        const int base = (split + ord * nsplit) * GT;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = base + bn + 8 * j + e;
+            gsv[2 * j + e] = r < G ? gscale[r] : 0.f;
+          }
+      }
+    }
     mbar_wait(full + 8 * slot, round & 1);
     const uint32_t sq = ring + slot * STAGE_BYTES;
     const uint32_t sg = sq + TILE_BYTES;
@@ -969,7 +1024,10 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
       for (int h = 0; h < 2; ++h) {
         const int rr = r + 32 * h;
         const uint32_t off = rr * (KC * 2) + ((c ^ (rr & 7)) << 4);
-        rowsum[h] += chunk_sum(sq + off) + chunk_sum(sg + off);
+        if constexpr (M == I8)
+          rowsum[h] += chunk_sum_i8(sq + off) + chunk_sum_i8(sg + off);
+        else
+          rowsum[h] += chunk_sum(sq + off) + chunk_sum(sg + off);
       }
     } else {
 #pragma unroll
@@ -982,8 +1040,13 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
           uint32_t b0, b1, b2, b3;
           ldmatrix_x4(sg + b_row[h] + (((2 * ks + b_c) ^ sw) << 4), b0, b1,
                       b2, b3);
-          mma_bf16(acc[ks & 1][2 * h], a, b0, b1);
-          mma_bf16(acc[ks & 1][2 * h + 1], a, b2, b3);
+          if constexpr (M == I8) {
+            mma_s8(acc[ks & 1][2 * h], a, b0, b1);
+            mma_s8(acc[ks & 1][2 * h + 1], a, b2, b3);
+          } else {
+            mma_bf16(acc[ks & 1][2 * h], a, b0, b1);
+            mma_bf16(acc[ks & 1][2 * h + 1], a, b2, b3);
+          }
         }
       }
     }
@@ -1006,8 +1069,7 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             if (base + bn + 8 * j + (c & 1) < G)
-              rowmax[c >> 1] =
-                  fmaxf(rowmax[c >> 1], acc[0][j][c] + acc[1][j][c]);
+              rowmax[c >> 1] = fmaxf(rowmax[c >> 1], score(j, c));
       }
       if constexpr (P >= INSERT) {
         while (pend) insert_next();
@@ -1016,7 +1078,7 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             pv[2 * j + (c >> 1)][c & 1] = base + bn + 8 * j + (c & 1) < G
-                                              ? acc[0][j][c] + acc[1][j][c]
+                                              ? score(j, c)
                                               : -CUDART_INF_F;
         pend = 8;
         pend_ord = ord;
@@ -1026,7 +1088,7 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[e][j][c] = 0.f;
+          for (int c = 0; c < 4; ++c) acc[e][j][c] = Acc(0);
       ++ord;
     }
   }
@@ -1037,7 +1099,7 @@ fused_topk_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   if constexpr (P == STREAM) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float v = rowsum[h];
+      Acc v = rowsum[h];
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
         v += __shfl_xor_sync(FULL_MASK, v, off);
@@ -1309,9 +1371,43 @@ fused_topk_select_merge_kernel(const float* __restrict__ cand_v,
   if (tid == 0) ok[qg] = good;
 }
 
-// The bf16 geometry, or false: 16-bit tile ordinals, and the merge's
+// Per-row symmetric int8 quantization of (N, D) f32 rows, one warp per
+// row: scale = max(max |x|, 1e-12) / 127 and code = clamp(rint(x / scale),
+// -127, 127), each step an IEEE f32 operation rounded to nearest even, so
+// the codes and scales are quantize_rows_int8's bit for bit (finite x).
+constexpr int QUANT_THREADS = 256;
+__global__ void __launch_bounds__(QUANT_THREADS)
+quantize_rows_int8_kernel(const float* __restrict__ x, int N, int D,
+                          int8_t* __restrict__ codes,
+                          float* __restrict__ scales) {
+  const int row = blockIdx.x * (QUANT_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= N) return;  // warp-uniform
+  const float* xr = x + (size_t)row * D;
+  float m = 0.f;
+  for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(xr[c]));
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+  const float sc = __fdiv_rn(m < 1e-12f ? 1e-12f : m, 127.f);
+  for (int c = lane; c < D; c += 32) {
+    const float v = rintf(__fdiv_rn(xr[c], sc));
+    codes[(size_t)row * D + c] = (int8_t)(int)fminf(fmaxf(v, -127.f), 127.f);
+  }
+  if (lane == 0) scales[row] = sc;
+}
+
+cudaError_t launch_quantize(const float* x, int N, int D, int8_t* codes,
+                            float* scales, cudaStream_t st) {
+  constexpr int rows = QUANT_THREADS / 32;
+  quantize_rows_int8_kernel<<<(N + rows - 1) / rows, QUANT_THREADS, 0, st>>>(
+      x, N, D, codes, scales);
+  return cudaGetLastError();
+}
+
+// The tensor-core geometry, or false: 16-bit tile ordinals, and the merge's
 // candidates in its registers.
-bool bad_bf16_geometry(int Q, int G, int D, int k, int nsplit) {
+bool bad_tc_geometry(int Q, int G, int D, int k, int nsplit) {
   if (bad_geometry(Q, G, D, k, nsplit)) return true;
   const int ntiles = (G + GT - 1) / GT;
   return (ntiles + nsplit - 1) / nsplit > MAX_ORDINALS ||
@@ -1339,119 +1435,225 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (rows, D) bf16 operand in 64 x 64 boxes with the
-// 128-byte swizzle, zeros past its edges.
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int D) {
+// The tensor map of a (rows, D) operand of score stage M in boxes of 64
+// rows x 128 bytes with the 128-byte swizzle, zeros past its edges.
+template <int M>
+bool tile_map(CUtensorMap* map, const void* base, int rows, int D) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return false;
+  constexpr int esize = M == I8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {KC, QT};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(M == I8 ? KC_I8 : KC),
+                             (cuuint32_t)QT};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
+  return enc(map,
+             M == I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2, const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Launches phase P of the bf16 split kernel on `st`: TMA when D is a
-// multiple of 8 and both operands 16-byte aligned, else masked loads.
-template <int P>
-cudaError_t launch_bf16(const void* q, const void* g, int Q, int G, int D,
-                        int k, int nsplit, float* cand_v, int* cand_i,
-                        float* tth, cudaStream_t st) {
+// Launches phase P of the tensor-core split kernel of score stage M on
+// `st`: TMA when a row is a multiple of 16 bytes (D % 8 bf16, D % 16 int8)
+// and both operands 16-byte aligned, else the producer's masked loads.
+template <int M, int P>
+cudaError_t launch_tc(const void* q, const void* g, const float* qscale,
+                      const float* gscale, int Q, int G, int D, int k,
+                      int nsplit, float* cand_v, int* cand_i, float* tth,
+                      cudaStream_t st) {
   CUtensorMap tmq, tmg;
   memset(&tmq, 0, sizeof tmq);
   memset(&tmg, 0, sizeof tmg);
-  const bool tma = D % 8 == 0 && (uintptr_t)q % 16 == 0 &&
+  const bool tma = D % (M == I8 ? 16 : 8) == 0 && (uintptr_t)q % 16 == 0 &&
                    (uintptr_t)g % 16 == 0;
-  if (tma && (!bf16_map(&tmq, q, Q, D) || !bf16_map(&tmg, g, G, D)))
+  if (tma && (!tile_map<M>(&tmq, q, Q, D) || !tile_map<M>(&tmg, g, G, D)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_bf16_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BF16_SMEM);
+      fused_topk_tc_kernel<M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TC_SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + QT - 1) / QT, nsplit);
-  fused_topk_bf16_kernel<P><<<grid, BF16_THREADS, BF16_SMEM, st>>>(
+  fused_topk_tc_kernel<M, P><<<grid, TC_THREADS, TC_SMEM, st>>>(
       tmq, tmg, static_cast<const uint16_t*>(q),
       static_cast<const uint16_t*>(g), Q, G, D, k, nsplit, tma, cand_v,
-      cand_i, tth);
+      cand_i, tth, qscale, gscale);
   return cudaGetLastError();
+}
+
+// The workspace of one fused top-k call, carved from one allocation of
+// `words` 4-byte words: the outputs vals, inds (Q, k) and ok (Q) first;
+// then, each at a 64-word (256-byte) boundary, the candidates cand_v,
+// cand_i (Q, nsplit, k) and tth (Q, nsplit); int8 only, the query scales
+// (Q) and codes (Q, D). ops/retrieval.py (_work_words) computes the same
+// size; a call whose size differs is refused.
+struct Work {
+  float* vals;
+  int* inds;
+  int* ok;
+  float* cand_v;
+  int* cand_i;
+  float* tth;
+  float* qscale;
+  int8_t* qcodes;
+};
+
+long long up64(long long n) { return (n + 63) / 64 * 64; }
+
+long long carve(void* base, int Q, int D, int k, int nsplit, bool int8,
+                Work* w) {
+  int* p = static_cast<int*>(base);
+  const long long qk = (long long)Q * k, cand = qk * nsplit;
+  const long long cv = up64(2 * qk + Q), ci = up64(cv + cand),
+                  tt = up64(ci + cand);
+  long long end = up64(tt + (long long)Q * nsplit);
+  w->vals = reinterpret_cast<float*>(p);
+  w->inds = p + qk;
+  w->ok = p + 2 * qk;
+  w->cand_v = reinterpret_cast<float*>(p + cv);
+  w->cand_i = p + ci;
+  w->tth = reinterpret_cast<float*>(p + tt);
+  w->qscale = nullptr;
+  w->qcodes = nullptr;
+  if (int8) {
+    const long long qc = up64(end + Q);
+    w->qscale = reinterpret_cast<float*>(p + end);
+    w->qcodes = reinterpret_cast<int8_t*>(p + qc);
+    end = up64(qc + ((long long)Q * D + 3) / 4);
+  }
+  return end;
+}
+
+// Kernels 2 and 3: the tensor-core split kernel, then the selection merge.
+// Also needs at most 65,536 gallery tiles per split and nsplit * k <=
+// 20,480. bf16: q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16, gscale
+// null. int8: q̂ (Q, D) f32, quantized here first (quantize_rows_int8_kernel,
+// into the workspace), int8 codes of the gallery (G, D) and their scales
+// gscale (G,).
+template <int M>
+int launch_fused_tc(const void* q, const void* g, const float* gscale, int Q,
+                    int G, int D, int k, int nsplit, int bins, int t_depth,
+                    void* work, long long words, void* stream) {
+  Work w;
+  if (bins != BINS || t_depth != TD || bad_tc_geometry(Q, G, D, k, nsplit) ||
+      carve(work, Q, D, k, nsplit, M == I8, &w) != words)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (M == I8) {
+    err = launch_quantize(static_cast<const float*>(q), Q, D, w.qcodes,
+                          w.qscale, st);
+    if (err != cudaSuccess) return (int)err;
+    q = w.qcodes;
+  }
+  err = launch_tc<M, FULL>(q, g, w.qscale, gscale, Q, G, D, k, nsplit,
+                           w.cand_v, w.cand_i, w.tth, st);
+  if (err != cudaSuccess) return (int)err;
+  fused_topk_select_merge_kernel<<<Q, MERGE_THREADS, 0, st>>>(
+      w.cand_v, w.cand_i, w.tth, k, nsplit, w.vals, w.inds, w.ok);
+  return (int)cudaGetLastError();
 }
 }  // namespace
 
 extern "C" {
 
-// Each entry launches both kernels on `stream` and returns
-// cudaGetLastError() (0 = ok). Scratch: cand_v/cand_i (Q, nsplit, k),
-// tth (Q, nsplit). Outputs: vals, inds (Q, k), ok (Q,).
-// 1 <= nsplit <= number of 64-row gallery tiles.
+// Each fused top-k entry launches its kernels on `stream` and returns
+// cudaGetLastError() (0 = ok; cudaErrorInvalidValue for a geometry or a
+// workspace it does not take). `work` is the call's workspace of `words`
+// words (Work, above): the outputs vals, inds (Q, k) and ok (Q) are its
+// first words. 1 <= nsplit <= number of 64-row gallery tiles.
 
-// q̂ (Q, D) f32, raw gallery (G, D) f32 and its row norms (G,).
-int fused_topk_f32(const float* q, const float* g, const float* gnorm,
-                   int Q, int G, int D, int k, int nsplit, int bins,
-                   int t_depth, float* cand_v, int* cand_i, float* tth,
-                   float* vals, int* inds, int* ok, void* stream) {
-  return launch<F32>(q, g, gnorm, nullptr, Q, G, D, k, nsplit, bins,
-                     t_depth, cand_v, cand_i, tth, vals, inds, ok, stream);
-}
-
-// q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16; also needs at most
-// 65,536 gallery tiles per split and nsplit * k <= 20,480. cand_v/cand_i
-// hold each split's top-k set, in no order.
-int fused_topk_bf16(const void* q, const void* g, int Q, int G, int D,
-                    int k, int nsplit, int bins, int t_depth, float* cand_v,
-                    int* cand_i, float* tth, float* vals, int* inds, int* ok,
-                    void* stream) {
-  if (bins != BINS || t_depth != TD || bad_bf16_geometry(Q, G, D, k, nsplit))
+// q̂ (Q, D) f32, raw gallery (G, D) f32 and its row norms (G,): the f32 split
+// kernel, then the k-way merge.
+int fused_topk_f32(const float* q, const float* g, const float* gnorm, int Q,
+                   int G, int D, int k, int nsplit, int bins, int t_depth,
+                   void* work, long long words, void* stream) {
+  Work w;
+  if (bins != BINS || t_depth != TD || bad_geometry(Q, G, D, k, nsplit) ||
+      carve(work, Q, D, k, nsplit, false, &w) != words)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_bf16<FULL>(q, g, Q, G, D, k, nsplit, cand_v,
-                                      cand_i, tth, st);
+  cudaError_t err = launch_split<FULL>(q, g, gnorm, Q, G, D, k, nsplit,
+                                       w.cand_v, w.cand_i, w.tth, st);
   if (err != cudaSuccess) return (int)err;
-  fused_topk_select_merge_kernel<<<Q, MERGE_THREADS, 0, st>>>(
-      cand_v, cand_i, tth, k, nsplit, vals, inds, ok);
+  const size_t smem2 = (size_t)nsplit * k * (sizeof(float) + sizeof(int)) +
+                       (size_t)nsplit * sizeof(int);
+  err = cudaFuncSetAttribute(fused_topk_merge_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  fused_topk_merge_kernel<<<Q, 32, smem2, st>>>(
+      w.cand_v, w.cand_i, w.tth, k, nsplit, w.vals, w.inds, w.ok);
   return (int)cudaGetLastError();
 }
 
-// int8 codes of q̂ (Q, D) and of the gallery (G, D), scales qs (Q,),
-// gs (G,) f32.
-int fused_topk_int8(const void* q, const void* g, const float* qscale,
-                    const float* gscale, int Q, int G, int D, int k,
-                    int nsplit, int bins, int t_depth, float* cand_v,
-                    int* cand_i, float* tth, float* vals, int* inds, int* ok,
-                    void* stream) {
-  return launch<I8>(q, g, gscale, qscale, Q, G, D, k, nsplit, bins, t_depth,
-                    cand_v, cand_i, tth, vals, inds, ok, stream);
+int fused_topk_bf16(const void* q, const void* g, const float* gscale, int Q,
+                    int G, int D, int k, int nsplit, int bins, int t_depth,
+                    void* work, long long words, void* stream) {
+  return launch_fused_tc<BF16>(q, g, gscale, Q, G, D, k, nsplit, bins,
+                               t_depth, work, words, stream);
+}
+
+int fused_topk_int8(const void* q, const void* g, const float* gscale, int Q,
+                    int G, int D, int k, int nsplit, int bins, int t_depth,
+                    void* work, long long words, void* stream) {
+  return launch_fused_tc<I8>(q, g, gscale, Q, G, D, k, nsplit, bins, t_depth,
+                             work, words, stream);
+}
+
+// x (N, D) f32 -> codes (N, D) int8 and scales (N,) f32, as
+// quantize_rows_int8 (one launch).
+int quantize_rows_int8_f32(const float* x, int N, int D, void* codes,
+                           float* scales, void* stream) {
+  if (N < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_quantize(x, N, D, static_cast<int8_t*>(codes), scales,
+                              reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The ladder: q̂ (Q, D) f32 with the raw gallery (G, D) f32 and its row
 // norms (G,), or q̂ and the pre-normalized gallery in bf16 (gnorm unused).
-#define LADDER_RUNG(name, M, P)                                            \
+#define LADDER_RUNG(name, P)                                               \
   int name(const void* q, const void* g, const float* gnorm, int Q, int G, \
            int D, int k, int nsplit, float* out_v, int* out_i,            \
            void* stream) {                                                \
-    return launch_rung<M, P>(q, g, gnorm, Q, G, D, k, nsplit, out_v, out_i, \
-                             stream);                                     \
+    return launch_rung<P>(q, g, gnorm, Q, G, D, k, nsplit, out_v, out_i,  \
+                          stream);                                        \
   }
-LADDER_RUNG(fused_topk_f32_stream_only, F32, STREAM)
-LADDER_RUNG(fused_topk_f32_matmul_only, F32, MATMUL)
-LADDER_RUNG(fused_topk_f32_insert_only, F32, INSERT)
+LADDER_RUNG(fused_topk_f32_stream_only, STREAM)
+LADDER_RUNG(fused_topk_f32_matmul_only, MATMUL)
+LADDER_RUNG(fused_topk_f32_insert_only, INSERT)
 #undef LADDER_RUNG
 #define LADDER_RUNG_BF16(name, P)                                          \
   int name(const void* q, const void* g, const float*, int Q, int G, int D, \
            int k, int nsplit, float* out_v, int* out_i, void* stream) {   \
-    if (bad_bf16_geometry(Q, G, D, k, nsplit))                            \
+    if (bad_tc_geometry(Q, G, D, k, nsplit))                              \
       return (int)cudaErrorInvalidValue;                                  \
-    return (int)launch_bf16<P>(q, g, Q, G, D, k, nsplit, out_v, out_i,    \
-                               out_v,                                     \
-                               reinterpret_cast<cudaStream_t>(stream));   \
+    return (int)launch_tc<BF16, P>(q, g, nullptr, nullptr, Q, G, D, k,    \
+                                   nsplit, out_v, out_i, out_v,           \
+                                   reinterpret_cast<cudaStream_t>(stream)); \
   }
 LADDER_RUNG_BF16(fused_topk_bf16_stream_only, STREAM)
 LADDER_RUNG_BF16(fused_topk_bf16_matmul_only, MATMUL)
 LADDER_RUNG_BF16(fused_topk_bf16_insert_only, INSERT)
 #undef LADDER_RUNG_BF16
+// int8: the codes of q̂ (Q, D) with their scales qscale (Q,), the gallery's
+// codes (G, D) and scales gscale (G,).
+#define LADDER_RUNG_I8(name, P)                                            \
+  int name(const void* q, const void* g, const float* qscale,              \
+           const float* gscale, int Q, int G, int D, int k, int nsplit,   \
+           float* out_v, int* out_i, void* stream) {                      \
+    if (bad_tc_geometry(Q, G, D, k, nsplit))                              \
+      return (int)cudaErrorInvalidValue;                                  \
+    return (int)launch_tc<I8, P>(q, g, qscale, gscale, Q, G, D, k, nsplit, \
+                                 out_v, out_i, out_v,                     \
+                                 reinterpret_cast<cudaStream_t>(stream)); \
+  }
+LADDER_RUNG_I8(fused_topk_int8_stream_only, STREAM)
+LADDER_RUNG_I8(fused_topk_int8_matmul_only, MATMUL)
+LADDER_RUNG_I8(fused_topk_int8_insert_only, INSERT)
+#undef LADDER_RUNG_I8
 
 // Kernel 4: the (Q, G) f32 cosine scores of q̂ (Q, D) against the raw
 // gallery (G, D), both f32, into out; returns cudaGetLastError().
@@ -1460,8 +1662,8 @@ int cosine_scores_f32(const float* q, const float* g, int Q, int G, int D,
   if (Q < 1 || G < 1 || D < 1 || (Q + QT - 1) / QT > 65535)
     return (int)cudaErrorInvalidValue;
   const int tiles = (G + GT - 1) / GT;
-  const size_t smem = (size_t)2 * BK * PADW * 4 + (size_t)(GT + QT) * 4;
-  fused_topk_split_kernel<F32, SCORES>
+  const size_t smem = (size_t)2 * BK * PADW * 4 + (size_t)GT * 4;
+  fused_topk_split_kernel<SCORES>
       <<<dim3(tiles, (Q + QT - 1) / QT), THREADS, smem,
          reinterpret_cast<cudaStream_t>(stream)>>>(
           q, g, nullptr, nullptr, Q, G, D, 0, tiles, false, out, nullptr,

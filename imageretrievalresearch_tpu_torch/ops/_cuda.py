@@ -13,6 +13,7 @@ toolkit has no ``nvcc``. The kernels' wrappers share the device dispatch
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,32 +32,36 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_RUNGS = ("stream_only", "matmul_only", "insert_only")
 # library name -> entry point -> argtypes: pointers and the stream as
-# c_void_p, sizes as c_int; every entry point returns a CUDA error code
+# c_void_p, sizes as c_int (a workspace's length as c_longlong); every
+# entry point returns a CUDA error code
 SIGNATURES = {
-    # operands (q, gallery, then norms / scales), 7 ints, 6 outputs and
-    # scratch, the stream
-    "fused_topk": {"fused_topk_f32": [_P] * 3 + [_I] * 7 + [_P] * 7,
-                   "fused_topk_bf16": [_P] * 2 + [_I] * 7 + [_P] * 7,
-                   "fused_topk_int8": [_P] * 4 + [_I] * 7 + [_P] * 7,
+    # q, gallery, its norms or scales (or none), 7 ints, the workspace and
+    # its length in words, the stream
+    "fused_topk": {**{f"fused_topk_{mode}": [_P] * 3 + [_I] * 7
+                      + [_P, _L, _P] for mode in ("f32", "bf16", "int8")},
+                   # x, N, D, the codes, the scales, the stream
+                   "quantize_rows_int8_f32": [_P] + [_I] * 2 + [_P] * 3,
                    # q̂, the raw gallery, Q, G, D, the scores, the stream
                    "cosine_scores_f32": [_P] * 2 + [_I] * 3 + [_P] * 2,
                    # the ladder: q̂, gallery, norms, Q, G, D, k, splits,
-                   # the two outputs, the stream
+                   # the two outputs, the stream; int8: q̂'s codes,
+                   # gallery codes, their two scales, then the same
                    **{f"fused_topk_{mode}_{rung}": [_P] * 3 + [_I] * 5
                       + [_P] * 3
-                      for mode in ("f32", "bf16")
-                      for rung in ("stream_only", "matmul_only",
-                                   "insert_only")}},
+                      for mode in ("f32", "bf16") for rung in _RUNGS},
+                   **{f"fused_topk_int8_{rung}": [_P] * 4 + [_I] * 5
+                      + [_P] * 3 for rung in _RUNGS}},
     "image_ops": {"image_histogram": [_P, _I, _I, _P, _P],
                   "image_lut_apply": [_P, _P, _I, _I, _P, _P],
                   "image_row_shift": [_P, _P, _I, _I, _I, _P, _P],
                   "image_row_shift_cubic": [_P, _P, _I, _I, _I, _P, _P]},
-    # tensors, then the geometry, the plan (forward: the tile; tap
-    # gradients: band height, channels, the split), the bf16 flag, the
-    # stream
-    "depthwise_conv": {"dw_conv_forward": [_P] * 3 + [_I] * 12 + [_P],
+    # tensors, then the geometry, the plan (band height, channels, the
+    # split), the bf16 flag, the stream
+    "depthwise_conv": {"dw_conv_forward": [_P] * 3 + [_I] * 13 + [_P],
+                       "dw_conv_grad_x": [_P] * 3 + [_I] * 13 + [_P],
                        "dw_conv_grad_w": [_P] * 4 + [_I] * 13 + [_P]},
     # x, N, D, rows, the row sums, the output, the stream
     "stream_probe": {"stream_probe_f32": [_P] + [_I] * 3 + [_P] * 3},
@@ -123,6 +128,22 @@ def error_string(err: int, name: str) -> str:
     return getattr(load_library(name), f"{name}_error_string")(err).decode()
 
 
+def device_index(device: torch.device) -> int:
+    """The card index of ``device`` (the current card for a bare "cuda")."""
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of ``device``'s card, read once per card."""
+    return _sm_count(device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def on_cpu(t: torch.Tensor) -> bool:
     """True for a CPU tensor (the wrapper runs its plain version), False
     for a CUDA one (it launches its kernel); any other device raises."""
@@ -149,17 +170,25 @@ def check_operand(name: str, t: torch.Tensor,
     return t
 
 
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call entry point ``entry`` of library ``name`` on the current stream
-    of ``device``, tensors passed as pointers and ints as ints; raise on
-    the CUDA error it returns."""
-    lib = load_library(name)
-    p = ctypes.c_void_p
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(
-            *(p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
-            p(stream))
+    of ``device``, tensors passed as pointers, ints as ints and None as a
+    null pointer; raise on the CUDA error it returns. The entry point is
+    looked up once; the device becomes current only for a call on another
+    device than the current one."""
+    fn = _ENTRIES.get((name, entry))
+    if fn is None:
+        fn = _ENTRIES[name, entry] = getattr(load_library(name), entry)
+    ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    index = device_index(device)
+    if torch.cuda.current_device() == index:
+        err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"({error_string(err, name)})")

@@ -7,9 +7,11 @@ for odd K <= 7 and stride 1 or 2, differentiable through
 ``_DepthwiseConv`` (JAX's ``jax.custom_vjp``):
 
 - forward: ``depthwise_forward`` (TPU kernel 9, ``_dw_fwd_kernel``);
-- dx: the same kernel at stride 1 with the taps flipped, on the cotangent,
-  which for stride 2 is first dilated inside, with the high padding that
-  restores the rows torch's floor division dropped (``_dw_op_bwd``);
+- dx: ``depthwise_grad_x``, JAX's stride-1 forward of the cotangent with
+  the taps flipped, the cotangent first dilated for stride 2 with the high
+  padding that restores the rows torch's floor division dropped
+  (``_dw_op_bwd``); on the card one kernel computes it from the cotangent
+  and the unflipped taps directly, with no dilated copy and no flip;
 - dw: ``depthwise_grad_w`` (TPU kernel 10, ``_dw_grad_w_kernel``), f32,
   cast to the taps' type.
 
@@ -39,17 +41,16 @@ import torch.nn.functional as F
 from imageretrievalresearch_tpu_torch.ops import _cuda
 
 THREADS = 256
-# shared memory a block may use without opting in to more (the forward's
-# tile plan stays under it)
-MAX_SMEM = 48 * 1024
-# the tap-gradient kernel: output pixels of a row per thread step, shared
-# memory per block (two blocks per SM, opted in above MAX_SMEM), and blocks
-# per SM of its one-wave grid (splits x channel blocks)
-GRAD_W_RUN = 4
-GRAD_W_SMEM = 112 * 1024
-GRAD_W_BLOCKS_PER_SM = 2
+# the band kernels (forward, dx, tap gradients): output pixels of a row per
+# thread step, shared memory per block (two blocks per SM, opted in above
+# the static 48 KB), and blocks per SM of their one-wave grid (splits x
+# channel blocks)
+BAND_RUN = 4
+BAND_SMEM = 112 * 1024
+BAND_BLOCKS_PER_SM = 2
 
-KERNEL_LAUNCHES = {"depthwise_conv_forward": 0, "depthwise_conv_grad_w": 0}
+KERNEL_LAUNCHES = {"depthwise_conv_forward": 0, "depthwise_conv_grad_x": 0,
+                   "depthwise_conv_grad_w": 0}
 PLAIN_ON_CARD = dict.fromkeys(KERNEL_LAUNCHES, 0)
 # tensors copied into NHWC order before a launch
 LAYOUT_COPIES = {"nhwc": 0}
@@ -76,93 +77,133 @@ def _check_conv(k: int, stride: int) -> None:
                          f"2, got K={k}, stride={stride}")
 
 
-def _smem(th: int, tw: int, cb: int, k: int, stride: int) -> int:
-    tile = ((th - 1) * stride + k) * ((tw - 1) * stride + k) * cb
-    return 4 * max(tile, THREADS)
+def band_geometry(kind: str, th: int, h: int, w: int, k: int,
+                  stride: int) -> tuple[int, int, int]:
+    """``(rows, columns, offset)`` of one staged item of the forward
+    (``kind`` "forward", source x) or of dx ("grad_x", source the
+    cotangent), as ``make_band_geom`` in the source: the source rows that
+    th output rows read, the buffer's columns (the source's width with its
+    padding, at least what the runs of ``BAND_RUN`` pixels read) and the
+    buffer column of source column 0. dx at stride 2 reads the cotangent
+    at (y - P + i) / 2: (th + K) / 2 rows, ceil(P / 2) columns of
+    padding."""
+    p = k // 2
+    src_w, out_w = ((w, out_len(w, k, stride)) if kind == "forward"
+                    else (out_len(w, k, stride), w))
+    runs_w = -(-out_w // BAND_RUN) * BAND_RUN
+    if kind == "grad_x" and stride == 2:
+        pd = (p + 1) // 2
+        rx = (BAND_RUN - 1 + p + 2 * pd) // 2 + 1
+        return (th + k) // 2, max((runs_w - BAND_RUN) // 2 + rx,
+                                  src_w + pd), pd
+    ss = stride if kind == "forward" else 1
+    return (th - 1) * ss + k, max((runs_w - 1) * ss + k, src_w + 2 * p), p
 
 
-def tile_plan(ho: int, wo: int, c: int, k: int, stride: int
-              ) -> tuple[int, int, int]:
-    """``(th, tw, cb)``: a block's output tile of th x tw pixels and cb
-    channels, its staged input tile under ``MAX_SMEM``. Starts at 8 x 16
-    pixels and all channels up to 64 (else 64), then halves the channels
-    to 32, the tile's width, its height."""
-    th, tw = min(ho, 8), min(wo, 16)
-    cb = c if c <= 64 else 64
-    while _smem(th, tw, cb, k, stride) > MAX_SMEM:
-        if cb > 32:
-            cb = 32
-        elif tw >= th and tw > 1:
-            tw = (tw + 1) // 2
-        else:
-            th = (th + 1) // 2
-    return th, tw, cb
-
-
-def grad_w_smem(th: int, cb: int, w: int, wo: int, k: int, stride: int,
-                itemsize: int) -> tuple[int, int]:
-    """``(block, buffer)`` bytes of the tap-gradient kernel's shared memory
-    (``make_grad_geom`` in the source): one buffer holds an item's x rows,
-    (th - 1)·s + K of them with the padding columns, and its th g rows,
-    both across the width padded to whole runs of ``GRAD_W_RUN`` pixels,
-    for cb channels; the block holds two, or the slots' partial sums if
-    they need more. The launcher computes the same and refuses a plan
-    over its cap; a CPU test holds the constants to the source's."""
-    runs_w = -(-wo // GRAD_W_RUN) * GRAD_W_RUN
+def band_smem(kind: str, th: int, cb: int, h: int, w: int, k: int,
+              stride: int, itemsize: int) -> tuple[int, int]:
+    """``(block, buffer)`` bytes of a band kernel's shared memory for a
+    layer with input (h, w) and bands of th output rows, cb channels: the
+    forward and dx (:func:`band_geometry`) hold two staged items; the tap
+    gradients (``make_grad_geom`` in the source) stage per item the x
+    rows with their padding columns and the item's th g rows, the widths
+    padded to whole runs of ``BAND_RUN`` pixels, two buffers or the
+    slots' partial sums if they need more. The launchers compute the same
+    and refuse a plan over their cap; CPU tests hold the constants to the
+    source's."""
+    if kind != "grad_w":
+        rows, xw, _ = band_geometry(kind, th, h, w, k, stride)
+        buf = rows * xw * cb * itemsize
+        return 2 * buf, buf
+    wo = out_len(w, k, stride)
+    runs_w = -(-wo // BAND_RUN) * BAND_RUN
     xw = max((runs_w - 1) * stride + k, w + 2 * (k // 2))
     buf = (((th - 1) * stride + k) * xw + th * runs_w) * cb * itemsize
     red = THREADS // (cb // 2) * k * k * cb * 4
     return max(2 * buf, red), buf
 
 
+def _source_rows(kind: str, r0: int, th: int, h: int, k: int,
+                 stride: int) -> int:
+    """The source rows inside the source that a band of th output rows
+    from r0 stages: x rows of the forward and the tap gradients, cotangent
+    rows of dx."""
+    p = k // 2
+    ho = out_len(h, k, stride)
+    if kind == "grad_x":
+        src_h = ho
+        if stride == 2:
+            lo, n = (r0 - p + 1) // 2, (th + k) // 2
+        else:
+            lo, n = r0 - p, th - 1 + k
+    else:
+        src_h = h
+        lo, n = r0 * stride - p, (th - 1) * stride + k
+    return min(src_h, lo + n) - max(0, lo)
+
+
 @functools.lru_cache(maxsize=None)
-def grad_w_plan(h: int, w: int, c: int, k: int, stride: int,
-                itemsize: int) -> tuple[int, int]:
-    """``(th, cb)`` of the tap-gradient kernel: items are bands of th
-    output rows across the width, blocks take cb channels (a multiple of
-    8, at most 512). For each cb that splits C into equal blocks, the
-    fewest bands under ``GRAD_W_SMEM``, of equal height (the last band
-    runs as many rows as the others, so a short one would compute on
-    zero rows); of those, the plan that reads the
-    fewest bytes per image (halo rows read again, phantom channels of a
-    last short block counted) over the share of the block's threads that
-    own a channel pair, ties to the larger cb. Blocks of at least 64
-    channels (or all of C) come first: a warp's 32 channel pairs then read
-    one pixel's contiguous 128 bytes, with no bank conflict. Cached: the
+def band_plan(kind: str, h: int, w: int, c: int, k: int, stride: int,
+              itemsize: int) -> tuple[int, int]:
+    """``(th, cb)`` of a band kernel (``kind``: "forward", "grad_x" or
+    "grad_w") for a layer with input (h, w): items are bands of th output
+    rows across the width, blocks take cb channels (a multiple of 8, at
+    most 512). For each cb that splits C into equal blocks, the fewest
+    bands under ``BAND_SMEM``, of equal height (the last band runs as many
+    rows as the others, so a short one would compute on empty rows); of
+    those, the plan that reads and writes the fewest bytes per image (halo
+    rows read again, phantom channels of a last short block counted) over
+    the share of the block's threads that own a channel pair, ties to the
+    larger cb. Blocks of at least 64 channels (or all of C) come first: a
+    warp's 32 channel pairs then read one pixel's contiguous 128 bytes,
+    with no bank conflict. The forward and dx write their output from the
+    blocks, so their blocks must also span whole 32-byte sectors (or all
+    of C): where two blocks wrote parts of one sector, dx ran at half its
+    rate on the card (PERF.md §6); and below 64 channels they take the
+    widest block, which the byte count would not pick. Cached: the
     search runs once per layer shape, not at every launch."""
     ho, wo = out_len(h, k, stride), out_len(w, k, stride)
-    p = k // 2
+    out_h, out_w, src_w = (h, w, wo) if kind == "grad_x" else (ho, wo, w)
     c8 = -(-c // 8) * 8
     plans = []
     for nb in range(-(-c8 // 512), c8 // 8 + 1):
         cb = 8 * -(-(c8 // 8) // nb)
-        th = next((t for t in range(ho, 0, -1)
-                   if grad_w_smem(t, cb, w, wo, k, stride, itemsize)[0]
-                   <= GRAD_W_SMEM), 0)
+        th = next((t for t in range(out_h, 0, -1)
+                   if band_smem(kind, t, cb, h, w, k, stride, itemsize)[0]
+                   <= BAND_SMEM), 0)
         if not th:
             continue
-        bands = -(-ho // th)
-        th = -(-ho // bands)  # as many bands, evened out: no empty rows
-        x_rows = sum(min(h, (min(ho, (b + 1) * th) - 1) * stride - p + k)
-                     - max(0, b * th * stride - p) for b in range(bands))
+        bands = -(-out_h // th)
+        th = -(-out_h // bands)  # as many bands, evened out: no empty rows
+        src_rows = sum(_source_rows(kind, b * th, min(th, out_h - b * th),
+                                    h, k, stride) for b in range(bands))
         pairs = cb // 2
         used = pairs * (THREADS // pairs)
-        read = -(-c // cb) * cb * (x_rows * w + ho * wo)
-        plans.append((cb < min(c8, 64), read * THREADS / used, -cb, th))
+        # tap gradients: x and g in, K*K taps out; else source in, output out
+        moved = (src_rows * src_w + ho * wo if kind == "grad_w"
+                 else src_rows * src_w + out_h * out_w)
+        cost = -(-c // cb) * cb * moved * THREADS / used
+        wide = cb >= min(c8, 64)
+        if kind == "grad_w":
+            plans.append((not wide, cost, -cb, th))
+        else:
+            aligned = cb >= c or cb * itemsize % 32 == 0
+            plans.append((not aligned, not wide, cost if wide else 0, -cb,
+                          th))
     if not plans:
-        raise ValueError(f"no tap-gradient plan fits {GRAD_W_SMEM} bytes "
-                         f"for C={c}, H={h}, W={w}, K={k}")
-    _, _, cb, th = min(plans)
+        raise ValueError(f"no {kind} plan fits {BAND_SMEM} bytes for C={c}, "
+                         f"H={h}, W={w}, K={k}")
+    *_, cb, th = min(plans)
     return th, -cb
 
 
-def grad_w_splits(n: int, tiles: int, c_blocks: int,
-                  blocks: int) -> tuple[int, int]:
-    """``(nsplit, items_per_split)``: the tap-gradient kernel's split of
-    the n x tiles (image, band) items of each channel block, so that
-    nsplit x c_blocks stays within ``blocks`` (one wave when that is
-    what the card holds at once), every item in exactly one split."""
-    items = n * tiles
+def band_splits(n: int, bands: int, c_blocks: int,
+                blocks: int) -> tuple[int, int]:
+    """``(nsplit, items_per_split)``: a band kernel's split of the n x
+    bands (image, band) items of each channel block, so that nsplit x
+    c_blocks stays within ``blocks`` (one wave when that is what the card
+    holds at once), every item in exactly one split."""
+    items = n * bands
     per = -(-items // max(1, blocks // c_blocks))
     return -(-items // per), per
 
@@ -228,10 +269,25 @@ def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
+def _band_split(kind: str, dev: torch.device, n: int, h: int, w: int,
+                c: int, k: int, stride: int,
+                itemsize: int) -> tuple[int, int, int, int]:
+    """``(th, cb, nsplit, items_per_split)`` of band kernel ``kind``: its
+    plan (:func:`band_plan`) and its one-wave split (:func:`band_splits`)
+    over ``BAND_BLOCKS_PER_SM`` blocks per SM of the card."""
+    th, cb = band_plan(kind, h, w, c, k, stride, itemsize)
+    out_h = h if kind == "grad_x" else out_len(h, k, stride)
+    return (th, cb, *band_splits(n, -(-out_h // th), -(-c // cb),
+                                 BAND_BLOCKS_PER_SM * _cuda.sm_count(dev)))
+
+
 def depthwise_forward(x: torch.Tensor, taps: torch.Tensor,
                       stride: int) -> torch.Tensor:
     """Depthwise conv: (N, H, W, C) f32/bf16 + (K, K, C) f32 taps ->
-    (N, Ho, Wo, C) in x's type, f32 accumulation; replaces ``_pallas_dw``."""
+    (N, Ho, Wo, C) in x's type, f32 accumulation; replaces ``_pallas_dw``.
+    The kernel walks bands of output rows with their input rows staged by
+    ``cp.async`` (:func:`band_plan`), bitwise equal to
+    :func:`depthwise_forward_reference`."""
     k = taps.shape[0]
     _check_conv(k, stride)
     if _cuda.on_cpu(x):
@@ -240,10 +296,11 @@ def depthwise_forward(x: torch.Tensor, taps: torch.Tensor,
     _cuda.check_operand("x", x, _FLOATS, (n, h, w, c), x.device)
     _cuda.check_operand("taps", taps, torch.float32, (k, k, c), x.device)
     ho, wo = out_len(h, k, stride), out_len(w, k, stride)
-    th, tw, cb = tile_plan(ho, wo, c, k, stride)
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    plan = _band_split("forward", x.device, n, h, w, c, k, stride,
+                       x.element_size())
     _launch("depthwise_conv_forward", "dw_conv_forward", x.device, x, taps,
-            out, n, h, w, c, ho, wo, k, stride, th, tw, cb,
+            out, n, h, w, c, ho, wo, k, stride, *plan,
             int(x.dtype == torch.bfloat16))
     return out
 
@@ -253,8 +310,7 @@ def depthwise_grad_w(x: torch.Tensor, g: torch.Tensor, k: int,
     """Tap gradients: (N, H, W, C) input + (N, Ho, Wo, C) cotangent of its
     type -> (K, K, C) f32; replaces ``_pallas_dw_grad_w``. Per-block
     partial sums and a fixed-order reduction: repeated runs are bitwise
-    equal. The kernel's plan: :func:`grad_w_plan`, :func:`grad_w_splits`
-    over ``GRAD_W_BLOCKS_PER_SM`` blocks per SM of the card."""
+    equal. The kernel's plan: :func:`band_plan`, :func:`band_splits`."""
     _check_conv(k, stride)
     if _cuda.on_cpu(x):
         return depthwise_grad_w_reference(x, g, k, stride)
@@ -262,16 +318,14 @@ def depthwise_grad_w(x: torch.Tensor, g: torch.Tensor, k: int,
     ho, wo = out_len(h, k, stride), out_len(w, k, stride)
     _cuda.check_operand("x", x, _FLOATS, (n, h, w, c), x.device)
     _cuda.check_operand("g", g, x.dtype, (n, ho, wo, c), x.device)
-    th, cb = grad_w_plan(h, w, c, k, stride, x.element_size())
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit, per = grad_w_splits(n, -(-ho // th), -(-c // cb),
-                                GRAD_W_BLOCKS_PER_SM * sms)
-    partial = torch.empty((nsplit, k * k, c), dtype=torch.float32,
+    plan = _band_split("grad_w", x.device, n, h, w, c, k, stride,
+                       x.element_size())
+    partial = torch.empty((plan[2], k * k, c), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((k, k, c), dtype=torch.float32, device=x.device)
     _launch("depthwise_conv_grad_w", "dw_conv_grad_w", x.device, x, g,
-            partial, out, n, h, w, c, ho, wo, k, stride, th, cb, nsplit,
-            per, int(x.dtype == torch.bfloat16))
+            partial, out, n, h, w, c, ho, wo, k, stride, *plan,
+            int(x.dtype == torch.bfloat16))
     return out
 
 
@@ -306,13 +360,46 @@ def dilate(g: torch.Tensor, stride: int, h: int, w: int) -> torch.Tensor:
     return out
 
 
+def depthwise_grad_x_reference(g: torch.Tensor, taps: torch.Tensor,
+                               stride: int, h: int, w: int) -> torch.Tensor:
+    """Plain version of the input gradient, JAX's ``_dw_op_bwd``: the
+    stride-1 forward of the dilated cotangent with the taps flipped."""
+    _plain("depthwise_conv_grad_x", g)
+    return depthwise_forward_reference(dilate(g, stride, h, w),
+                                       taps.flip(0, 1), 1)
+
+
 def depthwise_grad_x(g: torch.Tensor, taps: torch.Tensor, stride: int,
                      h: int, w: int) -> torch.Tensor:
-    """The input gradient, (N, Ho, Wo, C) cotangent -> (N, H, W, C) in its
-    type: the forward kernel at stride 1 with the taps flipped, on the
-    dilated cotangent (``_dw_op_bwd``)."""
-    return depthwise_forward(dilate(g, stride, h, w),
-                             taps.flip(0, 1).contiguous(), 1)
+    """The input gradient, (N, Ho, Wo, C) cotangent of a layer with input
+    (h, w) + its (K, K, C) f32 taps -> (N, H, W, C) in the cotangent's
+    type (``_dw_op_bwd``). For a CUDA tensor one kernel (``dw_conv_grad_x``)
+    reads the cotangent at output resolution and the unflipped taps: for
+    each input pixel it sums, in the flipped taps' order, only the terms
+    whose source lands on an output pixel (a quarter of them at stride 2),
+    with no dilated copy and no flip. The terms it skips are exact zero
+    products, so it equals :func:`depthwise_grad_x_reference` under
+    ``torch.equal``. It is bound by bytes, the cotangent read and dx
+    written once: bands of dx rows with their cotangent rows staged by
+    ``cp.async`` (:func:`band_plan`). For a CPU tensor: the plain
+    version."""
+    k = taps.shape[0]
+    _check_conv(k, stride)
+    if _cuda.on_cpu(g):
+        return depthwise_grad_x_reference(g, taps, stride, h, w)
+    n, ho, wo, c = g.shape
+    if (ho, wo) != (out_len(h, k, stride), out_len(w, k, stride)):
+        raise ValueError(f"cotangent ({ho}, {wo}) is not the output of "
+                         f"({h}, {w}) at K={k}, stride={stride}")
+    _cuda.check_operand("g", g, _FLOATS, (n, ho, wo, c), g.device)
+    _cuda.check_operand("taps", taps, torch.float32, (k, k, c), g.device)
+    dx = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
+    plan = _band_split("grad_x", g.device, n, h, w, c, k, stride,
+                       g.element_size())
+    _launch("depthwise_conv_grad_x", "dw_conv_grad_x", g.device, g, taps,
+            dx, n, h, w, c, ho, wo, k, stride, *plan,
+            int(g.dtype == torch.bfloat16))
+    return dx
 
 
 class _DepthwiseConv(torch.autograd.Function):

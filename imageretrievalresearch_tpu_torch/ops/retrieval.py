@@ -46,11 +46,13 @@ from imageretrievalresearch_tpu_torch.ops import _cuda
 FUSED_BINS = 64
 FUSED_T_DEPTH = 6
 # per-row candidates the merge kernel stages in shared memory (bytes); the
-# bf16 kernel's merge holds the same nsplit * k candidates in registers
+# selection merge of the bf16 and int8 kernels holds the same nsplit * k
+# candidates in registers
 _MERGE_SMEM_BUDGET = 160 * 1024
-# the bf16 kernel keeps each buffer entry's gallery tile as a 16-bit
-# ordinal within its split (csrc/fused_topk.cu): tiles per split it takes
-BF16_MAX_TILE_ORDINALS = 1 << 16
+# the tensor-core kernels (bf16 and int8) keep each buffer entry's gallery
+# tile as a 16-bit ordinal within its split (csrc/fused_topk.cu): tiles
+# per split they take
+MAX_TILE_ORDINALS = 1 << 16
 MATMUL_DTYPES = ("float32", "bfloat16", "int8")
 # columns per exact f32 partial product of int8 codes: 127² · 1024 < 2²⁴
 _INT8_EXACT_CHUNK = 1024
@@ -60,7 +62,8 @@ _DENSE_GALLERY_TILE = 16384
 
 # launches of each hand-written kernel, counted where the wrapper launches it
 KERNEL_LAUNCHES = {"fused_cosine_topk": 0, "fused_cosine_topk_bf16": 0,
-                   "fused_cosine_topk_int8": 0, "fused_cosine_scores": 0}
+                   "fused_cosine_topk_int8": 0, "fused_cosine_scores": 0,
+                   "quantize_queries_int8": 0}
 # calls of the plain version of the scores kernel on a CUDA tensor
 PLAIN_ON_CARD = {"fused_cosine_scores": 0}
 
@@ -152,12 +155,37 @@ def chunked_topk(sims: torch.Tensor, k: int, *, chunk: int = 2048
 
 def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization: ``(codes, scales)`` with
-    ``x ≈ codes * scales``, scales (N, 1) f32. Divides by the scale (not by
-    a reciprocal product) and rounds half to even, as JAX does."""
+    ``x ≈ codes * scales``, scales (N, 1) f32. Divides the clamped amax by
+    127 and x by the scale (IEEE divisions, not reciprocal products) and
+    rounds half to even, as JAX does, on every device: torch divides a
+    CUDA tensor by a Python number as a product with its f32 reciprocal,
+    so 127 is a tensor here."""
     x = x.float()
-    scale = torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-12) / 127.0
+    amax = torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-12)
+    scale = amax / torch.full_like(amax, 127.0)
     codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return codes, scale
+
+
+def quantize_queries_int8(x: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_rows_int8` of (N, D) f32 rows as one kernel launch
+    (``quantize_rows_int8_f32`` of ``csrc/fused_topk.cu``, the step that
+    the int8 fused top-k runs first) for a CUDA tensor, bitwise equal to
+    it; the plain function itself for a CPU tensor."""
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"expected float32 (N, D), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if _cuda.on_cpu(x):
+        return quantize_rows_int8(x)
+    n, d = x.shape
+    _cuda.check_operand("x", x, torch.float32, (n, d), x.device)
+    codes = torch.empty((n, d), dtype=torch.int8, device=x.device)
+    scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    _cuda.launch("fused_topk", "quantize_rows_int8_f32", x.device, x, n, d,
+                 codes, scales)
+    KERNEL_LAUNCHES["quantize_queries_int8"] += 1
+    return codes, scales
 
 
 def quantize_rows_int8_residual(x: torch.Tensor):
@@ -402,22 +430,38 @@ def fused_splits(q: int, g: int, k: int, device: torch.device) -> int:
     (Q <= 64) fills the card, capped so one row's candidates fit the merge
     kernel's shared memory. The count does not shrink as Q grows: fewer
     splits would hold more rows per bin and fail the certificate far more
-    often."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = min(sms, max(1, _MERGE_SMEM_BUDGET // (8 * k + 4)))
+    often. The card's SM count is read once per device."""
+    splits = min(_cuda.sm_count(device),
+                 max(1, _MERGE_SMEM_BUDGET // (8 * k + 4)))
     return _n_splits(g, splits, FUSED_BINS)
 
 
 def check_tile_ordinals(g: int, n_split: int) -> None:
     """Raise unless each of ``n_split`` splits of a G-row gallery holds at
-    most ``BF16_MAX_TILE_ORDINALS`` tiles of ``FUSED_BINS`` rows, the bf16
-    kernel's 16-bit tile ordinals (4,194,304 rows per split)."""
+    most ``MAX_TILE_ORDINALS`` tiles of ``FUSED_BINS`` rows, the
+    tensor-core kernels' 16-bit tile ordinals (4,194,304 rows per split)."""
     tiles = -(-g // FUSED_BINS)
-    if -(-tiles // n_split) > BF16_MAX_TILE_ORDINALS:
+    if -(-tiles // n_split) > MAX_TILE_ORDINALS:
         raise ValueError(
             f"G={g} over {n_split} splits needs {-(-tiles // n_split)} "
-            f"tiles per split; the bf16 kernel takes at most "
-            f"{BF16_MAX_TILE_ORDINALS} (16-bit tile ordinals)")
+            f"tiles per split; the bf16 and int8 kernels take at most "
+            f"{MAX_TILE_ORDINALS} (16-bit tile ordinals)")
+
+
+def _work_words(q: int, d: int, k: int, n_split: int, int8: bool) -> int:
+    """4-byte words of a fused top-k call's one workspace (``Work`` in
+    ``csrc/fused_topk.cu``, which refuses any other size): vals, inds (Q, k)
+    and ok (Q) first; then, each from a 64-word boundary, the candidates
+    (Q, S, k) twice and the deepest values (Q, S); for int8 also the query
+    scales (Q) and codes (Q, D)."""
+    def up(n):
+        return -(-n // 64) * 64
+    cand = q * n_split * k
+    end = up(up(up(2 * q * k + q) + cand) + cand) + q * n_split
+    end = up(end)
+    if int8:
+        end = up(up(end + q) + -(-q * d // 4))
+    return end
 
 
 # kernel variant per gallery dtype: (mode, C entry point, launch counter)
@@ -429,6 +473,9 @@ _VARIANTS = {
 
 def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
                             gallery_scale):
+    """One call of the mode's C entry point, which launches all of its
+    kernels (int8: the query quantization first) into one workspace; the
+    outputs are views of its first words."""
     dev = queries_hat.device
     _, entry, counter = _VARIANTS[gallery.dtype]
     q, d = queries_hat.shape
@@ -437,33 +484,27 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
                         dev)
     _cuda.check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
     n_split = fused_splits(q, g, k, dev)
+    q_in, aux = queries_hat, None
     if gallery.dtype == torch.float32:
         if gallery_norms is None:
             gallery_norms = torch.linalg.vector_norm(gallery, dim=1)
-        aux = (_cuda.check_operand("gallery_norms",
-                                   gallery_norms.reshape(-1), torch.float32,
-                                   (g,), dev),)
-        q_in = queries_hat
-    elif gallery.dtype == torch.bfloat16:
-        aux = ()
-        q_in = queries_hat.to(torch.bfloat16)
-        check_tile_ordinals(g, n_split)
+        aux = _cuda.check_operand("gallery_norms", gallery_norms.reshape(-1),
+                                  torch.float32, (g,), dev)
     else:
-        q_in, q_scale = quantize_rows_int8(queries_hat)
-        aux = (q_scale, _cuda.check_operand(
-            "gallery_scale", gallery_scale.reshape(-1, 1), torch.float32,
-            (g, 1), dev))
-    cand_v = torch.empty((q, n_split, k), device=dev, dtype=torch.float32)
-    cand_i = torch.empty((q, n_split, k), device=dev, dtype=torch.int32)
-    tth = torch.empty((q, n_split), device=dev, dtype=torch.float32)
-    vals = torch.empty((q, k), device=dev, dtype=torch.float32)
-    inds = torch.empty((q, k), device=dev, dtype=torch.int32)
-    ok = torch.empty((q,), device=dev, dtype=torch.int32)
-    _cuda.launch("fused_topk", entry, dev, q_in, gallery, *aux, q, g, d, k,
-                 n_split, FUSED_BINS, FUSED_T_DEPTH, cand_v, cand_i, tth,
-                 vals, inds, ok)
+        check_tile_ordinals(g, n_split)
+        if gallery.dtype == torch.bfloat16:
+            q_in = queries_hat.to(torch.bfloat16)
+        else:
+            aux = _cuda.check_operand("gallery_scale",
+                                      gallery_scale.reshape(-1),
+                                      torch.float32, (g,), dev)
+    words = _work_words(q, d, k, n_split, gallery.dtype == torch.int8)
+    work = torch.empty(words, device=dev, dtype=torch.int32)
+    _cuda.launch("fused_topk", entry, dev, q_in, gallery, aux, q, g, d, k,
+                 n_split, FUSED_BINS, FUSED_T_DEPTH, work, words)
     KERNEL_LAUNCHES[counter] += 1
-    return vals, inds, ok
+    out = work[:2 * q * k].view(2, q, k)
+    return out[0].view(torch.float32), out[1], work[2 * q * k:2 * q * k + q]
 
 
 def fused_cosine_topk(
@@ -479,14 +520,20 @@ def fused_cosine_topk(
       f32 scores;
     - bfloat16: the pre-normalized gallery; q̂ is cast to bf16 here;
     - int8: codes of the normalized gallery with ``gallery_scale`` (G, 1);
-      q̂ is quantized here with :func:`quantize_rows_int8`.
+      q̂ is quantized by :func:`quantize_rows_int8`'s arithmetic (on the
+      card by the kernel's own first launch, bitwise the same).
 
-    CUDA tensors launch the matching kernel of ``csrc/fused_topk.cu``
+    CUDA tensors launch the matching kernels of ``csrc/fused_topk.cu``
     (geometry ``FUSED_BINS`` x ``FUSED_T_DEPTH``, :func:`fused_splits`
-    gallery splits) or raise. CPU tensors run
-    :func:`fused_cosine_topk_reference` at the same geometry with one
-    split. Rows with ``ok == 0`` must be re-ranked densely:
-    :func:`cosine_topk` does that."""
+    gallery splits) in one call of their C entry point, into one
+    workspace, or raise. Each streams the gallery once per 64 queries, so
+    at Q <= 64 it is bound by the gallery's bytes (bf16 and int8; f32 by
+    its SIMT product): bf16 and int8 keep 40 KB of gallery in flight per SM
+    (TMA into a ring, tensor-core products, the insertion of a tile spread
+    over the next tile's copies), then select each split's top-k and merge
+    the splits. CPU tensors run :func:`fused_cosine_topk_reference` at the
+    same geometry with one split. Rows with ``ok == 0`` must be re-ranked
+    densely: :func:`cosine_topk` does that."""
     if gallery.dtype not in _VARIANTS:
         raise ValueError(f"unsupported gallery dtype {gallery.dtype}")
     if gallery_norms is not None and gallery.dtype != torch.float32:

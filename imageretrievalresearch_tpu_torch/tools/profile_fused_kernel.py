@@ -10,15 +10,15 @@ around back-to-back launches with one synchronise (``pipelined_ms``).
 
 1. The ablation ladder of the split kernels (``csrc/fused_topk.cu``, the
    phase flag of ``fused_topk_split_kernel`` for f32 and of
-   ``fused_topk_bf16_kernel`` for bf16), each rung at its production
-   kernel's geometry and shared memory:
+   ``fused_topk_tc_kernel`` for bf16 and int8), each rung at its
+   production kernel's geometry and shared memory:
 
    - ``stream_only``: the production kernel's global loads and staging
-     (f32: words staged through registers; bf16: 16-byte ``cp.async``
-     into the ring), every loaded word folded into per-row sums;
-   - ``matmul_only``: + the division by the norms (f32) and the product
-     (f32: SIMT; bf16: tensor cores); each split's max score per query
-     row;
+     (f32: words staged through registers; bf16 and int8: TMA copies into
+     the ring), every loaded word folded into per-row sums;
+   - ``matmul_only``: + the division by the norms (f32) or the rescale
+     (int8) and the product (f32: SIMT; bf16 and int8: tensor cores);
+     each split's max score per query row;
    - ``insert_only``: + the insertion chain; the first k buffer lanes,
      with no extraction and no merge;
    - ``full``: the production kernel (split + merge,
@@ -26,7 +26,8 @@ around back-to-back launches with one synchronise (``pipelined_ms``).
 
    Differences of the rung times attribute the full kernel's time to its
    phases. Phases overlap, so each difference is the cost the other
-   phases do not hide.
+   phases do not hide. The JAX tool has f32 and bf16 ladders; the int8
+   one is the port's own.
 2. The row-block stream probe (``csrc/stream_probe.cu``) at block heights
    256-2048 over a (100,352, 1536) f32 array: the read rate a plain
    streaming kernel reaches.
@@ -64,11 +65,12 @@ PROBE_ROWS = (256, 512, 1024, 2048)
 # 512-row tile; the same 100,352)
 G_PAD = -(-GALLERY // max(PROBE_ROWS)) * max(PROBE_ROWS)
 RUNGS = ("stream_only", "matmul_only", "insert_only")
-# gallery dtype -> the name of its mode in the C entry points
-_MODES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# gallery dtype -> (its score mode, its name in the C entry points)
+_MODES = {torch.float32: ("float32", "f32"),
+          torch.bfloat16: ("bfloat16", "bf16"), torch.int8: ("int8", "int8")}
 
 # launches of each hand-written kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {**{f"fused_topk_{m}_{r}": 0 for m in _MODES.values()
+KERNEL_LAUNCHES = {**{f"fused_topk_{m}_{r}": 0 for _, m in _MODES.values()
                       for r in RUNGS}, "stream_probe": 0}
 
 
@@ -89,16 +91,18 @@ def log(msg: str, _t0: list = []) -> None:
 #
 # Every rung works on the split kernel's words: f32 -> q̂ and the raw
 # gallery with its norms; bf16 -> q̂ rounded to bf16 and the pre-normalized
-# bf16 gallery, both widened to f32 (no norms). Gallery tiles of BINS rows
-# are dealt round-robin to the splits (tile t to split t mod S), as in
-# ops.retrieval.
+# bf16 gallery, both widened to f32 (no norms); int8 -> the codes of q̂ and
+# of the normalized gallery (with their scales for the scores). Gallery
+# tiles of BINS rows are dealt round-robin to the splits (tile t to split t
+# mod S), as in ops.retrieval.
 
 
 def _mode(gallery: torch.Tensor) -> str:
     if gallery.dtype not in _MODES:
-        raise ValueError("the ladder takes a float32 (raw) or bfloat16 "
-                         f"(pre-normalized) gallery, not {gallery.dtype}")
-    return "float32" if gallery.dtype == torch.float32 else "bfloat16"
+        raise ValueError("the ladder takes a float32 (raw), an int8 (codes) "
+                         "or bfloat16 (pre-normalized) gallery, not "
+                         f"{gallery.dtype}")
+    return _MODES[gallery.dtype][0]
 
 
 def _norms(gallery, gallery_norms):
@@ -123,14 +127,15 @@ def _n_split(q_hat, gallery, k, splits):
 
 
 def stream_only_reference(q_hat, gallery, k, gallery_norms=None,
-                          splits=1) -> torch.Tensor:
+                          splits=1, gallery_scale=None) -> torch.Tensor:
     """(Q, S) f32: for query row q and split s, the sum over the split's
     tiles t of (the words of q) + (the words of gallery row
     t·BINS + q mod BINS) + (its norm, f32 only), rows past G counting 0.
     That is every word the rung loads, each added once per tile, in f64
     here (the kernel adds in f32 in its own order: exact on small-integer
     data, else within ``stream_only_rtol`` of the same sum of absolute
-    values)."""
+    values; int8 codes it sums exactly in int32, so within int32 the
+    results are equal). The scales are not words of the stream."""
     mode = _mode(gallery)
     q, g = q_hat.shape[0], gallery.shape[0]
     qw = R._prepare_queries(q_hat, mode)[0].double()
@@ -159,7 +164,10 @@ def stream_only_rtol(g: int, d: int, splits: int,
     32 words, per tile; a 32-lane butterfly; the norms' sum. bf16: a
     thread adds, per ring stage of 64 words, the tree sums of its 8-word
     chunks of q and of the gallery row (4 levels) to its row's sum; an
-    8-lane butterfly."""
+    8-lane butterfly. int8: 0, the sums are exact integers (rounded once
+    to f32, as the reference rounds)."""
+    if dtype == torch.int8:
+        return 0.0
     tiles = -(-g // R.FUSED_BINS)
     per_split = -(-tiles // splits)
     if dtype == torch.bfloat16:
@@ -168,18 +176,18 @@ def stream_only_rtol(g: int, d: int, splits: int,
     return (2 * steps * per_split + 6) * 2.0 ** -24
 
 
-def _scores(q_hat, gallery, gallery_norms):
+def _scores(q_hat, gallery, gallery_norms, gallery_scale):
     """The mode's dense scores (``ops.retrieval.dense_scores``), (Q, G)."""
-    return R._dense_scores(q_hat, gallery, _mode(gallery), None,
+    return R._dense_scores(q_hat, gallery, _mode(gallery), gallery_scale,
                            _norms(gallery, gallery_norms))
 
 
 def matmul_only_reference(q_hat, gallery, k, gallery_norms=None,
-                          splits=1) -> torch.Tensor:
+                          splits=1, gallery_scale=None) -> torch.Tensor:
     """(Q, S) f32: the max of the mode's dense scores over each split's
     gallery rows."""
     n_split = _n_split(q_hat, gallery, k, splits)
-    s = _scores(q_hat, gallery, gallery_norms)
+    s = _scores(q_hat, gallery, gallery_norms, gallery_scale)
     q, g = s.shape
     rounds = -(-g // (R.FUSED_BINS * n_split))
     s = torch.nn.functional.pad(s, (0, rounds * n_split * R.FUSED_BINS - g),
@@ -187,22 +195,26 @@ def matmul_only_reference(q_hat, gallery, k, gallery_norms=None,
     return s.reshape(q, rounds, n_split, R.FUSED_BINS).amax(dim=(1, 3))
 
 
-def insert_only_reference(q_hat, gallery, k, gallery_norms=None, splits=1):
+def insert_only_reference(q_hat, gallery, k, gallery_norms=None, splits=1,
+                          gallery_scale=None):
     """((Q, S, k) f32, (Q, S, k) int32): the first k lanes of each split's
     buffers after the insertion chain (``ops.retrieval._bin_buffers``;
     lane t·BINS + b is depth slot t of bin b)."""
     n_split = _n_split(q_hat, gallery, k, splits)
-    bv, bi = R._bin_buffers(_scores(q_hat, gallery, gallery_norms),
+    bv, bi = R._bin_buffers(_scores(q_hat, gallery, gallery_norms,
+                                    gallery_scale),
                             R.FUSED_BINS, R.FUSED_T_DEPTH, n_split)
     q = bv.shape[0]
     return (bv.reshape(q, n_split, -1)[..., :k].contiguous(),
             bi.reshape(q, n_split, -1)[..., :k].contiguous())
 
 
-def _full_reference(q_hat, gallery, k, gallery_norms=None, splits=1):
+def _full_reference(q_hat, gallery, k, gallery_norms=None, splits=1,
+                    gallery_scale=None):
     return R.fused_cosine_topk_reference(
         q_hat, gallery, k, matmul_dtype=_mode(gallery),
-        gallery_norms=gallery_norms, splits=splits)
+        gallery_norms=gallery_norms, gallery_scale=gallery_scale,
+        splits=splits)
 
 
 _PLAIN = {"stream_only": stream_only_reference,
@@ -215,15 +227,21 @@ _PLAIN = {"stream_only": stream_only_reference,
 # ---------------------------------------------------------------------------
 
 def _rung(name: str, q_hat: torch.Tensor, gallery: torch.Tensor, k: int,
-          gallery_norms: torch.Tensor | None = None):
+          gallery_norms: torch.Tensor | None = None,
+          gallery_scale: torch.Tensor | None = None):
     """Rung ``name`` of the ladder: launches its kernel for CUDA tensors
     (at :func:`ops.retrieval.fused_splits` splits) or raises; runs its
-    plain version for CPU tensors (one split)."""
+    plain version for CPU tensors (one split). An int8 gallery takes its
+    ``gallery_scale`` (G, 1); q̂ is quantized by
+    :func:`ops.retrieval.quantize_queries_int8`, as the fused kernel's
+    entry point quantizes it."""
     mode = _mode(gallery)
     norms = _norms(gallery, gallery_norms)
     R._check_fused_k(k)
+    R._check_prepared(gallery, mode, gallery_scale)
     if _cuda.on_cpu(q_hat):
-        return _PLAIN[name](q_hat, gallery, k, gallery_norms, splits=1)
+        return _PLAIN[name](q_hat, gallery, k, gallery_norms, splits=1,
+                            gallery_scale=gallery_scale)
     dev = q_hat.device
     q, d = q_hat.shape
     g = gallery.shape[0]
@@ -231,9 +249,17 @@ def _rung(name: str, q_hat: torch.Tensor, gallery: torch.Tensor, k: int,
     _cuda.check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
     if norms is not None:
         _cuda.check_operand("gallery_norms", norms, torch.float32, (g,), dev)
-    q_in = q_hat if mode == "float32" else q_hat.to(torch.bfloat16)
     n_split = _n_split(q_hat, gallery, k, None)
-    if mode == "bfloat16":
+    if mode == "float32":
+        operands = (q_hat, gallery, norms)
+    elif mode == "bfloat16":
+        operands = (q_hat.to(torch.bfloat16), gallery, None)
+    else:
+        qq, qs = R.quantize_queries_int8(q_hat)
+        gs = _cuda.check_operand("gallery_scale", gallery_scale.reshape(-1),
+                                 torch.float32, (g,), dev)
+        operands = (qq, gallery, qs, gs)
+    if mode != "float32":
         R.check_tile_ordinals(g, n_split)
     if name == "insert_only":
         out = (torch.empty((q, n_split, k), device=dev, dtype=torch.float32),
@@ -241,20 +267,22 @@ def _rung(name: str, q_hat: torch.Tensor, gallery: torch.Tensor, k: int,
     else:
         out = (torch.empty((q, n_split), device=dev, dtype=torch.float32),
                None)
-    entry = f"fused_topk_{_MODES[gallery.dtype]}_{name}"
-    _cuda.launch("fused_topk", entry, dev, q_in, gallery, norms, q, g, d, k,
-                 n_split, *out)
+    entry = f"fused_topk_{_MODES[gallery.dtype][1]}_{name}"
+    _cuda.launch("fused_topk", entry, dev, *operands, q, g, d, k, n_split,
+                 *out)
     KERNEL_LAUNCHES[entry] += 1
     return out if name == "insert_only" else out[0]
 
 
-def _full(q_hat, gallery, k, gallery_norms=None):
-    return R.fused_cosine_topk(q_hat, gallery, k, gallery_norms=gallery_norms)
+def _full(q_hat, gallery, k, gallery_norms=None, gallery_scale=None):
+    return R.fused_cosine_topk(q_hat, gallery, k, gallery_norms=gallery_norms,
+                               gallery_scale=gallery_scale)
 
 
 class Rung(NamedTuple):
-    """A rung's wrapper ``kernel(q_hat, gallery, k, gallery_norms=None)``
-    and its plain version ``plain(..., splits=1)``."""
+    """A rung's wrapper ``kernel(q_hat, gallery, k, gallery_norms=None,
+    gallery_scale=None)`` and its plain version ``plain(..., splits=1,
+    gallery_scale=None)``."""
     kernel: Callable
     plain: Callable
 
@@ -262,7 +290,7 @@ class Rung(NamedTuple):
 def build_variants() -> dict[str, Rung]:
     """The ladder, in order: ``stream_only``, ``matmul_only``,
     ``insert_only`` and ``full`` (the production kernel), each with its
-    plain version. The gallery's dtype picks f32 or bf16."""
+    plain version. The gallery's dtype picks f32, bf16 or int8."""
     rungs = {name: Rung(functools.partial(_rung, name), _PLAIN[name])
              for name in RUNGS}
     return {**rungs, "full": Rung(_full, _full_reference)}
@@ -328,11 +356,12 @@ def pipelined_ms(call: Callable, n_iter: int = 20, repeats: int = 5) -> float:
     return best
 
 
-def run_ladder(q_hat, gallery, k, gallery_norms=None, **timing
-               ) -> dict[str, float]:
+def run_ladder(q_hat, gallery, k, gallery_norms=None, gallery_scale=None,
+               **timing) -> dict[str, float]:
     """ms of each rung and of the full kernel on these operands."""
     return {name: pipelined_ms(lambda v=rung: v.kernel(
-                q_hat, gallery, k, gallery_norms=gallery_norms), **timing)
+                q_hat, gallery, k, gallery_norms=gallery_norms,
+                gallery_scale=gallery_scale), **timing)
             for name, rung in build_variants().items()}
 
 
@@ -384,15 +413,18 @@ def main(argv=None) -> None:
     gallery = padded[:GALLERY]
     q_hat = R.l2_normalize(torch.randn((QUERIES, DIM), generator=gen,
                                        device=dev))
-    forms = {"float32": (gallery, torch.linalg.vector_norm(gallery, dim=1)),
-             "bfloat16": (R.l2_normalize(gallery).to(torch.bfloat16), None)}
+    codes, scales = R.quantize_rows_int8(R.l2_normalize(gallery))
+    forms = {"float32": (gallery, {"gallery_norms": torch.linalg.vector_norm(
+                 gallery, dim=1)}),
+             "bfloat16": (R.l2_normalize(gallery).to(torch.bfloat16), {}),
+             "int8": (codes, {"gallery_scale": scales})}
     n_qtiles = -(-QUERIES // 64)
-    for mode, (gal, norms) in forms.items():
+    for mode, (gal, aux) in forms.items():
         g_bytes = gal.numel() * gal.element_size()
         log(f"{mode}: Q={QUERIES} G={GALLERY} D={DIM} k={K}; gallery "
             f"{g_bytes / 1e6:.1f} MB, {n_qtiles} query tiles => "
             f"{n_qtiles * g_bytes / 1e9:.2f} GB of gallery reads per call")
-        times = run_ladder(q_hat, gal, K, gallery_norms=norms)
+        times = run_ladder(q_hat, gal, K, **aux)
         for name, ms in times.items():
             log(f"{mode} {name:12s}: {ms:8.3f} ms (gallery stream "
                 f"{n_qtiles * g_bytes / ms / 1e6:7.1f} GB/s)")
@@ -400,10 +432,10 @@ def main(argv=None) -> None:
             log(f"{mode} {phase:26s}: {ms:8.3f} ms")
 
     if args.trace:
-        gal, norms = forms["float32"]
+        gal, aux = forms["float32"]
         with trace(args.trace) as prof:
             for _ in range(5):
-                R.fused_cosine_topk(q_hat, gal, K, gallery_norms=norms)
+                R.fused_cosine_topk(q_hat, gal, K, **aux)
         log(f"trace of 5 full f32 kernels written under {args.trace}; "
             f"{len(prof.key_averages())} event kinds")
 

@@ -118,6 +118,59 @@ def test_int8_kernel_bitwise_on_float_data(cuda_device, d):
     assert ok.any()
 
 
+# The int8 kernel (kernel 3) on tensor cores: D = 1536 and 1000 copy by TMA
+# (rows of whole 16-byte chunks; 1000 is not a multiple of the 128-code
+# stage, so its last stage is zero-filled), D = 37 and 30 take the
+# producer warp's masked loads; G off the 64-row tile; k = 150 and
+# int8_rerank's shortlist 256 (79 splits).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,k", [(1536, 20001, 150), (1000, 30001, 256),
+                                   (37, 5001, 150), (30, 7777, 256)])
+def test_int8_kernel_float_data_every_copy_path(cuda_device, d, g, k):
+    rng = np.random.default_rng(12)
+    qa = rng.normal(size=(64, d)).astype(np.float32)
+    ga = rng.normal(size=(g, d)).astype(np.float32)
+    ga[100] = ga[7]                      # exact duplicates: tied scores
+    ok = _launch_and_compare(qa, ga, k, cuda_device, "int8")
+    assert ok.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(64, 1536), (37, 30), (1, 1), (300, 100)])
+def test_query_quantization_kernel_bitwise(cuda_device, n, d):
+    """The int8 fused top-k's first step, one launch: codes and scales
+    equal quantize_rows_int8's bit for bit, a zero row (the 1e-12 clamp)
+    and halves that round to even included."""
+    rng = np.random.default_rng(13)
+    x = (rng.normal(size=(n, d)) * 3).astype(np.float32)
+    x[0] = 0.0
+    if d > 2:
+        x[-1, :3] = [127.0, 0.5, -2.5]   # scale 1: x / s lands on .5 ties
+    xd = torch.from_numpy(x).to(cuda_device)
+    before = T.KERNEL_LAUNCHES["quantize_queries_int8"]
+    codes, scales = T.quantize_queries_int8(xd)
+    assert T.KERNEL_LAUNCHES["quantize_queries_int8"] == before + 1
+    want_c, want_s = T.quantize_rows_int8(xd)
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.int8 and scales.shape == (n, 1)
+    assert torch.equal(codes, want_c) and torch.equal(scales, want_s)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_tile_ordinals_limit_raises(cuda_device, monkeypatch):
+    """Past 65,536 gallery tiles per split (16-bit tile ordinals) the int8
+    wrapper raises before it launches: with one split, 65,537 tiles."""
+    monkeypatch.setattr(T._cuda, "sm_count", lambda device: 1)
+    g = T.FUSED_BINS * T.MAX_TILE_ORDINALS + 1
+    codes = torch.zeros((g, 16), dtype=torch.int8, device=cuda_device)
+    scales = torch.ones((g, 1), device=cuda_device)
+    qh = T.l2_normalize(torch.ones((64, 16), device=cuda_device))
+    before = dict(T.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="16-bit tile ordinals"):
+        T.fused_cosine_topk(qh, codes, 150, gallery_scale=scales)
+    assert T.KERNEL_LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["bfloat16", "int8"])
 def test_quantized_certificate_fails_on_bin_overflow(cuda_device, mode):
@@ -211,7 +264,7 @@ def test_scores_kernel_matches_plain_version(cuda_device, q, g, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("q,g,d,k", [(40, 60, 32, 20), (70, 5000, 96, 150),
                                      (64, 30000, 37, 384)])
 def test_ladder_rungs_match_plain_versions(cuda_device, mode, q, g, d, k):
@@ -219,21 +272,21 @@ def test_ladder_rungs_match_plain_versions(cuda_device, mode, q, g, d, k):
     qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)
     ga[min(64, g - 1)] = ga[3]           # tied scores
     qh = T.l2_normalize(torch.from_numpy(qa)).to(cuda_device)
-    gd = torch.from_numpy(ga).to(cuda_device)
-    if mode == "bfloat16":
-        gd = T._prepare_gallery(gd, mode)[0]
+    gd, gs = torch.from_numpy(ga).to(cuda_device), None
+    if mode != "float32":
+        gd, gs = T._prepare_gallery(gd, mode)
     splits = T.fused_splits(q, g, k, cuda_device)
     P.reset_launch_counts()
     for name, rung in P.build_variants().items():
-        got = rung.kernel(qh, gd, k)
-        want = rung.plain(qh, gd, k, splits=splits)
+        got = rung.kernel(qh, gd, k, gallery_scale=gs)
+        want = rung.plain(qh, gd, k, splits=splits, gallery_scale=gs)
         torch.cuda.synchronize()
         # ±1 data: every word, sum and score exact, so bitwise
         for a, b in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     launched = {n: c for n, c in P.KERNEL_LAUNCHES.items() if c}
-    tag = "f32" if mode == "float32" else "bf16"
+    tag = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}[mode]
     assert launched == {f"fused_topk_{tag}_{r}": 1 for r in P.RUNGS}
 
 
@@ -374,9 +427,9 @@ def _dw_splits(shape, itemsize=2):
     """The tap-gradient kernel's (nsplit, items_per_split) for ``shape`` in
     bf16 on an H100 SXM (132 SMs)."""
     n, h, w, c, k, s = shape
-    th, cb = DW.grad_w_plan(h, w, c, k, s, itemsize)
-    return DW.grad_w_splits(n, -(-DW.out_len(h, k, s) // th), -(-c // cb),
-                            DW.GRAD_W_BLOCKS_PER_SM * 132)
+    th, cb = DW.band_plan("grad_w", h, w, c, k, s, itemsize)
+    return DW.band_splits(n, -(-DW.out_len(h, k, s) // th), -(-c // cb),
+                          DW.BAND_BLOCKS_PER_SM * 132)
 
 
 def test_depthwise_shapes_cover_multi_item_splits():
@@ -404,15 +457,19 @@ def test_depthwise_kernels_match_plain_version(cuda_device, shape, dtype):
     rng = np.random.default_rng(6)
     x, g, taps = _dw_inputs(rng, shape, dtype, cuda_device)
     k, s = shape[4], shape[5]
+    n, h, w = shape[:3]
     DW.reset_launch_counts()
     y = DW.depthwise_forward(x, taps, s)
+    dx = DW.depthwise_grad_x(g, taps, s, h, w)
     dw = DW.depthwise_grad_w(x, g, k, s)
     dw_again = DW.depthwise_grad_w(x, g, k, s)
     assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
+                                  "depthwise_conv_grad_x": 1,
                                   "depthwise_conv_grad_w": 2}
     torch.cuda.synchronize()
-    assert y.dtype == dtype
+    assert y.dtype == dtype and dx.dtype == dtype
     assert torch.equal(y, DW.depthwise_forward_reference(x, taps, s))
+    assert torch.equal(dx, DW.depthwise_grad_x_reference(g, taps, s, h, w))
     want = DW.depthwise_grad_w_reference(x, g, k, s)
     scale = DW.depthwise_grad_w_reference(x.abs(), g.abs(), k, s)
     assert ((dw - want).abs() <= 1e-6 * scale).all()
@@ -425,9 +482,9 @@ def test_depthwise_kernels_match_plain_version(cuda_device, shape, dtype):
                                    (2, 9, 9, 8, 7, 1)])
 def test_depthwise_function_gradients_through_the_kernels(cuda_device,
                                                           shape):
-    """The autograd Function on the card: forward, dx (flipped taps on the
-    dilated cotangent) and dw, each against cuDNN's grouped conv in true
-    f32 (TF32 off), within f32 rounding."""
+    """The autograd Function on the card: forward, dx (the cotangent and
+    the unflipped taps, no dilated copy) and dw, each against cuDNN's
+    grouped conv in true f32 (TF32 off), within f32 rounding."""
     import torch.nn.functional as F
 
     torch.backends.cudnn.allow_tf32 = False
@@ -446,7 +503,8 @@ def test_depthwise_function_gradients_through_the_kernels(cuda_device,
         memory_format=torch.channels_last)
     dx, dw = torch.autograd.grad((y * cot).sum(), (x, wt))
     ex, ew = torch.autograd.grad((ref * cot).sum(), (x, wt))
-    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 2,
+    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
+                                  "depthwise_conv_grad_x": 1,
                                   "depthwise_conv_grad_w": 1}
     assert not any(DW.PLAIN_ON_CARD.values())
     assert DW.LAYOUT_COPIES["nhwc"] == 0
@@ -491,3 +549,39 @@ def test_depthwise_grad_w_every_tap_size_and_stride(cuda_device, k, s,
     assert dw.shape == (k, k, c) and dw.dtype == torch.float32
     assert ((dw - want).abs() <= 1e-6 * scale).all()
     assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 9, 36, 3, 2), (2, 14, 10, 20, 5, 2),
+                                   (3, 15, 16, 7, 7, 2), (1, 6, 6, 12, 1, 2),
+                                   (2, 57, 43, 24, 3, 2),
+                                   (4, 11, 12, 13, 5, 1)])
+def test_depthwise_forward_and_grad_x_ragged(cuda_device, shape, dtype):
+    """Kernel 9's forward and direct dx at stride 2 with odd and even H and
+    W (the high-padding rows and columns that torch's floor division
+    drops), C not a multiple of 8 (masked loads, single-element stores),
+    K = 1 and 7: equal under torch.equal to the plain versions, and no
+    dilated copy or flip launches on the card (the dx path's only kernel
+    is its own)."""
+    rng = np.random.default_rng(14)
+    n, h, w, c, k, s = shape
+    x, g, taps = _dw_inputs(rng, shape, dtype, cuda_device)
+    DW.reset_launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dx = DW.depthwise_grad_x(g, taps, s, h, w)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    y = DW.depthwise_forward(x, taps, s)
+    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
+                                  "depthwise_conv_grad_x": 1,
+                                  "depthwise_conv_grad_w": 0}
+    assert not any(DW.PLAIN_ON_CARD.values())
+    torch.cuda.synchronize()
+    assert torch.equal(y, DW.depthwise_forward_reference(x, taps, s))
+    assert torch.equal(dx, DW.depthwise_grad_x_reference(g, taps, s, h, w))
+    # profiled device activity of the dx call: the band kernel alone (or
+    # nothing, where the profiler cannot trace the card)
+    assert all("dw_band_kernel" in name for name in kernels), kernels

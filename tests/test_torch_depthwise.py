@@ -191,16 +191,25 @@ _PLAN_SHAPES = [(40, 112, 3, 1), (24, 112, 3, 1), (144, 112, 3, 2),
 
 @pytest.mark.parametrize("c,h,k,s", _PLAN_SHAPES)
 def test_tile_plan_fits_and_covers(c, h, k, s):
-    ho = DW.out_len(h, k, s)
-    th, tw, cb = DW.tile_plan(ho, ho, c, k, s)
-    assert 1 <= th <= ho and 1 <= tw <= ho and 1 <= cb <= min(c, 64)
-    assert DW._smem(th, tw, cb, k, s) <= DW.MAX_SMEM
-    tiles = -(-ho // th) * -(-ho // tw)
-    for n in (1, 8, 192):
-        nsplit, per = DW.grad_w_splits(n, tiles, -(-c // cb),
-                                       DW.GRAD_W_BLOCKS_PER_SM * 132)
-        # every (image, tile) item in exactly one split, none empty
-        assert nsplit * per >= n * tiles > (nsplit - 1) * per
+    """The forward's and dx's band plans (bf16): channel blocks of a
+    multiple of 8 covering C with one short block at most, a band height
+    within the output (dx: the input's rows), two buffers within
+    BAND_SMEM, bands of even height; the split puts every (image, band)
+    item in exactly one split, none empty."""
+    for kind in ("forward", "grad_x"):
+        out_h = h if kind == "grad_x" else DW.out_len(h, k, s)
+        th, cb = DW.band_plan(kind, h, h, c, k, s, 2)
+        assert 1 <= th <= out_h and cb % 8 == 0 and 8 <= cb <= 512
+        assert (-(-c // cb) - 1) * cb < c
+        smem, buf = DW.band_smem(kind, th, cb, h, h, k, s, 2)
+        assert smem == 2 * buf <= DW.BAND_SMEM
+        bands = -(-out_h // th)
+        assert bands * th - out_h < bands
+        for n in (1, 8, 192):
+            nsplit, per = DW.band_splits(n, bands, -(-c // cb),
+                                         DW.BAND_BLOCKS_PER_SM * 132)
+            # every (image, band) item in exactly one split, none empty
+            assert nsplit * per >= n * bands > (nsplit - 1) * per
 
 
 def test_dilate_restores_the_dropped_rows():
@@ -232,22 +241,22 @@ def test_plain_forward_matches_the_grouped_conv():
 def test_grad_w_plan_fits_and_covers(c, h, k, s, itemsize):
     """The tap-gradient kernel's plan (bf16 and f32): channel blocks of a
     multiple of 8 covering C with one short block at most, a band height
-    within the output, a block's shared memory within GRAD_W_SMEM (two
+    within the output, a block's shared memory within BAND_SMEM (two
     blocks per SM); the split puts every (image, band) item of a channel
     block in exactly one split, none empty, and the grid within the
     card's blocks (132 SMs of the H100 SXM, 114 of the PCIe part)."""
     ho = DW.out_len(h, k, s)
-    th, cb = DW.grad_w_plan(h, h, c, k, s, itemsize)
+    th, cb = DW.band_plan("grad_w", h, h, c, k, s, itemsize)
     assert 1 <= th <= ho and cb % 8 == 0 and 8 <= cb <= 512
     c_blocks = -(-c // cb)
     assert (c_blocks - 1) * cb < c <= c_blocks * cb
-    smem, buf = DW.grad_w_smem(th, cb, h, ho, k, s, itemsize)
-    assert smem <= DW.GRAD_W_SMEM and smem >= 2 * buf
+    smem, buf = DW.band_smem("grad_w", th, cb, h, h, k, s, itemsize)
+    assert smem <= DW.BAND_SMEM and smem >= 2 * buf
     bands = -(-ho // th)
     for n in (1, 8, 192):
         for sms in (132, 114):
-            blocks = DW.GRAD_W_BLOCKS_PER_SM * sms
-            nsplit, per = DW.grad_w_splits(n, bands, c_blocks, blocks)
+            blocks = DW.BAND_BLOCKS_PER_SM * sms
+            nsplit, per = DW.band_splits(n, bands, c_blocks, blocks)
             items = n * bands
             owner = [i // per for i in range(items)]
             assert sorted(set(owner)) == list(range(nsplit))
@@ -257,22 +266,36 @@ def test_grad_w_plan_fits_and_covers(c, h, k, s, itemsize):
 def test_grad_w_plan_takes_the_fewest_even_bands_of_wide_blocks():
     """At b3a's layer shapes in bf16 the plan keeps channel blocks of at
     least 64 channels (or all of C), each with the fewest bands that fit
-    GRAD_W_SMEM, of even height (no band shorter by a row or more)."""
-    for c, h, k, s in _PLAN_SHAPES[:14]:
-        ho = DW.out_len(h, k, s)
-        th, cb = DW.grad_w_plan(h, h, c, k, s, 2)
-        assert cb >= min(-(-c // 8) * 8, 64), (c, h, k, s, cb)
-        bands = -(-ho // th)
-        assert bands * th - ho < bands, (c, h, k, s, th)
-        fewer = -(-ho // (bands - 1)) if bands > 1 else None
-        assert fewer is None or DW.grad_w_smem(fewer, cb, h, ho, k, s, 2)[
-            0] > DW.GRAD_W_SMEM, (c, h, k, s, th, cb)
+    BAND_SMEM, of even height (no band shorter by a row or more). The
+    forward's and dx's plans likewise, with blocks of whole 32-byte
+    sectors (or all of C) first: narrower than 64 channels only where no
+    such wide block fits, and then the widest that does."""
+    for kind in ("grad_w", "forward", "grad_x"):
+        for c, h, k, s in _PLAN_SHAPES[:14]:
+            out_h = h if kind == "grad_x" else DW.out_len(h, k, s)
+            th, cb = DW.band_plan(kind, h, h, c, k, s, 2)
+            wide = min(-(-c // 8) * 8, 64)
+            if kind == "grad_w":
+                assert cb >= wide, (kind, c, h, k, s, cb)
+            else:
+                assert cb >= c or cb * 2 % 32 == 0, (kind, c, h, k, s, cb)
+                if cb < wide:   # no wide aligned block fits one row
+                    assert all(DW.band_smem(kind, 1, b, h, h, k, s, 2)[0]
+                               > DW.BAND_SMEM
+                               for b in range(wide, min(c, 512) + 1, 8)
+                               if c % b == 0 and (b >= c or b % 16 == 0))
+            bands = -(-out_h // th)
+            assert bands * th - out_h < bands, (kind, c, h, k, s, th)
+            fewer = -(-out_h // (bands - 1)) if bands > 1 else None
+            assert fewer is None or DW.band_smem(
+                kind, fewer, cb, h, h, k, s, 2)[0] > DW.BAND_SMEM, (
+                kind, c, h, k, s, th, cb)
 
 
 def test_grad_w_plan_constants_match_the_source():
-    """The plan's restatement of the tap-gradient kernel's layout reads the
+    """The plans' restatement of the band kernels' layout reads the
     source's own constants: the run of output pixels per thread step and
-    the threads per block; a block's budget stays under the launcher's
+    the threads per block; a block's budget stays under the launchers'
     cap, and two blocks fit an SM's 228 KB (1 KB of it reserved per
     block)."""
     src = _cuda.SOURCES["depthwise_conv"].read_text()
@@ -280,7 +303,83 @@ def test_grad_w_plan_constants_match_the_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    assert DW.GRAD_W_RUN == const("RUN")
+    assert DW.BAND_RUN == const("RUN")
     assert DW.THREADS == const("THREADS")
-    assert DW.GRAD_W_SMEM <= const("GRAD_MAX_SMEM")
-    assert DW.GRAD_W_BLOCKS_PER_SM * (DW.GRAD_W_SMEM + 1024) <= 228 * 1024
+    assert DW.BAND_SMEM <= const("GRAD_MAX_SMEM")
+    assert DW.BAND_BLOCKS_PER_SM * (DW.BAND_SMEM + 1024) <= 228 * 1024
+
+
+def _band_restatement(kind, src, taps, h, w, k, s, th):
+    """A numpy restatement of ``dw_band_kernel``'s index arithmetic (f32,
+    channels vectorized): each band of th output rows stages
+    ``band_geometry``'s rows of the source from its first row (forward:
+    r0 s - P; dx at stride 2: ceil((r0 - P) / 2); dx at stride 1: r0 - P)
+    into a zeroed buffer at the geometry's column offset, then each run of
+    BAND_RUN output pixels reads its window of each tap row and adds the
+    terms in the kernel's order, skipping dx's zero terms at stride 2."""
+    p, run = k // 2, DW.BAND_RUN
+    n, sh, sw, c = src.shape
+    oh, ow = (h, w) if kind == "grad_x" else (DW.out_len(h, k, s),
+                                              DW.out_len(w, k, s))
+    dil = kind == "grad_x" and s == 2
+    ss = s if kind == "forward" else 1
+    rows_in, xw, coff = DW.band_geometry(kind, th, h, w, k, s)
+    wr = taps.reshape(k * k, c)[::-1] if kind == "grad_x" else \
+        taps.reshape(k * k, c)
+    out = np.full((n, oh, ow, c), np.nan, np.float32)
+    for img in range(n):
+        for r0 in range(0, oh, th):
+            sr0 = (r0 - p + 1) >> 1 if dil else r0 * ss - p
+            buf = np.zeros((rows_in, xw, c), np.float32)
+            for row in range(rows_in):
+                if 0 <= sr0 + row < sh:
+                    buf[row, coff:coff + sw] = src[img, sr0 + row]
+            for y in range(r0, min(r0 + th, oh)):
+                for w0 in range(0, ow, run):
+                    acc = np.zeros((run, c), np.float32)
+                    for i in range(k):
+                        if dil and (y - p + i) & 1:
+                            continue
+                        row = ((y - p + i) >> 1) - sr0 if dil else \
+                            (y - r0) * ss + i
+                        start = w0 // 2 if dil else w0 * ss
+                        for u in range(run):
+                            for j in range(k):
+                                if dil and (u - p + j) & 1:
+                                    continue
+                                q = (u - p + j + 2 * ((p + 1) // 2)) // 2 \
+                                    if dil else u * ss + j
+                                acc[u] += buf[row, start + q] * wr[i * k + j]
+                    for u in range(min(run, ow - w0)):
+                        out[img, y, w0 + u] = acc[u]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["forward", "grad_x"])
+@pytest.mark.parametrize("n,h,w,c,k,s", [(1, 9, 7, 5, 3, 2),
+                                         (2, 10, 11, 3, 5, 2),
+                                         (1, 8, 9, 4, 3, 1),
+                                         (1, 7, 9, 2, 7, 2),
+                                         (1, 6, 5, 3, 1, 2)])
+def test_band_geometry_restates_the_plain_versions(kind, n, h, w, c, k, s):
+    """The band kernels' geometry (``band_geometry``, the plans' source of
+    their shared memory) holds every row and window the kernel's index
+    arithmetic reads, and that arithmetic, restated in numpy, is bitwise
+    equal to the plain forward and the plain dx (the dilated forward with
+    flipped taps), for one-row bands, the plan's bands and odd ones. Each
+    product and sum is rounded to f32 on its own, as in the kernel."""
+    rng = np.random.default_rng(11)
+    ho, wo = DW.out_len(h, k, s), DW.out_len(w, k, s)
+    taps = rng.normal(size=(k, k, c)).astype(np.float32)
+    if kind == "forward":
+        src = rng.normal(size=(n, h, w, c)).astype(np.float32)
+        want = DW.depthwise_forward_reference(torch.from_numpy(src),
+                                              torch.from_numpy(taps), s)
+    else:
+        src = rng.normal(size=(n, ho, wo, c)).astype(np.float32)
+        want = DW.depthwise_grad_x_reference(torch.from_numpy(src),
+                                             torch.from_numpy(taps), s, h, w)
+    plan_th = DW.band_plan(kind, h, w, c, k, s, 4)[0]
+    for th in sorted({1, 3, plan_th}):
+        got = _band_restatement(kind, src, taps, h, w, k, s, th)
+        np.testing.assert_array_equal(got, want.numpy())

@@ -150,10 +150,12 @@ def test_ladder_wrappers_on_cpu_run_their_plain_versions(rng):
     variants = P.build_variants()
     assert list(variants) == ["stream_only", "matmul_only", "insert_only",
                               "full"]
-    for gallery in (g, R.l2_normalize(g).to(torch.bfloat16)):
+    codes, scales = R.quantize_rows_int8(R.l2_normalize(g))
+    for gallery, gs in ((g, None), (R.l2_normalize(g).to(torch.bfloat16),
+                                    None), (codes, scales)):
         for name, rung in variants.items():
-            got, want = rung.kernel(qh, gallery, 20), rung.plain(
-                qh, gallery, 20, splits=1)
+            got, want = rung.kernel(qh, gallery, 20, gallery_scale=gs), \
+                rung.plain(qh, gallery, 20, splits=1, gallery_scale=gs)
             for a, b in zip(got if isinstance(got, tuple) else (got,),
                             want if isinstance(want, tuple) else (want,)):
                 np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -162,7 +164,9 @@ def test_ladder_wrappers_on_cpu_run_their_plain_versions(rng):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert not any(P.KERNEL_LAUNCHES.values())
     with pytest.raises(ValueError, match="float32 .* or bfloat16"):
-        variants["stream_only"].kernel(qh, g.to(torch.int8), 20)
+        variants["stream_only"].kernel(qh, g.to(torch.float16), 20)
+    with pytest.raises(ValueError, match="gallery_scale"):
+        variants["stream_only"].kernel(qh, codes, 20)
     with pytest.raises(ValueError, match="k="):
         variants["insert_only"].kernel(qh, g, DEPTH * BINS + 1)
 
@@ -281,8 +285,41 @@ def test_ladder_bf16_insert_only_is_the_insertion_chain(rng, splits, k):
                                   bi.reshape(10, splits, -1)[..., :k])
     filled = np.isfinite(bv)
     ordinal = bi // (BINS * splits)
-    assert (ordinal[filled] < R.BF16_MAX_TILE_ORDINALS).all()
+    assert (ordinal[filled] < R.MAX_TILE_ORDINALS).all()
     for sp in range(splits):
         lanes = bi[:, sp][filled[:, sp]]
         assert ((lanes // BINS) % splits == sp).all()
     assert (bi[~filled] == 0).all()
+
+
+def test_ladder_int8_rungs_restate_the_tensor_core_kernel(rng):
+    """The int8 rungs' plain versions (the port's own ladder; JAX's tool
+    has none): stream_only is the exact sum of the codes each tile loads
+    (q̂'s codes, the tile row's codes), an integer that the kernel sums in
+    int32, so the two are equal; matmul_only is each split's max of the
+    dense int8 scores ((float)dot * (qs * gs)); insert_only is the
+    insertion chain on them."""
+    qh, g = _pm1_case(rng)
+    codes, scales = R.quantize_rows_int8(R.l2_normalize(g))
+    qc = R.quantize_rows_int8(qh)[0].numpy().astype(np.int64)
+    gc = codes.numpy().astype(np.int64)
+    got = P.stream_only_reference(qh, codes, 20, splits=3).numpy()
+    for sp in range(3):
+        for r in range(10):
+            want = sum(int(qc[r].sum()) + (int(gc[t * BINS + r].sum())
+                                           if t * BINS + r < 700 else 0)
+                       for t in _tiles_of(sp, 3, 700))
+            assert got[r, sp] == np.float32(want)
+    assert P.stream_only_rtol(100_000, 1536, 132, torch.int8) == 0.0
+    s = R.dense_scores(qh, codes, "int8", gallery_scale=scales).numpy()
+    got = P.matmul_only_reference(qh, codes, 20, splits=3,
+                                  gallery_scale=scales).numpy()
+    for sp in range(3):
+        cols = np.concatenate([np.arange(t * BINS, min((t + 1) * BINS, 700))
+                               for t in _tiles_of(sp, 3, 700)])
+        np.testing.assert_array_equal(got[:, sp], s[:, cols].max(axis=1))
+    bv, bi = _insertion_chain(s, 3)
+    v, i = P.insert_only_reference(qh, codes, 150, splits=3,
+                                   gallery_scale=scales)
+    np.testing.assert_array_equal(v.numpy(), bv.reshape(10, 3, -1)[..., :150])
+    np.testing.assert_array_equal(i.numpy(), bi.reshape(10, 3, -1)[..., :150])

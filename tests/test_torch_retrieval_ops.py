@@ -539,7 +539,7 @@ def test_bf16_tile_ordinals_bound_raises():
     """The bf16 kernel packs each buffer entry's tile as a 16-bit ordinal
     within its split: up to 2^16 tiles of 64 rows per split pass, one more
     raises (the card's wrapper checks before it launches; no fallback)."""
-    limit = T.BF16_MAX_TILE_ORDINALS
+    limit = T.MAX_TILE_ORDINALS
     assert limit == 1 << 16
     T.check_tile_ordinals(T.FUSED_BINS * limit, 1)
     T.check_tile_ordinals(132 * T.FUSED_BINS * limit, 132)
@@ -548,3 +548,61 @@ def test_bf16_tile_ordinals_bound_raises():
         T.check_tile_ordinals(T.FUSED_BINS * limit + 1, 1)
     with pytest.raises(ValueError, match="16-bit tile ordinals"):
         T.check_tile_ordinals(132 * T.FUSED_BINS * limit + 1, 132)
+
+
+def test_query_quantization_wrapper_on_cpu_is_jax_quantizer(rng):
+    """The int8 fused top-k's query quantization (one launch on the card)
+    runs ``quantize_rows_int8`` on a CPU tensor, JAX's arithmetic bit for
+    bit, a zero row included; it takes f32 (N, D) only."""
+    x = rng.normal(size=(33, 70)).astype(np.float32) * 2
+    x[4] = 0.0
+    jc, js = J.quantize_rows_int8(jnp.asarray(x))
+    tc, ts = T.quantize_queries_int8(_t(x))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert not T.KERNEL_LAUNCHES["quantize_queries_int8"]
+    with pytest.raises(ValueError, match="float32"):
+        T.quantize_queries_int8(_t(x).double())
+
+
+def test_tensor_core_kernel_constants_match_the_source():
+    """csrc/fused_topk.cu's tensor-core kernel (kernels 2 and 3): a ring
+    stage holds 128 bytes of each of 64 rows for both score stages (64
+    bf16 or 128 int8 codes, the 128-byte swizzle's row), 16-bit tile
+    ordinals (the wrapper's bound), and the ring with the 144 KB of
+    buffers fits one block per SM; the bins and depth are the wrapper's."""
+    import re
+
+    from imageretrievalresearch_tpu_torch.ops import _cuda
+
+    src = _cuda.SOURCES["fused_topk"].read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = ([0-9x]+)", src)[1],
+                   0)
+
+    assert const("KC") * 2 == const("KC_I8") == 128
+    assert const("QT") == const("GT") == T.FUSED_BINS
+    assert const("TD") == T.FUSED_T_DEPTH
+    assert re.search(r"constexpr int MAX_ORDINALS = 1 << 16;", src)
+    assert T.MAX_TILE_ORDINALS == 1 << 16
+    ring = const("STAGES") * 2 * const("QT") * 128
+    buffers = const("TD") * const("QT") * const("GT") * 6
+    assert buffers == 144 * 1024
+    assert 1024 + ring + buffers + 2 * const("STAGES") * 8 <= 232448
+    assert 1024 + ring + 2 * const("QT") * 128 + buffers > 232448  # 5 max
+
+
+def test_fused_workspace_words():
+    """One allocation per fused top-k call: the outputs first (vals, inds
+    (Q, k), ok (Q)), every later block from a 64-word boundary, the int8
+    query codes and scales last; sized as ``carve`` in the source sizes
+    it (which refuses any other size)."""
+    q, d, k, s = 64, 1536, 150, 132
+    cand = q * s * k
+    words = T._work_words(q, d, k, s, False)
+    assert words % 64 == 0 and words >= 2 * q * k + q + 2 * cand + q * s
+    assert words - (2 * q * k + q + 2 * cand + q * s) < 4 * 64
+    w8 = T._work_words(q, d, k, s, True)
+    assert w8 % 64 == 0 and w8 - words >= q + q * d // 4
+    assert T._work_words(1, 37, 1, 1, True) == 64 * 4 + 64 + 64
