@@ -28,9 +28,13 @@ Phases (any failure exits non-zero, with no result line):
    bitwise for int8 at k=150 and at int8_rerank's shortlist c=256; the
    bf16 certificate pass rate beside the plain version's; kernel 3's
    query quantization (its first launch) bitwise against
-   ``quantize_rows_int8``. Fidelity of each mode against f32 exact on the
-   unit-row queries. Kernel, plain and library times and each kernel's
-   bound; the bf16 and int8 library calls timed from q̂ as well (the cast
+   ``quantize_rows_int8``; kernel 1's values (3xTF32) within 1e-6 of an
+   f64 product on the unit-row queries, beside the plain version's (true
+   f32). Fidelity of each mode against f32 exact on the unit-row queries.
+   Kernel, plain and library times and each kernel's bound (kernel 1: the
+   3xTF32 bound and the f32-FMA bound beside it), the f32 library at one
+   TF32 pass logged as lower precision; the bf16 and int8 library calls
+   timed from q̂ as well (the cast
    or the quantization inside the timed call), and the host's time in
    each step of the bf16 and int8 wrappers (host clock), beside the steps
    that the earlier wrapper ran in their place (an eager quantization, one
@@ -85,7 +89,9 @@ Phases (any failure exits non-zero, with no result line):
    Q = 64 and 8 agrees with the fused kernel 1 (near-tie rule); its warm
    time. Kernel 4 against its plain version (bitwise on ±1 rows, within
    1e-5 on float rows) at Q = 64 and 512 over that gallery and at a ragged
-   shape; its kernel, plain and library (cuBLAS + normalize) times. The
+   shape, and within 1e-6 of f64 on seeded unit rows; its kernel, plain
+   and library (cuBLAS + normalize) times and both bounds at Q = 64 and
+   512 (the row's ``*_q512`` keys). The
    ladder's rungs (kernel 11: f32 and bf16, and the port's own int8
    ladder of kernel 3) against their plain versions, then
    ``tools.profile_fused_kernel.run_ladder`` at Q = 64 with the
@@ -157,13 +163,17 @@ SEED = 0
 G_TOTAL, N_IMAGES, DIM, K, SIZE = 100_000, 512, 1536, 150, 224
 SHORTLIST = 256   # int8_rerank's stage-1 depth on the main path
 DEV = torch.device("cuda")
-# published dense peaks of the H100 (NVIDIA data sheets), at full power:
-# memory bytes/s, and operations/s per score arithmetic (f32 without
-# tensor cores; bf16 and int8 on tensor cores)
-PEAKS = {"sxm": {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12,
-                 "int8": 1979e12},
-         "pcie": {"bytes": 2.0e12, "float32": 51e12, "bfloat16": 756e12,
-                  "int8": 1513e12}}
+# published dense peaks of the H100 (NVIDIA data sheets, sparsity left
+# out), at full power: memory bytes/s, and operations/s per arithmetic
+# (f32 FMA without tensor cores; TF32, bf16 and int8 on tensor cores)
+PEAKS = {"sxm": {"bytes": 3.35e12, "float32": 67e12, "tf32": 494.7e12,
+                 "bfloat16": 989e12, "int8": 1979e12},
+         "pcie": {"bytes": 2.0e12, "float32": 51e12, "tf32": 378e12,
+                  "bfloat16": 756e12, "int8": 1513e12}}
+# kernels 1 and 4 run the f32 product as 3xTF32 (three TF32 tensor-core
+# products per multiply-add); their bound reads that arithmetic, and the
+# f32-FMA bound (the product on CUDA cores) stands beside it
+TF32_PASSES = 3
 # the TPU kernel each CUDA kernel replaces (imageretrievalresearch_tpu)
 KERNELS = {"float32": ("fused_cosine_topk", "ops/retrieval.py:259"),
            "bfloat16": ("fused_cosine_topk_bf16", "ops/retrieval.py:288"),
@@ -300,13 +310,25 @@ def kernel_args(mode: str, form: tuple):
                      else "gallery_scale": aux}
 
 
-def bound(nbytes: float, ops: float, peaks: dict) -> tuple[float, str]:
-    """The least time (ms) for the work: bytes over the memory rate or f32
-    operations over the f32 rate (CUDA cores), whichever is larger."""
+def bound(nbytes: float, ops: float, peaks: dict,
+          rate: str = "float32") -> tuple[float, str]:
+    """The least time (ms) for the work: bytes over the memory rate or the
+    operations over the rate of ``rate`` (``float32``: f32 FMA on CUDA
+    cores), whichever is larger."""
     t_bytes = nbytes / peaks["bytes"] * 1e3
-    t_ops = ops / peaks["float32"] * 1e3
+    t_ops = ops / peaks[rate] * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                  else "bytes")
+
+
+def f32_bounds(nbytes: float, ops: float, peaks: dict) -> dict:
+    """Kernels 1 and 4 and the f32 rungs: ``bound_ms`` / ``bound_by`` for
+    the 3xTF32 product the kernel runs (TF32_PASSES x ``ops`` on TF32
+    tensor cores), and the f32-FMA bound beside it, named as such."""
+    b, by = bound(nbytes, TF32_PASSES * ops, peaks, "tf32")
+    fb, fby = bound(nbytes, ops, peaks)
+    return {"bound_ms": b, "bound_by": by, "f32_fma_bound_ms": fb,
+            "f32_fma_bound_by": fby}
 
 
 def host_us(fn, reps: int = 100) -> float:
@@ -1076,10 +1098,10 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
     return entries
 
 
-def scores_bound(q: int, g: int, d: int, peaks: dict) -> tuple[float, str]:
-    """Kernel 4's bound, by JAX's cost estimate: bytes (Q·D + G·D + Q·G)·4
-    against 2·Q·G·D f32 operations."""
-    return bound(4 * (q * d + g * d + q * g), 2 * q * g * d, peaks)
+def scores_bounds(q: int, g: int, d: int, peaks: dict) -> dict:
+    """Kernel 4's bounds (``f32_bounds``), by JAX's cost estimate: bytes
+    (Q·D + G·D + Q·G)·4 against 2·Q·G·D operations."""
+    return f32_bounds(4 * (q * d + g * d + q * g), 2 * q * g * d, peaks)
 
 
 def scores_check(qh, g, exact: bool) -> float:
@@ -1204,7 +1226,27 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     log(f"scores kernel vs plain version at Q=64 and 512 x G={G_TOTAL} x "
         f"D={DIM} and at {SCORES_RAGGED}: bitwise on ±1 rows, max "
         f"|kernel - plain| {err:.3g} on float rows (limit 1e-5)")
+    # against f64 on seeded unit rows over the served gallery: the kernel's
+    # 3xTF32 within 1e-6, beside the plain version's true f32
+    g64 = gal.double()
+    g64 = g64 / torch.clamp(torch.linalg.vector_norm(g64, dim=1, keepdim=True),
+                            min=R.COSINE_SIM_EPS)
+    for q in (64, 512):
+        qh = R.l2_normalize(torch.randn((q, DIM), generator=gen, device=DEV))
+        R.reset_launch_counts()   # comparison launches are not counted
+        got, want = R.fused_cosine_scores(qh, gal), \
+            R.cosine_scores_reference(qh, gal)
+        exact = qh.double() @ g64.t()
+        k_err = (got.double() - exact).abs().max().item()
+        p_err = (want.double() - exact).abs().max().item()
+        log(f"scores kernel Q={q} against f64 (seeded unit rows, served "
+            f"gallery): max |kernel - f64| {k_err:.3g} (limit 1e-6), max "
+            f"|plain - f64| {p_err:.3g}")
+        assert k_err <= 1e-6, (q, k_err)
+        del got, want, exact
+    del g64
     entries = []
+    row = {}
     for q in (64, 512):
         qh = R.l2_normalize(paths["float32"][0][0]) if q == 64 else \
             R.l2_normalize(torch.randn((q, DIM), generator=gen, device=DEV))
@@ -1215,23 +1257,33 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                             reps=10)
         library_ms = event_ms(lib_call, reps=10)
         lib_b_ms = PF.pipelined_ms(lib_call)
-        bound_ms, bound_by = scores_bound(q, G_TOTAL, DIM, peaks)
+        bounds = scores_bounds(q, G_TOTAL, DIM, peaks)
         log(f"fused_cosine_scores Q={q} G={G_TOTAL} D={DIM}: {ms:.3f} ms, "
-            f"back-to-back {b_ms:.3f} (bound {bound_ms:.3f} ms, {bound_by}); "
-            f"plain {plain_ms:.3f} ms; library {library_ms:.3f} ms, "
-            f"back-to-back {lib_b_ms:.3f} (torch.matmul(q̂, "
-            "l2_normalize(g)ᵀ), f32, TF32 off)")
+            f"back-to-back {b_ms:.3f} (bound {bounds['bound_ms']:.3f} ms, "
+            f"{bounds['bound_by']}, 3xTF32; f32-FMA bound "
+            f"{bounds['f32_fma_bound_ms']:.3f}); plain {plain_ms:.3f} ms; "
+            f"library {library_ms:.3f} ms, back-to-back {lib_b_ms:.3f} "
+            "(torch.matmul(q̂, l2_normalize(g)ᵀ), f32, TF32 off)")
         if q == 64:
-            entries.append({
+            row = {
                 "name": "fused_cosine_scores", "route": "cuda",
                 "source": "imageretrievalresearch_tpu_torch/csrc/"
                           "fused_topk.cu",
                 "replaces": "imageretrievalresearch_tpu/ops/retrieval.py:109",
                 "launches": launches["fused_cosine_scores"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "ms_by": "single call",
-                "burst_ms": b_ms, "library_burst_ms": lib_b_ms})
+                **bounds, "library_ms": library_ms, "ms_by": "single call",
+                "burst_ms": b_ms, "library_burst_ms": lib_b_ms}
+        else:
+            row.update({"ms_q512": ms, "burst_ms_q512": b_ms,
+                        "plain_ms_q512": plain_ms,
+                        "library_ms_q512": library_ms,
+                        "library_burst_ms_q512": lib_b_ms,
+                        "bound_ms_q512": bounds["bound_ms"],
+                        "bound_by_q512": bounds["bound_by"],
+                        "f32_fma_bound_ms_q512":
+                            bounds["f32_fma_bound_ms"]})
+    entries.append(row)
 
     # 7.4 kernel 11, the ladder: each rung against its plain version on ±1
     # data (every word, sum and score exact: bitwise) and stream_only on
@@ -1303,10 +1355,10 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                               repeats=1)
         names = [e.key for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "fused_topk_split_kernel" in e.key]
+                 and "fused_topk_tc_kernel" in e.key]
         assert len(os.listdir(d)) == 1 and len(names) == 4, names
-    log(f"utils.profiling.trace of one ladder burst: the four split-kernel "
-        f"phases on the device: {names}")
+    log(f"utils.profiling.trace of one f32 ladder burst: the four phases of "
+        f"the tensor-core kernel's F32 instance on the device: {names}")
     for mode, (g_in, aux) in forms.items():
         tag = tags[mode]
         g_bytes = g_in.numel() * g_in.element_size() + 4 * G_TOTAL * len(aux)
@@ -1316,9 +1368,11 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
             out_bytes = 4 * 64 * splits * (2 * K if rung == "insert_only"
                                            else 1)
             nbytes = 4 * 64 * DIM + g_bytes + out_bytes
-            t_bytes = nbytes / peaks["bytes"] * 1e3
-            t_ops = (0.0 if rung == "stream_only"
-                     else 2 * 64 * G_TOTAL * DIM / peaks[mode] * 1e3)
+            ops = 0 if rung == "stream_only" else 2 * 64 * G_TOTAL * DIM
+            # f32: the 3xTF32 bound, and the f32-FMA one beside it
+            bounds = (f32_bounds(nbytes, ops, peaks) if mode == "float32"
+                      else dict(zip(("bound_ms", "bound_by"),
+                                    bound(nbytes, ops, peaks, mode))))
             entries.append({
                 "name": f"fused_topk_{tag}_{rung}", "route": "cuda",
                 "source": "imageretrievalresearch_tpu_torch/csrc/"
@@ -1326,9 +1380,7 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                 "replaces": f"tools/profile_fused_kernel.py:{LADDER[rung]}",
                 "launches": ladder_launches[f"fused_topk_{tag}_{rung}"],
                 "max_abs_err": errs[(mode, rung)],
-                "ms": ladder[mode][rung], "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "ms": ladder[mode][rung], "plain_ms": plain_ms, **bounds,
                 "library_ms": None, "ms_by": "back-to-back",
                 "burst_ms": ladder[mode][rung], "library_burst_ms": None})
 
@@ -1395,10 +1447,10 @@ def main() -> None:
     with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
         outputs = dict(zip(_cuda.SOURCES,
                            pool.map(_cuda.build, _cuda.SOURCES)))
-    log(f"build {', '.join(outputs)} (fused_topk: the f32 split kernel + "
-        "merge, the tensor-core split kernel in bf16 and int8 + selection "
-        "merge, the int8 query quantization, the f32, bf16 and int8 ladder "
-        "rungs, the scores kernel; image_ops: histogram, LUT, row shifts; "
+    log(f"build {', '.join(outputs)} (fused_topk: the tensor-core split "
+        "kernel in f32 (3xTF32), bf16 and int8 + selection merge, the int8 "
+        "query quantization, the f32, bf16 and int8 ladder rungs, the "
+        "scores kernel (3xTF32); image_ops: histogram, LUT, row shifts; "
         "depthwise_conv: the band kernel (forward and dx), tap gradients + "
         "reduction; stream_probe: row sums + fold), one nvcc each in "
         f"parallel: {time.perf_counter() - t0:.1f} s")
@@ -1593,6 +1645,23 @@ def main() -> None:
                     f"{n_ok} rows certified")
                 continue
             assert e <= 1e-5, (mode, what, e)
+            if mode == "float32" and what == "seeded unit rows":
+                # kernel 1's 3xTF32 values against f64 at the indices each
+                # returns, within 1e-6; the plain version's true f32 beside
+                g64 = g_in.double()
+                g64 = g64 / torch.clamp(
+                    kw["gallery_norms"].double().reshape(-1, 1),
+                    min=R.COSINE_SIM_EPS)
+                exact = qh.double() @ g64.t()
+                k_err = (kv.double() - torch.gather(
+                    exact, 1, ki.long())).abs().max().item()
+                p_err = (rv.double() - torch.gather(
+                    exact, 1, ri.long())).abs().max().item()
+                log(f"float32 kernel against f64 ({what}, served gallery): "
+                    f"max |kernel vals - f64| {k_err:.3g} (limit 1e-6), max "
+                    f"|plain vals - f64| {p_err:.3g}")
+                assert k_err <= 1e-6, k_err
+                del g64, exact
             n_diff = near_tie_rows(ki, ri, R.dense_scores(qh, g_in, mode),
                                    rv[:, K - 1:K], (mode, what))
             log(f"{mode} kernel, float gallery, {what}: max |vals - plain| "
@@ -1667,13 +1736,35 @@ def main() -> None:
         nbytes = 4 * q * DIM + g_bytes + 8 * q * K + 4 * q
         ops = 2 * q * G_TOTAL * DIM
         bound_bytes = nbytes / peaks["bytes"] * 1e3
-        bound_ops = ops / peaks[mode] * 1e3
-        bound = max(bound_bytes, bound_ops)
+        if mode == "float32":   # 3xTF32, and the f32-FMA bound beside it
+            bounds = f32_bounds(nbytes, ops, peaks)
+            bound_ops = TF32_PASSES * ops / peaks["tf32"] * 1e3
+        else:
+            bound_ops = ops / peaks[mode] * 1e3
+            bounds = {"bound_ms": max(bound_bytes, bound_ops),
+                      "bound_by": "operations" if bound_ops >= bound_bytes
+                      else "bytes"}
         log(f"{name} Q={q} G={G_TOTAL} D={DIM} k={K}: {ms:.3f} ms "
-            f"(bound {bound:.3f} ms: bytes {bound_bytes:.3f}, operations "
-            f"{bound_ops:.3f}); plain {plain_ms:.3f} ms; library "
+            f"(bound {bounds['bound_ms']:.3f} ms: bytes {bound_bytes:.3f}, "
+            f"operations {bound_ops:.3f}"
+            + (f"; f32-FMA bound {bounds['f32_fma_bound_ms']:.3f}"
+               if mode == "float32" else "")
+            + f"); plain {plain_ms:.3f} ms; library "
             f"{library_ms:.3f} ms ({library}); back-to-back: kernel "
             f"{b_ms:.3f} ms, library {lib_b_ms:.3f} ms")
+        if mode == "float32":
+            # the library at one TF32 pass: lower precision, not the
+            # yardstick; logged only
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32_ms = event_ms(lib_call, reps=20)
+                tf32_b_ms = PF.pipelined_ms(lib_call)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            log(f"  library at single-pass TF32 (allow_tf32=True, LOWER "
+                f"precision than the kernel's 3xTF32; not the yardstick): "
+                f"{tf32_ms:.3f} ms single call, {tf32_b_ms:.3f} "
+                "back-to-back")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1683,8 +1774,7 @@ def main() -> None:
             "max_abs_err": errs[mode],
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            **bounds,
             "library_ms": library_ms,
             "ms_by": "single call",
             "burst_ms": b_ms,

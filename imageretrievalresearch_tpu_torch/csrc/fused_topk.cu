@@ -1,16 +1,18 @@
 // Fused cosine top-k for Hopper (sm_90a), in three score variants: score
 // Q̂·Ĝᵀ, keep per-bin top-T buffers in shared memory, extract the exact
-// top-k with ties to the lowest index, and certify it.
+// top-k with ties to the lowest index, and certify it; and the dense f32
+// cosine scores.
 //
 // Replaces the TPU kernels of imageretrievalresearch_tpu/ops/retrieval.py
-// (all launched by fused_cosine_topk_pallas, which shares
-// _stream_topk_update between them):
+// (the top-k kernels all launched by fused_cosine_topk_pallas, which
+// shares _stream_topk_update between them):
 // - fused_topk_f32  <- _fused_topk_kernel (f32 branch): raw f32 gallery and
-//   its norms; each gallery element is divided by max(norm, eps) as it is
-//   stored in shared memory, then f32 FMAs.
+//   its norms; the F32 instance of the tensor-core kernel
+//   (fused_topk_tc_kernel, then fused_topk_select_merge_kernel, below):
+//   each gallery element is divided by max(norm, eps) once per block, then
+//   the 3xTF32 product (below).
 // - fused_topk_bf16 <- _fused_topk_kernel_bf16: pre-normalized bf16 gallery
-//   and bf16 q̂, no norm input; the BF16 instance of the tensor-core kernel
-//   (fused_topk_tc_kernel, then fused_topk_select_merge_kernel, below). A
+//   and bf16 q̂, no norm input; the BF16 instance of the same kernel. A
 //   bf16 x bf16 product is exact in f32, so its tensor-core scores are the
 //   dense bf16 path's (an f32 product of the upcast operands) apart from
 //   the order of accumulation.
@@ -22,102 +24,106 @@
 //   it, so the scores equal the dense int8 path's bit for bit.
 // - cosine_scores_f32 <- _scores_kernel (pallas_cosine_scores): the dense
 //   (Q, G) f32 cosine scores of q̂ against the raw f32 gallery, each gallery
-//   tile normalized inside the kernel (below).
+//   tile normalized inside the kernel (cosine_scores_tc_kernel, below).
 // - fused_topk_{f32,bf16}_{stream_only,matmul_only,insert_only} <- the
 //   ablation ladder of tools/profile_fused_kernel.py (build_variants): the
-//   f32 or the bf16 split kernel cut after one of its phases (below); the
-//   fused_topk_int8_* rungs are the port's own (JAX has no int8 ladder).
+//   F32 or BF16 instance of the tensor-core kernel cut after one of its
+//   phases (below); the fused_topk_int8_* rungs are the port's own (JAX
+//   has no int8 ladder).
 // Plain versions and wrappers: imageretrievalresearch_tpu_torch/ops/
 // retrieval.py (fused_cosine_topk, fused_cosine_topk_reference,
 // fused_cosine_scores, cosine_scores_reference) and
 // imageretrievalresearch_tpu_torch/tools/profile_fused_kernel.py (the
 // ladder).
 //
+// The f32 arithmetic (kernels 1 and 4) is 3xTF32 on tensor cores, for
+// precision 'default' and 'highest' alike: each operand x is split as x =
+// big + small, big = cvt.rna.tf32(x), small = cvt.rna.tf32(x - big), and
+// mma.sync m16n8k8 tf32 accumulates small·big + big·small + big·big in
+// f32 (small·small, below 2^-22 of the product, is left out). Each product
+// keeps ~21-22 significant bits (one TF32 pass keeps 11). The tensor cores
+// round their f32 sums toward zero, so a stage's 32 words accumulate from
+// zero and each stage's sum is added to the running score by an IEEE f32
+// addition: the score's error stays at a few 1e-7 where it is near 1, as
+// an f32 sum's is. The dense path and the plain versions are true f32
+// (cuBLAS, TF32 off). The TPU's 'highest' is a multi-pass MXU product too;
+// its 'default' is one bf16 pass. Single-pass TF32 is used nowhere.
+//
 // Bounds at Q=64, G=100,000, D=1536, k=150 on the H100 SXM at 700 W
-// (3.35 TB/s; 67 TFLOP/s f32 without tensor cores, 989 TFLOP/s bf16 and
-// 1,979 TOP/s int8 on tensor cores), 2·Q·G·D = 19.7 G operations:
-// - f32:  gallery 614 MB ~0.18 ms; 19.7 GFLOP at 67 TFLOP/s ~0.29 ms, so
-//         bound by operations at ~0.29 ms;
+// (3.35 TB/s; 494.7 TFLOP/s TF32, 989 TFLOP/s bf16 and 1,979 TOP/s int8 on
+// tensor cores, dense; 67 TFLOP/s f32 FMA), 2·Q·G·D = 19.7 G operations:
+// - f32:  gallery and norms 615 MB ~0.184 ms; 3 x 19.7 GFLOP of TF32 ~0.119
+//         ms, so bound by bytes at ~0.184 ms (by the f32 FMA rate it would
+//         be 0.293 ms of operations);
 // - bf16: gallery 307 MB ~0.092 ms; 0.020 ms on bf16 tensor cores, so
 //         bound by bytes at ~0.092 ms;
 // - int8: codes 154 MB ~0.046 ms; 0.010 ms on int8 tensor cores, so bound
 //         by bytes at ~0.046 ms.
-// The f32 product here is SIMT (f32 FMA), not tensor cores; bf16 and int8
-// run on tensor cores. A card with a lower power limit, or the PCIe part,
+// Kernel 4 at G=100,000, D=1536: bytes (Q·D + G·D + Q·G)·4, 0.191 ms at
+// Q=64 and 0.245 ms at Q=512, against 3 x 2·Q·G·D of TF32, 0.119 and 0.953
+// ms: bound by bytes at Q=64, by operations at Q=512 (by the f32 FMA rate
+// 0.293 and 2.348 ms). A card with a lower power limit, or the PCIe part,
 // has lower peaks.
 //
-// Design of the f32 kernel (fused_topk_split_kernel; simple first: vector
-// loads, tensor cores and a cheaper extraction are later work for it, as
-// the tensor-core kernel below has them):
+// The tensor-core kernel (fused_topk_tc_kernel<M, P>, score stage M =
+// F32, BF16 or I8, + the selection merge), kernels 1-3. What holds a
+// streaming kernel back on an SM is the bytes it keeps in flight (~25-30 KB
+// of gallery at 3.35 TB/s over 132 SMs), and the shared memory the
+// buffers leave for that. The design:
 // - One query tile of QT=64 rows covers Q=64, so the gallery streams from
 //   device memory once. The grid is (query tiles x gallery splits); the
-//   wrapper picks one split per SM (132 on the H100 SXM).
-// - The gallery is cut into GT=64-row tiles, dealt round-robin to the
-//   splits (tile t to split t mod S), so consecutive near-duplicates land
-//   in different splits as well as different bins. Each block walks its
-//   split's tiles in index order. Per tile it stages BK=32 elements of
-//   each query and gallery row in shared memory at a time, prefetching the
-//   next ones into registers, and each of 256 threads accumulates a 4x4
-//   block of scores.
-// - BINS == GT and every tile starts at a multiple of BINS, so row j of a
-//   tile is bin j: the 16 (query, bin) buffers a thread folds its scores
-//   into are its own, and the insertion chain needs no synchronisation.
-// - Buffers: QT x BINS x T x 8 B = 192 KB of shared memory (opted in).
-// - Epilogue: one warp per query row extracts k candidates by warp argmax
-//   passes over the row's T*BINS entries (held in registers), and records
-//   the split's deepest stored value. A second kernel merges the splits'
-//   sorted candidate lists per row (k-way, in shared memory) and sets
-//   ok = AND over splits of (deepest value < final k-th value).
-//
-// The ladder (phase P of the f32 split kernel and of the tensor-core
-// kernel; FULL is the production instance, the three others exist to
-// attribute its time): STREAM does FULL's global loads and shared-memory
-// staging and folds every loaded word (and norm) into per-row sums (f32;
-// int8 codes exactly in int32), so no load can be dropped;
-// MATMUL adds the division by the norm (f32) or the rescale (int8) and the
-// product, and keeps the split's max score per query row; INSERT adds the
-// insertion chain and writes the first k buffer lanes verbatim (no
-// extraction, no merge).
-// Each rung keeps FULL's launch geometry and shared memory, so the
-// occupancy is the same; the differences of their times are the costs of
-// the phases that the others do not hide.
-//
-// Kernels 2 and 3, the tensor-core kernel (fused_topk_tc_kernel<M, P>,
-// score stage M = BF16 or I8, + the selection merge), designed for the
-// card. Bound by bytes (bf16: 0.092 ms for the 307 MB gallery; int8:
-// 0.046 ms for 154 MB of codes); what holds a streaming kernel back on an
-// SM is the bytes it keeps in flight (~25-30 KB of gallery at 3.35 TB/s
-// over 132 SMs), and the shared memory the buffers leave for that. The
-// design:
-// - The same contract and geometry as the f32 kernel: 64 bins, depth 6,
-//   fused_splits splits with tiles dealt round-robin, one query tile of 64
-//   rows per block, the insertion chain in index order.
-// - Buffers: f32 values and, in place of 32-bit indices, 16-bit tile
-//   ordinals within the split (index = (ordinal x nsplit + split) x 64 +
-//   bin; an empty slot, value -inf, decodes to index 0), so 144 KB, not
-//   192. The launcher refuses more than 65,536 tiles per split.
+//   wrapper picks one split per SM (132 on the H100 SXM). The gallery is
+//   cut into GT=64-row tiles, dealt round-robin to the splits (tile t to
+//   split t mod S), so consecutive near-duplicates land in different splits
+//   as well as different bins; each block walks its split's tiles in index
+//   order. BINS == GT and every tile starts at a multiple of BINS, so row j
+//   of a tile is bin j.
+// - Buffers, 64 bins of depth 6: f32 values and, in place of 32-bit
+//   indices, 16-bit tile ordinals within the split (index = (ordinal x
+//   nsplit + split) x 64 + bin; an empty slot, value -inf, decodes to index
+//   0), so 144 KB. The launcher refuses more than 65,536 tiles per split.
 // - The freed shared memory holds a ring of 5 stages (as many as the 144
 //   KB of buffers leave room for), each 128 bytes of 64 rows of q̂ and of
-//   the gallery (16 KB: a 64 x 64 bf16 tile, or 64 x 128 int8 codes). A
+//   the gallery (16 KB: a 64 x 64 bf16 tile or 64 x 128 int8 codes). A
 //   producer warp fills it: per stage one thread issues two TMA box copies
 //   (the tensor maps' 128-byte swizzle, zeros past Q, G and D) that
 //   complete on the stage's mbarrier; a row that is not a whole number of
-//   16-byte chunks (D % 8 bf16, D % 16 int8) takes the warp's masked loads
-//   into the same layout. The 8 consumer warps wait on a stage's "full"
-//   mbarrier and release it on its "empty" one, with no block-wide barrier
-//   per stage, so the producer keeps up to 5 stages (40 KB of gallery) in
-//   flight while the consumers compute.
+//   16-byte chunks (D % 4 f32, D % 8 bf16, D % 16 int8), or an operand that
+//   is not 16-byte aligned, takes the warp's masked loads into the same
+//   layout. The 8 consumer warps wait on a stage's "full" mbarrier and
+//   release it on its "empty" one, with no block-wide barrier per stage, so
+//   the producer keeps up to 5 stages (40 KB of gallery) in flight while
+//   the consumers compute.
+// - F32 (128 bytes = 32 words of a row per stage): ĝ = g / max(norm, eps)
+//   as JAX orders it (normalize, then multiply), each element divided once
+//   per block (__fdiv_rn), and split once. The same bytes hold a raw ring
+//   of 4 gallery tiles (8 KB each, 32 KB of gallery in flight) and two
+//   plane buffers of 24 KB: q̂'s tile of the stage (copied there by TMA
+//   directly, 2 stages behind the gallery), ĝ's big parts and its small
+//   parts. 8 converter warps (256 threads, two 16-byte chunks each) read a
+//   raw tile, divide, split, store the parts into the plane buffer and
+//   release the raw tile; the consumers read the plane buffer and split q̂
+//   in registers. So each gallery element is divided and split once, not
+//   once for each of the 4 warps that read it, and the conversion overlaps
+//   the products of the previous stage. (Measured against three other
+//   layouts on the H100, PERF.md: this one is the fastest; what holds it
+//   back is shared-memory traffic, ~120 KB a stage, above all ĝ's big and
+//   small parts read by 4 warps each, and q̂'s copy latency.)
 // - The product runs on tensor cores, fed by ldmatrix from rows swizzled
 //   by 16-byte chunk (chunk c of row r at c ^ (r % 8)): mma.sync m16n8k16
-//   bf16 with f32 accumulators, or m16n8k32 s8 with exact s32
-//   accumulators, whose fragments hold the same bytes, so one set of
-//   ldmatrix addresses feeds both. Each of 8 warps owns 16 query rows x 32
-//   bins, two accumulator sets (even and odd 32-byte steps) halve the
-//   dependent chains. int8 rescales each score before its insertion, with
-//   the query scales read once and the tile's gallery scales read at its
-//   first stage, from device memory. The mma fragment gives every (query,
-//   bin) pair to exactly one thread, for every tile, so the insertion
-//   chain needs no synchronisation, as before.
+//   bf16 with f32 accumulators, m16n8k32 s8 with exact s32 accumulators,
+//   or m16n8k8 tf32 three times (3xTF32; it compiles to HMMA.1688.F32.TF32),
+//   whose fragments hold the same 32-bit words, so one set of ldmatrix
+//   addresses feeds all three (ldmatrix gives each thread one 32-bit word
+//   of each 8x8 b16 matrix, the tf32 fragment's layout). Each of 8 warps
+//   owns 16 query rows x 32 bins; bf16 and int8 keep two accumulator sets
+//   (even and odd 32-byte steps) to halve the dependent chains, f32 a
+//   stage's sum and the running score. int8 rescales each score before its
+//   insertion, with the query scales read once and the tile's gallery
+//   scales read at its first stage, from device memory (f32's converters
+//   read the tile's norms there). The mma fragment gives every (query, bin)
+//   pair to exactly one thread, for every tile, so the insertion chain
+//   needs no synchronisation.
 // - A tile's 8 score pairs per thread are inserted one pair per step of
 //   the next tile (the chain reads its 6 slots at once and runs in
 //   registers), so the insertion does not stall the ring.
@@ -129,28 +135,39 @@
 //   candidates of a row (one block, the candidates in registers), places
 //   each selected entry by its rank in (value desc, index asc), and sets
 //   ok = AND over splits of (deepest stored < final k-th value). The
-//   output equals the k argmax passes' (any exact method does), including
-//   the (-inf, 0) filler of a row with fewer than k finite entries.
+//   output equals k argmax passes' (any exact method does), including the
+//   (-inf, 0) filler of a row with fewer than k finite entries.
 // - The host's part: a call of one C entry point launches every kernel of
 //   the variant (int8: the query quantization, the split kernel, the
 //   merge) into one workspace that the wrapper allocates once (Work,
-//   below), so a call costs the host one allocation and one ctypes call,
-//   not an eager quantization, six allocations and a device switch.
+//   below), so a call costs the host one allocation and one ctypes call.
 //
-// Kernel 4 (cosine_scores_f32, phase SCORES of the split kernel). Bound
-// at Q=64, G=100,000, D=1536: bytes (Q·D + G·D + Q·G)·4 = 640 MB, 0.19 ms;
-// 2·Q·G·D = 19.7 GFLOP of f32 FMA, 0.29 ms: bound by operations, like
-// kernel 1, and by the same SIMT product. Design: one block per (64-row
-// gallery tile, 64-query tile), so blocks are independent and the output
-// needs no second pass; with no buffers a block needs 17 KB of shared
-// memory, so two fit an SM. The block first sums the squares of its 64
-// gallery rows over the whole of D (one warp per row, fmaf in lane order
-// then a butterfly), keeps max(sqrt, eps) in shared memory, then runs the
-// split kernel's staging and 4x4 micro-tile over the tile (the same
-// division as each word is staged) and writes its (64, 64) block of scores
-// straight into the (Q, G) output, masking the ragged edges: no padded
-// copies. The second read of the gallery tile comes from L2. TF32 is not
-// used: true f32.
+// The ladder (phase P of the tensor-core kernel; FULL is the production
+// instance, the three others exist to attribute its time): STREAM does
+// FULL's copies into the ring and folds every loaded word (and, f32, every
+// norm) into per-row sums (f32; int8 codes exactly in int32), so no load
+// can be dropped; MATMUL adds the division by the norm (f32) or the
+// rescale (int8) and the product, and keeps the split's max score per
+// query row; INSERT adds the insertion chain and writes the first k buffer
+// lanes verbatim (no extraction, no merge). Each rung keeps FULL's launch
+// geometry and shared memory, so the occupancy is the same; the
+// differences of their times are the costs of the phases that the others
+// do not hide.
+//
+// Kernel 4 (cosine_scores_tc_kernel<MI>, launched by cosine_scores_f32):
+// one block per (query tile of 64 MI rows, gallery tile of 64 rows), MI =
+// 2 where Q > 64 (fewer re-reads of each gallery tile from L2), with the
+// query tiles fastest in the grid, so the blocks of one gallery tile run
+// together and the gallery streams from device memory once at any Q (its
+// other reads hit L2). The same producer, converter and consumer warps,
+// raw ring, plane buffers and 3xTF32 product as kernel 1's F32 instance;
+// the 8 consumer warps own 16 MI query rows x 32 gallery rows each. First
+// the converters sum the squares of the tile's 64 rows over the whole of
+// D (four rows a warp at once, 16-byte loads where the rows are aligned)
+// and keep max(sqrt, eps) in shared memory, while the producer fills the
+// ring. The block writes its scores straight into the (Q, G) output with
+// 16-byte stores (two threads trade halves of their fragments by one
+// shuffle), masking the ragged edges: no padded copies.
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 #include <cuda_runtime.h>
@@ -166,437 +183,30 @@ constexpr int QT = 64;        // query rows per block
 constexpr int GT = 64;        // gallery rows per tile
 constexpr int BINS = GT;      // bin = global index mod BINS
 constexpr int TD = 6;         // buffer depth
-constexpr int BK = 32;        // words per row per staging step
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the consumer warps
 constexpr int WARPS = THREADS / 32;
-constexpr int PADW = QT + 1;  // staged tile row stride (bank spread)
-constexpr int LOADS = QT * BK / THREADS;  // staged words per thread
-constexpr int ENTRIES = TD * BINS / 32;   // buffer entries per lane
 constexpr float EPS = 1e-6f;
 
-static_assert(QT == GT, "one staging layout serves both operands");
-static_assert(QT == 64 && THREADS == 256, "4x4 micro-tile per thread");
+static_assert(QT == GT, "one ring layout serves both operands");
 
-// the score stage of the tensor-core kernel (kernels 2 and 3)
-enum Mode { BF16 = 1, I8 = 2 };
-// the ladder's rungs, FULL (the production kernel) and SCORES (kernel 4)
-enum Phase { STREAM = 0, MATMUL = 1, INSERT = 2, FULL = 3, SCORES = 4 };
-
-// strict total order: value descending, then index ascending
-__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
-  return v1 > v2 || (v1 == v2 && i1 < i2);
-}
-
-constexpr size_t split_smem_bytes() {
-  return (size_t)TD * QT * BINS * (sizeof(float) + sizeof(int)) +
-         (size_t)2 * BK * PADW * 4 + (size_t)GT * sizeof(float);
-}
-
-// Element w of row r of a (rows, D) f32 operand, zero past the edges.
-__device__ __forceinline__ float load_word(const void* base, int r, int rows,
-                                           int w, int D) {
-  return (r < rows && w < D)
-             ? static_cast<const float*>(base)[(size_t)r * D + w]
-             : 0.f;
-}
-
-// gaux: the gallery norms (G,). qscale and vec are unused: they held the
-// int8 instance's query scales and word loads, which kernel 3's tensor-core
-// kernel has taken over, and stay so that the f32 instances keep their
-// parameter layout (and their SASS).
-// Phase P (top of file): FULL writes cand_v / cand_i (Q, nsplit, k) and
-// tth (Q, nsplit); STREAM and MATMUL write one value per (query row,
-// split) into tth; INSERT writes the first k buffer lanes into cand_v /
-// cand_i. SCORES (kernel 4, f32 only) runs one block per (gallery tile,
-// query tile), grid (tiles, query tiles) with nsplit = tiles, computes its
-// tile's norms itself (gaux unused) and writes its scores into cand_v
-// (Q, G); it has no buffers, so its shared memory is the staging alone.
-// The production code is FULL's; every other phase only adds or leaves
-// out steps under `if constexpr`, so FULL compiles as it did before the
-// phases existed.
-template <int P>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_topk_split_kernel(const void* __restrict__ q,
-                        const void* __restrict__ g,
-                        const float* __restrict__ gaux,
-                        const float* __restrict__ qscale, int Q, int G,
-                        int D, int k, int nsplit, bool vec,
-                        float* __restrict__ cand_v,
-                        int* __restrict__ cand_i, float* __restrict__ tth) {
-  using W = float;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* bufv = reinterpret_cast<float*>(smem_raw);   // [TD][QT][BINS]
-  int* bufi = reinterpret_cast<int*>(bufv + TD * QT * BINS);
-  W* qs;                                                // [BK][PADW]
-  if constexpr (P == SCORES)
-    qs = reinterpret_cast<W*>(smem_raw);
-  else
-    qs = reinterpret_cast<W*>(bufi + TD * QT * BINS);
-  W* gs = qs + BK * PADW;                               // [BK][PADW]
-  float* gn = reinterpret_cast<float*>(gs + BK * PADW);  // [GT] norms
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = (P == SCORES ? blockIdx.y : blockIdx.x) * QT;
-  const int split = P == SCORES ? blockIdx.x : blockIdx.y;
-
-  if constexpr (P == INSERT || P == FULL) {
-    for (int e = tid; e < TD * QT * BINS; e += THREADS) {
-      bufv[e] = -CUDART_INF_F;
-      bufi[e] = 0;
-    }
-  }
-
-  // STREAM: per tile row (tid / 32 + 8p), the words this thread loads, and
-  // for thread tid < GT the norms of tile row tid. MATMUL: the max score
-  // of each of the thread's four query rows.
-  [[maybe_unused]] float rowsum[LOADS], normsum = 0.f, rowmax[4];
-  if constexpr (P == STREAM) {
-#pragma unroll
-    for (int p = 0; p < LOADS; ++p) rowsum[p] = 0.f;
-  }
-  if constexpr (P == MATMUL) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rowmax[i] = -CUDART_INF_F;
-  }
-
-  const int nsteps = (D + BK - 1) / BK;
-  for (long long tb = (long long)split * GT; tb < G;
-       tb += (long long)nsplit * GT) {
-    const int base = (int)tb;
-    __syncthreads();  // the previous tile is done with gn
-    if constexpr (P == SCORES) {
-      // the tile's norms: one warp per row, fmaf in lane order, butterfly
-      const int w = tid / 32, l = tid % 32;
-      for (int r = w; r < GT; r += WARPS) {
-        float ss = 0.f;
-        if (base + r < G) {
-          const float* row = static_cast<const float*>(g) +
-                             (size_t)(base + r) * D;
-          for (int c = l; c < D; c += 32) ss = fmaf(row[c], row[c], ss);
-        }
-#pragma unroll
-        for (int off = 16; off; off >>= 1)
-          ss += __shfl_xor_sync(0xffffffffu, ss, off);
-        if (l == 0) gn[r] = base + r < G ? fmaxf(__fsqrt_rn(ss), EPS) : 1.f;
-      }
-    } else {
-      if (tid < GT) {
-        const int r = base + tid;
-        const float x = r < G ? gaux[r] : 1.f;
-        gn[tid] = fmaxf(x, EPS);
-        if constexpr (P == STREAM) normsum += r < G ? x : 0.f;
-      }
-    }
-
-    W acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = W(0);
-
-    W qreg[LOADS], greg[LOADS];
-    // word e = tid + THREADS*p of the (64 x BK) staging tile: row e / BK,
-    // column e % BK, so a warp reads 32 consecutive words of one row
-#pragma unroll
-    for (int p = 0; p < LOADS; ++p) {
-      const int e = tid + THREADS * p, r = e / BK, c = e % BK;
-      qreg[p] = load_word(q, q0 + r, Q, c, D);
-      greg[p] = load_word(g, base + r, G, c, D);
-    }
-
-    for (int s = 0; s < nsteps; ++s) {
-      __syncthreads();  // the previous step is done with qs/gs
-#pragma unroll
-      for (int p = 0; p < LOADS; ++p) {
-        const int e = tid + THREADS * p, r = e / BK, c = e % BK;
-        qs[c * PADW + r] = qreg[p];
-        if constexpr (P != STREAM)
-          gs[c * PADW + r] = __fdiv_rn(greg[p], gn[r]);
-        else
-          gs[c * PADW + r] = greg[p];
-        if constexpr (P == STREAM) {
-          rowsum[p] += qreg[p];
-          rowsum[p] += greg[p];
-        }
-      }
-      __syncthreads();
-      if (s + 1 < nsteps) {
-        const int w0 = (s + 1) * BK;
-#pragma unroll
-        for (int p = 0; p < LOADS; ++p) {
-          const int e = tid + THREADS * p, r = e / BK, c = w0 + e % BK;
-          qreg[p] = load_word(q, q0 + r, Q, c, D);
-          greg[p] = load_word(g, base + r, G, c, D);
-        }
-      }
-      if constexpr (P != STREAM) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          W a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = qs[kk * PADW + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = gs[kk * PADW + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-            }
-        }
-      }
-    }
-
-    if constexpr (P == MATMUL) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (base + tx + 16 * j < G) rowmax[i] = fmaxf(rowmax[i], acc[i][j]);
-    }
-    if constexpr (P == SCORES) {
-      // the (Q, G) scores, ragged edges masked
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qg = q0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int gc = base + tx + 16 * j;
-          if (qg < Q && gc < G) cand_v[(size_t)qg * G + gc] = acc[i][j];
-        }
-      }
-    }
-    if constexpr (P == INSERT || P == FULL) {
-      // insertion chain: the new value sinks below stored values >= it
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int ql = ty + 16 * i, bin = tx + 16 * j, idx = base + bin;
-          float v = acc[i][j];
-          if (idx >= G) v = -CUDART_INF_F;
-          int vi = idx;
-#pragma unroll
-          for (int t = 0; t < TD; ++t) {
-            const int a = (t * QT + ql) * BINS + bin;
-            const float ov = bufv[a];
-            const int oi = bufi[a];
-            if (v > ov) {
-              bufv[a] = v;
-              bufi[a] = vi;
-              v = ov;
-              vi = oi;
-            }
-          }
-        }
-      }
-    }
-  }
-  if constexpr (P == SCORES) return;
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  if constexpr (P == STREAM) {
-    // tile row warp + 8p: its words were loaded by the 32 lanes of `warp`
-    float* srow = bufv;  // [QT]; the buffers are unused in this phase
-#pragma unroll
-    for (int p = 0; p < LOADS; ++p) {
-      float v = rowsum[p];
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) srow[warp + 8 * p] = v;
-    }
-    __syncthreads();
-    if (tid < QT && q0 + tid < Q)
-      tth[(size_t)(q0 + tid) * nsplit + split] = srow[tid] + normsum;
-  } else if constexpr (P == MATMUL) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float m = rowmax[i];
-#pragma unroll
-      for (int off = 8; off; off >>= 1)  // over the 16 lanes of one ty
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      const int qg = q0 + ty + 16 * i;
-      if (tx == 0 && qg < Q) tth[(size_t)qg * nsplit + split] = m;
-    }
-  } else if constexpr (P == INSERT) {
-    // extraction ablated: the first k buffer lanes (depth slot t, bin b of
-    // lane t * BINS + b), verbatim
-    for (int ql = warp; ql < QT; ql += WARPS) {
-      const int qg = q0 + ql;
-      if (qg >= Q) break;  // warp-uniform
-      const size_t out = ((size_t)qg * nsplit + split) * k;
-      for (int n = lane; n < k; n += 32) {
-        const int a = ((n / BINS) * QT + ql) * BINS + n % BINS;
-        cand_v[out + n] = bufv[a];
-        cand_i[out + n] = bufi[a];
-      }
-    }
-  } else {
-    for (int ql = warp; ql < QT; ql += WARPS) {
-      const int qg = q0 + ql;
-      if (qg >= Q) break;  // warp-uniform
-      float deepest = -CUDART_INF_F;
-      for (int b = lane; b < BINS; b += 32)
-        deepest = fmaxf(deepest, bufv[((TD - 1) * QT + ql) * BINS + b]);
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        deepest = fmaxf(deepest, __shfl_xor_sync(0xffffffffu, deepest, off));
-
-      float v[ENTRIES];
-      int ix[ENTRIES];
-#pragma unroll
-      for (int e = 0; e < ENTRIES; ++e) {
-        const int slot = lane + 32 * e, t = slot / BINS, b = slot % BINS;
-        v[e] = bufv[(t * QT + ql) * BINS + b];
-        ix[e] = bufi[(t * QT + ql) * BINS + b];
-      }
-      const size_t out = ((size_t)qg * nsplit + split) * k;
-      for (int n = 0; n < k; ++n) {
-        float bv = v[0];
-        int bi = ix[0];
-#pragma unroll
-        for (int e = 1; e < ENTRIES; ++e)
-          if (better(v[e], ix[e], bv, bi)) {
-            bv = v[e];
-            bi = ix[e];
-          }
-#pragma unroll
-        for (int off = 16; off; off >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-          if (better(ov, oi, bv, bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        // removed entries become -inf and keep their index (as on the TPU)
-#pragma unroll
-        for (int e = 0; e < ENTRIES; ++e)
-          if (v[e] == bv && ix[e] == bi) v[e] = -CUDART_INF_F;
-        if (lane == 0) {
-          cand_v[out + n] = bv;
-          cand_i[out + n] = bi;
-        }
-      }
-      if (lane == 0) tth[(size_t)qg * nsplit + split] = deepest;
-    }
-  }
-}
-
-// One warp per query row: k-way merge of the splits' sorted candidate
-// lists (staged in shared memory), then the certificate.
-__global__ void __launch_bounds__(32)
-fused_topk_merge_kernel(const float* __restrict__ cand_v,
-                        const int* __restrict__ cand_i,
-                        const float* __restrict__ tth, int k, int nsplit,
-                        float* __restrict__ vals, int* __restrict__ inds,
-                        int* __restrict__ ok) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_cand = nsplit * k;
-  float* cv = reinterpret_cast<float*>(smem_raw);
-  int* ci = reinterpret_cast<int*>(cv + n_cand);
-  int* ptr = ci + n_cand;
-
-  const int qg = blockIdx.x, lane = threadIdx.x;
-  const size_t off = (size_t)qg * n_cand;
-  for (int e = lane; e < n_cand; e += 32) {
-    cv[e] = cand_v[off + e];
-    ci[e] = cand_i[off + e];
-  }
-  for (int s = lane; s < nsplit; s += 32) ptr[s] = 0;
-  __syncwarp();
-
-  float last = -CUDART_INF_F;
-  for (int n = 0; n < k; ++n) {
-    float bv = -CUDART_INF_F;
-    int bi = 0, bs = -1;
-    for (int s = lane; s < nsplit; s += 32) {
-      const int p = ptr[s];
-      if (p < k) {
-        const float v = cv[s * k + p];
-        const int i = ci[s * k + p];
-        if (bs < 0 || better(v, i, bv, bi)) {
-          bv = v;
-          bi = i;
-          bs = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      const int os = __shfl_xor_sync(0xffffffffu, bs, o);
-      const bool take =
-          os >= 0 && (bs < 0 || better(ov, oi, bv, bi) ||
-                      (ov == bv && oi == bi && os < bs));
-      if (take) {
-        bv = ov;
-        bi = oi;
-        bs = os;
-      }
-    }
-    if (lane == 0) {
-      ptr[bs] += 1;
-      vals[(size_t)qg * k + n] = bv;
-      inds[(size_t)qg * k + n] = bi;
-    }
-    __syncwarp();
-    last = bv;
-  }
-  int good = 1;
-  for (int s = lane; s < nsplit; s += 32)
-    good &= tth[(size_t)qg * nsplit + s] < last;
-  good = __all_sync(0xffffffffu, good);
-  if (lane == 0) ok[qg] = good;
-}
+// the score stage of the tensor-core kernel (kernels 1-3)
+enum Mode { BF16 = 1, I8 = 2, F32 = 3 };
+// the ladder's rungs and FULL (the production kernel)
+enum Phase { STREAM = 0, MATMUL = 1, INSERT = 2, FULL = 3 };
 
 bool bad_geometry(int Q, int G, int D, int k, int nsplit) {
   return k < 1 || k > TD * BINS || Q < 1 || G < 1 || D < 1 || nsplit < 1 ||
          nsplit > (G + GT - 1) / GT;
 }
 
-// Launches phase P of the f32 split kernel on `stream`, one block per
-// (query tile, split) with all of its shared memory; returns
-// cudaGetLastError() (0 = ok).
-template <int P>
-cudaError_t launch_split(const void* q, const void* g, const float* gaux,
-                         int Q, int G, int D, int k, int nsplit,
-                         float* cand_v, int* cand_i, float* tth,
-                         cudaStream_t st) {
-  const size_t smem1 = split_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_split_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
-  if (err != cudaSuccess) return err;
-  dim3 grid1((Q + QT - 1) / QT, nsplit);
-  fused_topk_split_kernel<P><<<grid1, THREADS, smem1, st>>>(
-      q, g, gaux, nullptr, Q, G, D, k, nsplit, false, cand_v, cand_i, tth);
-  return cudaGetLastError();
-}
-
-// One rung of the f32 ladder: phase P alone (no merge). out_v is (Q, nsplit)
-// for STREAM and MATMUL; (Q, nsplit, k) with out_i for INSERT.
-template <int P>
-int launch_rung(const void* q, const void* g, const float* gaux, int Q,
-                int G, int D, int k, int nsplit, float* out_v, int* out_i,
-                void* stream) {
-  if (bad_geometry(Q, G, D, k, nsplit)) return (int)cudaErrorInvalidValue;
-  return (int)launch_split<P>(q, g, gaux, Q, G, D, k, nsplit, out_v, out_i,
-                              out_v, reinterpret_cast<cudaStream_t>(stream));
-}
-
-
 // ---------------------------------------------------------------------------
-// Kernels 2 and 3: the tensor-core split kernel (bf16 or int8) and its
-// selection merge (top of file)
+// Kernels 1-3: the tensor-core split kernel (f32, bf16 or int8) and its
+// selection merge; kernel 4, the scores kernel (top of file)
 // ---------------------------------------------------------------------------
 
 constexpr int KC = 64;                        // bf16 elements per row per stage
 constexpr int KC_I8 = 128;                    // int8 codes per row per stage
+constexpr int KC_F32 = 32;                    // f32 words per row per stage
 constexpr int STAGES = 5;                     // ring depth
 constexpr int TILE_BYTES = QT * KC * 2;       // one operand's tile, 8 KB
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // q̂ tile, then gallery tile
@@ -612,9 +222,31 @@ constexpr int MAX_ORDINALS = 1 << 16;         // 16-bit tile ordinals
 constexpr int MERGE_THREADS = 512;
 constexpr int MERGE_PER = 40;                 // candidates per merge thread
 constexpr int MERGE_MAX = MERGE_THREADS * MERGE_PER;
+// f32 (kernels 1 and 4): the producer copies each stage's gallery tile
+// into a ring of F32_GSTAGES raw tiles and its q̂ tile into one of two
+// plane buffers, F32_LOOK stages behind the gallery; NCONV converter warps
+// divide each gallery element by its row's norm and store its big and
+// small parts beside that q̂ tile. A plane buffer: q̂ (64 MI rows), ĝ's big
+// parts, ĝ's small parts (64 rows each). Kernel 1's ring bytes hold the
+// two plane buffers and the raw ring.
+constexpr int NCONV = 8;
+constexpr int F32_THREADS = TC_THREADS + 32 * NCONV;
+constexpr int F32_GSTAGES = 4;
+constexpr int F32_PLANES = 2;
+constexpr int F32_PLANE = 3 * TILE_BYTES;
+constexpr int F32_LOOK = 2;
+static_assert(F32_PLANES * F32_PLANE + F32_GSTAGES * TILE_BYTES ==
+                  RING_BYTES,
+              "kernel 1's plane buffers and raw ring take the ring's bytes");
+// kernel 1's mbarriers: 2 per raw stage and per plane buffer
+constexpr size_t F32_SMEM = TC_SMEM - (size_t)2 * STAGES * 8 +
+                            (size_t)2 * (F32_GSTAGES + F32_PLANES) * 8;
+static_assert(F32_SMEM <= 232448, "one block per SM");
 constexpr unsigned FULL_MASK = 0xffffffffu;
 static_assert(TC_SMEM <= 232448, "one block per SM");
 static_assert(QT == 64 && THREADS == 256, "8 warps of 16 x 32 scores");
+static_assert(KC * 2 == 128 && KC_I8 == 128 && KC_F32 * 4 == 128,
+              "a stage holds 128 bytes of each row");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -698,6 +330,212 @@ __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = big + small with big = tf32(x), small = tf32(x - big), each rounded to
+// nearest, ties away from zero (cvt.rna: the low 13 bits cleared), as
+// ops/retrieval.py tf32_round restates it
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(__uint_as_float(x)));
+  const float r = __fsub_rn(__uint_as_float(x), __uint_as_float(big));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(r));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), f32 accumulators. Its
+// fragments hold the 32-bit words that mma_bf16's hold (ldmatrix gives a
+// thread one word of each 8x8 b16 matrix), 8 words of a row per step. Not
+// volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The f32 counterpart of load_stage_masked, for a D that is not a multiple
+// of 4 (or rows not 16-byte aligned): `nrows` rows of a (rows, D) operand
+// from row0, columns col0 .. col0 + 32, into the layout TMA's 128-byte
+// swizzle gives at `dst` (rows of 128 B, 16-byte chunk c of row r at chunk
+// c ^ (r % 8)), zeros past the operand's rows and D. Lane l moves chunk
+// l % 8 (4 words) of rows l / 8 + 4i.
+__device__ __forceinline__ void load_rows_masked_f32(uint32_t dst,
+                                                     const float* src,
+                                                     int row0, int rows,
+                                                     int nrows, int D,
+                                                     int col0, int lane) {
+#pragma unroll 4
+  for (int p = 0; p < nrows / 4; ++p) {
+    const int r = (lane >> 3) + 4 * p, c = lane & 7;
+    const int row = row0 + r, col = col0 + 4 * c;
+    float w[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row < rows) {
+      const float* s = src + (size_t)row * D;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < D) w[e] = s[col + e];
+    }
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     dst + r * 128 + ((c ^ (r & 7)) << 4)),
+                 "f"(w[0]), "f"(w[1]), "f"(w[2]), "f"(w[3]));
+  }
+}
+
+__device__ __forceinline__ float4 lds4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts4(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ float sum4(float4 v) {
+  return (v.x + v.y) + (v.z + v.w);
+}
+// v / n word by word (IEEE division, rounded to nearest even, as JAX's
+// g / norm)
+__device__ __forceinline__ float4 div4(float4 v, float n) {
+  return make_float4(__fdiv_rn(v.x, n), __fdiv_rn(v.y, n), __fdiv_rn(v.z, n),
+                     __fdiv_rn(v.w, n));
+}
+// the big and small parts (split_tf32) of the 4 words of v
+__device__ __forceinline__ void split4(float4 v, uint4& big, uint4& small) {
+  split_tf32(__float_as_uint(v.x), big.x, small.x);
+  split_tf32(__float_as_uint(v.y), big.y, small.y);
+  split_tf32(__float_as_uint(v.z), big.z, small.z);
+  split_tf32(__float_as_uint(v.w), big.w, small.w);
+}
+
+// The 3xTF32 products of one f32 stage (32 words of each row) for a warp
+// that owns MI x 16 query rows and 32 gallery rows, from the plane buffer:
+// q̂'s rows at `q` (a_row[m], split in registers), ĝ's big and small parts
+// at `gb` and `gs` (b_row[h]), all in the ring's swizzled layout;
+// accumulated into part[4m + j] (n8 tile j): per 8-word step, small·big,
+// then big·small, then big·big, each pass over every accumulator, so that
+// consecutive products are independent.
+template <int MI>
+__device__ __forceinline__ void products_3xtf32(uint32_t q, uint32_t gb,
+                                                uint32_t gs,
+                                                const uint32_t* a_row,
+                                                const uint32_t* b_row,
+                                                int a_c, int b_c, int sw,
+                                                float (*part)[4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[MI][4], as[MI][4];
+#pragma unroll
+    for (int m = 0; m < MI; ++m) {
+      ldmatrix_x4(q + a_row[m] + (((2 * ks + a_c) ^ sw) << 4), a[m][0],
+                  a[m][1], a[m][2], a[m][3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(a[m][i], a[m][i], as[m][i]);
+    }
+    uint32_t b[2][4], s[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t off = b_row[h] + (((2 * ks + b_c) ^ sw) << 4);
+      ldmatrix_x4(gb + off, b[h][0], b[h][1], b[h][2], b[h][3]);
+      ldmatrix_x4(gs + off, s[h][0], s[h][1], s[h][2], s[h][3]);
+    }
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int m = 0; m < MI; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t* bj = (pass == 1 ? s : b)[j >> 1] + 2 * (j & 1);
+          mma_tf32(part[4 * m + j], pass == 0 ? as[m] : a[m], bj[0], bj[1]);
+        }
+  }
+}
+
+// A converter thread's part of an f32 stage (NCONV warps; thread ct owns
+// chunks 2 (ct % 4) and + 1 of gallery row ct / 4; `off` their offset):
+// the raw tile's words at `raw` are read, divided by n, split into big and
+// small parts in registers, and, once `wait()` returns (the plane buffer
+// is free), stored at gb and gs. The stores consume every loaded word, so
+// once they are issued the raw tile may be released (a release before the
+// loads' values are used let TMA's refill overtake them).
+template <typename Wait>
+__device__ __forceinline__ void convert_g(uint32_t raw, uint32_t gb,
+                                          uint32_t gs, uint32_t off, float n,
+                                          Wait wait) {
+  uint4 big[2], small[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    split4(div4(lds4(raw + off + 16 * e), n), big[e], small[e]);
+  wait();
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    sts4(gb + off + 16 * e, big[e]);
+    sts4(gs + off + 16 * e, small[e]);
+  }
+}
+
+// The f32 producer warp (kernels 1 and 4): for stage s of `total` (nk per
+// gallery tile, the tile at gallery row base(s / nk)), the gallery tile into
+// raw slot s % F32_GSTAGES (full / empty, released by the converters), and,
+// F32_LOOK stages later, q̂'s MI boxes of 64 rows into plane buffer s %
+// F32_PLANES (its pfull; once the consumers have released the buffer's
+// previous stage on pempty). TMA where `tma`, else the warp's masked loads;
+// a q̂ box wholly past Q is not copied (its rows are never stored).
+template <int MI, typename Base>
+__device__ __forceinline__ void produce_f32(
+    const CUtensorMap* tmq, const CUtensorMap* tmg, const float* q,
+    const float* g, int Q, int G, int D, bool tma, int lane, int q0,
+    int total, int nk, Base base, uint32_t planes, uint32_t plane_bytes,
+    uint32_t graw, uint32_t full, uint32_t empty, uint32_t pfull,
+    uint32_t pempty) {
+  const int qboxes = min(MI, (Q - q0 + 63) / 64);
+  int gslot = 0, ord = 0, kc = 0;
+  uint32_t ground = 0;
+  for (int st = 0; st < total + F32_LOOK; ++st) {
+    if (st < total) {
+      if (ground) mbar_wait(empty + 8 * gslot, (ground - 1) & 1);
+      const uint32_t dst = graw + gslot * TILE_BYTES, bar = full + 8 * gslot;
+      if (tma) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(bar, TILE_BYTES);
+          tma_load_2d(dst, tmg, kc * KC_F32, base(ord), bar);
+        }
+      } else {
+        load_rows_masked_f32(dst, g, base(ord), G, GT, D, kc * KC_F32, lane);
+        mbar_arrive(bar);
+      }
+      if (++kc == nk) {
+        kc = 0;
+        ++ord;
+      }
+      if (++gslot == F32_GSTAGES) {
+        gslot = 0;
+        ++ground;
+      }
+    }
+    if (st >= F32_LOOK) {
+      const int s = st - F32_LOOK, p = s % F32_PLANES, kq = s % nk;
+      if (s >= F32_PLANES)
+        mbar_wait(pempty + 8 * p, (s / F32_PLANES - 1) & 1);
+      const uint32_t dst = planes + p * plane_bytes, bar = pfull + 8 * p;
+      if (tma) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(bar, qboxes * TILE_BYTES);
+          for (int b = 0; b < qboxes; ++b)
+            tma_load_2d(dst + b * TILE_BYTES, tmq, kq * KC_F32, q0 + 64 * b,
+                        bar);
+        }
+      } else {
+        load_rows_masked_f32(dst, q, q0, Q, 64 * MI, D, kq * KC_F32, lane);
+        mbar_arrive(bar);
+      }
+    }
+  }
 }
 
 // an unsigned key in the order of the float (-0 taken as +0; no NaN here)
@@ -839,20 +677,32 @@ __device__ __forceinline__ void insert_pair(float2* bv, uint32_t* bo,
   }
 }
 
-// The tensor-core split kernel of score stage M (BF16: kernel 2, I8:
-// kernel 3), phase P (STREAM, MATMUL, INSERT or FULL; the outputs of each
-// as for fused_topk_split_kernel). Grid (query tiles, nsplit), TC_THREADS
-// threads (8 consumer warps, then the producer warp that fills the ring),
-// TC_SMEM bytes: the ring, then the buffers (values f32 [TD][QT][BINS],
-// tile ordinals u16 likewise; bin b of row q at b ^ (8 * (q % 4)), which
-// keeps the two neighbouring bins of an entry pair together and spreads a
-// warp's rows over the banks). A stage holds 128 bytes of each row: 64
-// bf16 or 128 int8 codes. I8 only: qscale (Q,) and gscale (G,), each score
-// (float)acc * (qscale[q] * gscale[g]); the int8 rows' STREAM sums are the
-// exact int32 sums of their codes. The parameters of the bf16 instance
-// come first, so that it keeps its layout (and its SASS).
+// The tensor-core split kernel of score stage M (F32: kernel 1, BF16:
+// kernel 2, I8: kernel 3), phase P (top of file): FULL writes cand_v /
+// cand_i (Q, nsplit, k), each split's top-k set, and tth (Q, nsplit), its
+// deepest stored values; STREAM and MATMUL write one value per (query
+// row, split) into tth; INSERT writes the first k buffer lanes into cand_v
+// / cand_i. Grid (query tiles, nsplit), TC_THREADS threads (8 consumer
+// warps, then the producer warp that fills the ring; F32: then NCONV
+// converter warps), TC_SMEM bytes: the ring, then the buffers (values f32
+// [TD][QT][BINS], tile ordinals u16 likewise; bin b of row q at b ^ (8 *
+// (q % 4)), which keeps the two neighbouring bins of an entry pair together
+// and spreads a warp's rows over the banks). A stage holds 128 bytes of
+// each row: 32 f32 words, 64 bf16 or 128 int8 codes. F32 only: q and g
+// are f32, gscale the gallery's norms (G,), F32_THREADS threads and
+// F32_SMEM bytes; the ring's bytes hold two plane buffers and the raw
+// gallery ring (produce_f32); the converter warps divide each gallery
+// element by max(norm, eps) and store its 3xTF32 big and small parts in
+// the plane buffer beside its stage's q̂ tile (convert_g), and the
+// consumers split q̂ in registers. Its STREAM rung: the converters fold
+// every gallery word and norm, the consumers every q̂ word, into the rows'
+// sums. I8 only: qscale
+// (Q,) and gscale (G,), each score (float)acc * (qscale[q] * gscale[g]);
+// the int8 rows' STREAM sums are the exact int32 sums of their codes. The
+// parameters of the bf16 instance come first, so that it keeps its layout
+// (and its SASS).
 template <int M, int P>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(M == F32 ? F32_THREADS : TC_THREADS, 1)
 fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
                      const __grid_constant__ CUtensorMap tmg,
                      const uint16_t* __restrict__ q,
@@ -862,8 +712,9 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
                      const float* __restrict__ qscale,
                      const float* __restrict__ gscale) {
   static_assert(P >= STREAM && P <= FULL, "a phase of the split kernel");
-  static_assert(M == BF16 || M == I8, "a tensor-core score stage");
-  constexpr int KE = M == I8 ? KC_I8 : KC;  // elements per row per stage
+  static_assert(M == BF16 || M == I8 || M == F32, "a tensor-core score stage");
+  // elements per row per stage
+  constexpr int KE = M == I8 ? KC_I8 : (M == F32 ? KC_F32 : KC);
   using Acc = std::conditional_t<M == I8, int, float>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   // the ring at the first 1024-byte boundary, then the buffers
@@ -873,8 +724,15 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
   const uint32_t ring = smem_u32(sm);
   // stage s is in: full[s] (TMA: one arrival and the stage's bytes; else
   // 32 arrivals of the producer's lanes); every consumer warp is done with
-  // it: empty[s] (8 arrivals)
-  const uint32_t full = smem_u32(bufo + BUF), empty = full + 8 * STAGES;
+  // it: empty[s] (8 arrivals). F32: full / empty are the raw gallery
+  // ring's (empty: NCONV converter warps); plane buffer p is complete:
+  // pfull[p] (every converter thread, and the producer's q̂ copy); read:
+  // pempty[p] (8 arrivals)
+  constexpr int NS = M == F32 ? F32_GSTAGES : STAGES;  // raw stages
+  constexpr int NT = M == F32 ? F32_THREADS : TC_THREADS;
+  const uint32_t full = smem_u32(bufo + BUF), empty = full + 8 * NS;
+  [[maybe_unused]] const uint32_t pfull = empty + 8 * NS,
+                                 pempty = pfull + 8 * F32_PLANES;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * QT, split = blockIdx.y;
@@ -883,15 +741,21 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
   const int qa = 16 * wq + (lane >> 2), bn = 32 * wn + 2 * (lane & 3);
 
   if constexpr (P >= INSERT) {
-    for (int e = tid; e < BUF; e += TC_THREADS) {
+    for (int e = tid; e < BUF; e += NT) {
       bufv[e] = -CUDART_INF_F;
       bufo[e] = 0;
     }
   }
   if (tid == 0) {
-    for (int st = 0; st < STAGES; ++st) {
+    for (int st = 0; st < NS; ++st) {
       mbar_init(full + 8 * st, tma ? 1 : 32);
-      mbar_init(empty + 8 * st, WARPS);
+      mbar_init(empty + 8 * st, M == F32 ? NCONV : WARPS);
+    }
+    if constexpr (M == F32) {
+      for (int p = 0; p < F32_PLANES; ++p) {
+        mbar_init(pfull + 8 * p, 32 * NCONV + (tma ? 1 : 32));
+        mbar_init(pempty + 8 * p, WARPS);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -902,6 +766,19 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
   const int nk = (D + KE - 1) / KE;
   const int total = my_tiles * nk;
 
+  if constexpr (M == F32) {
+    if (warp == WARPS) {
+      produce_f32<1>(&tmq, &tmg, reinterpret_cast<const float*>(q),
+                     reinterpret_cast<const float*>(g), Q, G, D, tma, lane,
+                     q0, total, nk,
+                     [&](int ord) { return (split + ord * nsplit) * GT; },
+                     ring, F32_PLANE, ring + F32_PLANES * F32_PLANE, full,
+                     empty, pfull, pempty);
+      __syncwarp();
+      __syncthreads();  // the consumers' last barrier
+      return;
+    }
+  }
   if (warp == WARPS) {
     // the producer: stage s into slot s % STAGES once the consumers have
     // released the slot's previous stage; two TMA boxes (q̂ and gallery)
@@ -940,6 +817,69 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
     __syncthreads();  // the consumers' last barrier
     return;
   }
+  if constexpr (M == F32) {
+    if (warp > WARPS) {
+      // the converters: thread ct owns chunks 2 (ct % 4) and + 1 of tile
+      // row r = ct / 4 (convert_g)
+      const int ct = tid - (WARPS + 1) * 32, r = ct >> 2;
+      const uint32_t off = r * 128 + ((2 * (ct & 3)) << 4);
+      int ord = 0, kc = 0, slot = 0;
+      uint32_t round = 0;
+      float gnv = 1.f;
+      [[maybe_unused]] float rsum = 0.f;
+      for (int it = 0; it < total; ++it) {
+        if (kc == 0) {  // the tile's norm of row r
+          const int gr = (split + ord * nsplit) * GT + r;
+          if constexpr (P == STREAM) {
+            if ((ct & 3) == 0) rsum += gr < G ? gscale[gr] : 0.f;
+          } else {
+            gnv = gr < G ? fmaxf(gscale[gr], EPS) : 1.f;
+          }
+        }
+        mbar_wait(full + 8 * slot, round & 1);
+        const uint32_t raw = ring + F32_PLANES * F32_PLANE + slot * TILE_BYTES;
+        const int p = it % F32_PLANES;
+        const uint32_t pl = ring + p * F32_PLANE;
+        auto wait_plane = [&] {  // the buffer's previous stage is consumed
+          if (it >= F32_PLANES)
+            mbar_wait(pempty + 8 * p, (it / F32_PLANES - 1) & 1);
+        };
+        if constexpr (P == STREAM) {
+          wait_plane();
+          rsum += sum4(lds4(raw + off)) + sum4(lds4(raw + off + 16));
+          // a store of the sum (into the idle ĝ part of the plane buffer)
+          // orders the loads before the release
+          asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(pl + TILE_BYTES +
+                                                        4 * ct),
+                       "f"(rsum)
+                       : "memory");
+        } else {
+          convert_g(raw, pl + TILE_BYTES, pl + 2 * TILE_BYTES, off, gnv,
+                    wait_plane);
+        }
+        mbar_arrive(pfull + 8 * p);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * slot);  // the raw tile is free
+        if (++slot == NS) {
+          slot = 0;
+          ++round;
+        }
+        if (++kc == nk) {
+          kc = 0;
+          ++ord;
+        }
+      }
+      if constexpr (P == STREAM) {
+        rsum += __shfl_xor_sync(FULL_MASK, rsum, 1);
+        rsum += __shfl_xor_sync(FULL_MASK, rsum, 2);
+        // the gallery half of the row's sum, for the consumers (the
+        // buffers are idle in this rung)
+        if ((ct & 3) == 0) bufv[r] = rsum;
+      }
+      __syncthreads();  // the consumers' last barrier
+      return;
+    }
+  }
 
   // ldmatrix row addresses (chunk 0) and their swizzle
   const int sw = lane & 7;
@@ -951,8 +891,11 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
     b_row[h] = (32 * wn + 16 * h + (lane & 7) + ((lane >> 4) << 3)) * (KC * 2);
   const int b_c = (lane >> 3) & 1;
 
-  // two sets of accumulators (even and odd 16-word steps), so that each
-  // chain of dependent mma is half as long; a score is their sum
+  // two sets of accumulators, a score is their sum: bf16 and int8, even
+  // and odd 32-byte steps, so that each chain of dependent mma is half as
+  // long; f32, the running score (acc[0], IEEE additions) and the current
+  // stage's 3xTF32 sum from zero (acc[1]), so that the tensor cores'
+  // additions, which round toward zero, act on a stage's sum only
   Acc acc[2][4][4];
 #pragma unroll
   for (int e = 0; e < 2; ++e)
@@ -1014,10 +957,34 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
           }
       }
     }
-    mbar_wait(full + 8 * slot, round & 1);
-    const uint32_t sq = ring + slot * STAGE_BYTES;
+    // f32: plane buffer it % 2, else ring stage `slot`
+    if constexpr (M == F32)
+      mbar_wait(pfull + 8 * (it % F32_PLANES), (it / F32_PLANES) & 1);
+    else
+      mbar_wait(full + 8 * slot, round & 1);
+    const uint32_t sq = M == F32 ? ring + (it % F32_PLANES) * F32_PLANE
+                                 : ring + slot * STAGE_BYTES;
     const uint32_t sg = sq + TILE_BYTES;
-    if constexpr (P == STREAM) {
+    if constexpr (M == F32 && P == STREAM) {
+      // every q̂ word of the stage, folded into its rows' sums
+      const int r = tid >> 3, c = tid & 7;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = r + 32 * h;
+        rowsum[h] += sum4(lds4(sq + rr * 128 + ((c ^ (rr & 7)) << 4)));
+      }
+    } else if constexpr (M == F32) {
+      // the running score takes the last stage's sum; this stage's from 0
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[0][j][c] += acc[1][j][c];
+          acc[1][j][c] = 0.f;
+        }
+      products_3xtf32<1>(sq, sg, sg + TILE_BYTES, &a_row, b_row, a_c, b_c,
+                         sw, acc[1]);
+    } else if constexpr (P == STREAM) {
       // every word this thread loaded, folded into its rows' sums
       const int r = tid >> 3, c = tid & 7;
 #pragma unroll
@@ -1051,7 +1018,8 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
       }
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * slot);  // the slot is free
+    if (lane == 0)  // the slot (f32: the plane buffer) is free
+      mbar_arrive(M == F32 ? pempty + 8 * (it % F32_PLANES) : empty + 8 * slot);
     if (++slot == STAGES) {
       slot = 0;
       ++round;
@@ -1104,6 +1072,8 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
       for (int off = 1; off < 8; off <<= 1)
         v += __shfl_xor_sync(FULL_MASK, v, off);
       const int qg = q0 + (tid >> 3) + 32 * h;
+      if constexpr (M == F32)  // + the converters' gallery half
+        v += bufv[(tid >> 3) + 32 * h];
       if ((tid & 7) == 0 && qg < Q) tth[(size_t)qg * nsplit + split] = v;
     }
     return;
@@ -1116,7 +1086,8 @@ fused_topk_tc_kernel(const __grid_constant__ CUtensorMap tmq,
       m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 2));
       if ((lane & 3) == 0) red[wn * QT + qa + 8 * h] = m;
     }
-    // the consumer warps alone (the producer has left): named barrier 1
+    // the consumer warps alone (the producer, and the converters, have
+    // left): named barrier 1
     asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
     if (tid < QT && q0 + tid < Q)
       tth[(size_t)(q0 + tid) * nsplit + split] =
@@ -1405,6 +1376,199 @@ cudaError_t launch_quantize(const float* x, int N, int D, int8_t* codes,
   return cudaGetLastError();
 }
 
+// Kernel 4 (top of file): the (Q, G) f32 scores of q̂ (Q, D) against the raw
+// gallery (G, D) normalized by its rows' norms, computed here. Grid (query
+// tiles of QB = 64 MI rows, gallery tiles of GT rows), F32_THREADS threads
+// (8 consumer warps, the producer warp, NCONV converter warps), as
+// fused_topk_tc_kernel<F32> runs them (produce_f32, convert_g,
+// products_3xtf32): F32_PLANES plane buffers (q̂'s QB rows, ĝ's big parts,
+// its small parts), the raw gallery ring of F32_GSTAGES tiles, the tile's
+// norms and the mbarriers. Warp w owns query rows 16 MI (w / 2) .. + 16 MI
+// and gallery rows 32 (w % 2) .. + 32. `vec`: 16-byte stores (G % 4 == 0
+// and out 16-byte aligned).
+template <int MI>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+cosine_scores_tc_kernel(const __grid_constant__ CUtensorMap tmq,
+                        const __grid_constant__ CUtensorMap tmg,
+                        const float* __restrict__ q,
+                        const float* __restrict__ g, int Q, int G, int D,
+                        bool tma, bool vec, float* __restrict__ out) {
+  constexpr int QBYTES = 64 * MI * 128, PLB = QBYTES + 2 * TILE_BYTES;
+  extern __shared__ __align__(16) unsigned char smem_sc[];
+  unsigned char* sm = smem_sc + ((1024 - smem_u32(smem_sc) % 1024) % 1024);
+  const uint32_t planes = smem_u32(sm), graw = planes + F32_PLANES * PLB;
+  float* gn = reinterpret_cast<float*>(sm + F32_PLANES * PLB +
+                                       F32_GSTAGES * TILE_BYTES);  // [GT]
+  const uint32_t full = smem_u32(gn + GT), empty = full + 8 * F32_GSTAGES;
+  const uint32_t pfull = empty + 8 * F32_GSTAGES,
+                 pempty = pfull + 8 * F32_PLANES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * 64 * MI, g0 = blockIdx.y * GT;
+  if (tid == 0) {
+    for (int st = 0; st < F32_GSTAGES; ++st) {
+      mbar_init(full + 8 * st, tma ? 1 : 32);
+      mbar_init(empty + 8 * st, NCONV);
+    }
+    for (int p = 0; p < F32_PLANES; ++p) {
+      mbar_init(pfull + 8 * p, 32 * NCONV + (tma ? 1 : 32));
+      mbar_init(pempty + 8 * p, WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int nk = (D + KC_F32 - 1) / KC_F32;
+
+  if (warp == WARPS) {
+    produce_f32<MI>(&tmq, &tmg, q, g, Q, G, D, tma, lane, q0, nk, nk,
+                    [&](int) { return g0; }, planes, PLB, graw, full, empty,
+                    pfull, pempty);
+    return;
+  }
+
+  if (warp > WARPS) {
+    // the converters. First the tile's norms, while the producer fills the
+    // ring: converter warp cw sums the squares of rows cw + NCONV i over
+    // the whole of D, four rows at once (fmaf per lane, then a butterfly),
+    // 16-byte loads where the rows are whole aligned chunks
+    const int ct = tid - (WARPS + 1) * 32, cw = ct >> 5;
+    static_assert(GT % (4 * NCONV) == 0, "rows of the norm pass");
+    for (int i0 = 0; i0 < GT / NCONV; i0 += 4) {
+      float ss[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* row[4];
+      bool in[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g0 + cw + NCONV * (i0 + e);
+        in[e] = r < G;
+        row[e] = g + (size_t)(in[e] ? r : 0) * D;
+      }
+      if (tma) {
+#pragma unroll 3
+        for (int c = lane; c < D / 4; c += 32)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!in[e]) continue;
+            const float4 v = __ldg(reinterpret_cast<const float4*>(row[e]) + c);
+            ss[e] = fmaf(v.x, v.x, ss[e]);
+            ss[e] = fmaf(v.y, v.y, ss[e]);
+            ss[e] = fmaf(v.z, v.z, ss[e]);
+            ss[e] = fmaf(v.w, v.w, ss[e]);
+          }
+      } else {
+#pragma unroll 4
+        for (int c = lane; c < D; c += 32)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (in[e]) ss[e] = fmaf(row[e][c], row[e][c], ss[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int off = 16; off; off >>= 1)
+          ss[e] += __shfl_xor_sync(FULL_MASK, ss[e], off);
+        if (lane == 0)
+          gn[cw + NCONV * (i0 + e)] = in[e] ? fmaxf(__fsqrt_rn(ss[e]), EPS)
+                                            : 1.f;
+      }
+    }
+    // the converter warps alone: named barrier 2
+    asm volatile("bar.sync 2, %0;\n" ::"n"(32 * NCONV) : "memory");
+    // then, per stage, thread ct owns chunks 2 (ct % 4) and + 1 of gallery
+    // row ct / 4 (convert_g)
+    const float gnv = gn[ct >> 2];
+    const uint32_t off = (ct >> 2) * 128 + ((2 * (ct & 3)) << 4);
+    int slot = 0;
+    uint32_t round = 0;
+    for (int kc = 0; kc < nk; ++kc) {
+      mbar_wait(full + 8 * slot, round & 1);
+      const int p = kc % F32_PLANES;
+      const uint32_t pl = planes + p * PLB;
+      convert_g(graw + slot * TILE_BYTES, pl + QBYTES,
+                pl + QBYTES + TILE_BYTES, off, gnv, [&] {
+                  if (kc >= F32_PLANES)  // the plane buffer is free
+                    mbar_wait(pempty + 8 * p, (kc / F32_PLANES - 1) & 1);
+                });
+      mbar_arrive(pfull + 8 * p);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * slot);  // the raw tile is free
+      if (++slot == F32_GSTAGES) {
+        slot = 0;
+        ++round;
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int wq = warp >> 1, wn = warp & 1;
+  const int sw = lane & 7, a_c = lane >> 4, b_c = (lane >> 3) & 1;
+  uint32_t a_row[MI], b_row[2];
+#pragma unroll
+  for (int m = 0; m < MI; ++m)
+    a_row[m] = (16 * MI * wq + 16 * m + (lane & 15)) * 128;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    b_row[h] = (32 * wn + 16 * h + (lane & 7) + ((lane >> 4) << 3)) * 128;
+
+  // the running scores (IEEE additions) and the current stage's 3xTF32
+  // sum from zero, as fused_topk_tc_kernel<F32> keeps them
+  float tot[4 * MI][4], part[4 * MI][4];
+#pragma unroll
+  for (int j = 0; j < 4 * MI; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tot[j][c] = part[j][c] = 0.f;
+
+  for (int kc = 0; kc < nk; ++kc) {
+    const int p = kc % F32_PLANES;
+    mbar_wait(pfull + 8 * p, (kc / F32_PLANES) & 1);
+    const uint32_t pl = planes + p * PLB;
+#pragma unroll
+    for (int j = 0; j < 4 * MI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        tot[j][c] += part[j][c];
+        part[j][c] = 0.f;
+      }
+    products_3xtf32<MI>(pl, pl + QBYTES, pl + QBYTES + TILE_BYTES, a_row,
+                        b_row, a_c, b_c, sw, part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(pempty + 8 * p);  // the buffer is free
+  }
+
+  // the scores: thread (g, t) holds, per n8 tile j, row g columns 2t, 2t+1
+  // and row g + 8 the same columns; threads t and t ^ 1 trade halves, so
+  // that an even t holds 4 columns of row g and an odd t 4 of row g + 8
+  const int odd = lane & 1;
+  const int col_in = 2 * (lane & 3) - 2 * odd;  // the 4 columns' first
+#pragma unroll
+  for (int m = 0; m < MI; ++m) {
+    const int row = q0 + 16 * MI * wq + 16 * m + (lane >> 2) + 8 * odd;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float s[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = tot[4 * m + j][c] + part[4 * m + j][c];
+      const float x0 = __shfl_xor_sync(FULL_MASK, odd ? s[0] : s[2], 1);
+      const float x1 = __shfl_xor_sync(FULL_MASK, odd ? s[1] : s[3], 1);
+      const float4 v = odd ? make_float4(x0, x1, s[2], s[3])
+                           : make_float4(s[0], s[1], x0, x1);
+      const int col = g0 + 32 * wn + 8 * j + col_in;
+      if (row < Q) {
+        float* dst = out + (size_t)row * G + col;
+        if (vec && col + 3 < G) {
+          __stcs(reinterpret_cast<float4*>(dst), v);
+        } else {
+          if (col < G) dst[0] = v.x;
+          if (col + 1 < G) dst[1] = v.y;
+          if (col + 2 < G) dst[2] = v.z;
+          if (col + 3 < G) dst[3] = v.w;
+        }
+      }
+    }
+  }
+}
+
 // The tensor-core geometry, or false: 16-bit tile ordinals, and the merge's
 // candidates in its registers.
 bool bad_tc_geometry(int Q, int G, int D, int k, int nsplit) {
@@ -1441,24 +1605,32 @@ template <int M>
 bool tile_map(CUtensorMap* map, const void* base, int rows, int D) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return false;
-  constexpr int esize = M == I8 ? 1 : 2;
+  constexpr int esize = M == I8 ? 1 : (M == F32 ? 4 : 2);
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)D * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(M == I8 ? KC_I8 : KC),
-                             (cuuint32_t)QT};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)QT};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map,
-             M == I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             M == I8    ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+             : M == F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
              2, const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// TMA copies a (rows, D) operand of score stage M when its rows are whole
+// 16-byte chunks (D % 4 f32, D % 8 bf16, D % 16 int8) and it is 16-byte
+// aligned; else the producer's masked loads run.
+template <int M>
+bool tma_ok(const void* p, int D) {
+  return D % (16 / (M == I8 ? 1 : (M == F32 ? 4 : 2))) == 0 &&
+         (uintptr_t)p % 16 == 0;
+}
+
 // Launches phase P of the tensor-core split kernel of score stage M on
-// `st`: TMA when a row is a multiple of 16 bytes (D % 8 bf16, D % 16 int8)
-// and both operands 16-byte aligned, else the producer's masked loads.
+// `st`, by TMA where both operands take it (tma_ok).
 template <int M, int P>
 cudaError_t launch_tc(const void* q, const void* g, const float* qscale,
                       const float* gscale, int Q, int G, int D, int k,
@@ -1467,16 +1639,17 @@ cudaError_t launch_tc(const void* q, const void* g, const float* qscale,
   CUtensorMap tmq, tmg;
   memset(&tmq, 0, sizeof tmq);
   memset(&tmg, 0, sizeof tmg);
-  const bool tma = D % (M == I8 ? 16 : 8) == 0 && (uintptr_t)q % 16 == 0 &&
-                   (uintptr_t)g % 16 == 0;
+  const bool tma = tma_ok<M>(q, D) && tma_ok<M>(g, D);
   if (tma && (!tile_map<M>(&tmq, q, Q, D) || !tile_map<M>(&tmg, g, G, D)))
     return cudaErrorInvalidValue;
+  constexpr size_t smem = M == F32 ? F32_SMEM : TC_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       fused_topk_tc_kernel<M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TC_SMEM);
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + QT - 1) / QT, nsplit);
-  fused_topk_tc_kernel<M, P><<<grid, TC_THREADS, TC_SMEM, st>>>(
+  fused_topk_tc_kernel<M, P>
+      <<<grid, M == F32 ? F32_THREADS : TC_THREADS, smem, st>>>(
       tmq, tmg, static_cast<const uint16_t*>(q),
       static_cast<const uint16_t*>(g), Q, G, D, k, nsplit, tma, cand_v,
       cand_i, tth, qscale, gscale);
@@ -1526,9 +1699,10 @@ long long carve(void* base, int Q, int D, int k, int nsplit, bool int8,
   return end;
 }
 
-// Kernels 2 and 3: the tensor-core split kernel, then the selection merge.
+// Kernels 1-3: the tensor-core split kernel, then the selection merge.
 // Also needs at most 65,536 gallery tiles per split and nsplit * k <=
-// 20,480. bf16: q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16, gscale
+// 20,480. f32: q̂ (Q, D) f32, raw gallery (G, D) f32, gscale its row norms
+// (G,). bf16: q̂ (Q, D) bf16, pre-normalized gallery (G, D) bf16, gscale
 // null. int8: q̂ (Q, D) f32, quantized here first (quantize_rows_int8_kernel,
 // into the workspace), int8 codes of the gallery (G, D) and their scales
 // gscale (G,).
@@ -1555,6 +1729,32 @@ int launch_fused_tc(const void* q, const void* g, const float* gscale, int Q,
       w.cand_v, w.cand_i, w.tth, k, nsplit, w.vals, w.inds, w.ok);
   return (int)cudaGetLastError();
 }
+
+// Kernel 4 with QB = 64 MI query rows per block, on `st`.
+template <int MI>
+cudaError_t launch_scores(const float* q, const float* g, int Q, int G, int D,
+                          float* out, cudaStream_t st) {
+  CUtensorMap tmq, tmg;
+  memset(&tmq, 0, sizeof tmq);
+  memset(&tmg, 0, sizeof tmg);
+  const bool tma = tma_ok<F32>(q, D) && tma_ok<F32>(g, D);
+  if (tma && (!tile_map<F32>(&tmq, q, Q, D) || !tile_map<F32>(&tmg, g, G, D)))
+    return cudaErrorInvalidValue;
+  // alignment slack, the plane buffers, the raw ring, the norms, the
+  // mbarriers
+  const size_t smem = 1024 + (size_t)F32_PLANES * (64 * MI + 2 * GT) * 128 +
+                      (size_t)F32_GSTAGES * GT * 128 + GT * 4 +
+                      (size_t)(2 * F32_GSTAGES + 2 * F32_PLANES) * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      cosine_scores_tc_kernel<MI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const bool vec = G % 4 == 0 && (uintptr_t)out % 16 == 0;
+  dim3 grid((Q + 64 * MI - 1) / (64 * MI), (G + GT - 1) / GT);
+  cosine_scores_tc_kernel<MI><<<grid, F32_THREADS, smem, st>>>(
+      tmq, tmg, q, g, Q, G, D, tma, vec, out);
+  return cudaGetLastError();
+}
 }  // namespace
 
 extern "C" {
@@ -1565,28 +1765,12 @@ extern "C" {
 // words (Work, above): the outputs vals, inds (Q, k) and ok (Q) are its
 // first words. 1 <= nsplit <= number of 64-row gallery tiles.
 
-// q̂ (Q, D) f32, raw gallery (G, D) f32 and its row norms (G,): the f32 split
-// kernel, then the k-way merge.
+// q̂ (Q, D) f32, raw gallery (G, D) f32 and its row norms (G,).
 int fused_topk_f32(const float* q, const float* g, const float* gnorm, int Q,
                    int G, int D, int k, int nsplit, int bins, int t_depth,
                    void* work, long long words, void* stream) {
-  Work w;
-  if (bins != BINS || t_depth != TD || bad_geometry(Q, G, D, k, nsplit) ||
-      carve(work, Q, D, k, nsplit, false, &w) != words)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_split<FULL>(q, g, gnorm, Q, G, D, k, nsplit,
-                                       w.cand_v, w.cand_i, w.tth, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = (size_t)nsplit * k * (sizeof(float) + sizeof(int)) +
-                       (size_t)nsplit * sizeof(int);
-  err = cudaFuncSetAttribute(fused_topk_merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  fused_topk_merge_kernel<<<Q, 32, smem2, st>>>(
-      w.cand_v, w.cand_i, w.tth, k, nsplit, w.vals, w.inds, w.ok);
-  return (int)cudaGetLastError();
+  return launch_fused_tc<F32>(q, g, gnorm, Q, G, D, k, nsplit, bins,
+                              t_depth, work, words, stream);
 }
 
 int fused_topk_bf16(const void* q, const void* g, const float* gscale, int Q,
@@ -1614,30 +1798,23 @@ int quantize_rows_int8_f32(const float* x, int N, int D, void* codes,
 
 // The ladder: q̂ (Q, D) f32 with the raw gallery (G, D) f32 and its row
 // norms (G,), or q̂ and the pre-normalized gallery in bf16 (gnorm unused).
-#define LADDER_RUNG(name, P)                                               \
+#define LADDER_RUNG(name, M, P)                                            \
   int name(const void* q, const void* g, const float* gnorm, int Q, int G, \
            int D, int k, int nsplit, float* out_v, int* out_i,            \
            void* stream) {                                                \
-    return launch_rung<P>(q, g, gnorm, Q, G, D, k, nsplit, out_v, out_i,  \
-                          stream);                                        \
-  }
-LADDER_RUNG(fused_topk_f32_stream_only, STREAM)
-LADDER_RUNG(fused_topk_f32_matmul_only, MATMUL)
-LADDER_RUNG(fused_topk_f32_insert_only, INSERT)
-#undef LADDER_RUNG
-#define LADDER_RUNG_BF16(name, P)                                          \
-  int name(const void* q, const void* g, const float*, int Q, int G, int D, \
-           int k, int nsplit, float* out_v, int* out_i, void* stream) {   \
     if (bad_tc_geometry(Q, G, D, k, nsplit))                              \
       return (int)cudaErrorInvalidValue;                                  \
-    return (int)launch_tc<BF16, P>(q, g, nullptr, nullptr, Q, G, D, k,    \
-                                   nsplit, out_v, out_i, out_v,           \
-                                   reinterpret_cast<cudaStream_t>(stream)); \
+    return (int)launch_tc<M, P>(q, g, nullptr, gnorm, Q, G, D, k, nsplit, \
+                                out_v, out_i, out_v,                      \
+                                reinterpret_cast<cudaStream_t>(stream));  \
   }
-LADDER_RUNG_BF16(fused_topk_bf16_stream_only, STREAM)
-LADDER_RUNG_BF16(fused_topk_bf16_matmul_only, MATMUL)
-LADDER_RUNG_BF16(fused_topk_bf16_insert_only, INSERT)
-#undef LADDER_RUNG_BF16
+LADDER_RUNG(fused_topk_f32_stream_only, F32, STREAM)
+LADDER_RUNG(fused_topk_f32_matmul_only, F32, MATMUL)
+LADDER_RUNG(fused_topk_f32_insert_only, F32, INSERT)
+LADDER_RUNG(fused_topk_bf16_stream_only, BF16, STREAM)
+LADDER_RUNG(fused_topk_bf16_matmul_only, BF16, MATMUL)
+LADDER_RUNG(fused_topk_bf16_insert_only, BF16, INSERT)
+#undef LADDER_RUNG
 // int8: the codes of q̂ (Q, D) with their scales qscale (Q,), the gallery's
 // codes (G, D) and scales gscale (G,).
 #define LADDER_RUNG_I8(name, P)                                            \
@@ -1656,19 +1833,15 @@ LADDER_RUNG_I8(fused_topk_int8_insert_only, INSERT)
 #undef LADDER_RUNG_I8
 
 // Kernel 4: the (Q, G) f32 cosine scores of q̂ (Q, D) against the raw
-// gallery (G, D), both f32, into out; returns cudaGetLastError().
+// gallery (G, D), both f32, into out (Q, G); blocks of 128 query rows
+// where Q > 64, else 64, by 64 gallery rows. Returns cudaGetLastError().
 int cosine_scores_f32(const float* q, const float* g, int Q, int G, int D,
                       float* out, void* stream) {
-  if (Q < 1 || G < 1 || D < 1 || (Q + QT - 1) / QT > 65535)
+  if (Q < 1 || G < 1 || D < 1 || (G + GT - 1) / GT > 65535)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (G + GT - 1) / GT;
-  const size_t smem = (size_t)2 * BK * PADW * 4 + (size_t)GT * 4;
-  fused_topk_split_kernel<SCORES>
-      <<<dim3(tiles, (Q + QT - 1) / QT), THREADS, smem,
-         reinterpret_cast<cudaStream_t>(stream)>>>(
-          q, g, nullptr, nullptr, Q, G, D, 0, tiles, false, out, nullptr,
-          nullptr);
-  return (int)cudaGetLastError();
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(Q > 64 ? launch_scores<2>(q, g, Q, G, D, out, st)
+                      : launch_scores<1>(q, g, Q, G, D, out, st));
 }
 
 const char* fused_topk_error_string(int err) {

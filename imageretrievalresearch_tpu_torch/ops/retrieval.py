@@ -14,12 +14,16 @@ Score arithmetic per ``matmul_dtype`` (one definition, :func:`dense_scores`,
 shared by the dense path, the certificate repair and the plain fused
 version, and matched by the kernels):
 
-- ``float32``: true float32 on the card — TF32 is off
-  (``_device.set_float32_precision``), and the kernel runs f32 FMAs. That
-  holds for ``precision='highest'`` and, in this port, for ``'default'``
-  as well, which is what JAX computes on the CPU. (On a TPU, JAX's
-  'default' is one bf16-truncated MXU pass.) Mapping 'default' to TF32
-  tensor cores would need a measured ranking agreement first.
+- ``float32``: the dense path and the plain versions are true float32 on
+  the card (cuBLAS with TF32 off, ``_device.set_float32_precision``), as
+  JAX computes on the CPU. The kernels (the fused top-k and the scores
+  kernel) run the f32-faithful 3xTF32 product on tensor cores: each
+  operand split as big + small (:func:`split_3xtf32`), small·big +
+  big·small + big·big accumulated in f32, ~21-22 significant bits per
+  product: as close to the exact product as f32 arithmetic is. That holds for
+  ``precision='highest'`` and ``'default'`` alike. (On a TPU, JAX's
+  'highest' is a multi-pass MXU product too, and its 'default' one
+  bf16-truncated pass.) Single-pass TF32 is used nowhere.
 - ``bfloat16``: q̂ and the normalized gallery rounded to bf16, products
   accumulated in f32. A product of two bf16 values is exact in f32, so an
   f32 matmul of the upcast operands is JAX's ``preferred_element_type=f32``
@@ -45,13 +49,12 @@ from imageretrievalresearch_tpu_torch.ops import _cuda
 # the launcher rejects a mismatch). The TPU kernels used 512 bins of depth 6.
 FUSED_BINS = 64
 FUSED_T_DEPTH = 6
-# per-row candidates the merge kernel stages in shared memory (bytes); the
-# selection merge of the bf16 and int8 kernels holds the same nsplit * k
-# candidates in registers
-_MERGE_SMEM_BUDGET = 160 * 1024
-# the tensor-core kernels (bf16 and int8) keep each buffer entry's gallery
-# tile as a 16-bit ordinal within its split (csrc/fused_topk.cu): tiles
-# per split they take
+# per-row candidates (nsplit * k) the selection merge holds in its
+# registers (MERGE_MAX of csrc/fused_topk.cu: 512 threads x 40)
+MERGE_MAX = 20480
+# the tensor-core kernels keep each buffer entry's gallery tile as a
+# 16-bit ordinal within its split (csrc/fused_topk.cu): tiles per split
+# they take
 MAX_TILE_ORDINALS = 1 << 16
 MATMUL_DTYPES = ("float32", "bfloat16", "int8")
 # columns per exact f32 partial product of int8 codes: 127² · 1024 < 2²⁴
@@ -86,9 +89,32 @@ def l2_normalize(x: torch.Tensor, *, eps: float = COSINE_SIM_EPS
     return x / torch.clamp(n, min=eps)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: the magnitude's low 13 bits
+    rounded off, carrying into the exponent (up to inf past the largest
+    TF32 value); inf and nan kept. A restatement of the kernels' split for
+    tests; nothing on the card's path calls it."""
+    x = x.float()
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & torch.iinfo(torch.int32).min
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = (mag | sign).view(torch.float32)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def split_3xtf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` with ``big = tf32_round(x)`` and ``small =
+    tf32_round(x - big)``: the operands of the kernels' 3xTF32 product,
+    which accumulates small·big + big·small + big·big in f32."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
+
+
 def _dot_precision(precision: str) -> str:
-    """Validate the precision knob. Both settings are true f32 here (see
-    the module docstring)."""
+    """Validate the precision knob. Both settings compute the same f32
+    arithmetic here: true f32 on the dense path, 3xTF32 in the kernels
+    (see the module docstring)."""
     if precision not in ("default", "highest"):
         raise ValueError(f"unknown precision {precision!r}; "
                          "expected 'default' or 'highest'")
@@ -427,12 +453,13 @@ def _n_splits(g: int, splits: int, bins: int) -> int:
 
 def fused_splits(q: int, g: int, k: int, device: torch.device) -> int:
     """The gallery splits the kernel uses: one per SM, so one query tile
-    (Q <= 64) fills the card, capped so one row's candidates fit the merge
-    kernel's shared memory. The count does not shrink as Q grows: fewer
-    splits would hold more rows per bin and fail the certificate far more
-    often. The card's SM count is read once per device."""
-    splits = min(_cuda.sm_count(device),
-                 max(1, _MERGE_SMEM_BUDGET // (8 * k + 4)))
+    (Q <= 64) fills the card, capped so one row's nsplit * k candidates
+    fit the selection merge's registers (``MERGE_MAX``): 132 on an H100
+    SXM at k = 150, 80 at k = 256, 53 at k = 384. The count does not
+    shrink as Q grows: fewer splits would hold more rows per bin and fail
+    the certificate far more often. The card's SM count is read once per
+    device."""
+    splits = min(_cuda.sm_count(device), max(1, MERGE_MAX // k))
     return _n_splits(g, splits, FUSED_BINS)
 
 
@@ -444,7 +471,7 @@ def check_tile_ordinals(g: int, n_split: int) -> None:
     if -(-tiles // n_split) > MAX_TILE_ORDINALS:
         raise ValueError(
             f"G={g} over {n_split} splits needs {-(-tiles // n_split)} "
-            f"tiles per split; the bf16 and int8 kernels take at most "
+            f"tiles per split; the tensor-core kernels take at most "
             f"{MAX_TILE_ORDINALS} (16-bit tile ordinals)")
 
 
@@ -484,20 +511,18 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
                         dev)
     _cuda.check_operand("gallery", gallery, gallery.dtype, (g, d), dev)
     n_split = fused_splits(q, g, k, dev)
+    check_tile_ordinals(g, n_split)
     q_in, aux = queries_hat, None
     if gallery.dtype == torch.float32:
         if gallery_norms is None:
             gallery_norms = torch.linalg.vector_norm(gallery, dim=1)
         aux = _cuda.check_operand("gallery_norms", gallery_norms.reshape(-1),
                                   torch.float32, (g,), dev)
+    elif gallery.dtype == torch.bfloat16:
+        q_in = queries_hat.to(torch.bfloat16)
     else:
-        check_tile_ordinals(g, n_split)
-        if gallery.dtype == torch.bfloat16:
-            q_in = queries_hat.to(torch.bfloat16)
-        else:
-            aux = _cuda.check_operand("gallery_scale",
-                                      gallery_scale.reshape(-1),
-                                      torch.float32, (g,), dev)
+        aux = _cuda.check_operand("gallery_scale", gallery_scale.reshape(-1),
+                                  torch.float32, (g,), dev)
     words = _work_words(q, d, k, n_split, gallery.dtype == torch.int8)
     work = torch.empty(words, device=dev, dtype=torch.int32)
     _cuda.launch("fused_topk", entry, dev, q_in, gallery, aux, q, g, d, k,
@@ -516,8 +541,8 @@ def fused_cosine_topk(
     ``(vals, inds, ok)`` with the per-row certificate ``ok``; replaces
     ``fused_cosine_topk_pallas``. The gallery's dtype picks the variant:
 
-    - float32: the raw gallery (optionally its ``gallery_norms``), true
-      f32 scores;
+    - float32: the raw gallery (optionally its ``gallery_norms``), f32
+      scores (3xTF32 on the card, module docstring);
     - bfloat16: the pre-normalized gallery; q̂ is cast to bf16 here;
     - int8: codes of the normalized gallery with ``gallery_scale`` (G, 1);
       q̂ is quantized by :func:`quantize_rows_int8`'s arithmetic (on the
@@ -526,14 +551,16 @@ def fused_cosine_topk(
     CUDA tensors launch the matching kernels of ``csrc/fused_topk.cu``
     (geometry ``FUSED_BINS`` x ``FUSED_T_DEPTH``, :func:`fused_splits`
     gallery splits) in one call of their C entry point, into one
-    workspace, or raise. Each streams the gallery once per 64 queries, so
-    at Q <= 64 it is bound by the gallery's bytes (bf16 and int8; f32 by
-    its SIMT product): bf16 and int8 keep 40 KB of gallery in flight per SM
-    (TMA into a ring, tensor-core products, the insertion of a tile spread
-    over the next tile's copies), then select each split's top-k and merge
-    the splits. CPU tensors run :func:`fused_cosine_topk_reference` at the
-    same geometry with one split. Rows with ``ok == 0`` must be re-ranked
-    densely: :func:`cosine_topk` does that."""
+    workspace, or raise. Each is one score stage of one tensor-core
+    kernel and streams the gallery once per 64 queries, so at Q <= 64 it
+    is bound by the gallery's bytes: it keeps 40 KB of gallery in flight
+    per SM (TMA into a ring; f32: each gallery element divided by its
+    row's norm once per block, then 3xTF32 products; the insertion of a
+    tile spread over the next tile's copies), then selects each split's
+    top-k and merges the splits. CPU tensors run
+    :func:`fused_cosine_topk_reference` at the same geometry with one
+    split. Rows with ``ok == 0`` must be re-ranked densely:
+    :func:`cosine_topk` does that."""
     if gallery.dtype not in _VARIANTS:
         raise ValueError(f"unsupported gallery dtype {gallery.dtype}")
     if gallery_norms is not None and gallery.dtype != torch.float32:
@@ -567,8 +594,9 @@ def _fused(queries_hat, gallery, k, gallery_norms, gallery_scale):
 def cosine_scores_reference(queries_hat: torch.Tensor,
                             gallery: torch.Tensor) -> torch.Tensor:
     """Plain version of the scores kernel: ``q̂ @ (g / max(|g|, eps))ᵀ`` in
-    f32, the eps clamp of :func:`l2_normalize` (TF32 is off on the card,
-    ``_device.set_float32_precision``)."""
+    true f32, the eps clamp of :func:`l2_normalize` (TF32 is off on the
+    card, ``_device.set_float32_precision``); the kernel computes the same
+    function in 3xTF32."""
     if queries_hat.device.type == "cuda":
         PLAIN_ON_CARD["fused_cosine_scores"] += 1
     return torch.matmul(queries_hat.float(),
@@ -581,10 +609,11 @@ def fused_cosine_scores(queries_hat: torch.Tensor, gallery: torch.Tensor,
     cosine scores, the gallery rows normalized inside the kernel; replaces
     ``pallas_cosine_scores``. CUDA tensors launch ``cosine_scores_f32`` of
     ``csrc/fused_topk.cu`` or raise; CPU tensors run
-    :func:`cosine_scores_reference`. Both ``precision`` settings are true
-    f32 (module docstring). The kernel sums each row's squares in its own
-    order, so its scores may differ from the plain version's by an ulp on
-    float data (they are equal where every partial sum is exact)."""
+    :func:`cosine_scores_reference`. Both ``precision`` settings run the
+    kernel's 3xTF32 product (module docstring); it sums each row's squares
+    and the products in its own order, so its scores differ from the plain
+    version's by a few 1e-7 on float data (they are equal where every
+    operand is exact in TF32 and every partial sum exact)."""
     _dot_precision(precision)
     q, d = queries_hat.shape
     g = gallery.shape[0]
@@ -611,8 +640,8 @@ def cosine_scores(queries: torch.Tensor, gallery: torch.Tensor, *,
     """Full (Q, G) cosine matrix of raw queries and gallery (for small
     galleries / in-batch metrics). ``use_pallas`` scores through
     :func:`fused_cosine_scores` (the scores kernel on the card); otherwise
-    one f32 matmul of the normalized rows. Both ``precision`` settings are
-    true f32 here."""
+    one f32 matmul of the normalized rows (true f32). Both ``precision``
+    settings compute the same arithmetic here (module docstring)."""
     q_hat = l2_normalize(queries)
     if use_pallas:
         return fused_cosine_scores(q_hat, gallery.float(),
@@ -723,8 +752,9 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
       with ``gallery_scale`` (G, 1).
     - ``gallery_norms``: build-time row norms of a float32 gallery in
       float32 mode.
-    - ``precision``: 'default' and 'highest' are both true f32 here;
-      'highest' is refused for bf16/int8.
+    - ``precision``: 'default' and 'highest' compute the same f32
+      arithmetic here (true f32 on the dense path, 3xTF32 in the
+      kernels); 'highest' is refused for bf16/int8.
     - ``use_pallas``: the dense path scores each query block with the
       scores kernel (:func:`fused_cosine_scores`), which normalizes the
       raw f32 gallery itself; the fused top-k is then never taken by

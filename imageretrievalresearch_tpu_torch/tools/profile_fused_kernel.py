@@ -8,17 +8,17 @@ Counterpart of the JAX package's ``tools/profile_fused_kernel.py``, at its
 shapes (G = 100,000, D = 1536, Q = 2048, k = 150). Times are CUDA events
 around back-to-back launches with one synchronise (``pipelined_ms``).
 
-1. The ablation ladder of the split kernels (``csrc/fused_topk.cu``, the
-   phase flag of ``fused_topk_split_kernel`` for f32 and of
-   ``fused_topk_tc_kernel`` for bf16 and int8), each rung at its
-   production kernel's geometry and shared memory:
+1. The ablation ladder of the tensor-core split kernel
+   (``csrc/fused_topk.cu``, the phase flag of ``fused_topk_tc_kernel``,
+   in its f32, bf16 and int8 score stages), each rung at the production
+   kernel's geometry and shared memory:
 
-   - ``stream_only``: the production kernel's global loads and staging
-     (f32: words staged through registers; bf16 and int8: TMA copies into
-     the ring), every loaded word folded into per-row sums;
+   - ``stream_only``: the production kernel's TMA copies into the ring
+     (or its producer warp's masked loads), every loaded word (and, f32,
+     every norm) folded into per-row sums;
    - ``matmul_only``: + the division by the norms (f32) or the rescale
-     (int8) and the product (f32: SIMT; bf16 and int8: tensor cores);
-     each split's max score per query row;
+     (int8) and the tensor-core product (f32: 3xTF32); each split's max
+     score per query row;
    - ``insert_only``: + the insertion chain; the first k buffer lanes,
      with no extraction and no merge;
    - ``full``: the production kernel (split + merge,
@@ -160,20 +160,21 @@ def stream_only_rtol(g: int, d: int, splits: int,
                      dtype: torch.dtype = torch.float32) -> float:
     """Bound on |kernel - exact| of ``stream_only`` as a share of the same
     sum of absolute values: the kernel's longest chain of f32 additions
-    times 2⁻²⁴. f32: one lane adds a q word and a gallery word per step of
-    32 words, per tile; a 32-lane butterfly; the norms' sum. bf16: a
-    thread adds, per ring stage of 64 words, the tree sums of its 8-word
-    chunks of q and of the gallery row (4 levels) to its row's sum; an
-    8-lane butterfly. int8: 0, the sums are exact integers (rounded once
-    to f32, as the reference rounds)."""
+    times 2⁻²⁴. f32: a converter thread owns half of a tile row's 16-byte
+    chunks (4 of 8 per 32-word stage); per stage it adds the tree sum of
+    its chunks (each chunk's tree sum of q̂ plus that of the gallery: 5
+    levels) to its running sum, and once per tile the row's norm; the two
+    halves' sums are added at the end. bf16: a thread adds, per ring stage of 64 words,
+    the tree sums of its 8-word chunks of q and of the gallery row (4
+    levels) to its row's sum; an 8-lane butterfly. int8: 0, the sums are
+    exact integers (rounded once to f32, as the reference rounds)."""
     if dtype == torch.int8:
         return 0.0
     tiles = -(-g // R.FUSED_BINS)
     per_split = -(-tiles // splits)
     if dtype == torch.bfloat16:
         return (-(-d // 64) * per_split + 7) * 2.0 ** -24
-    steps = -(-d // 32)
-    return (2 * steps * per_split + 6) * 2.0 ** -24
+    return ((-(-d // 32) + 1) * per_split + 6) * 2.0 ** -24
 
 
 def _scores(q_hat, gallery, gallery_norms, gallery_scale):
@@ -259,8 +260,7 @@ def _rung(name: str, q_hat: torch.Tensor, gallery: torch.Tensor, k: int,
         gs = _cuda.check_operand("gallery_scale", gallery_scale.reshape(-1),
                                  torch.float32, (g,), dev)
         operands = (qq, gallery, qs, gs)
-    if mode != "float32":
-        R.check_tile_ordinals(g, n_split)
+    R.check_tile_ordinals(g, n_split)
     if name == "insert_only":
         out = (torch.empty((q, n_split, k), device=dev, dtype=torch.float32),
                torch.empty((q, n_split, k), device=dev, dtype=torch.int32))

@@ -53,14 +53,19 @@ def _launch_and_compare(q, g, k, device, mode="float32"):
 
 
 # G and k set the wrapper's split count (fused_splits): one split below one
-# tile; one split per tile (33, 79); capped by the merge kernel's shared
-# memory at k=384 (53) or by the SM count at k=150 (132 on an H100 SXM),
-# both with a ragged last round of tiles.
+# tile; one split per tile (33, 79); capped by the selection merge's
+# registers at k=384 (53) or by the SM count at k=150 (132 on an H100 SXM),
+# both with a ragged last round of tiles. Kernel 1 copies rows by TMA where
+# D % 4 == 0; D = 37 and 30 take the producer warp's masked loads. Q = 1,
+# 37, 64 and 130 (three query tiles).
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,g,d,k", [(40, 60, 32, 20), (33, 2100, 40, 20),
                                      (70, 5000, 96, 150),
                                      (64, 40000, 32, 384),
-                                     (64, 30000, 32, 150)])
+                                     (64, 30000, 32, 150),
+                                     (1, 2100, 40, 20), (37, 5000, 37, 150),
+                                     (64, 7777, 30, 256),
+                                     (130, 5000, 96, 150)])
 def test_fused_kernel_matches_plain_version(cuda_device, q, g, d, k):
     rng = np.random.default_rng(0)
     qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)
@@ -87,6 +92,62 @@ def test_fused_kernel_certificate_fails_on_bin_overflow(cuda_device):
                            method="dense")
     np.testing.assert_array_equal(inds.cpu().numpy(), di.cpu().numpy())
     np.testing.assert_array_equal(vals.cpu().numpy(), dv.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,g,d", [(64, 5000, 96), (130, 3001, 1536)])
+def test_f32_kernels_on_unaligned_operands(cuda_device, q, g, d):
+    """Kernels 1 and 4 on q̂ and a gallery that start 4 bytes past a 16-byte
+    boundary (contiguous views): TMA refuses them, so the producer warp's
+    masked loads run; ±1 rows, bitwise against the plain versions."""
+    rng = np.random.default_rng(15)
+    qh = T.l2_normalize(torch.from_numpy(_pm1_rows(rng, q, d)))
+
+    def shifted(a):
+        flat = torch.zeros(a.numel() + 1)
+        flat[1:] = a.reshape(-1)
+        out = flat.to(cuda_device)[1:].view(a.shape)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+
+    qd, gd = shifted(qh), shifted(torch.from_numpy(_pm1_rows(rng, g, d)))
+    k = 150
+    kv, ki, kok = T.fused_cosine_topk(qd, gd, k)
+    rv, ri, rok = T.fused_cosine_topk_reference(
+        qd, gd, k, splits=T.fused_splits(q, g, k, cuda_device))
+    got = T.fused_cosine_scores(qd, gd)
+    want = T.cosine_scores_reference(qd, gd)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    assert torch.equal(kok, rok)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [30000, 30001])
+def test_f32_kernels_within_1e6_of_f64(cuda_device, g):
+    """Seeded unit rows at D = 1536: kernel 1's values and kernel 4's scores
+    within 1e-6 of an f64 matmul (3xTF32 keeps ~21-22 bits a product; a
+    single TF32 pass, or 3xTF32 without its cross terms, errs by ~1e-5
+    here), and so is the plain true-f32 version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    d, k = 1536, 150
+    gal = torch.randn((g, d), generator=gen, device=cuda_device)
+    q64 = T.l2_normalize(torch.randn((130, d), generator=gen,
+                                     device=cuda_device))
+    g64 = gal.double() / torch.clamp(
+        torch.linalg.vector_norm(gal.double(), dim=1, keepdim=True),
+        min=T.COSINE_SIM_EPS)
+    exact = q64.double() @ g64.t()
+    for q in (64, 130):
+        qh = q64[:q].contiguous()
+        scores = T.fused_cosine_scores(qh, gal)
+        assert (scores.double() - exact[:q]).abs().max().item() <= 1e-6
+        plain = T.cosine_scores_reference(qh, gal)
+        assert (plain.double() - exact[:q]).abs().max().item() <= 1e-6
+        vals, inds, _ = T.fused_cosine_topk(qh, gal, k)
+        at = torch.gather(exact[:q], 1, inds.long())
+        assert (vals.double() - at).abs().max().item() <= 1e-6
 
 
 # the f32 cases' shapes and split counts, for the bf16 and int8 kernels;
@@ -122,7 +183,7 @@ def test_int8_kernel_bitwise_on_float_data(cuda_device, d):
 # (rows of whole 16-byte chunks; 1000 is not a multiple of the 128-code
 # stage, so its last stage is zero-filled), D = 37 and 30 take the
 # producer warp's masked loads; G off the 64-row tile; k = 150 and
-# int8_rerank's shortlist 256 (79 splits).
+# int8_rerank's shortlist 256 (80 splits).
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,g,k", [(1536, 20001, 150), (1000, 30001, 256),
                                    (37, 5001, 150), (30, 7777, 256)])
@@ -231,15 +292,21 @@ def test_bf16_kernel_float_data_differs_only_at_near_ties(cuda_device, d):
 
 
 # ---------------------------------------------------------------------------
-# The scores kernel (kernel 4), the ladder of the split kernel and the
-# stream probe (csrc/fused_topk.cu, csrc/stream_probe.cu) against their
-# plain versions. Shapes ragged on every axis: Q, G not multiples of the
-# 64-row tiles, D not a multiple of the 32-word staging step.
+# The scores kernel (kernel 4), the ladder of the tensor-core kernel and
+# the stream probe (csrc/fused_topk.cu, csrc/stream_probe.cu) against
+# their plain versions. Shapes ragged on every axis: Q, G not multiples of
+# the blocks' rows, D not a multiple of the 32-word ring stage.
 # ---------------------------------------------------------------------------
 
+# Kernel 4 takes blocks of 64 query rows at Q <= 64, of 128 above; Q =
+# 512 is the use_pallas path's query block; G = 70, 1001 and 3001 are not
+# multiples of 4 (no 16-byte stores) nor of the 128-row tile; D = 17 is not
+# a multiple of 4 (masked loads).
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,g,d", [(37, 1001, 1000), (64, 2100, 96),
-                                   (130, 70, 17), (1, 1, 16)])
+                                   (130, 70, 17), (1, 1, 16),
+                                   (512, 3000, 1536), (200, 3001, 36),
+                                   (65, 129, 1536)])
 def test_scores_kernel_matches_plain_version(cuda_device, q, g, d):
     rng = np.random.default_rng(3)
     # ±1 rows: every norm and partial sum exact, so bitwise
@@ -253,7 +320,8 @@ def test_scores_kernel_matches_plain_version(cuda_device, q, g, d):
     torch.cuda.synchronize()
     assert got.shape == (q, g)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
-    # float rows: the norms summed in another order, within 1e-5
+    # float rows: the norms summed in another order, the product in
+    # 3xTF32, within 1e-5
     qh = T.l2_normalize(torch.randn((q, d), device=cuda_device))
     gd = torch.randn((g, d), device=cuda_device) * 3
     torch.testing.assert_close(T.fused_cosine_scores(qh, gd),
@@ -266,7 +334,8 @@ def test_scores_kernel_matches_plain_version(cuda_device, q, g, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("q,g,d,k", [(40, 60, 32, 20), (70, 5000, 96, 150),
-                                     (64, 30000, 37, 384)])
+                                     (64, 30000, 37, 384),
+                                     (130, 5000, 40, 150)])
 def test_ladder_rungs_match_plain_versions(cuda_device, mode, q, g, d, k):
     rng = np.random.default_rng(4)
     qa, ga = _pm1_rows(rng, q, d), _pm1_rows(rng, g, d)

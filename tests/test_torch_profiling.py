@@ -268,6 +268,78 @@ def test_ladder_bf16_stream_only_within_its_bound_in_kernel_order(rng):
     assert 0 < P.stream_only_rtol(100_000, 1536, 132, torch.bfloat16) < 1e-4
 
 
+def _tree4(w):                               # (..., 4) -> (...), f32
+    return (w[..., 0] + w[..., 1]) + (w[..., 2] + w[..., 3])
+
+
+def _f32_stream_kernel_order(qa, ga, na, n_split):
+    """The f32 stream_only rung (the F32 instance of the tensor-core kernel)
+    restated in numpy f32, in its order. Per split, per tile in index
+    order, per stage of 32 words (8 chunks of 4, chunk c of row r stored
+    at c ^ (r % 8)): the consumer thread of (row r, chunk c) adds the tree
+    sum of q̂'s chunk c; the converter thread of (row r, half h) adds, at
+    the tile's first stage and for h = 0, the row's norm, then per stage
+    the sum of the tree sums of the gallery chunks stored at 2h and 2h + 1.
+    The consumers fold by xor 1, 2, 4, the converters by xor 1, 2, and a
+    row's sum is q̂'s part + the gallery's. Words past D, Q and G are 0."""
+    q, d = qa.shape
+    g = ga.shape[0]
+    nk = -(-d // 32)
+    tiles = -(-g // BINS)
+    qp = np.zeros((BINS, nk * 32), np.float32)
+    qp[:q, :d] = qa
+    gp = np.zeros((tiles * BINS, nk * 32), np.float32)
+    gp[:g, :d] = ga
+    norms = np.zeros(tiles * BINS, np.float32)
+    norms[:g] = na
+    rows = np.arange(BINS)
+    # the logical chunks the converter halves read, stage by stage
+    stored = (np.arange(8)[None, :] ^ (rows[:, None] & 7))  # (row, place)
+    out = np.zeros((q, n_split), np.float32)
+    for sp in range(n_split):
+        qs = np.zeros((BINS, 8), np.float32)
+        gs = np.zeros((BINS, 4), np.float32)
+        for t in _tiles_of(sp, n_split, g):
+            gs[:, 0] = gs[:, 0] + norms[t * BINS:(t + 1) * BINS]
+            for kc in range(nk):
+                cols = slice(kc * 32, kc * 32 + 32)
+                qs = qs + _tree4(qp[:, cols].reshape(BINS, 8, 4))
+                chunks = _tree4(gp[t * BINS:(t + 1) * BINS, cols].reshape(
+                    BINS, 8, 4))
+                by_place = np.take_along_axis(chunks, stored, axis=1)
+                gs = gs + (by_place[:, 0::2] + by_place[:, 1::2])
+        for off in (1, 2, 4):
+            qs = qs + qs[:, np.arange(8) ^ off]
+        for off in (1, 2):
+            gs = gs + gs[:, np.arange(4) ^ off]
+        out[:, sp] = (qs[:, 0] + gs[:, 0])[:q]
+    return out
+
+
+def test_ladder_f32_stream_only_within_its_bound_in_kernel_order(rng):
+    """The f32 stream_only rung's plain version (exact sums) against the
+    kernel's f32 order restated: bitwise on ±1 words, within
+    stream_only_rtol of the sum of |words| on float words (with norms), at
+    a D that is not a multiple of 32 and a ragged last tile."""
+    qh, g = _pm1_case(rng, q=10, g=700, d=40)
+    norms = torch.linalg.vector_norm(g, dim=1)
+    want = P.stream_only_reference(qh, g, 20, gallery_norms=norms,
+                                   splits=3).numpy()
+    got = _f32_stream_kernel_order(qh.numpy(), g.numpy(), norms.numpy(), 3)
+    np.testing.assert_array_equal(got, want)
+    qf = torch.from_numpy(rng.normal(size=(10, 100)).astype(np.float32))
+    gf = torch.from_numpy(rng.normal(size=(700, 100)).astype(np.float32))
+    nf = torch.linalg.vector_norm(gf, dim=1)
+    want = P.stream_only_reference(qf, gf, 20, gallery_norms=nf,
+                                   splits=3).numpy()
+    scale = P.stream_only_reference(qf.abs(), gf.abs(), 20,
+                                    gallery_norms=nf, splits=3).numpy()
+    got = _f32_stream_kernel_order(qf.numpy(), gf.numpy(), nf.numpy(), 3)
+    rtol = P.stream_only_rtol(700, 100, 3)
+    assert (np.abs(got - want) <= rtol * scale).all()
+    assert (np.abs(got - want) > 0).any()     # float data: not exact
+
+
 @pytest.mark.parametrize("splits,k", [(1, 150), (3, 384)])
 def test_ladder_bf16_insert_only_is_the_insertion_chain(rng, splits, k):
     """The bf16 rung's plain version is the chain run on the bf16 scores

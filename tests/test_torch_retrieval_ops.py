@@ -581,16 +581,27 @@ def test_tensor_core_kernel_constants_match_the_source():
         return int(re.search(rf"constexpr int {name} = ([0-9x]+)", src)[1],
                    0)
 
-    assert const("KC") * 2 == const("KC_I8") == 128
+    assert const("KC") * 2 == const("KC_I8") == const("KC_F32") * 4 == 128
     assert const("QT") == const("GT") == T.FUSED_BINS
     assert const("TD") == T.FUSED_T_DEPTH
     assert re.search(r"constexpr int MAX_ORDINALS = 1 << 16;", src)
     assert T.MAX_TILE_ORDINALS == 1 << 16
+    assert T.MERGE_MAX == const("MERGE_THREADS") * const("MERGE_PER")
     ring = const("STAGES") * 2 * const("QT") * 128
     buffers = const("TD") * const("QT") * const("GT") * 6
     assert buffers == 144 * 1024
     assert 1024 + ring + buffers + 2 * const("STAGES") * 8 <= 232448
     assert 1024 + ring + 2 * const("QT") * 128 + buffers > 232448  # 5 max
+    # the F32 instance (kernel 1): a stage is 32 words = 128 B of a row; the
+    # ring's bytes hold its plane buffers (q̂, ĝ's big and small parts) and
+    # its raw gallery ring; with their mbarriers and the 144 KB of buffers
+    # one block still fits an SM, its 288 + 32 NCONV threads too
+    tile = const("QT") * 128
+    planes = const("F32_PLANES") * 3 * tile
+    assert planes + const("F32_GSTAGES") * tile == ring
+    barriers = 2 * (const("F32_GSTAGES") + const("F32_PLANES")) * 8
+    assert 1024 + ring + buffers + barriers <= 232448
+    assert 288 + 32 * const("NCONV") <= 1024
 
 
 def test_fused_workspace_words():
@@ -606,3 +617,122 @@ def test_fused_workspace_words():
     w8 = T._work_words(q, d, k, s, True)
     assert w8 % 64 == 0 and w8 - words >= q + q * d // 4
     assert T._work_words(1, 37, 1, 1, True) == 64 * 4 + 64 + 64
+
+
+def _cvt_rna_tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 restated in numpy by value, not by bits: the f32
+    rounded to 11 significant bits (10 stored; spacing 2^(e - 10) for |x|
+    in [2^e, 2^(e + 1)), 2^-136 below 2^-126), to nearest with ties away
+    from zero, past the largest TF32 value to inf; inf and nan kept."""
+    x64 = np.where(np.isfinite(x), x, 0).astype(np.float64)
+    a = np.abs(x64)
+    e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    spacing = np.exp2(np.maximum(e, -126) - 10)
+    r = np.floor(a / spacing + 0.5) * spacing
+    with np.errstate(over="ignore"):
+        out = np.copysign(r, x64).astype(np.float32)
+    return np.where(np.isfinite(x), out, x)
+
+
+def test_tf32_round_matches_cvt_rna(rng):
+    """The port's restatement of the kernels' split (ops.retrieval
+    tf32_round) against _cvt_rna_tf32 on seeded values of every magnitude
+    and on edges: ±0, ties (the 13 dropped bits exactly 0x1000) that round
+    away, carries into the exponent, subnormals, the largest f32 (to inf),
+    inf and nan."""
+    one = np.float32(1.0)
+    edges = np.array([
+        0.0, -0.0, 1.0, -1.0, 1 + 2.0 ** -11, -(1 + 2.0 ** -11),
+        1 + 2.0 ** -11 - 2.0 ** -23, 2 - 2.0 ** -11, 2 - 2.0 ** -12,
+        0.0625, -0.25, 2.0 ** -126, 2.0 ** -140, 2.0 ** -149,
+        3 * 2.0 ** -137, np.finfo(np.float32).max,
+        (2 - 2.0 ** -10) * 2.0 ** 127, np.inf, -np.inf], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges[2:10], one)])
+    vals = (rng.normal(size=20000) * np.exp2(rng.integers(-60, 60, 20000))
+            ).astype(np.float32)
+    for x in (edges, vals):
+        got = T.tf32_round(torch.from_numpy(x)).numpy()
+        want = _cvt_rna_tf32(x)
+        np.testing.assert_array_equal(got.view(np.uint32) & 0x1FFF, 0)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+    assert T.tf32_round(torch.tensor([1 + 2.0 ** -11])).item() == 1 + 2.0 ** -10
+    assert T.tf32_round(torch.tensor([float("nan")])).isnan().all()
+
+
+def test_split_3xtf32_exact_on_the_smoke_scales_and_bounded(rng):
+    """big + small is x exactly where x has at most 11 significant bits
+    (the ±1 rows the kernels are checked bitwise on: ±1/16 and ±1/4), with
+    small = 0; on seeded f32 values it is within 2^-21·|x| of x."""
+    for scale in (1 / 16, 1 / 4):
+        x = torch.tensor([scale, -scale, 0.0])
+        big, small = T.split_3xtf32(x)
+        assert torch.equal(big, x) and not small.any()
+    x = torch.from_numpy((rng.normal(size=50000)
+                          * np.exp2(rng.integers(-30, 30, 50000))
+                          ).astype(np.float32))
+    big, small = T.split_3xtf32(x)
+    assert torch.equal(big, T.tf32_round(big))
+    assert torch.equal(small, T.tf32_round(small))
+    err = (big.double() + small.double() - x.double()).abs()
+    assert (err <= 2.0 ** -21 * x.double().abs()).all()
+
+
+def test_3xtf32_scores_match_jax_highest(rng):
+    """The kernels' 3xTF32 arithmetic, emulated (q̂ and ĝ split, small·big
+    + big·small + big·big with exact products), on seeded unit rows at D =
+    1536 agrees with JAX's dense_scores(..., 'float32', precision='highest')
+    on the CPU within 1e-6; big·big alone (one TF32 pass) does not."""
+    q = rng.normal(size=(64, 1536)).astype(np.float32)
+    g = rng.normal(size=(1000, 1536)).astype(np.float32)
+    want = np.asarray(J.dense_scores(J.l2_normalize(jnp.asarray(q)),
+                                     jnp.asarray(g), "float32",
+                                     precision="highest"))
+    qb, qs = T.split_3xtf32(T.l2_normalize(_t(q)))
+    gb, gs = T.split_3xtf32(T._normalized_gallery(_t(g), None))
+
+    def dot(a, b):
+        return (a.double() @ b.double().t()).numpy()
+
+    three = dot(qs, gb) + dot(qb, gs) + dot(qb, gb)
+    assert np.abs(three - want).max() <= 1e-6
+    assert np.abs(dot(qb, gb) - want).max() > 1e-6
+
+
+def test_fused_splits_capped_by_the_selection_merge(monkeypatch):
+    """One split per SM, capped so a row's nsplit * k candidates fit the
+    selection merge's registers (MERGE_MAX): on an H100 SXM (132 SMs) 132
+    at the main path's k = 150, 80 at int8_rerank's shortlist 256, 53 at
+    k = 384; never more splits than the gallery has tiles."""
+    monkeypatch.setattr(T._cuda, "sm_count", lambda device: 132)
+    dev = torch.device("cpu")
+    assert T.fused_splits(64, 100_000, 150, dev) == 132
+    assert T.fused_splits(64, 100_000, 256, dev) == 80
+    assert T.fused_splits(64, 100_000, 384, dev) == 53
+    assert T.fused_splits(64, 1000, 150, dev) == 16
+    for k in (1, 150, 256, 384):
+        assert T.fused_splits(64, 10 ** 7, k, dev) * k <= T.MERGE_MAX
+
+
+def test_f32_kernel_checks_tile_ordinals_before_it_launches(monkeypatch):
+    """The f32 wrapper (kernel 1 is a score stage of the tensor-core
+    kernel, with its 16-bit tile ordinals) raises past 65,536 gallery tiles
+    per split before it computes norms, allocates or launches; at the limit
+    it goes on to the launch. Run on CPU tensors with one split and the
+    launch replaced."""
+    monkeypatch.setattr(T._cuda, "sm_count", lambda device: 1)
+
+    def launch(*args):
+        raise RuntimeError("launched")
+
+    monkeypatch.setattr(T._cuda, "launch", launch)
+    qh = torch.ones((64, 1))
+    before = dict(T.KERNEL_LAUNCHES)
+    limit = T.FUSED_BINS * T.MAX_TILE_ORDINALS
+    with pytest.raises(ValueError, match="16-bit tile ordinals"):
+        T._fused_cosine_topk_cuda(qh, torch.zeros((limit + 1, 1)), 150,
+                                  None, None)
+    with pytest.raises(RuntimeError, match="launched"):
+        T._fused_cosine_topk_cuda(qh, torch.zeros((limit, 1)), 150, None,
+                                  None)
+    assert T.KERNEL_LAUNCHES == before
