@@ -44,14 +44,22 @@ Phases (any failure exits non-zero, with no result line):
    neg; 64 x 256 x 256 x 3 uint8 each) through
    ``build_triplet_transform`` with three ``train_autoaugment(224)``
    specs and a seeded generator, launch counts set to 0 just before and
-   read just after (histogram 6, LUT 9, cubic row shift 3, row shift 18,
-   worked out from ``_STAGE_OPS``; no plain version on the card), the
+   read just after (histogram 6, LUT 9, cubic row shift 3, row shift 18:
+   12 on rows and 6 on columns, counted by C entry as well; worked out
+   from ``_STAGE_OPS``; no plain version on the card), the
    augmented queries through the b3a embed. The transform equals its
    pieces, and the card's policy the CPU table's on every image no rotate
    touched; the 3-shear rotate's agreement with the exact gather rotate.
    Each image kernel against its plain version, bitwise, at the path's
-   shapes and at ragged ones; kernel, plain and library times and bounds;
-   the transform's time, and its device time by kernel.
+   shapes and at ragged ones (the integer shift in both forms: rows, and
+   the columns of the rotate's Sy pass, a row of its own in the kernels
+   line with its C entry's launches); kernel, plain and library times and
+   bounds, each kernel's device time per launch (``device_ms``,
+   torch.profiler; on operands the L2 keeps between calls) and again on
+   operands read from HBM (``device_hbm_ms``, the time the byte bound
+   describes), the host's µs per call of each wrapper with its steps
+   (``host_us``; ``tools/image_kernel_times``); the transform's time, and
+   its device time by kernel.
 6. T3 training with the depthwise kernels (IRT_FORCE_PALLAS_DW=1).
    Kernels 9 (forward and dx) and 10 against their plain versions at the
    26 depthwise layer shapes of b3a at 224 px (N = 8) and at ragged ones,
@@ -118,7 +126,6 @@ import contextlib
 import ctypes
 import json
 import os
-import statistics
 import sys
 import tempfile
 import time
@@ -153,14 +160,27 @@ from imageretrievalresearch_tpu_torch.retrieval import (  # noqa: E402
 from imageretrievalresearch_tpu_torch.tools import (  # noqa: E402
     profile_fused_kernel as PF,
 )
+from imageretrievalresearch_tpu_torch.tools.image_kernel_times import (  # noqa
+    AUG_BATCH,
+    AUG_SRC,
+    ENTRIES,
+    SEED,
+    SIZE,
+    SMAX_ROTATE,
+    SMAX_SHEAR,
+    device_ms,
+    event_ms,
+    from_hbm,
+    host_steps,
+    host_us,
+)
 from imageretrievalresearch_tpu_torch.train import (  # noqa: E402
     Trainer,
     build_train_step,
 )
 from imageretrievalresearch_tpu_torch.utils.profiling import trace  # noqa: E402
 
-SEED = 0
-G_TOTAL, N_IMAGES, DIM, K, SIZE = 100_000, 512, 1536, 150, 224
+G_TOTAL, N_IMAGES, DIM, K = 100_000, 512, 1536, 150
 SHORTLIST = 256   # int8_rerank's stage-1 depth on the main path
 DEV = torch.device("cuda")
 # published dense peaks of the H100 (NVIDIA data sheets, sparsity left
@@ -181,16 +201,13 @@ KERNELS = {"float32": ("fused_cosine_topk", "ops/retrieval.py:259"),
 IMAGE_KERNELS = {"plane_histogram": "ops/pallas_image.py:28",
                  "lut_apply": "ops/pallas_image.py:233",
                  "row_shift_cubic": "ops/pallas_image.py:150",
-                 "row_shift": "ops/pallas_image.py:76"}
-# the AutoAugment phase: a triplet batch of three roles, each 64 seeded
-# 256 px uint8 images, resized to SIZE
-AUG_BATCH, AUG_SRC, AUG_ROLES = 64, 256, 3
-# the TPU kernels' static shift bounds at SIZE (JAX's batched_shear_x and
-# batched_rotate): shear int(0.3 * H) + 1, rotate passes
-# int(tan(15°) * H/2) + 1 and int(sin(30°) * W/2) + 1
-SMAX_SHEAR = int(0.3 * SIZE) + 1
-SMAX_ROTATE = (int(np.tan(np.deg2rad(30.0) / 2.0) * (SIZE / 2.0)) + 1,
-               int(np.sin(np.deg2rad(30.0)) * (SIZE / 2.0)) + 1)
+                 "row_shift": "ops/pallas_image.py:76",
+                 "column_shift": "ops/pallas_image.py:76"}
+# the AutoAugment phase: a triplet batch of three roles, each AUG_BATCH
+# seeded AUG_SRC px uint8 images, resized to SIZE (these, SEED and the
+# shift bounds SMAX_* come from tools/image_kernel_times, which times the
+# same transform)
+AUG_ROLES = 3
 # f32 operations per output pixel of the cubic row shift: 4 taps x (the
 # weight polynomial 6, the weighted sum 2, the weight sum 1) + the division
 CUBIC_OPS_PER_PIXEL = 37
@@ -249,22 +266,6 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def event_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of ``reps`` single-call CUDA-event times, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def images(gen: torch.Generator, n: int) -> torch.Tensor:
@@ -331,20 +332,6 @@ def f32_bounds(nbytes: float, ops: float, peaks: dict) -> dict:
             "f32_fma_bound_by": fby}
 
 
-def host_us(fn, reps: int = 100) -> float:
-    """Host-clock µs per call of ``fn`` (what the host spends issuing it):
-    one warm-up call, then ``reps`` calls, then one synchronise outside
-    the clock."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
 def host_dispatch(mode: str, q_hat, g_in, kw) -> dict:
     """The host's time (µs per call) in each step of the fused top-k
     wrapper (``ops.retrieval._fused_cosine_topk_cuda``, over
@@ -400,11 +387,11 @@ def host_dispatch(mode: str, q_hat, g_in, kw) -> dict:
         "allocation: one workspace + views": host_us(workspace),
         "fused_splits (SM count cached)":
             host_us(lambda: R.fused_splits(q, g, K, dev)),
-        "stream lookup":
-            host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "stream lookup (raw handle)":
+            host_us(lambda: _cuda.stream_handle(_cuda.device_index(dev))),
         "ctypes call (the C entry: maps, launches)":
-            host_us(lambda: fn(*args, torch.cuda.current_stream(
-                dev).cuda_stream)),
+            host_us(lambda: fn(*args, _cuda.stream_handle(
+                _cuda.device_index(dev)))),
         "whole call": host_us(lambda: R.fused_cosine_topk(q_hat, g_in, K,
                                                            **kw)),
     })
@@ -415,6 +402,8 @@ def host_dispatch(mode: str, q_hat, g_in, kw) -> dict:
             lambda: torch.cuda.get_device_properties(
                 dev).multi_processor_count),
         "device guard (torch.cuda.device context)": host_us(device_guard),
+        "stream lookup (torch.cuda.current_stream)": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
         "ctypes.c_void_p per tensor argument (10)": host_us(
             lambda: [ctypes.c_void_p(t.data_ptr()) for t in tensors]),
     }
@@ -456,11 +445,18 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     out, ms = sync_time(lambda: transform(
         batch, torch.Generator(device=DEV).manual_seed(SEED)))
     launches = dict(IK.KERNEL_LAUNCHES)
+    by_entry = dict(IK.ENTRY_LAUNCHES)
     plain = dict(IK.PLAIN_ON_CARD)
     log(f"AutoAugment triplet transform (3 x {AUG_BATCH} x {AUG_SRC} px -> "
-        f"{SIZE}, first call): {ms:.1f} ms; launches {launches}")
+        f"{SIZE}, first call): {ms:.1f} ms; launches {launches}, by C "
+        f"entry {by_entry}")
     assert launches == {k: AUG_ROLES * n for k, n in per_call.items()}, (
         launches)
+    # the integer shift's two forms share the row_shift counter: a rotate
+    # runs two passes on rows and one on columns
+    assert by_entry == {ENTRIES[k]: launches[k] for k in launches} | {
+        "image_row_shift": 2 * launches["row_shift"] // 3,
+        "image_column_shift": launches["row_shift"] // 3}, by_entry
     assert not any(plain.values()), f"plain versions ran on the card: {plain}"
     for x in (out["qry"], *out["pos"], *out["neg"]):
         assert x.shape == (AUG_BATCH, SIZE, SIZE, 3), x.shape
@@ -507,6 +503,7 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     n = rows.shape[0]
     ragged = u8(5, 37, 41)[..., 0].contiguous()             # 5 planes
     ragged_rows = u8(1, 4097, 223)[0, ..., 0].contiguous()
+    p, h, w = planes.shape
     lut = A._equalize_lut(IK.plane_histogram_reference(planes))
 
     def src0(m, smax):
@@ -515,6 +512,10 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     def shifts(m, smax):
         return torch.randint(-smax, smax + 1, (m,), generator=gen,
                              device=DEV, dtype=torch.int32)
+
+    def column_shifts(planes_, smax):   # (P, W), one per column
+        return shifts(planes_.shape[0] * planes_.shape[2], smax).reshape(
+            planes_.shape[0], planes_.shape[2])
 
     errs = {}
     for name, args in (
@@ -525,7 +526,11 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
                                  (ragged_rows, src0(4097, SMAX_SHEAR))]),
             ("row_shift", [(rows, shifts(n, SMAX_ROTATE[0])),
                            (rows, shifts(n, SMAX_ROTATE[1])),
-                           (ragged_rows, shifts(4097, SMAX_ROTATE[1]))])):
+                           (ragged_rows, shifts(4097, SMAX_ROTATE[1]))]),
+            # the Sy pass's shape, and shifts past the 37 rows
+            ("column_shift", [(planes, column_shifts(planes,
+                                                     SMAX_ROTATE[1])),
+                              (ragged, column_shifts(ragged, 40))])):
         kernel = getattr(IK, name)
         reference = getattr(IK, f"{name}_reference")
         errs[name] = 0.0
@@ -540,8 +545,8 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
             f"{', '.join(str(tuple(a[0].shape)) for a in args)}")
 
     # timings at the path's shapes
-    p, h, w = planes.shape
     src_shear, s_rot = src0(n, SMAX_SHEAR), shifts(n, SMAX_ROTATE[1])
+    s_col = column_shifts(planes, SMAX_ROTATE[1])
     flat = planes.reshape(p, -1).long()
     hist_index = (flat + 256 * torch.arange(p, device=DEV)[:, None]).reshape(-1)
     timed = {
@@ -555,6 +560,8 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
         "row_shift_cubic": ((rows, src_shear), 2 * n * SIZE + 4 * n,
                             CUBIC_OPS_PER_PIXEL * n * SIZE, None, None),
         "row_shift": ((rows, s_rot), 2 * n * SIZE + 4 * n, 0, None, None),
+        "column_shift": ((planes, s_col), 2 * p * h * w + 4 * p * w, 0, None,
+                         None),
     }
     entries = []
     for name, (a, nbytes, ops, library, library_name) in timed.items():
@@ -566,18 +573,24 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
         library_ms = event_ms(library, reps=50) if library else None
         lib_b_ms = PF.pipelined_ms(library) if library else None
         bound_ms, bound_by = bound(nbytes, ops, peaks)
+        _, dev_ms = device_ms(lambda: kernel(*a), name)
+        _, hbm_ms = device_ms(from_hbm(kernel, a), name)
+        steps = host_steps(name, a)
         log(f"{name} at {tuple(a[0].shape)}: {ms:.4f} ms, back-to-back "
-            f"{b_ms:.4f} (bound {bound_ms:.4f} ms, {bound_by}); plain "
-            f"{plain_ms:.4f} ms; "
+            f"{b_ms:.4f}, device {dev_ms:.4f} per launch, {hbm_ms:.4f} with "
+            f"its operands read from HBM (bound {bound_ms:.4f} ms, "
+            f"{bound_by}); plain {plain_ms:.4f} ms; "
             + (f"library {library_ms:.4f} ms, back-to-back {lib_b_ms:.4f} "
                f"({library_name})" if library
                else "library: none (no single PyTorch call computes it)"))
+        log(f"  host µs per call: " + "; ".join(f"{k} {v:.1f}"
+                                                 for k, v in steps.items()))
         entries.append({
             "name": name,
             "route": "cuda",
             "source": "imageretrievalresearch_tpu_torch/csrc/image_ops.cu",
             "replaces": f"imageretrievalresearch_tpu/{IMAGE_KERNELS[name]}",
-            "launches": launches[name],
+            "launches": by_entry[ENTRIES[name]],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -587,6 +600,9 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
             "ms_by": "single call",
             "burst_ms": b_ms,
             "library_burst_ms": lib_b_ms,
+            "device_ms": dev_ms,
+            "device_hbm_ms": hbm_ms,
+            "host_us": steps["whole call"],
         })
 
     # the whole triplet transform, warm, and its device time by kernel
@@ -606,7 +622,7 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
         "ms device busy; top kernels by device time:")
     events.sort(key=lambda e: -e.self_device_time_total)
     ours = ("histogram_kernel", "lut_kernel", "row_shift_kernel",
-            "row_shift_cubic_kernel")
+            "row_shift_cubic_kernel", "column_shift_kernel")
     for e in events[:10] + [e for e in events[10:]
                             if any(k in e.key for k in ours)]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
@@ -969,7 +985,9 @@ def dx_kernels_only(shapes, gen) -> None:
     (no dilated copy, no flip): the device kernels of ``depthwise_grad_x``
     at each stride-2 layer, N = DW_COMPARE_N, in one profiled window that
     runs them twice (the profiler has missed launches at the start of its
-    window on the card)."""
+    window on the card, and once, with CUDA activity alone, the whole
+    window; host activity is recorded beside it, as every other profiled
+    window here does)."""
     calls = []
     for c, h, w, k, s in shapes:
         if s == 2:
@@ -978,6 +996,7 @@ def dx_kernels_only(shapes, gen) -> None:
             calls.append((g, DW._taps(wt), s, h, w))
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             for args in calls:

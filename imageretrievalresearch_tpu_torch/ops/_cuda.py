@@ -57,6 +57,7 @@ SIGNATURES = {
     "image_ops": {"image_histogram": [_P, _I, _I, _P, _P],
                   "image_lut_apply": [_P, _P, _I, _I, _P, _P],
                   "image_row_shift": [_P, _P, _I, _I, _I, _P, _P],
+                  "image_column_shift": [_P, _P, _I, _I, _I, _I, _P, _P],
                   "image_row_shift_cubic": [_P, _P, _I, _I, _I, _P, _P]},
     # tensors, then the geometry, the plan (band height, channels, the
     # split), the bf16 flag, the stream
@@ -173,6 +174,13 @@ def check_operand(name: str, t: torch.Tensor,
 _ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
+def stream_handle(index: int) -> int:
+    """The handle (cudaStream_t as an int) of card ``index``'s current
+    stream: torch's own lookup, without the Stream object that
+    ``torch.cuda.current_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call entry point ``entry`` of library ``name`` on the current stream
     of ``device``, tensors passed as pointers, ints as ints and None as a
@@ -185,10 +193,10 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     index = device_index(device)
     if torch.cuda.current_device() == index:
-        err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
+        err = fn(*ptrs, stream_handle(index))
     else:
         with torch.cuda.device(index):
-            err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
+            err = fn(*ptrs, stream_handle(index))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"({error_string(err, name)})")

@@ -30,6 +30,7 @@ import torch
 
 from imageretrievalresearch_tpu_torch.ops.image_kernels import (
     FILL,
+    column_shift,
     cubic_weight,
     lut_apply,
     plane_histogram,
@@ -409,21 +410,38 @@ def _nearest_row_shift(planes: torch.Tensor, v: torch.Tensor
     return row_shift(rows, s_rows, fill=FILL).reshape(b, c, h, w)
 
 
+def _nearest_column_shift(planes: torch.Tensor, v: torch.Tensor
+                          ) -> torch.Tensor:
+    """(B, C, H, W) uint8 + (B,) slopes -> per-column NEAREST shift about
+    the horizontal center: out(y, x) = in(y + s(x), x), s = ⌊v·(x+½−W/2) +
+    ½⌋, through the column form of the integer shift
+    (:func:`image_kernels.column_shift`); :func:`_nearest_row_shift` of the
+    transposed planes, transposed back."""
+    b, c, h, w = planes.shape
+    xs = (torch.arange(w, dtype=torch.float32, device=planes.device) + 0.5
+          - w / 2.0)
+    s_bx = torch.floor(v[:, None] * xs[None, :] + 0.5).to(torch.int32)
+    s_planes = s_bx[:, None, :].expand(b, c, w).reshape(b * c, w).contiguous()
+    return column_shift(planes.reshape(b * c, h, w).contiguous(), s_planes,
+                        fill=FILL).reshape(b, c, h, w)
+
+
 def batched_rotate(images: torch.Tensor, degrees: torch.Tensor
                    ) -> torch.Tensor:
     """(B, H, W, 3) uint8 + (B,) signed degrees -> rotated batch, by the
     3-shear decomposition of PIL NEAREST rotate,
     ``R(θ) = Sx(tan θ/2) · Sy(−sin θ) · Sx(tan θ/2)``, each pass one
-    integer row shift (the Sy pass on the transposed planes). Per-pass
-    rounding drifts ≤ 1 px from the exact gather (:func:`op_rotate`):
-    JAX documents 60-80% of pixels identical."""
+    integer shift of one contiguous copy of the planes: Sx on rows, Sy on
+    columns (JAX runs Sy as a row shift of the transposed planes; the
+    numbers are the same). Per-pass rounding drifts ≤ 1 px from the exact
+    gather (:func:`op_rotate`): JAX documents 60-80% of pixels identical."""
     theta = -_deg2rad(degrees)
     a = torch.tan(theta / 2.0)
     bb = -torch.sin(theta)
-    planes = images.permute(0, 3, 1, 2)                   # (B, 3, H, W)
+    planes = images.permute(0, 3, 1, 2).contiguous()      # (B, 3, H, W)
     t1 = _nearest_row_shift(planes, a)
-    t2 = _nearest_row_shift(t1.transpose(2, 3), bb)
-    t3 = _nearest_row_shift(t2.transpose(2, 3), a)
+    t2 = _nearest_column_shift(t1, bb)
+    t3 = _nearest_row_shift(t2, a)
     return t3.permute(0, 2, 3, 1)
 
 

@@ -1,5 +1,6 @@
 """Image kernels of on-device AutoAugment: per-plane histogram, per-plane
-LUT apply, integer and cubic per-row shifts.
+LUT apply, the integer shift of rows or of columns, and the cubic per-row
+shift.
 
 Counterpart of ``imageretrievalresearch_tpu/ops/pallas_image.py``. Each
 function launches its hand-written CUDA kernel (``csrc/image_ops.cu``) for
@@ -10,7 +11,10 @@ comparisons use. The TPU kernels needed a static bound on the shifts
 
 All images are uint8. The plain versions count how often they ran on a
 CUDA tensor (``PLAIN_ON_CARD``), so a run can show that its main path
-went through the kernels only.
+went through the kernels only. The integer shift has two forms, of rows
+(:func:`row_shift`) and of the columns of planes (:func:`column_shift`,
+the rotate's Sy pass without a transposed copy); both replace
+``pallas_row_shift`` and count under ``row_shift``.
 """
 
 from __future__ import annotations
@@ -24,12 +28,17 @@ FILL = 128
 # launches of each hand-written kernel, counted where the wrapper launches it
 KERNEL_LAUNCHES = {"plane_histogram": 0, "lut_apply": 0,
                    "row_shift_cubic": 0, "row_shift": 0}
+# the same launches by C entry: the integer shift's two forms share the
+# ``row_shift`` counter above, and each has its own entry here
+ENTRY_LAUNCHES = {"image_histogram": 0, "image_lut_apply": 0,
+                  "image_row_shift_cubic": 0, "image_row_shift": 0,
+                  "image_column_shift": 0}
 # calls of each plain version on a CUDA tensor
 PLAIN_ON_CARD = dict.fromkeys(KERNEL_LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
-    for counts in (KERNEL_LAUNCHES, PLAIN_ON_CARD):
+    for counts in (KERNEL_LAUNCHES, ENTRY_LAUNCHES, PLAIN_ON_CARD):
         for name in counts:
             counts[name] = 0
 
@@ -88,6 +97,17 @@ def row_shift_reference(rows: torch.Tensor, shifts: torch.Tensor, *,
     return out.masked_fill((src < 0) | (src > w - 1), fill)
 
 
+def column_shift_reference(planes: torch.Tensor, shifts: torch.Tensor, *,
+                           fill: int = FILL) -> torch.Tensor:
+    """(P, H, W) uint8 + (P, W) int -> (P, H, W) uint8 with
+    ``out(p, y, x) = planes(p, y + shifts(p, x), x)``, ``fill`` outside
+    [0, H): :func:`row_shift_reference` on the transposed planes."""
+    p, h, w = planes.shape
+    rows = planes.transpose(1, 2).reshape(p * w, h)
+    out = row_shift_reference(rows, shifts.reshape(p * w), fill=fill)
+    return out.reshape(p, w, h).transpose(1, 2).contiguous()
+
+
 def row_shift_cubic_reference(rows: torch.Tensor, src0: torch.Tensor, *,
                               fill: int = FILL) -> torch.Tensor:
     """(N, W) uint8 + (N,) f32 source offsets -> (N, W) uint8: row n
@@ -125,6 +145,7 @@ def row_shift_cubic_reference(rows: torch.Tensor, src0: torch.Tensor, *,
 def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
     _cuda.launch("image_ops", entry, dev, *args)
     KERNEL_LAUNCHES[name] += 1
+    ENTRY_LAUNCHES[entry] += 1
 
 
 def plane_histogram(planes: torch.Tensor) -> torch.Tensor:
@@ -171,6 +192,25 @@ def row_shift(rows: torch.Tensor, shifts: torch.Tensor, *,
     out = torch.empty_like(rows)
     _launch("row_shift", "image_row_shift", dev, rows, shifts, n, w, fill,
             out)
+    return out
+
+
+def column_shift(planes: torch.Tensor, shifts: torch.Tensor, *,
+                 fill: int = FILL) -> torch.Tensor:
+    """Per-column integer shift of planes: (P, H, W) uint8 + (P, W) int32
+    -> (P, H, W) uint8, ``out(p, y, x) = planes(p, y + shifts(p, x), x)``,
+    ``fill`` outside [0, H); the transpose of :func:`row_shift`, one
+    ``row_shift`` launch. H is at most 49,152 on the card, as W is for
+    :func:`row_shift`."""
+    if _cuda.on_cpu(planes):
+        return column_shift_reference(planes, shifts, fill=fill)
+    p, h, w = planes.shape
+    dev = planes.device
+    _cuda.check_operand("planes", planes, torch.uint8, (p, h, w), dev)
+    _cuda.check_operand("shifts", shifts, torch.int32, (p, w), dev)
+    out = torch.empty_like(planes)
+    _launch("row_shift", "image_column_shift", dev, planes, shifts, p, h, w,
+            fill, out)
     return out
 
 

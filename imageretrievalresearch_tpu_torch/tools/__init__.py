@@ -1,1 +1,2 @@
-"""Measurement tools that run on the card (``profile_fused_kernel``)."""
+"""Measurement tools that run on the card (``profile_fused_kernel``,
+``image_kernel_times``)."""

@@ -381,12 +381,17 @@ def test_stream_probe_matches_plain_version(cuda_device, n, d, rows):
 # ---------------------------------------------------------------------------
 # AutoAugment kernels (csrc/image_ops.cu) against their plain versions:
 # bitwise. Shapes that are not multiples of the kernels' blocks (8,192
-# pixels of a plane; 8,192 bytes of rows), a single pixel, and rows wider
-# than one staged block.
+# pixels of a plane for the histogram, up to 16,384 for the LUT; 8,192
+# bytes of rows), planes of 1, 15, 16 and 50,176 pixels, a single pixel,
+# row widths around the 16-byte vectors (1, 15, 16, 17, 223, 224) and rows
+# wider than one staged chunk (9,000, and 49,152 past the default 48 KB of
+# shared memory).
 # ---------------------------------------------------------------------------
 
-_PLANE_SHAPES = [(13, 37, 41), (7, 300, 301), (1, 1, 1), (192, 64, 64)]
-_ROW_SHAPES = [(77, 41), (1, 1), (4097, 224), (3, 9000)]
+_PLANE_SHAPES = [(13, 37, 41), (7, 300, 301), (1, 1, 1), (192, 64, 64),
+                 (3, 1, 15), (3, 4, 4), (2, 224, 224)]
+_ROW_SHAPES = [(77, 41), (1, 1), (4097, 224), (3, 9000), (5, 15), (40, 16),
+               (9, 17), (33, 223), (2, 49152)]
 
 
 def _edge_planes(rng, shape):
@@ -427,9 +432,13 @@ def test_row_shift_kernels_match_plain_version(cuda_device, n, w):
     smax = max(1, w // 3)
     shifts = rng.integers(-smax, smax + 1, n).astype(np.int32)
     src0 = rng.uniform(-smax, smax, n).astype(np.float32)
-    # the ends of the range, whole numbers, shifts past the row
+    # the ends of the range, whole numbers, shifts of 0, ±(W - 1), ±W and
+    # past the row
     for i, (s, f) in enumerate([(-smax, -smax), (smax, smax - 0.5),
-                                (w + 3, 0.0), (-w - 3, 2.0 - 2 ** -20)]):
+                                (w + 3, 0.0), (-w - 3, 2.0 - 2 ** -20),
+                                (0, 0.5), (w - 1, w - 1.0),
+                                (1 - w, 1.5 - w), (w, float(w)),
+                                (-w, 0.25 - w)]):
         if i < n:
             shifts[i], src0[i] = s, f
     shifts, src0 = (torch.from_numpy(a).to(cuda_device)
@@ -443,6 +452,115 @@ def test_row_shift_kernels_match_plain_version(cuda_device, n, w):
     torch.cuda.synchronize()
     assert torch.equal(out, K.row_shift_reference(rows, shifts))
     assert torch.equal(cubic, K.row_shift_cubic_reference(rows, src0))
+
+
+_COLUMN_SHAPES = [(7, 224, 224), (5, 37, 41), (1, 1, 1), (3, 19, 48),
+                  (2, 1000, 64), (1, 3072, 40), (1, 3073, 48), (2, 6200, 33),
+                  (1, 49152, 5)]
+
+
+def _column_shifts(rng, p, h, w):
+    """Shifts in ±(H + 3): past the column both ways, with 0, ±(H - 1) and
+    ±H first."""
+    s = rng.integers(-h - 3, h + 4, (p, w)).astype(np.int32)
+    edges = [0, h - 1, 1 - h, h, -h, h + 3, -h - 3]
+    s.reshape(-1)[:min(s.size, len(edges))] = edges[:s.size]
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,h,w", _COLUMN_SHAPES)
+def test_column_shift_kernel_matches_plain_version(cuda_device, p, h, w):
+    """The column form (the rotate's Sy pass): bands of 32 columns, the
+    last one 16 wide (W = 48) or ragged (W = 41), planes taller than the
+    default 48 KB of shared memory holds twice (H = 1,000) up to 3,072;
+    taller ones in narrower bands (31, 15 and 2 columns) up to the row
+    shift's widest row (49,152)."""
+    rng = np.random.default_rng(6)
+    planes = torch.from_numpy(rng.integers(0, 256, (p, h, w), dtype=np.uint8)
+                              ).to(cuda_device)
+    shifts = torch.from_numpy(_column_shifts(rng, p, h, w)).to(cuda_device)
+    before = dict(K.KERNEL_LAUNCHES)
+    out = K.column_shift(planes, shifts)
+    assert K.KERNEL_LAUNCHES["row_shift"] == before["row_shift"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.column_shift_reference(planes, shifts))
+
+
+@pytest.mark.cuda
+def test_column_shift_refuses_planes_past_its_limit(cuda_device):
+    planes = torch.zeros((1, 49153, 16), dtype=torch.uint8,
+                         device=cuda_device)
+    shifts = torch.zeros((1, 16), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="image_column_shift"):
+        K.column_shift(planes, shifts)
+
+
+def _unaligned(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` bytes past a
+    16-byte aligned address (a slice of a larger buffer)."""
+    flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                       device=t.device)
+    assert flat.data_ptr() % 16 == 0
+    out = flat[offset:offset + t.numel() * t.element_size()].view(
+        t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == offset and out.is_contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_image_kernels_on_unaligned_operands(cuda_device, offset):
+    """Rows and planes that start 1, 3 or 8 bytes past an aligned address
+    take each kernel's scalar path, in the same launch: bitwise all the
+    same."""
+    rng = np.random.default_rng(7 + offset)
+    planes = _unaligned(torch.from_numpy(_edge_planes(rng, (5, 224, 224))
+                                         ).to(cuda_device), offset)
+    lut = torch.from_numpy(rng.integers(0, 256, (5, 256)).astype(np.int32)
+                           ).to(cuda_device)
+    n, w = 300, 224
+    rows = _unaligned(torch.from_numpy(rng.integers(0, 256, (n, w),
+                                                    dtype=np.uint8)
+                                       ).to(cuda_device), offset)
+    shifts = torch.from_numpy(rng.integers(-w - 3, w + 4, n).astype(
+        np.int32)).to(cuda_device)
+    src0 = torch.from_numpy(rng.uniform(-70, 70, n).astype(np.float32)
+                            ).to(cuda_device)
+    cols = torch.from_numpy(_column_shifts(rng, 5, 224, 224)).to(cuda_device)
+    got = {"hist": K.plane_histogram(planes), "lut": K.lut_apply(planes, lut),
+           "rows": K.row_shift(rows, shifts),
+           "cubic": K.row_shift_cubic(rows, src0),
+           "columns": K.column_shift(planes, cols)}
+    torch.cuda.synchronize()
+    want = {"hist": K.plane_histogram_reference(planes),
+            "lut": K.lut_apply_reference(planes, lut),
+            "rows": K.row_shift_reference(rows, shifts),
+            "cubic": K.row_shift_cubic_reference(rows, src0),
+            "columns": K.column_shift_reference(planes, cols)}
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 48, 40), (4, 224, 224)])
+def test_batched_rotate_on_the_card_matches_the_cpu(cuda_device, shape):
+    """The 3-shear rotate (rows, columns, rows on the card) against the
+    CPU's (the plain versions) on the same images and angles: bitwise."""
+    from imageretrievalresearch_tpu_torch.ops import autoaugment as A
+
+    rng = np.random.default_rng(8)
+    b, h, w = shape
+    imgs = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                         dtype=np.uint8))
+    deg = torch.from_numpy(rng.choice([-30.0, -26.666666, -10.0, -3.33, 0.0,
+                                       3.33, 10.0, 26.666666, 30.0], b
+                                      ).astype(np.float32))
+    before = K.KERNEL_LAUNCHES["row_shift"]
+    card = A.batched_rotate(imgs.to(cuda_device), deg.to(cuda_device))
+    assert K.KERNEL_LAUNCHES["row_shift"] == before + 3
+    assert torch.equal(card.cpu(), A.batched_rotate(imgs, deg))
 
 
 @pytest.mark.cuda

@@ -66,6 +66,30 @@ def test_row_shift_matches_pallas_and_jax_rotate_pass(rng):
     np.testing.assert_array_equal(ours.numpy(), ref)
 
 
+def test_column_shift_matches_pallas_on_transposed_planes_and_jax_pass(rng):
+    # 2 x 3 planes of 13 x 41; shifts span ±smax, past the 13 rows
+    b, c, h, w, smax = 2, 3, 13, 41, 15
+    planes = rng.integers(0, 256, (b, c, h, w), dtype=np.uint8)
+    shifts = rng.integers(-smax, smax + 1, (b * c, w)).astype(np.int32)
+    shifts[0, :2] = (-smax, smax)
+    flat = planes.reshape(b * c, h, w)
+    ours = T.column_shift(torch.from_numpy(flat), torch.from_numpy(shifts))
+    assert ours.dtype == torch.uint8 and ours.is_contiguous()
+    ref = np.asarray(pallas_row_shift(
+        jnp.asarray(flat.transpose(0, 2, 1).reshape(-1, h)),
+        jnp.asarray(shifts.reshape(-1)), smax=smax, interpret=True))
+    np.testing.assert_array_equal(
+        ours.numpy(), ref.reshape(b * c, w, h).transpose(0, 2, 1))
+    # the rotate's Sy pass on columns, against JAX's CPU roll-select form
+    # on the transposed planes (as JAX's batched_rotate runs it)
+    v = np.array([0.31, -0.27], np.float32)
+    ref = np.asarray(JA._nearest_row_shift(
+        jnp.asarray(planes.transpose(0, 1, 3, 2)), jnp.asarray(v), smax))
+    ours = TA._nearest_column_shift(torch.from_numpy(planes),
+                                    torch.from_numpy(v))
+    np.testing.assert_array_equal(ours.numpy(), ref.transpose(0, 1, 3, 2))
+
+
 def test_cubic_weight_matches_jax_op_for_op():
     # eager JAX runs _cubic_kernel op by op, as the port's kernel does
     t = np.linspace(-2.5, 2.5, 20001, dtype=np.float32)
