@@ -51,14 +51,16 @@ Phases (any failure exits non-zero, with no result line):
    pieces, and the card's policy the CPU table's on every image no rotate
    touched; the 3-shear rotate's agreement with the exact gather rotate.
    Each image kernel against its plain version, bitwise, at the path's
-   shapes and at ragged ones (the integer shift in both forms: rows, and
+   shapes and at ragged ones (the histogram also on planes of one value,
+   its worst case for atomics; the integer shift in both forms: rows, and
    the columns of the rotate's Sy pass, a row of its own in the kernels
    line with its C entry's launches); kernel, plain and library times and
    bounds, each kernel's device time per launch (``device_ms``,
    torch.profiler; on operands the L2 keeps between calls) and again on
    operands read from HBM (``device_hbm_ms``, the time the byte bound
-   describes), the host's µs per call of each wrapper with its steps
-   (``host_us``; ``tools/image_kernel_times``); the transform's time, and
+   describes; the histogram's also on the planes of one value), the
+   host's µs per call of each wrapper with its steps (``host_us``;
+   ``tools/image_kernel_times``); the transform's time, and
    its device time by kernel.
 6. T3 training with the depthwise kernels (IRT_FORCE_PALLAS_DW=1).
    Kernels 9 (forward and dx) and 10 against their plain versions at the
@@ -208,9 +210,11 @@ IMAGE_KERNELS = {"plane_histogram": "ops/pallas_image.py:28",
 # shift bounds SMAX_* come from tools/image_kernel_times, which times the
 # same transform)
 AUG_ROLES = 3
-# f32 operations per output pixel of the cubic row shift: 4 taps x (the
-# weight polynomial 6, the weighted sum 2, the weight sum 1) + the division
-CUBIC_OPS_PER_PIXEL = 37
+# f32 operations per output pixel of the cubic row shift, which computes
+# each row's weights once: 4 taps x (product, sum), the division, the
+# clip's 2, the rounding's add, and ~1 for the bytes' conversion (19 bytes
+# per 16 pixels); the weights' ~50 per row are under 0.25 a pixel at 224
+CUBIC_OPS_PER_PIXEL = 13
 # the training phase: T3 on b3a with Sketchy's 125 categories, batches of
 # 64 seeded 256 px triplets; kernels 9 and 10 compared at N = 8 and timed
 # at N = 192 (one train step's depthwise batch)
@@ -502,6 +506,8 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     rows = planes.reshape(-1, SIZE)                         # (43008, 224)
     n = rows.shape[0]
     ragged = u8(5, 37, 41)[..., 0].contiguous()             # 5 planes
+    # the histogram's worst case for atomics: each plane of one value
+    const_planes = torch.full_like(planes, 128)
     ragged_rows = u8(1, 4097, 223)[0, ..., 0].contiguous()
     p, h, w = planes.shape
     lut = A._equalize_lut(IK.plane_histogram_reference(planes))
@@ -519,7 +525,7 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
 
     errs = {}
     for name, args in (
-            ("plane_histogram", [(planes,), (ragged,)]),
+            ("plane_histogram", [(planes,), (ragged,), (const_planes,)]),
             ("lut_apply", [(planes, lut), (ragged, A._equalize_lut(
                 IK.plane_histogram_reference(ragged)))]),
             ("row_shift_cubic", [(rows, src0(n, SMAX_SHEAR)),
@@ -604,6 +610,15 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
             "device_hbm_ms": hbm_ms,
             "host_us": steps["whole call"],
         })
+
+    # the histogram's device time per launch on planes of one value, read
+    # from HBM (tools/image_kernel_times times the parent's beside it)
+    _, const_hbm_ms = device_ms(from_hbm(IK.plane_histogram,
+                                         (const_planes,)), "plane_histogram")
+    log(f"plane_histogram on {p} planes of one value: {const_hbm_ms:.4f} ms "
+        "per launch with its operands read from HBM")
+    next(e for e in entries if e["name"] == "plane_histogram")[
+        "device_hbm_one_value_ms"] = const_hbm_ms
 
     # the whole triplet transform, warm, and its device time by kernel
     aug_gen = torch.Generator(device=DEV).manual_seed(SEED + 1)

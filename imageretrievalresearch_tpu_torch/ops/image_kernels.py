@@ -150,13 +150,14 @@ def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
 
 def plane_histogram(planes: torch.Tensor) -> torch.Tensor:
     """Per-plane 256-bin histograms: (P, H, W) uint8 -> (P, 256) int32;
-    replaces ``pallas_histogram``."""
+    replaces ``pallas_histogram``. One launch: the kernel writes every
+    count, so the output is not zeroed first."""
     if _cuda.on_cpu(planes):
         return plane_histogram_reference(planes)
     p, h, w = planes.shape
     _cuda.check_operand("planes", planes, torch.uint8, (p, h, w),
                         planes.device)
-    out = torch.zeros((p, 256), dtype=torch.int32, device=planes.device)
+    out = torch.empty((p, 256), dtype=torch.int32, device=planes.device)
     _launch("plane_histogram", "image_histogram", planes.device,
             planes, p, h * w, out)
     return out
@@ -217,8 +218,9 @@ def column_shift(planes: torch.Tensor, shifts: torch.Tensor, *,
 def row_shift_cubic(rows: torch.Tensor, src0: torch.Tensor, *,
                     fill: int = FILL) -> torch.Tensor:
     """Per-row fractional shift with PIL-bicubic resampling: (N, W) uint8 +
-    (N,) f32 -> (N, W) uint8 (:func:`row_shift_cubic_reference`);
-    replaces ``pallas_row_shift_cubic``."""
+    (N,) f32 -> (N, W) uint8 (:func:`row_shift_cubic_reference`), bitwise;
+    replaces ``pallas_row_shift_cubic``. W is at most 49,152 on the card,
+    as for :func:`row_shift`."""
     if _cuda.on_cpu(rows):
         return row_shift_cubic_reference(rows, src0, fill=fill)
     n, w = rows.shape

@@ -183,9 +183,16 @@ def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization: ``(codes, scales)`` with
     ``x ≈ codes * scales``, scales (N, 1) f32. Divides the clamped amax by
     127 and x by the scale (IEEE divisions, not reciprocal products) and
-    rounds half to even, as JAX does, on every device: torch divides a
-    CUDA tensor by a Python number as a product with its f32 reciprocal,
-    so 127 is a tensor here."""
+    rounds half to even on every device: torch divides a CUDA tensor by a
+    Python number as a product with its f32 reciprocal, so 127 is a tensor
+    here.
+
+    Of the reference's two int8 arithmetics this is the written one: the
+    source text of JAX's ``quantize_rows_int8``, its eager call, and the
+    index's host twin ``_np_quantize_rows_int8``, which builds the served
+    gallery scales; bit for bit. JAX's jitted query path is the other:
+    XLA compiles the division by 127 as a product with the f32
+    reciprocal, so its scales may differ by an ulp and a code by one."""
     x = x.float()
     amax = torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-12)
     scale = amax / torch.full_like(amax, 127.0)

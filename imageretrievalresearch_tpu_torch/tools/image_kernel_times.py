@@ -8,13 +8,14 @@ resized to 224: 192 planes of 224 x 224, or 43,008 rows of 224):
 The second form times the package found on ``PYTHONPATH`` (another
 version of the port) with this file's code, so two versions are measured
 the same way; run them in turns (parent, change, change, parent) in one
-process each on one card. For each kernel wrapper (and the rotate's Sy
-pass, and the whole rotate): the median single call between CUDA events
-(``ms``), back-to-back launches (``burst_ms``, fastest of 5 bursts of 20),
-the device time per call from ``torch.profiler`` (``device_ms``: all of
-the call's device work; ``kernel_ms``: the named kernel alone, per
-launch; both on the same operands, which the card's L2 keeps between
-calls) and the host's µs per call (``host_us``). For each wrapper also
+process each on one card. For each kernel wrapper (and the histogram on
+planes of one value, the rotate's Sy pass, and the whole rotate): the
+median single call between CUDA events (``ms``), back-to-back launches
+(``burst_ms``, fastest of 5 bursts of 20), the device time per call from
+``torch.profiler`` (``device_ms``: all of the call's device work;
+``kernel_ms``: the named kernel alone, per launch; both on the same
+operands, which the card's L2 keeps between calls) and the host's µs per
+call (``host_us``). For each wrapper also
 its kernel's time per launch on operands read from HBM
 (``kernel_hbm_ms``: the calls cycle through copies of the operands that
 together exceed twice the L2), the time the byte bound at the HBM rate
@@ -155,8 +156,12 @@ def host_steps(name: str, args: tuple) -> dict:
     dev = t.device
     fn = getattr(_cuda.load_library("image_ops"), ENTRIES[name])
     index = _cuda.device_index(dev)
-    out = (torch.zeros((t.shape[0], 256), dtype=torch.int32, device=dev)
-           if name == "plane_histogram" else torch.empty_like(t))
+
+    def allocate():   # as the wrapper allocates its output
+        return (torch.empty((t.shape[0], 256), dtype=torch.int32, device=dev)
+                if name == "plane_histogram" else torch.empty_like(t))
+
+    out = allocate()
     if name == "plane_histogram":
         c_args = [t.data_ptr(), t.shape[0], t[0].numel(), out.data_ptr()]
     elif name == "lut_apply":
@@ -174,10 +179,7 @@ def host_steps(name: str, args: tuple) -> dict:
 
     steps = {
         "checks": host_us(checks),
-        "allocation": host_us(
-            (lambda: torch.zeros((t.shape[0], 256), dtype=torch.int32,
-                                 device=dev))
-            if name == "plane_histogram" else (lambda: torch.empty_like(t))),
+        "allocation": host_us(allocate),
         "stream lookup, raw handle": host_us(
             lambda: _cuda.stream_handle(index)),
         "stream lookup, torch.cuda.current_stream": host_us(
@@ -197,6 +199,9 @@ def inputs(dev: torch.device) -> dict:
     x8 = torch.clamp(torch.round(resize_bilinear(src, (SIZE, SIZE))),
                      0, 255).to(torch.uint8)
     planes = A._planes(x8).contiguous()                   # (192, 224, 224)
+    # the histogram's worst case for atomics: every pixel of a plane in
+    # one bin
+    const_planes = torch.full_like(planes, 128)
     p, h, w = planes.shape
     rows = planes.reshape(-1, w)                          # (43008, 224)
     n = rows.shape[0]
@@ -216,20 +221,24 @@ def inputs(dev: torch.device) -> dict:
         0, 256, src.shape, generator=gen, device=dev, dtype=torch.uint8)],
         "neg": [torch.randint(0, 256, src.shape, generator=gen, device=dev,
                               dtype=torch.uint8)]}
-    return {"x8": x8, "planes": planes, "rows": rows, "lut": lut,
-            "src0": src0, "shifts": shifts, "col_shifts": col_shifts,
-            "deg": deg, "batch": batch}
+    return {"x8": x8, "planes": planes, "const_planes": const_planes,
+            "rows": rows, "lut": lut, "src0": src0, "shifts": shifts,
+            "col_shifts": col_shifts, "deg": deg, "batch": batch}
 
 
 def calls(d: dict) -> dict[str, tuple[Callable, str | None, tuple | None]]:
     """name -> (the call, the wrapper whose kernel it launches, the
-    wrapper's arguments): the five wrappers, the rotate's Sy pass (its
-    shifts and the column form) and the whole rotate."""
+    wrapper's arguments): the five wrappers, the histogram again on planes
+    of one value, the rotate's Sy pass (its shifts and the column form)
+    and the whole rotate."""
     planes4 = d["planes"].reshape(AUG_BATCH, 3, SIZE, SIZE)
     v = -torch.sin(-torch.deg2rad(d["deg"]))
     return {
         "plane_histogram": (lambda: IK.plane_histogram(d["planes"]),
                             "plane_histogram", (d["planes"],)),
+        "plane_histogram, planes of one value": (
+            lambda: IK.plane_histogram(d["const_planes"]), "plane_histogram",
+            (d["const_planes"],)),
         "lut_apply": (lambda: IK.lut_apply(d["planes"], d["lut"]),
                       "lut_apply", (d["planes"], d["lut"])),
         "row_shift_cubic": (lambda: IK.row_shift_cubic(d["rows"], d["src0"]),
@@ -312,10 +321,12 @@ def main(argv=None) -> None:
                    help="a name for the version measured, in every line")
     p.add_argument("--sass", default=None,
                    help="another build of image_ops to compare SASS with")
-    p.add_argument("--kernels", default="histogram_kernel,"
-                   "row_shift_cubic_kernel",
-                   help="kernels whose SASS --sass compares")
+    p.add_argument("--kernels", default=None,
+                   help="comma-separated kernels whose SASS --sass compares "
+                   "(required with --sass)")
     args = p.parse_args(argv)
+    if args.sass and not args.kernels:
+        p.error("--sass needs --kernels")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this tool measures the card")
     dev = torch.device("cuda")

@@ -433,12 +433,16 @@ def test_row_shift_kernels_match_plain_version(cuda_device, n, w):
     shifts = rng.integers(-smax, smax + 1, n).astype(np.int32)
     src0 = rng.uniform(-smax, smax, n).astype(np.float32)
     # the ends of the range, whole numbers, shifts of 0, ±(W - 1), ±W and
-    # past the row
+    # past the row (the cubic offsets past its clamp to ±(W + 2) too), the
+    # int32 extremes, huge, infinite and NaN offsets
     for i, (s, f) in enumerate([(-smax, -smax), (smax, smax - 0.5),
                                 (w + 3, 0.0), (-w - 3, 2.0 - 2 ** -20),
                                 (0, 0.5), (w - 1, w - 1.0),
                                 (1 - w, 1.5 - w), (w, float(w)),
-                                (-w, 0.25 - w)]):
+                                (-w, 0.25 - w), (w + 3, w + 3.0),
+                                (-w - 3, -w - 3.0), (2 ** 31 - 1, 1e9),
+                                (-2 ** 31, -1e9), (w + 1, np.inf),
+                                (-w - 1, -np.inf), (2, np.nan)]):
         if i < n:
             shifts[i], src0[i] = s, f
     shifts, src0 = (torch.from_numpy(a).to(cuda_device)
@@ -541,6 +545,97 @@ def test_image_kernels_on_unaligned_operands(cuda_device, offset):
             "columns": K.column_shift_reference(planes, cols)}
     for name in got:
         assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("shape", [(192, 224, 224), (7, 37, 41),
+                                   (2, 300, 301), (3, 1, 15)])
+def test_histogram_and_cubic_shift_on_unaligned_operands(cuda_device,
+                                                         shape, offset):
+    """The redesigned kernels on operands at any byte: each plane's bytes
+    before its first 16-byte aligned pixel and after its last whole vector
+    (rank 0 counts them), and rows that take the cubic shift's scalar
+    path; bitwise."""
+    rng = np.random.default_rng(9 + offset)
+    p, h, w = shape
+    planes = _unaligned(torch.from_numpy(_edge_planes(rng, shape)).to(
+        cuda_device), offset)
+    rows = planes.reshape(p * h, w)
+    smax = max(1, w // 3)
+    src0 = torch.from_numpy(rng.uniform(-smax, smax, p * h).astype(
+        np.float32)).to(cuda_device)
+    hist = K.plane_histogram(planes)
+    cubic = K.row_shift_cubic(rows, src0)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, K.plane_histogram_reference(planes))
+    assert torch.equal(cubic, K.row_shift_cubic_reference(rows, src0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["one", "two"])
+def test_histogram_on_planes_of_one_or_two_values(cuda_device, values):
+    """The atomics' worst cases at the transform's shape: 192 planes each
+    of one value (every pixel of a plane in one bin; plane i holds i), and
+    of two values (1 and 254 at random)."""
+    rng = np.random.default_rng(10)
+    if values == "one":
+        planes = np.broadcast_to(np.arange(192, dtype=np.uint8)[:, None,
+                                                                None],
+                                 (192, 224, 224)).copy()
+    else:
+        planes = np.where(rng.random((192, 224, 224)) < 0.5, 1,
+                          254).astype(np.uint8)
+    planes = torch.from_numpy(planes).to(cuda_device)
+    hist = K.plane_histogram(planes)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, K.plane_histogram_reference(planes))
+    if values == "one":
+        assert (hist.max(dim=1).values == 224 * 224).all()
+
+
+@pytest.mark.cuda
+def test_plane_histogram_is_one_launch_without_zero_fill(cuda_device):
+    """The kernel writes every count: one device kernel per call (the
+    histogram's own), no fill of the output first; on a block the
+    allocator hands back with stale bytes in it, the counts are right."""
+    planes = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (192, 224, 224), dtype=np.uint8)).to(cuda_device)
+    want = K.plane_histogram_reference(planes)
+    K.plane_histogram(planes)                   # warm: library loaded
+    stale = torch.full((192, 256), -7, dtype=torch.int32,
+                       device=cuda_device)
+    del stale                                   # back to the allocator
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        hist = K.plane_histogram(planes)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(kernels) == 1, kernels
+    assert "histogram_kernel" in next(iter(kernels)), kernels
+    assert sum(kernels.values()) == 1, kernels
+    assert torch.equal(hist, want)
+
+
+@pytest.mark.cuda
+def test_cubic_shift_at_the_shears_offsets(cuda_device):
+    """The shear's own operands: 43,008 rows of 224 (64 images x 3
+    channels x 224 rows) shifted by ``src0 = v * (y + 0.5)``, slopes v in
+    ±0.3 by image, |src0| up to 67; bitwise."""
+    rng = np.random.default_rng(12)
+    b, c, h = 64, 3, 224
+    rows = torch.from_numpy(rng.integers(0, 256, (b * c * h, h),
+                                         dtype=np.uint8)).to(cuda_device)
+    v = rng.uniform(-0.3, 0.3, b).astype(np.float32)
+    src0 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        (v[:, None] * (np.arange(h, dtype=np.float32) + np.float32(0.5)))[
+            :, None, :], (b, c, h)).reshape(-1))).to(cuda_device)
+    out = K.row_shift_cubic(rows, src0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.row_shift_cubic_reference(rows, src0))
 
 
 @pytest.mark.cuda

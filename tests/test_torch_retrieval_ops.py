@@ -332,6 +332,33 @@ def test_quantizers_bitwise_against_jax(rng, normalized):
         assert abs(float(ours) - float(ref)) <= np.spacing(abs(ref))
 
 
+def test_quantizer_follows_the_written_division_not_the_jitted_product():
+    """The port divides (amax / 127, x / scale), as the source text, eager
+    JAX and the index's host twin ``_np_quantize_rows_int8`` (which builds
+    the served gallery scales) do: codes and scales bit for bit. Under
+    ``jax.jit`` XLA turns the division by 127 into a product with its f32
+    reciprocal, so JAX's jitted query path may sit an ulp off in a scale;
+    within one ulp of it is all that is asserted there (which rows differ
+    depends on XLA)."""
+    from imageretrievalresearch_tpu.retrieval.index import (
+        _np_quantize_rows_int8,
+    )
+
+    raw = np.random.default_rng(11).standard_normal((3000, 96)).astype(
+        np.float32)
+    x = np.asarray(J.l2_normalize(jnp.asarray(raw)))
+    tc, ts = (a.numpy() for a in T.quantize_rows_int8(_t(x)))
+    hc, hs = _np_quantize_rows_int8(x)
+    ec, es = (np.asarray(a) for a in J.quantize_rows_int8(jnp.asarray(x)))
+    for codes, scales in ((hc, hs), (ec, es)):
+        np.testing.assert_array_equal(tc, codes)
+        np.testing.assert_array_equal(ts, scales)
+    _, js = jax.jit(J.quantize_rows_int8)(jnp.asarray(x))
+    js = np.asarray(js)
+    assert ts.dtype == js.dtype == np.float32 and ts.shape == js.shape
+    assert (np.abs(ts - js) <= np.spacing(js)).all()
+
+
 def test_pack_codes_int32_same_bytes_and_round_trip(rng):
     codes = rng.integers(-127, 128, (97, 64), dtype=np.int8)
     ours = T.pack_codes_int32(_t(codes))
