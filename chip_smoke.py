@@ -7,7 +7,9 @@ Phases (any failure exits non-zero, with no result line):
 1. Build the port's CUDA kernels (``csrc/fused_topk.cu``,
    ``csrc/image_ops.cu``, ``csrc/depthwise_conv.cu`` and
    ``csrc/stream_probe.cu``, one nvcc process each, started together) and
-   print the card's name and power limit.
+   print the card's name and power limit, and what the machine offers for
+   image decoding (whether PIL, cv2 and torchvision.io import; whether a C
+   program with jpeglib.h and png.h builds with -ljpeg -lpng): a report.
 2. Main path: ``efficientnet_b3a`` at full width with seeded random weights
    embeds 512 seeded uint8 224x224 images through the squarepad eval
    transform into a ``GalleryIndex``, which then takes 99,488 seeded unit
@@ -108,7 +110,26 @@ Phases (any failure exits non-zero, with no result line):
    attribution by differences and one burst under ``utils.profiling.
    trace``; the stream probe (kernel 12) against its plain version and its
    read rate at four block heights, beside a torch read+write pass.
-8. One JSON line of kernels, the nvidia-smi line, and the result line.
+8. The gallery CLI (``cli/gallery.py``) in this process, through
+   ``build_parser().parse_args([...])`` and ``run``: a seeded PNG tree
+   (8 class folders of 64 images at 256 px, rows cycling through the five
+   PNG filters; 64 query images, half 300 x 200) is decoded by
+   ``data.decode`` (time per image), built with ``-mn efficientnet_b3a
+   -is 224 -bs 64 --host_size 256`` (images/s) and described by ``info``;
+   then ``query`` of the 64 images, k = 150, num_unique = 3, in each
+   ``--matmul_dtype``, counts set to 0 just before and read just after:
+   64 JSON lines, one launch of the mode's fused kernel (1, 2 or 3),
+   ``PLAIN_ON_CARD`` unchanged, records equal to the library path's
+   (``data.decode`` -> ``RetrievalEngine`` -> ``query_class_dedup`` on
+   the artifact: indices and classes equal, scores within 1e-6); wall ms
+   per mode. ``serve`` (``_make_server``, port 0, in a thread): healthz,
+   then 16 parallel POST /search of query PNGs, four times (cold, warm,
+   warm with serve's decode lock taken out, warm again with it): all
+   200, fewer dispatches than requests, p50 / p95 per request, each record
+   equal to query's (float32) except at near-ties (serve's micro-batches
+   take the dense path, query's Q = 64 the kernel). Peak device memory.
+   The kernels line's rows 1-3 carry these launches as ``cli_launches``.
+9. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -126,11 +147,18 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import os
+import shutil
+import struct
+import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -139,6 +167,12 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device; nothing was run")
 
+from imageretrievalresearch_tpu_torch.cli import gallery as CLI  # noqa: E402
+from imageretrievalresearch_tpu_torch.data.decode import (  # noqa: E402
+    decode_image,
+    resize_bilinear_host,
+    square_pad_host,
+)
 from imageretrievalresearch_tpu_torch.models import create_model  # noqa: E402
 from imageretrievalresearch_tpu_torch.models.layers import (  # noqa: E402
     DepthwiseConv2d,
@@ -258,6 +292,34 @@ DW_GRAD_W_RTOL = 1e-6
 EVAL_BATCHES = 8
 SCORES_RAGGED = (37, 1001, 1000)
 LADDER = {"stream_only": 104, "matmul_only": 116, "insert_only": 131}
+# the gallery CLI (phase 8): 8 class folders of 64 seeded 256 px PNGs
+# (512 items: the fused path needs G >= 256), 64 query PNGs (32 at 256 x
+# 256, 32 at 300 wide x 200 high), 16 parallel requests to serve; records
+# of serve (dense path) and query (kernel) may differ only at near-ties:
+# where an index differs, both records' scores there lie within
+# SERVE_TIE_ATOL (1e-5, plus the records' 5-decimal rounding)
+CLI_CLASSES, CLI_PER_CLASS, CLI_SRC, CLI_QUERIES, CLI_POSTS = 8, 64, 256, 64, 16
+CLI_MODES = {"float32": "fused_cosine_topk",
+             "bfloat16": "fused_cosine_topk_bf16",
+             "int8": "fused_cosine_topk_int8",
+             "int8_rerank": "fused_cosine_topk_int8"}
+SERVE_TIE_ATOL = 2e-5
+# a ten-line program against the native loader's libraries
+# (native/Makefile: -ljpeg -lpng)
+CODEC_PROBE = r"""
+#include <stdio.h>
+#include <jpeglib.h>
+#include <png.h>
+int main(void) {
+    struct jpeg_decompress_struct cinfo;
+    struct jpeg_error_mgr jerr;
+    cinfo.err = jpeg_std_error(&jerr);
+    jpeg_create_decompress(&cinfo);
+    jpeg_destroy_decompress(&cinfo);
+    printf("libpng %s\n", png_get_libpng_ver(NULL));
+    return 0;
+}
+"""
 
 
 def log(msg: str) -> None:
@@ -1471,6 +1533,280 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     return entries
 
 
+def codec_report() -> str:
+    """What this machine offers for image decoding: whether PIL, cv2 and
+    torchvision.io import (each in a child process: the port itself never
+    imports them), and whether a program against jpeglib.h and png.h
+    compiles and links with -ljpeg -lpng. A report only."""
+    found = []
+    for mod in ("PIL", "cv2", "torchvision.io"):
+        r = subprocess.run([sys.executable, "-c", f"import {mod}"],
+                           capture_output=True, text=True, timeout=300)
+        err = (r.stderr.strip().splitlines() or ["?"])[-1]
+        found.append(f"{mod} {'imports' if r.returncode == 0 else err}")
+    cc = shutil.which("cc") or shutil.which("gcc") or shutil.which("g++")
+    if cc is None:
+        probe = "no C compiler on PATH"
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            src, exe = os.path.join(d, "probe.c"), os.path.join(d, "probe")
+            with open(src, "w") as f:
+                f.write(CODEC_PROBE)
+            r = subprocess.run([cc, src, "-o", exe, "-ljpeg", "-lpng"],
+                               capture_output=True, text=True, timeout=300)
+            if r.returncode == 0:
+                ran = subprocess.run([exe], capture_output=True, text=True,
+                                     timeout=60)
+                probe = f"compiles and links ({ran.stdout.strip()})"
+            else:
+                lines = (r.stderr.strip().splitlines() or ["?"])
+                probe = f"does not build: {lines[0][:160]}"
+    return (f"image codecs on this machine: {'; '.join(found)}; a C program "
+            f"with jpeglib.h + png.h, -ljpeg -lpng ({cc}): {probe}")
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> an RGB PNG whose rows cycle through the five
+    filter types (None, Sub, Up, Average, Paeth)."""
+    h, w, _ = img.shape
+    x = img.reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros_like(x[:1]), x[:-1]])
+    left = np.pad(x, ((0, 0), (3, 0)))[:, :-3]
+    upleft = np.pad(up, ((0, 0), (3, 0)))[:, :-3]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    ftype = np.arange(h) % 5
+    pred = np.choose(ftype[:, None], (np.zeros_like(x), left, up,
+                                      (left + up) >> 1, paeth))
+    raw = np.hstack([ftype[:, None].astype(np.uint8),
+                     ((x - pred) & 255).astype(np.uint8)]).tobytes()
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def smooth_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """A seeded gradient in two random colours with three flat shapes."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi)
+    t = x * np.cos(ang) + y * np.sin(ang)
+    t = (t - t.min()) / max(float(t.max() - t.min()), 1.0)
+    c0, c1 = rng.uniform(0, 255, (2, 3)).astype(np.float32)
+    img = c0 + (c1 - c0) * t[..., None]
+    for _ in range(3):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(0.05, 0.25) * min(h, w)
+        mask = ((y - cy) ** 2 + (x - cx) ** 2 < r * r if rng.random() < 0.5
+                else (np.abs(y - cy) < r) & (np.abs(x - cx) < r))
+        img[mask] = rng.uniform(0, 255, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_cli_tree(root: str) -> tuple[str, str]:
+    """The phase's PNG tree under ``root``: ``gallery/class_<c>/`` and
+    ``queries/``; returns both directories."""
+    rng = np.random.default_rng(SEED + 8)
+    gal, qry = os.path.join(root, "gallery"), os.path.join(root, "queries")
+    for c in range(CLI_CLASSES):
+        os.makedirs(os.path.join(gal, f"class_{c}"))
+        for i in range(CLI_PER_CLASS):
+            with open(os.path.join(gal, f"class_{c}", f"{i:03d}.png"),
+                      "wb") as f:
+                f.write(png_bytes(smooth_image(rng, CLI_SRC, CLI_SRC)))
+    os.makedirs(qry)
+    for i in range(CLI_QUERIES):
+        h, w = (CLI_SRC, CLI_SRC) if i % 2 else (200, 300)
+        with open(os.path.join(qry, f"q{i:03d}.png"), "wb") as f:
+            f.write(png_bytes(smooth_image(rng, h, w)))
+    return gal, qry
+
+
+def cli_stdout(argv: list) -> tuple[list, float]:
+    """``run(build_parser().parse_args(argv))`` in this process: its JSON
+    lines and its wall ms (host clock, synchronised)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, ms = sync_time(lambda: CLI.run(CLI.build_parser().parse_args(
+            argv)))
+    return [json.loads(line) for line in buf.getvalue().splitlines()], ms
+
+
+def library_path(npz: str, paths: list):
+    """The library path for the same query files: ``data.decode`` with the
+    artifact's host size, ``RetrievalEngine`` over the same seeded model,
+    then (the returned function of the mode)
+    ``GalleryIndex.query_class_dedup`` on the same artifact."""
+    idx = GalleryIndex.load(npz)
+    host = idx.meta["host_size"]
+    x = np.stack([resize_bilinear_host(square_pad_host(decode_image(p)),
+                                       (host, host)) for p in paths])
+    model = create_model("efficientnet_b3a",
+                         num_classes=idx.meta["num_classes"])
+    engine = RetrievalEngine(model, transform=build_eval_transform(
+        "squarepad", SIZE))
+    emb = engine.embed_batch(x)
+
+    def records(mode: str) -> list:
+        vals, inds, cls = idx.query_class_dedup(emb, k=K, num_unique=3,
+                                                matmul_dtype=mode,
+                                                shortlist=SHORTLIST)
+        return CLI._records(vals, inds, cls, idx.paths)
+
+    return records
+
+
+def near_tie_records(recs: list, refs: list, where: str) -> int:
+    """Rows whose indices differ; at every position the two records'
+    scores agree within SERVE_TIE_ATOL, so a differing index is a near-tie
+    swap."""
+    n_diff = 0
+    for rec, ref in zip(recs, refs):
+        assert len(rec["scores"]) == len(ref["scores"]), where
+        gap = np.abs(np.subtract(rec["scores"], ref["scores"])).max()
+        assert gap <= SERVE_TIE_ATOL, (where, rec, ref)
+        n_diff += rec["indices"] != ref["indices"]
+    return n_diff
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 8: the gallery CLI in this process, as a user runs it
+    (``build_parser().parse_args([...])`` -> ``run``), with
+    ``efficientnet_b3a`` at full width and 224 px; returns each fused
+    kernel's launches over the four query paths."""
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="cli_phase_")
+    try:
+        t0 = time.perf_counter()
+        gal, qry = write_cli_tree(root)
+        log(f"CLI tree: {CLI_CLASSES} x {CLI_PER_CLASS} gallery PNGs of "
+            f"{CLI_SRC} px and {CLI_QUERIES} query PNGs (half 300 x 200), "
+            "rows cycling through the five filters: "
+            f"{time.perf_counter() - t0:.1f} s to write")
+        qpaths = sorted(os.path.join(qry, f) for f in os.listdir(qry))
+        sample = qpaths + sorted(
+            os.path.join(gal, "class_0", f)
+            for f in os.listdir(os.path.join(gal, "class_0")))
+        t0 = time.perf_counter()
+        decoded = [decode_image(p) for p in sample]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+        assert all(d.shape[2] == 3 and d.dtype == np.uint8 for d in decoded)
+        log(f"PNG decode (data.decode, numpy + zlib, one host thread): "
+            f"{decode_ms:.2f} ms per image over {len(sample)} images "
+            f"(256 x 256 and 300 x 200); {card}")
+
+        npz = os.path.join(root, "gallery.npz")
+        _, build_ms = cli_stdout(["build", npz, gal, "-mn",
+                                  "efficientnet_b3a", "-is", str(SIZE),
+                                  "-bs", "64", "--host_size", str(CLI_SRC)])
+        n_items = CLI_CLASSES * CLI_PER_CLASS
+        log(f"CLI build: {n_items} images in {build_ms:.0f} ms, "
+            f"{n_items / build_ms * 1e3:.1f} images/s (decode, b3a embed at "
+            f"bs 64, save); {card}")
+        buf = io.StringIO()    # info prints one indented JSON document
+        with contextlib.redirect_stdout(buf):
+            CLI.run(CLI.build_parser().parse_args(["info", npz]))
+        info = json.loads(buf.getvalue())
+        assert info["items"] == n_items and info["dim"] == DIM
+        assert info["classes"] == CLI_CLASSES
+        assert info["meta"]["host_size"] == CLI_SRC
+        log(f"CLI info: {json.dumps({k: info[k] for k in ('items', 'dim', 'classes')})}, "
+            f"meta keys {sorted(info['meta'])}")
+
+        launches, queried, library = {}, {}, None
+        for mode, kernel in CLI_MODES.items():
+            plain_before = dict(R.PLAIN_ON_CARD)
+            R.reset_launch_counts()
+            recs, ms = cli_stdout(["query", npz, qry, "-k", str(K),
+                                   "--num_unique", "3", "--matmul_dtype",
+                                   mode])
+            counts = dict(R.KERNEL_LAUNCHES)
+            assert len(recs) == CLI_QUERIES, (mode, len(recs))
+            assert counts[kernel] == 1, (mode, counts)
+            assert sum(counts.values()) == counts[kernel], (mode, counts)
+            assert R.PLAIN_ON_CARD == plain_before, (mode, R.PLAIN_ON_CARD)
+            launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+            library = library or library_path(npz, qpaths)
+            for rec, ref, path in zip(recs, library(mode), qpaths):
+                assert rec["query"] == path
+                assert rec["indices"] == ref["indices"], (mode, path)
+                assert rec["classes"] == ref["classes"], (mode, path)
+                assert np.abs(np.subtract(rec["scores"],
+                                          ref["scores"])).max() <= 1e-6
+                assert len(rec["indices"]) == 3
+            queried[mode] = recs
+            log(f"CLI query {mode}: {CLI_QUERIES} JSON lines in {ms:.0f} ms "
+                f"wall (model, artifact, decode, embed, k={K} ranking, "
+                f"dedup, print); launches {counts}; records equal to the "
+                f"library path's; {card}")
+
+        args = CLI.build_parser().parse_args(["serve", npz, "--port", "0"])
+        srv = CLI._make_server(args)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            assert health == {"ok": True, "items": n_items, "dim": DIM}
+            bodies = [open(p, "rb").read() for p in qpaths[:CLI_POSTS]]
+
+            def post(body):
+                t = time.perf_counter()
+                req = urllib.request.Request(url + "/search", data=body,
+                                             method="POST")
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    assert r.status == 200
+                    out = json.loads(r.read())
+                return out, (time.perf_counter() - t) * 1e3
+
+            # serve's decode lock ablated between two warm rounds with it
+            lock = CLI._DECODE_LOCK
+            for rnd, held in (("cold", lock), ("warm", lock),
+                              ("warm, decodes not locked",
+                               contextlib.nullcontext()),
+                              ("warm again", lock)):
+                before = srv.batcher.dispatches
+                CLI._DECODE_LOCK = held
+                try:
+                    with ThreadPoolExecutor(CLI_POSTS) as pool:
+                        res = list(pool.map(post, bodies))
+                finally:
+                    CLI._DECODE_LOCK = lock
+                dispatches = srv.batcher.dispatches - before
+                assert dispatches < CLI_POSTS, dispatches
+                lat = np.array([ms for _, ms in res])
+                n_diff = near_tie_records(
+                    [rec for rec, _ in res],
+                    queried["float32"][:CLI_POSTS], f"serve {rnd}")
+                log(f"CLI serve ({rnd}): {CLI_POSTS} parallel POST /search "
+                    f"answered 200 in {dispatches} dispatches; per request "
+                    f"p50 {np.percentile(lat, 50):.1f} ms, p95 "
+                    f"{np.percentile(lat, 95):.1f} ms (host clock); "
+                    f"{n_diff} of {CLI_POSTS} records differ from query's "
+                    "(float32), all at near-ties: serve's micro-batches "
+                    "take the dense path (true f32), query's Q=64 the "
+                    f"kernel (3xTF32); {card}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"CLI phase peak device memory: {peak / 1e9:.2f} GB allocated by "
+            f"torch ({(peak - base) / 1e9:.2f} GB above what the earlier "
+            f"phases hold); {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
@@ -1493,6 +1829,7 @@ def main() -> None:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill")):
                 log(f"  {name}: {line.strip()}")
+    log(codec_report())
 
     # 2. main path: model + gallery
     R.reset_launch_counts()
@@ -1857,8 +2194,14 @@ def main() -> None:
     kernels += augment_phase(model, gen, peaks)
     kernels += training_phase(model, gen, peaks)
     kernels += inference_phase(model, index, paths, gen, peaks)
+    # the CLI's launches of kernels 1-3 (each query path's counts set to 0
+    # just before it and read just after), beside the main path's
+    cli = cli_phase(PF.card())
+    for row in kernels:
+        if row["name"] in cli:
+            row["cli_launches"] = cli[row["name"]]
 
-    # 8. result: the one card this run drove
+    # 9. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

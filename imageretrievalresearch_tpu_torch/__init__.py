@@ -14,7 +14,10 @@ training metrics, ``config`` / ``recipes``, the optimizer and schedule,
 the train and eval steps and the ``Trainer`` (``train/``), checkpointing
 and logging (``utils/``), and the depthwise convolution's forward, input
 gradient and tap gradients as hand-written CUDA (``csrc/depthwise_conv.cu``,
-behind ``IRT_FORCE_PALLAS_DW=1`` as in JAX).
+behind ``IRT_FORCE_PALLAS_DW=1`` as in JAX). Slice 11 adds the gallery
+CLI (``cli/gallery.py``: build, info, query, serve) on a PNG decoder that
+needs no PIL (``data/decode.py``) and a torch checkpoint loader
+(``models/convert.py::load_checkpoint``).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,10 @@
-"""Carry weights from the JAX package's ``variables`` into the port.
+"""Checkpoint loading, and weights carried from the JAX package's
+``variables`` into the port.
+
+``load_checkpoint(path, backbone)`` is the counterpart of
+``models/convert.py::load_checkpoint``: an empty path keeps the model's
+seeded init, a directory is read as the port's ``CheckpointManager``
+layout, a file as a torch / Lightning state dict (``strip_model_prefix``).
 
 ``params_from_jax(variables)`` takes the JAX ``variables`` pytree as nested
 (numpy-convertible) dicts — ``net/params/forward_features/blocks_{s}_{i}/...``
@@ -12,6 +18,9 @@ running_var``. The port keeps its own copy of the EfficientNet key map
 
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import torch
 
@@ -19,6 +28,7 @@ from imageretrievalresearch_tpu_torch.models.efficientnet import (
     _B0_STAGES,
     _round_repeats,
 )
+from imageretrievalresearch_tpu_torch.utils.checkpoint import saved_checkpoint
 
 _BN = (("weight", "scale", "params"), ("bias", "bias", "params"),
        ("running_mean", "mean", "batch_stats"),
@@ -100,3 +110,51 @@ def params_from_jax(variables: dict, *, depth_mult: float) -> dict:
         kern = _flatten(variables["stem"])["params/conv/kernel"]
         sd["0.0.weight"] = torch.tensor(np.transpose(kern, (3, 2, 0, 1)))
     return sd
+
+
+def strip_model_prefix(state_dict: dict) -> dict:
+    """Lightning 'model.' prefix strip (inference/inference.py:117-121)."""
+    return {k.replace("model.", "", 1) if k.startswith("model.") else k: v
+            for k, v in state_dict.items()}
+
+
+def load_checkpoint(checkpoint_path: str, backbone):
+    """Load weights into ``backbone`` in place and return it (reference
+    load_checkpoint, inference/inference.py:77-149).
+
+    - ``""``: the model keeps its seeded random init;
+    - a directory: the port's ``CheckpointManager`` layout; ``["model"]``
+      of the ``state.pt`` its ``restore()`` would load (the best step of
+      ``best/``, else the newest of ``last/``; ``TrainState.state_dict``)
+      goes to ``Backbone.load_state_dict``;
+    - a file: ``torch.load``, its ``state_dict`` entry if it has one,
+      Lightning's ``model.`` prefix stripped, then
+      ``Backbone.load_timm_state_dict`` (strict; the ``conv_input`` layout
+      too).
+
+    Messages go to stderr. Tensors saved from the card load to the CPU
+    first and are copied into the model's device."""
+    if not checkpoint_path:
+        print(f"Model {backbone.name} randomly initialized (no checkpoint "
+              "given)", file=sys.stderr)
+        return backbone
+    if os.path.isdir(checkpoint_path):
+        state = saved_checkpoint(checkpoint_path)
+        if state is None:
+            raise ValueError(
+                f"{checkpoint_path} holds no state.pt: the port reads torch "
+                "checkpoints only (a CheckpointManager directory or a torch "
+                "file), not JAX orbax directories")
+        payload = torch.load(state, map_location="cpu", weights_only=True)
+        backbone.load_state_dict(payload["model"])
+        print(f"Model {backbone.name} trainer checkpoint ({state}) loaded",
+              file=sys.stderr)
+        return backbone
+    payload = torch.load(checkpoint_path, map_location="cpu",
+                         weights_only=False)
+    state_dict = (payload.get("state_dict", payload)
+                  if isinstance(payload, dict) else payload)
+    backbone.load_timm_state_dict(strip_model_prefix(state_dict))
+    print(f"Model {backbone.name} trained checkpoint successfully loaded",
+          file=sys.stderr)
+    return backbone

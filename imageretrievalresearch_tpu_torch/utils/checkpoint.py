@@ -15,8 +15,10 @@ retention sets:
   ``Trainer.fit(resume=True)`` continues from where training stopped.
 
 Each checkpoint directory holds ``state.pt`` (the state dict) and
-``metrics.json``; a save is written under a temporary name and renamed, so
-a directory that exists is complete.
+``metrics.json`` (the monitored value, the save ordinal and the mode); a
+save is written under a temporary name and renamed, so a directory that
+exists is complete. :func:`saved_checkpoint` finds the ``state.pt`` that
+``restore()`` would load without creating anything.
 """
 
 from __future__ import annotations
@@ -29,13 +31,59 @@ from typing import Any
 import torch
 
 
+def _step_dirs(directory: str) -> list[int]:
+    """The saved steps under ``directory`` (none if it does not exist)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d) for d in os.listdir(directory) if d.isdigit()
+                  and os.path.isfile(os.path.join(directory, d, "state.pt")))
+
+
+def _read_metrics(step_dir: str) -> dict:
+    with open(os.path.join(step_dir, "metrics.json")) as f:
+        return json.load(f)
+
+
+def _score(m: dict, monitor: str, mode: str) -> float:
+    """The monitored value, less a save-ordinal penalty that decides exact
+    ties for the earliest save."""
+    sign = 1.0 if mode == "max" else -1.0
+    return float(m[monitor]) - sign * 1e-12 * float(m.get("_ord", 0.0))
+
+
+def _ranked(steps: list[int], metrics, monitor: str, mode: str
+            ) -> list[int]:
+    """``steps``, best first by ``_score`` of ``metrics(step)``."""
+    return sorted(steps, key=lambda s: _score(metrics(s), monitor, mode),
+                  reverse=mode == "max")
+
+
+def saved_checkpoint(directory: str) -> str | None:
+    """The ``state.pt`` that ``CheckpointManager(directory).restore()``
+    loads: the best step of ``best/`` by the monitor and mode its
+    ``metrics.json`` records, else the newest step of ``last/``; None when
+    neither holds one. Reads only: creates no directory."""
+    directory = os.path.abspath(directory)
+    best, last = (os.path.join(directory, k) for k in ("best", "last"))
+    steps = _step_dirs(best)
+    if steps:
+        metrics = {s: _read_metrics(os.path.join(best, str(s)))
+                   for s in steps}
+        first = metrics[steps[0]]
+        monitor = next(k for k in first if not k.startswith("_"))
+        step = _ranked(steps, metrics.__getitem__, monitor,
+                       first.get("_mode", "max"))[0]
+        return os.path.join(best, str(step), "state.pt")
+    steps = _step_dirs(last)
+    return os.path.join(last, str(steps[-1]), "state.pt") if steps else None
+
+
 class CheckpointManager:
     def __init__(self, directory: str, *, monitor: str = "cos_sims",
                  mode: str = "max", save_top_k: int = 1):
         self.monitor = monitor
         self.mode = mode
         self.save_top_k = save_top_k
-        self._sign = 1.0 if mode == "max" else -1.0
         directory = os.path.abspath(directory)
         self._dirs = {kind: os.path.join(directory, kind)
                       for kind in ("best", "last")}
@@ -46,21 +94,13 @@ class CheckpointManager:
         self._ord = int(max(ords)) if ords else 0
 
     def _steps(self, kind: str) -> list[int]:
-        return sorted(int(d) for d in os.listdir(self._dirs[kind])
-                      if d.isdigit())
+        return _step_dirs(self._dirs[kind])
 
     def _path(self, kind: str, step: int) -> str:
         return os.path.join(self._dirs[kind], str(step))
 
     def _metrics(self, step: int) -> dict:
-        with open(os.path.join(self._path("best", step),
-                               "metrics.json")) as f:
-            return json.load(f)
-
-    def _score(self, step: int) -> float:
-        m = self._metrics(step)
-        return (float(m[self.monitor])
-                - self._sign * 1e-12 * float(m.get("_ord", 0.0)))
+        return _read_metrics(self._path("best", step))
 
     def _write(self, kind: str, step: int, state: Any,
                metrics: dict) -> None:
@@ -79,10 +119,10 @@ class CheckpointManager:
         keep the top k in ``best/`` and the newest in ``last/``."""
         self._ord += 1
         m = {self.monitor: float(metrics[self.monitor]),
-             "_ord": float(self._ord)}
+             "_ord": float(self._ord), "_mode": self.mode}
         self._write("best", step, state, m)
-        ranked = sorted(self._steps("best"), key=self._score,
-                        reverse=self.mode == "max")
+        ranked = _ranked(self._steps("best"), self._metrics, self.monitor,
+                         self.mode)
         for s in ranked[self.save_top_k:]:
             shutil.rmtree(self._path("best", s))
         for s in self._steps("last"):
@@ -104,8 +144,7 @@ class CheckpointManager:
         steps = self._steps("best")
         if not steps:
             return None
-        pick = max if self.mode == "max" else min
-        return pick(steps, key=self._score)
+        return _ranked(steps, self._metrics, self.monitor, self.mode)[0]
 
     def latest_step(self) -> int | None:
         """The most recent save (``last/`` survives best-k deletion)."""
