@@ -129,7 +129,26 @@ Phases (any failure exits non-zero, with no result line):
    equal to query's (float32) except at near-ties (serve's micro-batches
    take the dense path, query's Q = 64 the kernel). Peak device memory.
    The kernels line's rows 1-3 carry these launches as ``cli_launches``.
-9. One JSON line of kernels, the nvidia-smi line, and the result line.
+9. The other backbones at full width with seeded weights, each card
+   forward (f32, TF32 off) against the CPU's of the same weights on 4
+   images (``CPU_FWD_RTOL``). ``rexnet_150`` (D = 1920) and
+   ``swin_s3_base_224`` (D = 768) serve as phases 2-4 do: 512 embedded
+   images + seeded unit rows (G = 100,000), a Q = 64 request in each
+   mode, cold then warm, counts set to 0 just before each and read just
+   after (one launch of the mode's kernel), then kernels 1-3 against
+   their plain versions by phase 4's rules and timed over that gallery
+   (rows 1-3's ``models``). T1 (``make_config("train")``, cos 0.5 + CE)
+   on ``rexnet_150`` at 32 triplets, as phase 6 runs T3: kernels 9 and
+   10 against their plain versions at its 16 depthwise layers (ten with
+   C % 8 != 0) and timed at N = 96 beside cuDNN; a fit with the opt-in
+   (16 forward + 16 dx + 16 tap-gradient launches a step, 16 forwards a
+   val batch) and on cuDNN, losses compared; the f32 step with its
+   planted faults; warm step times (rows 9-10's ``models``). T4
+   (``make_config("train_vit_triplet")``, embedding-only cos 0.2) on
+   ``swin_s3_base_224`` at its 32 triplets under bf16 autocast: a fit of
+   3 steps + 1 val batch, warm step ms, device busy against wall, peak
+   memory. ``resnet50`` and ``darknet53``: a batch of 64 embedded.
+10. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -146,6 +165,7 @@ Imports nothing of JAX. Needs one CUDA card.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import io
 import json
@@ -160,6 +180,7 @@ import time
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -256,7 +277,7 @@ DW_KERNELS = {"depthwise_conv_forward": "ops/pallas_conv.py:181",
               "depthwise_conv_grad_w": "ops/pallas_conv.py:189"}
 DW_SOURCE = "imageretrievalresearch_tpu_torch/csrc/depthwise_conv.cu"
 N_CLASSES, TRAIN_BATCH, TRAIN_SRC, TRAIN_STEPS = 125, 64, 256, 3
-DW_COMPARE_N, DW_TIME_N = 8, 3 * TRAIN_BATCH
+DW_COMPARE_N = 8
 # (C, H, W, K, stride) beyond b3a's layers: odd H and W at stride 2, C not
 # a multiple of 32, K = 7, and C not a multiple of 8 (the tap-gradient
 # kernel's masked loads)
@@ -286,6 +307,33 @@ DW_FAULTS = ("forward", "dx", "dw")
 # pixel dropped from every sum moves it by 1 / (N Ho Wo), 1e-5 at the
 # (40, 112) layer and N = 8
 DW_GRAD_W_RTOL = 1e-6
+
+
+class TrainRun(NamedTuple):
+    """A training path of the smoke: its recipe on its model, ``steps``
+    train batches of ``batch`` seeded triplets (+ 1 val batch); kernels 9
+    and 10 are timed at one step's depthwise batch, 3 x ``batch``; the
+    f32 step's depthwise weight gradients agree with cuDNN's within
+    ``f32_grad_rtol``."""
+    tag: str
+    recipe: str
+    model: str
+    batch: int
+    steps: int = TRAIN_STEPS
+    f32_grad_rtol: float = F32_GRAD_RTOL
+
+
+# T3 on b3a (phase 6); T1 on rexnet_150 at 32 triplets, T4 on
+# swin_s3_base_224 at its recipe's 32 (phase 9). RexNet's depthwise
+# weight gradients in a train-mode f32 step pass through more
+# batch-statistics BatchNorm than b3a's (SE's over one value per image),
+# which magnifies f32 rounding: T1's limit sits between the card's sound
+# reading, 6.6e-3, and the planted faults' nearest, 1.31 (NVIDIA H100
+# 80GB HBM3, 700 W).
+T3 = TrainRun("T3", "train_efficient_cos_con_ce_loss", "efficientnet_b3a",
+              TRAIN_BATCH)
+T1 = TrainRun("T1", "train", "rexnet_150", 32, f32_grad_rtol=0.1)
+T4 = TrainRun("T4", "train_vit_triplet", "swin_s3_base_224", 32)
 # the inference evaluation (phase 7): 8 batches of 64 seeded triplets, so
 # 512 queries against a gallery of 512 positives; kernel 4's ragged shape
 # (Q, G, D); the line of each ladder rung in the JAX tool
@@ -299,13 +347,21 @@ LADDER = {"stream_only": 104, "matmul_only": 116, "insert_only": 131}
 # where an index differs, both records' scores there lie within
 # SERVE_TIE_ATOL (1e-5, plus the records' 5-decimal rounding)
 CLI_CLASSES, CLI_PER_CLASS, CLI_SRC, CLI_QUERIES, CLI_POSTS = 8, 64, 256, 64, 16
-CLI_MODES = {"float32": "fused_cosine_topk",
+MODE_KERNELS = {"float32": "fused_cosine_topk",
              "bfloat16": "fused_cosine_topk_bf16",
              "int8": "fused_cosine_topk_int8",
              "int8_rerank": "fused_cosine_topk_int8"}
 SERVE_TIE_ATOL = 2e-5
 # a ten-line program against the native loader's libraries
 # (native/Makefile: -ljpeg -lpng)
+# phase 9: the other backbones at full width with seeded weights; the
+# served ones and their embedding widths, and the ones embedded once. The
+# card's f32 forward (TF32 off) against the CPU's on CPU_CHECK_N seeded
+# images: the largest |card - CPU| as a share of the largest |CPU value|,
+# f32 sums in other orders through the model's depth (cuDNN, oneDNN)
+SERVED = {"rexnet_150": 1920, "swin_s3_base_224": 768}
+EMBEDDED = ("resnet50", "darknet53")
+CPU_CHECK_N, CPU_FWD_RTOL = 4, 1e-4
 CODEC_PROBE = r"""
 #include <stdio.h>
 #include <jpeglib.h>
@@ -807,8 +863,9 @@ def dw_compare(shapes, gen) -> tuple[float, float]:
     return err, rel
 
 
-def dw_times(shapes, gen, peaks: dict) -> tuple[dict, float, float]:
-    """Per pass (forward, dx, dw) at N = DW_TIME_N in bf16, summed over
+def dw_times(shapes, gen, peaks: dict,
+             n: int) -> tuple[dict, float, float]:
+    """Per pass (forward, dx, dw) at batch ``n`` in bf16, summed over
     ``shapes``: kernel, plain and library (cuDNN) ms, and the bound; each
     kernel is also held against its plain version on the same operands
     (``dw_check``), whose largest tap-gradient error and share come back
@@ -818,7 +875,6 @@ def dw_times(shapes, gen, peaks: dict) -> tuple[dict, float, float]:
                              "bytes_ms", "ops_ms", "burst_ms",
                              "library_burst_ms"), 0.0)
            for p in ("forward", "dx", "dw")}
-    n = DW_TIME_N
     err = rel = 0.0
     log(f"depthwise passes at N = {n}, bf16, per layer (C, H, K, stride): "
         "kernel / cuDNN ms for forward, dx, dw (single call; back-to-back)")
@@ -919,9 +975,8 @@ def dw_host_us(gen) -> None:
             for name, (a, b) in timed.items()))
 
 
-def t3_config(checkpoint_dir: str | None, **kw):
-    return make_config("train_efficient_cos_con_ce_loss",
-                       batch_size=TRAIN_BATCH, image_size=SIZE,
+def run_config(run: TrainRun, checkpoint_dir: str | None, **kw):
+    return make_config(run.recipe, batch_size=run.batch, image_size=SIZE,
                        checkpoint_dir=checkpoint_dir, **kw)
 
 
@@ -932,16 +987,16 @@ def set_opt_in(on: bool) -> None:
         os.environ.pop("IRT_FORCE_PALLAS_DW", None)
 
 
-def fit_once(model, init: dict, train, val, kernels: bool,
+def fit_once(model, init: dict, train, val, kernels: bool, run: TrainRun,
              label: str | None = None) -> dict:
-    """One epoch of ``Trainer.fit`` from ``init``, launch counts set to 0
-    just before and read just after; its per-step losses from
-    metrics.jsonl."""
+    """One epoch of ``Trainer.fit`` of ``run`` from ``init``, launch
+    counts set to 0 just before and read just after; its per-step losses
+    from metrics.jsonl."""
     set_opt_in(kernels)
     model.load_state_dict(init)
     with tempfile.TemporaryDirectory() as d:
-        trainer = Trainer(t3_config(d, log_every_n_steps=1), model, train,
-                          val)
+        trainer = Trainer(run_config(run, d, log_every_n_steps=1), model,
+                          train, val)
         for mod in (DW, IK):
             mod.reset_launch_counts()
         (state, hist), ms = sync_time(lambda: trainer.fit(max_epochs=1))
@@ -956,11 +1011,11 @@ def fit_once(model, init: dict, train, val, kernels: bool,
         saved = {kind: os.listdir(os.path.join(d, kind))
                  for kind in ("best", "last")}
     epoch = hist["epochs"][0]
-    assert state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+    assert state.step == run.steps and len(losses) == run.steps
     assert all(np.isfinite(v) for v in epoch.values()), epoch
-    assert saved == {"best": [str(TRAIN_STEPS)], "last": [str(TRAIN_STEPS)]}
-    log(f"T3 fit, 1 epoch ({TRAIN_STEPS} steps of {TRAIN_BATCH} triplets + 1 "
-        f"val batch), "
+    assert saved == {"best": [str(run.steps)], "last": [str(run.steps)]}
+    log(f"{run.tag} fit ({run.model}), 1 epoch ({run.steps} steps of "
+        f"{run.batch} triplets + 1 val batch), "
         f"{label or ('depthwise kernels' if kernels else 'cuDNN')}: "
         f"{ms:.0f} ms (first use, includes warm-up); train_loss per step "
         f"{losses}; val_loss {epoch['val_loss']:.5g}, cos_sims "
@@ -992,12 +1047,14 @@ def planted(fault: str):
         DW.depthwise_grad_x, DW.depthwise_grad_w = grad_x, grad_w
 
 
-def f32_step(model, init: dict, train, kernels: bool, layers) -> tuple:
-    """One f32 train step (TF32 off) on 16 triplets from ``init``: the loss
-    and the gradients of the depthwise weights of ``layers``."""
+def f32_step(model, init: dict, train, kernels: bool, layers,
+             run: TrainRun) -> tuple:
+    """One f32 train step of ``run`` (TF32 off) on 16 triplets from
+    ``init``: the loss and the gradients of the depthwise weights of
+    ``layers``."""
     set_opt_in(kernels)
     model.load_state_dict(init)
-    cfg = t3_config(None, compute_dtype="float32")
+    cfg = run_config(run, None, compute_dtype="float32")
     trainer = Trainer(cfg, model, train)
     raw = {k: ([a[:16] for a in v] if isinstance(v, list) else v[:16])
            for k, v in train.batches[0].items()}
@@ -1011,12 +1068,13 @@ def f32_step(model, init: dict, train, kernels: bool, layers) -> tuple:
             [layers[i].weight.grad.clone() for i in range(len(layers))])
 
 
-def timed_epochs(model, init: dict, train, kernels: bool) -> dict:
-    """Warm epoch time of the T3 path (wall around a synchronised epoch
-    and CUDA events), peak memory, and one profiled epoch."""
+def timed_epochs(model, init: dict, train, kernels: bool,
+                 run: TrainRun) -> dict:
+    """Warm epoch time of ``run`` (wall around a synchronised epoch and
+    CUDA events), peak memory, and one profiled epoch."""
     set_opt_in(kernels)
     model.load_state_dict(init)
-    trainer = Trainer(t3_config(None), model, train)
+    trainer = Trainer(run_config(run, None), model, train)
     state = trainer.init_state()
     trainer.train_epoch(state, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -1027,8 +1085,8 @@ def timed_epochs(model, init: dict, train, kernels: bool) -> dict:
     trainer.train_epoch(state, 1)
     b.record()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-    ev = a.elapsed_time(b) / TRAIN_STEPS
+    wall = (time.perf_counter() - t0) * 1e3 / run.steps
+    ev = a.elapsed_time(b) / run.steps
     peak = torch.cuda.max_memory_allocated() / 1e9
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1038,9 +1096,10 @@ def timed_epochs(model, init: dict, train, kernels: bool) -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     name = "depthwise kernels" if kernels else "cuDNN"
-    log(f"T3 train step, {name}, warm: {wall:.1f} ms wall, {ev:.1f} ms CUDA "
-        f"events per step of {TRAIN_BATCH} triplets (epoch of "
-        f"{TRAIN_STEPS}); peak {peak:.2f} GB; profiled epoch {pwall:.1f} ms "
+    log(f"{run.tag} train step ({run.model}), {name}, warm: {wall:.1f} ms "
+        f"wall, {ev:.1f} ms CUDA events per step of {run.batch} triplets "
+        f"(epoch of {run.steps}); peak {peak:.2f} GB; profiled epoch "
+        f"{pwall:.1f} ms "
         f"wall, {busy:.1f} ms device busy, idle share "
         f"{1 - busy / pwall:.3f}; top device ops:")
     events.sort(key=lambda e: -e.self_device_time_total)
@@ -1087,52 +1146,56 @@ def dx_kernels_only(shapes, gen) -> None:
         "dilate, no flip)")
 
 
-def training_phase(serving_model, gen, peaks: dict) -> list:
-    """Phase 6: kernels 9 and 10 against their plain versions and timed,
-    then the T3 training path with them and on cuDNN; returns their
-    entries of the ``kernels`` line."""
-    shapes = dw_layer_shapes(serving_model)
-    assert len(shapes) == 26, shapes
-    err_small, _ = dw_compare(shapes + DW_RAGGED, gen)
-    dx_kernels_only(shapes, gen)
-    dw_host_us(gen)
-    tot, err_path, _ = dw_times(shapes, gen, peaks)
-    errs = {"depthwise_conv_forward": 0.0,
-            "depthwise_conv_grad_w": max(err_small, err_path)}
+def depthwise_training(run: TrainRun, gen, peaks: dict,
+                       ragged: list = ()) -> dict:
+    """Kernels 9 and 10 against their plain versions at the depthwise
+    layers of ``run``'s model (and ``ragged`` shapes) and timed at one
+    step's batch, then ``run`` with them and on cuDNN. Returns the layer
+    shapes, the fit's launches, the per-pass totals (``dw_times``) and the
+    tap gradients' largest |kernel - plain|."""
+    model = create_model(run.model, num_classes=N_CLASSES, seed=SEED)
+    shapes = dw_layer_shapes(model)
+    err_small, _ = dw_compare(shapes + list(ragged), gen)
+    if run is T3:   # properties of the wrappers, not of the shapes
+        dx_kernels_only(shapes, gen)
+        dw_host_us(gen)
+    tot, err_path, _ = dw_times(shapes, gen, peaks, 3 * run.batch)
 
-    model = create_model("efficientnet_b3a", num_classes=N_CLASSES,
-                         seed=SEED)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(SEED)
-    train = MemoryLoader(rng, TRAIN_STEPS, TRAIN_BATCH)
-    val = MemoryLoader(rng, 1, TRAIN_BATCH)
+    train = MemoryLoader(rng, run.steps, run.batch)
+    val = MemoryLoader(rng, 1, run.batch)
 
-    # the main path: kernels 9 and 10 on every depthwise layer
-    ours = fit_once(model, init, train, val, kernels=True)
+    # the main path: kernels 9 and 10 on every depthwise layer, and the
+    # image kernels where the recipe augments
+    ours = fit_once(model, init, train, val, True, run)
     launches = ours["counts"]["dw"]
-    per_step = {k: 3 * n for k, n in launches_per_policy().items()}
+    n = len(shapes)
     assert launches == {
-        "depthwise_conv_forward": 26 * TRAIN_STEPS + 26,
-        "depthwise_conv_grad_x": 26 * TRAIN_STEPS,
-        "depthwise_conv_grad_w": 26 * TRAIN_STEPS}, launches
+        "depthwise_conv_forward": n * run.steps + n,
+        "depthwise_conv_grad_x": n * run.steps,
+        "depthwise_conv_grad_w": n * run.steps}, launches
+    augment = run_config(run, None).autoaugment
     assert ours["counts"]["image"] == {
-        k: TRAIN_STEPS * n for k, n in per_step.items()}, ours["counts"]
+        k: run.steps * 3 * p * augment
+        for k, p in launches_per_policy().items()}, ours["counts"]
     for plain in ("dw_plain", "image_plain"):
         assert not any(ours["counts"][plain].values()), ours["counts"]
     # the activations reach the kernels as channels-last views
     assert ours["counts"]["copies"] == {"nhwc": 0}, ours["counts"]
-    ref = fit_once(model, init, train, val, kernels=False)
+    ref = fit_once(model, init, train, val, False, run)
     assert not any(ref["counts"]["dw"].values()), ref["counts"]
 
-    def rel(run):
-        return [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+    def rel(r):
+        return [abs(a - b) / abs(b) for a, b in zip(r["losses"],
                                                      ref["losses"])]
     faulted = {}
-    for fault in BF16_FAULTS:
-        with planted(fault):
-            faulted[fault] = rel(fit_once(model, init, train, val, True,
-                                          f"planted fault: {fault}"))
-    log(f"T3 train_loss per step against cuDNN's (bf16), relative "
+    if run is T3:   # the bf16 planted faults, calibrated on b3a
+        for fault in BF16_FAULTS:
+            with planted(fault):
+                faulted[fault] = rel(fit_once(model, init, train, val, True,
+                                              run, f"planted fault: {fault}"))
+    log(f"{run.tag} train_loss per step against cuDNN's (bf16), relative "
         f"differences: depthwise kernels {rel(ours)}; planted faults "
         f"{faulted}; tolerances {BF16_LOSS_RTOL}")
     assert all(r <= t for r, t in zip(rel(ours), BF16_LOSS_RTOL)), rel(ours)
@@ -1140,58 +1203,257 @@ def training_phase(serving_model, gen, peaks: dict) -> list:
         assert any(a > t for a, t in zip(r, BF16_LOSS_RTOL)), (fault, r)
 
     dws = [m for m in model.modules() if isinstance(m, DepthwiseConv2d)]
-    layers = [dws[0], dws[len(dws) // 2], dws[-1]]
-    l_r, g_r = f32_step(model, init, train, False, layers)
+    picked = [0, len(dws) // 2, len(dws) - 1]
+    layers = [dws[i] for i in picked]
+    l_r, g_r = f32_step(model, init, train, False, layers, run)
 
     def f32_rel(fault=None):
         with planted(fault) if fault else contextlib.nullcontext():
-            l_k, g_k = f32_step(model, init, train, True, layers)
+            l_k, g_k = f32_step(model, init, train, True, layers, run)
         return (abs(l_k - l_r) / abs(l_r),
                 max(((a - b).abs().max() / b.abs().max()).item()
                     for a, b in zip(g_k, g_r)))
     sound = f32_rel()
     faulted = {fault: f32_rel(fault) for fault in DW_FAULTS}
-    log(f"one f32 T3 step on 16 triplets (TF32 off) against cuDNN's: loss "
-        f"{l_r:.7g}; relative loss difference and depthwise weight gradients "
-        f"of layers 0, 13, 25 (max |diff| / max |grad|): depthwise kernels "
-        f"{sound}; planted faults {faulted}; tolerances "
-        f"{(F32_LOSS_RTOL, F32_GRAD_RTOL)}")
-    assert sound[0] <= F32_LOSS_RTOL and sound[1] <= F32_GRAD_RTOL, sound
+    log(f"one f32 {run.tag} step on 16 triplets (TF32 off) against cuDNN's: "
+        f"loss {l_r:.7g}; relative loss difference and depthwise weight "
+        f"gradients of layers {picked} (C = "
+        f"{[m.in_channels for m in layers]}; max |diff| / max |grad|): "
+        f"depthwise kernels {sound}; planted faults {faulted}; tolerances "
+        f"{(F32_LOSS_RTOL, run.f32_grad_rtol)}")
+    assert sound[0] <= F32_LOSS_RTOL and sound[1] <= run.f32_grad_rtol, sound
     for fault, (dl, dg) in faulted.items():
-        assert dl > F32_LOSS_RTOL or dg > F32_GRAD_RTOL, (fault, dl, dg)
+        assert dl > F32_LOSS_RTOL or dg > run.f32_grad_rtol, (fault, dl, dg)
 
     # warm step times, in turns: kernels, cuDNN, cuDNN, kernels
     for kernels in (True, False, False, True):
-        timed_epochs(model, init, train, kernels)
+        timed_epochs(model, init, train, kernels, run)
     set_opt_in(False)
+    return {"shapes": shapes, "launches": launches, "tot": tot,
+            "err": max(err_small, err_path)}
 
+
+def dw_entries(t3: dict, t1: dict) -> list:
+    """Rows 9 and 10 of the kernels line: kernel 9 (the TPU's
+    _dw_fwd_kernel, which JAX runs for dx too) counts and times the
+    forward and dx kernels together. The top-level numbers are T3's on
+    b3a (phase 6), ``models`` holds T1's on rexnet_150."""
     entries = []
-    # kernel 9 (the TPU's _dw_fwd_kernel, which JAX runs for dx too): the
-    # forward and dx kernels' launches and times together
     for name, passes, counters in (
             ("depthwise_conv_forward", ("forward", "dx"),
              ("depthwise_conv_forward", "depthwise_conv_grad_x")),
             ("depthwise_conv_grad_w", ("dw",), ("depthwise_conv_grad_w",))):
-        def total(key):
-            return sum(tot[p][key] for p in passes)
+        def numbers(res):
+            def total(key):
+                return sum(res["tot"][p][key] for p in passes)
+            return {
+                "launches": sum(res["launches"][c] for c in counters),
+                "max_abs_err": (res["err"] if name == "depthwise_conv_grad_w"
+                                else 0.0),
+                "ms": total("ms"),
+                "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                             else "operations"),
+                "library_ms": total("library_ms"),
+                "burst_ms": total("burst_ms"),
+                "library_burst_ms": total("library_burst_ms"),
+            }
         entries.append({
             "name": name,
             "route": "cuda",
             "source": DW_SOURCE,
             "replaces": f"imageretrievalresearch_tpu/{DW_KERNELS[name]}",
-            "launches": sum(launches[c] for c in counters),
-            "max_abs_err": errs[name],
-            "ms": total("ms"),
-            "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
-                         else "operations"),
-            "library_ms": total("library_ms"),
+            **numbers(t3),
             "ms_by": "single call",
-            "burst_ms": total("burst_ms"),
-            "library_burst_ms": total("library_burst_ms"),
+            "models": {T1.model: {**numbers(t1),
+                                  "layers": len(t1["shapes"]),
+                                  "n": 3 * T1.batch}},
         })
     return entries
+
+
+def resident(index, mode: str):
+    """``(gallery, keyword arguments)`` of ``fused_cosine_topk`` over the
+    index's resident form of ``mode``."""
+    return kernel_args(mode, index._gallery_on_device(mode))
+
+
+def topk_checks(index, q_hat, gen,
+                tag: str = "") -> tuple[dict, torch.Tensor]:
+    """Kernels 1-3 against their plain versions over ``index`` (G x D),
+    phase 4's rules: ±1 data with a planted bin overflow (bitwise, its
+    certificate fails and ``cosine_topk`` repairs it exactly); the served
+    queries ``q_hat`` and 64 seeded unit rows over each mode's resident
+    form (f32 and bf16 within 1e-5 with index differences only at
+    near-ties, kernel 1 within 1e-6 of f64 on the unit rows; int8 bitwise
+    at k = 150 and at int8_rerank's shortlist). Returns the largest |kernel
+    - plain| per mode and the unit rows."""
+    g_total, d = len(index), q_hat.shape[1]
+    splits = R.fused_splits(64, g_total, K, DEV)
+
+    def compare(mode, qh, g, kw, k=K):
+        R.reset_launch_counts()   # comparison launches are not counted
+        kv, ki, kok = R.fused_cosine_topk(qh, g, k, **kw)
+        rv, ri, rok = R.fused_cosine_topk_reference(
+            qh, g, k, matmul_dtype=mode,
+            splits=R.fused_splits(qh.shape[0], g.shape[0], k, DEV), **kw)
+        torch.cuda.synchronize()
+        return kv, ki, kok, rv, ri, rok
+
+    # ±1 data, with one query planted in 8 rows of bin 0 of split 0 (tiles
+    # are dealt round-robin to the splits) so its certificate must fail
+    pq = pm1_rows(gen, 64, d)
+    pg = pm1_rows(gen, g_total, d)
+    for j in range(R.FUSED_T_DEPTH + 2):
+        pg[j * splits * R.FUSED_BINS] = pq[0]
+    pqh = R.l2_normalize(pq)
+    pn = torch.linalg.vector_norm(pg, dim=1)
+    for mode in KERNELS:
+        g_in, kw = kernel_args(mode, (pg, pn) if mode == "float32"
+                               else R._prepare_gallery(pg, mode))
+        kv, ki, kok, rv, ri, rok = compare(mode, pqh, g_in, kw)
+        assert torch.equal(kv, rv) and torch.equal(ki, ri) and torch.equal(
+            kok, rok), f"{mode} kernel != plain version on ±1 data"
+        assert kok[0].item() == 0 and kok.any(), (mode, kok)
+        wv, wi = R.cosine_topk(pq, g_in, K, matmul_dtype=mode, **kw)
+        ev, ei = R.cosine_topk(pq, g_in, K, matmul_dtype=mode,
+                               method="dense", **kw)
+        assert torch.equal(wi, ei) and torch.equal(wv, ev), (mode, "repair")
+        log(tag + f"{mode} kernel, ±1 data: vals/inds/ok bitwise equal to the "
+            "plain version; the planted bin overflow fails its certificate "
+            "and cosine_topk repairs it exactly")
+    del pq, pg, pqh, pn, g_in
+
+    # the float gallery in each mode's resident form: the served queries
+    # (random weights put them near one direction, so their top-k is dense
+    # with near-ties) and seeded unit rows, whose top-k gaps are far wider.
+    # int8 runs twice: at k=150 over the int8 form, and at the shortlist
+    # c=256 (its own split count) over the int8_rerank form, as stage 1 of
+    # the int8_rerank path runs it
+    unit_q = R.l2_normalize(torch.randn((64, d), generator=gen,
+                                        device=DEV))
+    errs = {}
+    for mode, form, k in (("float32", "float32", K),
+                          ("bfloat16", "bfloat16", K), ("int8", "int8", K),
+                          ("int8", "int8_rerank", SHORTLIST)):
+        g_in, kw = resident(index, form)
+        errs.setdefault(mode, 0.0)
+        for what, qh in (("served queries", q_hat),
+                         ("seeded unit rows", unit_q)):
+            kv, ki, kok, rv, ri, rok = compare(mode, qh, g_in, kw, k)
+            e = (kv - rv).abs().max().item()
+            errs[mode] = max(errs[mode], e)
+            n_ok, n_rok = int(kok.sum()), int(rok.sum())
+            assert torch.equal(kok, rok), (mode, form, k, what, n_ok, n_rok)
+            if mode == "int8":    # exact int32 dot, the same rescale
+                assert torch.equal(kv, rv) and torch.equal(ki, ri), (
+                    form, k, what)
+                log(tag + f"int8 kernel, float gallery ({form} form), k={k}, "
+                    f"{R.fused_splits(64, g_total, k, DEV)} splits, {what}: "
+                    f"vals/inds/ok bitwise equal to the plain version; "
+                    f"{n_ok} rows certified")
+                continue
+            assert e <= 1e-5, (mode, what, e)
+            if mode == "float32" and what == "seeded unit rows":
+                # kernel 1's 3xTF32 values against f64 at the indices each
+                # returns, within 1e-6; the plain version's true f32 beside
+                g64 = g_in.double()
+                g64 = g64 / torch.clamp(
+                    kw["gallery_norms"].double().reshape(-1, 1),
+                    min=R.COSINE_SIM_EPS)
+                exact = qh.double() @ g64.t()
+                k_err = (kv.double() - torch.gather(
+                    exact, 1, ki.long())).abs().max().item()
+                p_err = (rv.double() - torch.gather(
+                    exact, 1, ri.long())).abs().max().item()
+                log(tag + f"float32 kernel against f64 ({what}, served gallery): "
+                    f"max |kernel vals - f64| {k_err:.3g} (limit 1e-6), max "
+                    f"|plain vals - f64| {p_err:.3g}")
+                assert k_err <= 1e-6, k_err
+                del g64, exact
+            n_diff = near_tie_rows(ki, ri, R.dense_scores(qh, g_in, mode),
+                                   rv[:, K - 1:K], (mode, what))
+            log(tag + f"{mode} kernel, float gallery, {what}: max |vals - plain| "
+                f"= {e:.3g}; {n_diff} of {kv.shape[0]} rows have index sets "
+                "that differ, only at near-ties of the k-th value; "
+                f"{n_ok} rows certified by the kernel and its plain version "
+                "alike")
+            if mode == "bfloat16":
+                log(tag + f"bf16 certificate pass rate, {what}: {n_ok} of "
+                    f"{kv.shape[0]} rows with ok = 1; the contract's (the "
+                    f"plain version's, which every design of the kernel is "
+                    f"held to): {n_rok} of {kv.shape[0]}")
+        del g_in, kw
+
+    return errs, unit_q
+
+
+def topk_times(index, q_hat, peaks: dict, tag: str = "") -> dict:
+    """Kernels 1-3 over ``index`` at Q = 64 (each mode's resident form):
+    kernel, plain and library ms (single calls; back-to-back bursts beside
+    them) and the bound (kernel 1: the 3xTF32 bound, the f32-FMA bound
+    beside it). Returns them by mode."""
+    q, d = q_hat.shape
+    g_total = len(index)
+    splits = R.fused_splits(q, g_total, K, DEV)
+    gal, norms = index._gallery_on_device()
+    g_hat = R._normalized_gallery(gal, norms)
+    q16 = q_hat.to(torch.bfloat16)
+    qq, qs = R.quantize_rows_int8(q_hat)
+    out = {}
+    for mode, (name, _) in KERNELS.items():
+        g_in, kw = resident(index, mode)
+        call = (lambda: R.fused_cosine_topk(q_hat, g_in, K, **kw))
+        ms, b_ms = event_ms(call, reps=20), PF.pipelined_ms(call)
+        plain_ms = event_ms(lambda: R.fused_cosine_topk_reference(
+            q_hat, g_in, K, matmul_dtype=mode, splits=splits, **kw),
+            reps=5, warmup=1)
+        if mode == "float32":
+            library = "torch.topk(torch.matmul(q̂, ĝᵀ), 150), f32"
+            lib_call = (lambda: torch.topk(torch.matmul(q_hat, g_hat.t()),
+                                           K))
+            g_bytes = 4 * (g_total * d + g_total)
+        elif mode == "bfloat16":
+            library = ("torch.topk(torch.matmul(q̂16, ĝ16ᵀ).float(), 150); "
+                       "cuBLAS rounds its output to bf16")
+            lib_call = (lambda: torch.topk(
+                torch.matmul(q16, g_in.t()).float(), K))
+            g_bytes = 2 * g_total * d
+        else:
+            library = ("torch._int_mm(q8, g8ᵀ) -> rescale -> torch.topk, "
+                       "int8 tensor cores")
+            gs = kw["gallery_scale"]
+            lib_call = (lambda: torch.topk(
+                torch._int_mm(qq, g_in.t()).float()
+                * (qs * gs.reshape(1, -1)), K))
+            g_bytes = g_total * d + 4 * g_total
+        library_ms = event_ms(lib_call, reps=20)
+        lib_b_ms = PF.pipelined_ms(lib_call)
+        nbytes = 4 * q * d + g_bytes + 8 * q * K + 4 * q
+        ops = 2 * q * g_total * d
+        bound_bytes = nbytes / peaks["bytes"] * 1e3
+        if mode == "float32":   # 3xTF32, and the f32-FMA bound beside it
+            bounds = f32_bounds(nbytes, ops, peaks)
+            bound_ops = TF32_PASSES * ops / peaks["tf32"] * 1e3
+        else:
+            bound_ops = ops / peaks[mode] * 1e3
+            bounds = {"bound_ms": max(bound_bytes, bound_ops),
+                      "bound_by": "operations" if bound_ops >= bound_bytes
+                      else "bytes"}
+        log(tag + f"{name} Q={q} G={g_total} D={d} k={K}: {ms:.3f} ms "
+            f"(bound {bounds['bound_ms']:.3f} ms: bytes {bound_bytes:.3f}, "
+            f"operations {bound_ops:.3f}"
+            + (f"; f32-FMA bound {bounds['f32_fma_bound_ms']:.3f}"
+               if mode == "float32" else "")
+            + f"); plain {plain_ms:.3f} ms; library "
+            f"{library_ms:.3f} ms ({library}); back-to-back: kernel "
+            f"{b_ms:.3f} ms, library {lib_b_ms:.3f} ms")
+        out[mode] = {"ms": ms, "plain_ms": plain_ms, **bounds,
+                     "library_ms": library_ms, "burst_ms": b_ms,
+                     "library_burst_ms": lib_b_ms}
+        del g_in, kw
+    return out
 
 
 def scores_bounds(q: int, g: int, d: int, peaks: dict) -> dict:
@@ -1721,7 +1983,7 @@ def cli_phase(card: str) -> dict:
             f"meta keys {sorted(info['meta'])}")
 
         launches, queried, library = {}, {}, None
-        for mode, kernel in CLI_MODES.items():
+        for mode, kernel in MODE_KERNELS.items():
             plain_before = dict(R.PLAIN_ON_CARD)
             R.reset_launch_counts()
             recs, ms = cli_stdout(["query", npz, qry, "-k", str(K),
@@ -1805,6 +2067,141 @@ def cli_phase(card: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def card_vs_cpu(name: str, model) -> float:
+    """The card's f32 forward of ``model`` (embedding and logits, eval
+    mode) against the CPU's of a copy of its weights on CPU_CHECK_N
+    seeded images at SIZE; returns the largest |card - CPU| as a share of
+    the largest |CPU value| (limit CPU_FWD_RTOL)."""
+    cpu = copy.deepcopy(model).to("cpu")
+    x = torch.rand((CPU_CHECK_N, SIZE, SIZE, 3),
+                   generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        want = cpu.features_and_logits(x)
+        got = model.features_and_logits(x.to(DEV))
+    assert all(torch.isfinite(g).all() for g in got), name
+    rel = [(g.cpu() - w).abs().max().item() / w.abs().max().item()
+           for g, w in zip(got, want)]
+    log(f"[{name}] card vs CPU, f32 forward of {CPU_CHECK_N} images: "
+        f"largest |difference| / largest |CPU value| {rel[0]:.3g} "
+        f"(embedding, {tuple(want[0].shape)}), {rel[1]:.3g} (logits); limit "
+        f"{CPU_FWD_RTOL}")
+    assert max(rel) <= CPU_FWD_RTOL, (name, rel)
+    return max(rel)
+
+
+def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
+    """Phase 9's serving path of ``name`` (seeded weights, D = ``dim``):
+    the card's forward against the CPU's; 512 embedded images + 99,488
+    seeded unit rows in a ``GalleryIndex`` (G = 100,000); a Q = 64
+    request in each mode, cold then warm, counts set to 0 just before
+    each and read just after (one launch of the mode's kernel); kernels
+    1-3 against their plain versions over this gallery (``topk_checks``)
+    and their times (``topk_times``). Returns, by kernel name, its
+    launches, largest |kernel - plain| and times."""
+    model = create_model(name, seed=SEED)
+    assert model.num_features == dim, (name, model.num_features)
+    card_vs_cpu(name, model)
+    engine = RetrievalEngine(model,
+                             transform=build_eval_transform("squarepad",
+                                                            SIZE))
+    emb, ms = sync_time(lambda: torch.cat(
+        [engine.embed_batch(images(gen, 64))
+         for _ in range(N_IMAGES // 64)]))
+    assert emb.shape == (N_IMAGES, dim) and torch.isfinite(emb).all()
+    log(f"[{name}] embed {N_IMAGES} images ({SIZE} px, f32): {ms:.1f} ms")
+    classes = np.random.default_rng(SEED).integers(
+        0, 1000, G_TOTAL).astype(np.int32)
+    rows = R.l2_normalize(torch.randn((G_TOTAL - N_IMAGES, dim),
+                                      generator=gen, device=DEV))
+    index = GalleryIndex(dim)
+    index.add(emb.cpu().numpy(), classes[:N_IMAGES])
+    index.add(rows.cpu().numpy(), classes[N_IMAGES:])
+    del rows, emb
+    launches = dict.fromkeys(MODE_KERNELS.values(), 0)
+    for mode, kernel in MODE_KERNELS.items():
+        batch = images(gen, 64)
+        for rnd in ("cold", "warm"):
+            R.reset_launch_counts()
+            q, embed_ms = sync_time(lambda: engine.embed_batch(batch))
+            (vals, inds, cls), query_ms = sync_time(
+                lambda: index.query_class_dedup(q, k=K, num_unique=3,
+                                                matmul_dtype=mode,
+                                                shortlist=SHORTLIST))
+            counts = dict(R.KERNEL_LAUNCHES)
+            assert counts[kernel] == 1 == sum(counts.values()), (
+                name, mode, counts)
+            assert not any(R.PLAIN_ON_CARD.values()), R.PLAIN_ON_CARD
+            assert vals.shape == inds.shape == cls.shape == (64, 3)
+            assert np.isfinite(vals).all() and (inds >= 0).all()
+            np.testing.assert_array_equal(cls, index.classes[inds])
+            assert (np.diff(vals, axis=1) <= 0).all(), "dedup order"
+            launches[kernel] += 1
+            upload = " (with the mode's upload)" if rnd == "cold" else ""
+            log(f"[{name}] {mode} request Q=64, {rnd}: "
+                f"{embed_ms + query_ms:.1f} ms end to end = embed "
+                f"{embed_ms:.1f} + k={K} top-k and class dedup "
+                f"{query_ms:.1f}{upload}; launches {counts}")
+    q_hat = R.l2_normalize(q)
+    errs, _ = topk_checks(index, q_hat, gen, f"[{name}, D = {dim}] ")
+    times = topk_times(index, q_hat, peaks, f"[{name}] ")
+    return {kernel: {"launches": launches[kernel],
+                     "max_abs_err": errs[mode], **times[mode], "D": dim}
+            for mode, (kernel, _) in KERNELS.items()}
+
+
+def embed_backbone(name: str, gen) -> None:
+    """``name`` (seeded weights): its forward against the CPU's, then a
+    batch of 64 images through ``RetrievalEngine.embed_batch``, cold and
+    warm."""
+    model = create_model(name, seed=SEED)
+    card_vs_cpu(name, model)
+    engine = RetrievalEngine(model,
+                             transform=build_eval_transform("squarepad",
+                                                            SIZE))
+    for rnd in ("cold", "warm"):
+        emb, ms = sync_time(lambda: engine.embed_batch(images(gen, 64)))
+        assert emb.shape == (64, model.num_features)
+        assert torch.isfinite(emb).all(), name
+        log(f"[{name}] embed 64 images ({SIZE} px, f32), {rnd}: {ms:.1f} ms")
+
+
+def backbone_phase(gen, peaks: dict) -> tuple[dict, dict]:
+    """Phase 9: rexnet_150 and swin_s3_base_224 serving
+    (``serve_backbone``); T1 on rexnet_150 with the depthwise kernels
+    and on cuDNN (``depthwise_training``); T4 on swin_s3_base_224 under
+    bf16 autocast; resnet50 and darknet53 embedding a batch, each card
+    forward against the CPU's. Returns the served rows (by model, then
+    kernel) and T1's depthwise results."""
+    t0 = time.perf_counter()
+    served = {name: serve_backbone(name, dim, gen, peaks)
+              for name, dim in SERVED.items()}
+
+    t1 = depthwise_training(T1, gen, peaks)
+    shapes = t1["shapes"]
+    assert len(shapes) == 16 and sum(c % 8 != 0 for c, *_ in shapes) == 10
+    log(f"T1 on {T1.model}: kernels 9 and 10 on its {len(shapes)} "
+        f"depthwise layers (C, H, W, K, stride): {shapes}")
+
+    # T4: embedding-only triplet training (cos 0.2) under bf16 autocast
+    model = create_model(T4.model, num_classes=N_CLASSES, seed=SEED)
+    card_vs_cpu(T4.model, model)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    train = MemoryLoader(rng, T4.steps, T4.batch)
+    fit = fit_once(model, init, train, MemoryLoader(rng, 1, T4.batch),
+                   False, T4)
+    assert not any(v for c in fit["counts"].values() for v in c.values()), (
+        fit["counts"])
+    timed_epochs(model, init, train, False, T4)
+    del model, init
+
+    for name in EMBEDDED:
+        embed_backbone(name, gen)
+    log(f"phase 9 (other backbones): {time.perf_counter() - t0:.1f} s; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    return served, t1
 
 
 def main() -> None:
@@ -1950,102 +2347,7 @@ def main() -> None:
     log(f"kernel geometry: bins={R.FUSED_BINS}, t_depth={R.FUSED_T_DEPTH}, "
         f"splits={splits}")
 
-    def compare(mode, qh, g, kw, k=K):
-        R.reset_launch_counts()   # comparison launches are not counted
-        kv, ki, kok = R.fused_cosine_topk(qh, g, k, **kw)
-        rv, ri, rok = R.fused_cosine_topk_reference(
-            qh, g, k, matmul_dtype=mode,
-            splits=R.fused_splits(qh.shape[0], g.shape[0], k, DEV), **kw)
-        torch.cuda.synchronize()
-        return kv, ki, kok, rv, ri, rok
-
-    # ±1 data, with one query planted in 8 rows of bin 0 of split 0 (tiles
-    # are dealt round-robin to the splits) so its certificate must fail
-    pq = pm1_rows(gen, 64, DIM)
-    pg = pm1_rows(gen, G_TOTAL, DIM)
-    for j in range(R.FUSED_T_DEPTH + 2):
-        pg[j * splits * R.FUSED_BINS] = pq[0]
-    pqh = R.l2_normalize(pq)
-    pn = torch.linalg.vector_norm(pg, dim=1)
-    for mode in KERNELS:
-        g_in, kw = kernel_args(mode, (pg, pn) if mode == "float32"
-                               else R._prepare_gallery(pg, mode))
-        kv, ki, kok, rv, ri, rok = compare(mode, pqh, g_in, kw)
-        assert torch.equal(kv, rv) and torch.equal(ki, ri) and torch.equal(
-            kok, rok), f"{mode} kernel != plain version on ±1 data"
-        assert kok[0].item() == 0 and kok.any(), (mode, kok)
-        wv, wi = R.cosine_topk(pq, g_in, K, matmul_dtype=mode, **kw)
-        ev, ei = R.cosine_topk(pq, g_in, K, matmul_dtype=mode,
-                               method="dense", **kw)
-        assert torch.equal(wi, ei) and torch.equal(wv, ev), (mode, "repair")
-        log(f"{mode} kernel, ±1 data: vals/inds/ok bitwise equal to the "
-            "plain version; the planted bin overflow fails its certificate "
-            "and cosine_topk repairs it exactly")
-    del pq, pg, pqh, pn, g_in
-
-    # the float gallery in each mode's resident form: the served queries
-    # (random weights put them near one direction, so their top-k is dense
-    # with near-ties) and seeded unit rows, whose top-k gaps are far wider.
-    # int8 runs twice: at k=150 over the int8 form, and at the shortlist
-    # c=256 (its own split count) over the int8_rerank form, as stage 1 of
-    # the int8_rerank path runs it
-    def resident(mode):
-        return kernel_args(mode, index._gallery_on_device(mode))
-
-    unit_q = R.l2_normalize(torch.randn((64, DIM), generator=gen,
-                                        device=DEV))
-    errs = {}
-    for mode, form, k in (("float32", "float32", K),
-                          ("bfloat16", "bfloat16", K), ("int8", "int8", K),
-                          ("int8", "int8_rerank", SHORTLIST)):
-        g_in, kw = resident(form)
-        errs.setdefault(mode, 0.0)
-        for what, qh in (("served queries", q_hat),
-                         ("seeded unit rows", unit_q)):
-            kv, ki, kok, rv, ri, rok = compare(mode, qh, g_in, kw, k)
-            e = (kv - rv).abs().max().item()
-            errs[mode] = max(errs[mode], e)
-            n_ok, n_rok = int(kok.sum()), int(rok.sum())
-            assert torch.equal(kok, rok), (mode, form, k, what, n_ok, n_rok)
-            if mode == "int8":    # exact int32 dot, the same rescale
-                assert torch.equal(kv, rv) and torch.equal(ki, ri), (
-                    form, k, what)
-                log(f"int8 kernel, float gallery ({form} form), k={k}, "
-                    f"{R.fused_splits(64, G_TOTAL, k, DEV)} splits, {what}: "
-                    f"vals/inds/ok bitwise equal to the plain version; "
-                    f"{n_ok} rows certified")
-                continue
-            assert e <= 1e-5, (mode, what, e)
-            if mode == "float32" and what == "seeded unit rows":
-                # kernel 1's 3xTF32 values against f64 at the indices each
-                # returns, within 1e-6; the plain version's true f32 beside
-                g64 = g_in.double()
-                g64 = g64 / torch.clamp(
-                    kw["gallery_norms"].double().reshape(-1, 1),
-                    min=R.COSINE_SIM_EPS)
-                exact = qh.double() @ g64.t()
-                k_err = (kv.double() - torch.gather(
-                    exact, 1, ki.long())).abs().max().item()
-                p_err = (rv.double() - torch.gather(
-                    exact, 1, ri.long())).abs().max().item()
-                log(f"float32 kernel against f64 ({what}, served gallery): "
-                    f"max |kernel vals - f64| {k_err:.3g} (limit 1e-6), max "
-                    f"|plain vals - f64| {p_err:.3g}")
-                assert k_err <= 1e-6, k_err
-                del g64, exact
-            n_diff = near_tie_rows(ki, ri, R.dense_scores(qh, g_in, mode),
-                                   rv[:, K - 1:K], (mode, what))
-            log(f"{mode} kernel, float gallery, {what}: max |vals - plain| "
-                f"= {e:.3g}; {n_diff} of {kv.shape[0]} rows have index sets "
-                "that differ, only at near-ties of the k-th value; "
-                f"{n_ok} rows certified by the kernel and its plain version "
-                "alike")
-            if mode == "bfloat16":
-                log(f"bf16 certificate pass rate, {what}: {n_ok} of "
-                    f"{kv.shape[0]} rows with ok = 1; the contract's (the "
-                    f"plain version's, which every design of the kernel is "
-                    f"held to): {n_rok} of {kv.shape[0]}")
-        del g_in, kw
+    errs, unit_q = topk_checks(index, q_hat, gen)
 
     # fidelity of each serving mode against f32 exact, unit-row queries
     uq = unit_q.cpu().numpy()
@@ -2072,70 +2374,9 @@ def main() -> None:
 
     # timings at the main path's shapes
     peaks = PEAKS["pcie" if "PCIe" in card else "sxm"]
-    q = q_hat.shape[0]
-    q16 = q_hat.to(torch.bfloat16)
-    qq, qs = R.quantize_rows_int8(q_hat)
+    times = topk_times(index, q_hat, peaks)
     kernels = []
     for mode, (name, replaces) in KERNELS.items():
-        g_in, kw = resident(mode)
-        call = (lambda: R.fused_cosine_topk(q_hat, g_in, K, **kw))
-        ms, b_ms = event_ms(call, reps=20), PF.pipelined_ms(call)
-        plain_ms = event_ms(lambda: R.fused_cosine_topk_reference(
-            q_hat, g_in, K, matmul_dtype=mode, splits=splits, **kw),
-            reps=5, warmup=1)
-        if mode == "float32":
-            library = "torch.topk(torch.matmul(q̂, ĝᵀ), 150), f32"
-            lib_call = (lambda: torch.topk(torch.matmul(q_hat, g_hat.t()),
-                                           K))
-            g_bytes = 4 * (G_TOTAL * DIM + G_TOTAL)
-        elif mode == "bfloat16":
-            library = ("torch.topk(torch.matmul(q̂16, ĝ16ᵀ).float(), 150); "
-                       "cuBLAS rounds its output to bf16")
-            lib_call = (lambda: torch.topk(
-                torch.matmul(q16, g_in.t()).float(), K))
-            g_bytes = 2 * G_TOTAL * DIM
-        else:
-            library = ("torch._int_mm(q8, g8ᵀ) -> rescale -> torch.topk, "
-                       "int8 tensor cores")
-            gs = kw["gallery_scale"]
-            lib_call = (lambda: torch.topk(
-                torch._int_mm(qq, g_in.t()).float()
-                * (qs * gs.reshape(1, -1)), K))
-            g_bytes = G_TOTAL * DIM + 4 * G_TOTAL
-        library_ms = event_ms(lib_call, reps=20)
-        lib_b_ms = PF.pipelined_ms(lib_call)
-        nbytes = 4 * q * DIM + g_bytes + 8 * q * K + 4 * q
-        ops = 2 * q * G_TOTAL * DIM
-        bound_bytes = nbytes / peaks["bytes"] * 1e3
-        if mode == "float32":   # 3xTF32, and the f32-FMA bound beside it
-            bounds = f32_bounds(nbytes, ops, peaks)
-            bound_ops = TF32_PASSES * ops / peaks["tf32"] * 1e3
-        else:
-            bound_ops = ops / peaks[mode] * 1e3
-            bounds = {"bound_ms": max(bound_bytes, bound_ops),
-                      "bound_by": "operations" if bound_ops >= bound_bytes
-                      else "bytes"}
-        log(f"{name} Q={q} G={G_TOTAL} D={DIM} k={K}: {ms:.3f} ms "
-            f"(bound {bounds['bound_ms']:.3f} ms: bytes {bound_bytes:.3f}, "
-            f"operations {bound_ops:.3f}"
-            + (f"; f32-FMA bound {bounds['f32_fma_bound_ms']:.3f}"
-               if mode == "float32" else "")
-            + f"); plain {plain_ms:.3f} ms; library "
-            f"{library_ms:.3f} ms ({library}); back-to-back: kernel "
-            f"{b_ms:.3f} ms, library {lib_b_ms:.3f} ms")
-        if mode == "float32":
-            # the library at one TF32 pass: lower precision, not the
-            # yardstick; logged only
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                tf32_ms = event_ms(lib_call, reps=20)
-                tf32_b_ms = PF.pipelined_ms(lib_call)
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
-            log(f"  library at single-pass TF32 (allow_tf32=True, LOWER "
-                f"precision than the kernel's 3xTF32; not the yardstick): "
-                f"{tf32_ms:.3f} ms single call, {tf32_b_ms:.3f} "
-                "back-to-back")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2143,15 +2384,22 @@ def main() -> None:
             "replaces": f"imageretrievalresearch_tpu/{replaces}",
             "launches": launches[name],
             "max_abs_err": errs[mode],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            **bounds,
-            "library_ms": library_ms,
+            **times[mode],
             "ms_by": "single call",
-            "burst_ms": b_ms,
-            "library_burst_ms": lib_b_ms,
         })
-        del g_in, kw
+    # the f32 library at one TF32 pass: lower precision, not the
+    # yardstick; logged only
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lib_call = (lambda: torch.topk(torch.matmul(q_hat, g_hat.t()), K))
+        tf32_ms = event_ms(lib_call, reps=20)
+        tf32_b_ms = PF.pipelined_ms(lib_call)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  library at single-pass TF32 (allow_tf32=True, LOWER "
+        f"precision than the kernel's 3xTF32; not the yardstick): "
+        f"{tf32_ms:.3f} ms single call, {tf32_b_ms:.3f} "
+        "back-to-back")
 
     # kernel 3's query quantization (its first launch) against its plain
     # version, bitwise, on the served queries and the unit rows
@@ -2164,8 +2412,8 @@ def main() -> None:
 
     # the library yardstick from q̂, as the kernels start: the cast or the
     # quantization inside the timed call
-    g16 = resident("bfloat16")[0]
-    g8, kw8 = resident("int8")
+    g16 = resident(index, "bfloat16")[0]
+    g8, kw8 = resident(index, "int8")
     gs8 = kw8["gallery_scale"]
 
     def lib_int8_from_qhat():
@@ -2191,17 +2439,21 @@ def main() -> None:
                         for n, t in att["earlier_steps"].items()))
     del g16, g8, kw8, gs8
 
-    kernels += augment_phase(model, gen, peaks)
-    kernels += training_phase(model, gen, peaks)
-    kernels += inference_phase(model, index, paths, gen, peaks)
+    image_rows = augment_phase(model, gen, peaks)
+    t3 = depthwise_training(T3, gen, peaks, DW_RAGGED)
+    assert len(t3["shapes"]) == 26, t3["shapes"]
+    inference_rows = inference_phase(model, index, paths, gen, peaks)
     # the CLI's launches of kernels 1-3 (each query path's counts set to 0
     # just before it and read just after), beside the main path's
     cli = cli_phase(PF.card())
+    served, t1 = backbone_phase(gen, peaks)
     for row in kernels:
         if row["name"] in cli:
             row["cli_launches"] = cli[row["name"]]
+        row["models"] = {m: rows[row["name"]] for m, rows in served.items()}
+    kernels += image_rows + dw_entries(t3, t1) + inference_rows
 
-    # 9. result: the one card this run drove
+    # 10. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

@@ -2,21 +2,29 @@
 
 Counterpart of ``imageretrievalresearch_tpu/models/backbone.py``.
 ``create_model(name, ...)`` mirrors ``timm.create_model`` and returns a
-:class:`Backbone` module: ``forward_features`` (NHWC map), ``head``
-(logits, or the pooled embedding when ``embed_only``), ``embed``
-(``get_fm(forward_features(x))``), ``features_and_logits`` (embedding and
-logits from one pass, in train or eval mode), with the optional
-``conv_input`` stem. Only the EfficientNet family is ported so far.
+:class:`Backbone` module: ``forward_features`` (an NHWC map, or Swin's
+(B, L, C) tokens), ``head`` (logits, or the pooled embedding when
+``embed_only``), ``embed`` (``get_fm(forward_features(x))``),
+``features_and_logits`` (embedding and logits from one pass, in train or
+eval mode), with the optional ``conv_input`` stem. The registry holds the
+JAX package's five families: EfficientNet, RexNet, Swin, ResNet / ResNeXt
+and DarkNet; each net has ``forward_features``, ``forward_head`` and
+``num_features``.
 """
 
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 from torch import nn
 
 from imageretrievalresearch_tpu_torch._device import resolve_device
+from imageretrievalresearch_tpu_torch.models.darknet import (
+    DARKNET_CONFIGS,
+    DarkNet,
+)
 from imageretrievalresearch_tpu_torch.models.efficientnet import (
     EFFICIENTNET_CONFIGS,
     EfficientNet,
@@ -26,12 +34,32 @@ from imageretrievalresearch_tpu_torch.models.layers import (
     Dropout,
     DropPath,
 )
+from imageretrievalresearch_tpu_torch.models.resnet import (
+    RESNET_CONFIGS,
+    ResNet,
+)
+from imageretrievalresearch_tpu_torch.models.rexnet import (
+    REXNET_CONFIGS,
+    RexNet,
+)
+from imageretrievalresearch_tpu_torch.models.swin import (
+    SWIN_CONFIGS,
+    SwinTransformer,
+    WindowAttention,
+)
 from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
 
-_REGISTRY = {name: (EfficientNet, cfg)
-             for name, cfg in EFFICIENTNET_CONFIGS.items()}
-# the JAX package's other families, still to be ported
-_NOT_PORTED = ("rexnet", "swin", "resne", "ig_resnext", "darknet")
+_REGISTRY = {name: (ctor, cfg)
+             for configs, ctor in ((EFFICIENTNET_CONFIGS, EfficientNet),
+                                   (REXNET_CONFIGS, RexNet),
+                                   (SWIN_CONFIGS, SwinTransformer),
+                                   (RESNET_CONFIGS, ResNet),
+                                   (DARKNET_CONFIGS, DarkNet))
+             for name, cfg in configs.items()}
+# timm 0.4.12's Swin saves these recomputable buffers; the port rebuilds
+# them (non-persistent), as the JAX package's converter ignores them
+_RECOMPUTED_BUFFERS = re.compile(
+    r"(^|\.)(relative_position_index|attn_mask)$")
 
 
 def list_models() -> list[str]:
@@ -60,7 +88,7 @@ class Backbone(nn.Module):
     def head(self, fm: torch.Tensor) -> torch.Tensor:
         if self.embed_only:
             return get_fm(fm)
-        return self.net.head(fm)
+        return self.net.forward_head(fm)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """get_fm(forward_features(x)) — the reference's embedding path."""
@@ -94,22 +122,28 @@ class Backbone(nn.Module):
         return self.net.num_features
 
     def load_timm_state_dict(self, state_dict: dict) -> None:
-        """Load a timm-layout state dict (strict). A ``conv_input`` model
-        takes the reference's Sequential layout: the stem conv at
-        ``0.0.weight`` and the timm keys under ``1.``."""
+        """Load a timm-layout state dict (strict, but for timm Swin's
+        ``relative_position_index`` / ``attn_mask`` buffers, which the
+        model recomputes). A ``conv_input`` model takes the reference's
+        Sequential layout: the stem conv at ``0.0.weight`` and the timm
+        keys under ``1.``."""
         sd = dict(state_dict)
         if self.stem is not None:
             self.stem.conv.weight.data.copy_(sd.pop("0.0.weight"))
             sd = {k[2:]: v for k, v in sd.items() if k.startswith("1.")}
+        sd = {k: v for k, v in sd.items()
+              if not _RECOMPUTED_BUFFERS.search(k)}
         self.net.load_state_dict(sd, strict=True)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init: He-normal conv kernels (std sqrt(2/fan_in)),
     lecun-normal linear kernels, zero biases, identity BatchNorm (scale 1,
-    shift 0, running mean 0, running var 1). With lecun-normal convs the
-    b3a embeddings of random weights shrink to ~1e-8, below the cosine
-    eps; He-normal keeps them near 1e-4."""
+    shift 0, running mean 0, running var 1) and LayerNorm, and Swin's
+    relative-position bias tables from a normal of std 0.02 truncated at
+    two standard deviations (JAX's ``truncated_normal(0.02)``). With
+    lecun-normal convs the b3a embeddings of random weights shrink to
+    ~1e-8, below the cosine eps; He-normal keeps them near 1e-4."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -119,8 +153,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.copy_(w * math.sqrt(gain / fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, WindowAttention):
+                nn.init.trunc_normal_(m.relative_position_bias_table,
+                                      std=0.02, a=-0.04, b=0.04,
+                                      generator=generator)
 
 
 def create_model(model_name: str, num_classes: int = 1000,
@@ -134,9 +172,6 @@ def create_model(model_name: str, num_classes: int = 1000,
     :func:`models.convert.params_from_jax`."""
     device = resolve_device(device)
     if model_name not in _REGISTRY:
-        if model_name.startswith(_NOT_PORTED):
-            raise ValueError(f'model "{model_name}" is not ported yet; '
-                             f"available: {list_models()}")
         raise ValueError(f'Unknown model name "{model_name}". '
                          f"Available models are: {list_models()}")
     ctor, cfg = _REGISTRY[model_name]

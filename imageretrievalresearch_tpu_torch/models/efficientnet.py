@@ -93,7 +93,7 @@ class MBConv(nn.Module):
 
 
 class EfficientNet(nn.Module):
-    """forward_features / head split as in timm."""
+    """forward_features / forward_head split as in timm."""
 
     def __init__(self, width_mult: float = 1.0, depth_mult: float = 1.0,
                  num_classes: int = 1000, drop_rate: float = 0.0,
@@ -134,12 +134,12 @@ class EfficientNet(nn.Module):
         x = self.act(self.bn2(self.conv_head(x)))
         return x.permute(0, 2, 3, 1)
 
-    def head(self, fm: torch.Tensor) -> torch.Tensor:
+    def forward_head(self, fm: torch.Tensor) -> torch.Tensor:
         """Pool + dropout + Linear; accepts NHWC maps or pooled (B, C)."""
         return self.classifier(self.drop(get_fm(fm)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.forward_features(x))
+        return self.forward_head(self.forward_features(x))
 
 
 # (width, depth, default drop_rate) — timm model zoo coefficients

@@ -4,9 +4,12 @@ Counterpart of ``imageretrievalresearch_tpu/models/layers.py``, with the
 reference's torch arithmetic: ``nn.Conv2d(padding=k//2)`` (symmetric), and
 ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``. Tensors are NCHW inside the
 modules (channels-last in memory: the model's input is an NHWC view). The
-depthwise conv is a grouped ``nn.Conv2d`` (cuDNN on the card), which is
-what the JAX package runs by default, or, with ``IRT_FORCE_PALLAS_DW=1``,
-the hand-written kernels of ``ops.depthwise``.
+depthwise conv (``DepthwiseConv2d``, which ``ConvBnAct`` picks for a
+grouped conv with one channel per group, as JAX's does) is a grouped
+``nn.Conv2d`` (cuDNN on the card), which is what the JAX package runs by
+default, or, with ``IRT_FORCE_PALLAS_DW=1``, the hand-written kernels of
+``ops.depthwise``. The activations JAX writes out (``relu6``, DarkNet's
+leaky ReLU) are torch's ``nn.ReLU6`` and ``nn.LeakyReLU``.
 
 The two random layers, ``DropPath`` and ``Dropout``, draw their masks from
 an explicit ``torch.Generator`` (their ``generator`` attribute, which
@@ -23,6 +26,7 @@ from imageretrievalresearch_tpu_torch.ops.depthwise import (
     depthwise_conv,
     use_depthwise_kernel,
 )
+from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: int | None = None,
@@ -63,13 +67,19 @@ def batch_norm(chs: int) -> nn.BatchNorm2d:
 
 
 class ConvBnAct(nn.Module):
-    """Conv2d + BatchNorm + optional activation (timm ``conv`` / ``bn``)."""
+    """Conv2d + BatchNorm + optional activation (timm ``conv`` / ``bn``).
+    A depthwise conv (one channel per group, odd K > 1) is a
+    ``DepthwiseConv2d``, so it takes the kernels under the opt-in."""
 
     def __init__(self, in_chs: int, out_chs: int, kernel_size: int = 3,
                  stride: int = 1, groups: int = 1,
                  act: nn.Module | None = None):
         super().__init__()
-        self.conv = conv2d(in_chs, out_chs, kernel_size, stride, groups)
+        if (1 < groups == in_chs == out_chs and kernel_size % 2 == 1
+                and kernel_size > 1):
+            self.conv = DepthwiseConv2d(out_chs, kernel_size, stride)
+        else:
+            self.conv = conv2d(in_chs, out_chs, kernel_size, stride, groups)
         self.bn = batch_norm(out_chs)
         self.act = act if act is not None else nn.Identity()
 
@@ -80,18 +90,31 @@ class ConvBnAct(nn.Module):
 class SqueezeExcite(nn.Module):
     """Global pool -> reduce conv -> act -> expand conv -> sigmoid gate.
     ``rd_chs`` comes from the caller (EfficientNet: the block's input
-    channels x 0.25)."""
+    channels x 0.25; RexNet: the mid channels / 12). ``use_norm`` adds the
+    BatchNorm of RexNet's SE between the reduce conv (its bias kept) and
+    the activation, with timm's SEWithNorm names (``fc1``, ``bn``,
+    ``fc2``; EfficientNet's are ``conv_reduce``, ``conv_expand``). In
+    training that BatchNorm sees one value per image and channel, so
+    torch refuses a batch of one image."""
 
     def __init__(self, chs: int, rd_chs: int,
-                 act: nn.Module | None = None):
+                 act: nn.Module | None = None, use_norm: bool = False):
         super().__init__()
-        self.conv_reduce = nn.Conv2d(chs, rd_chs, 1, bias=True)
+        reduce = nn.Conv2d(chs, rd_chs, 1, bias=True)
+        expand = nn.Conv2d(rd_chs, chs, 1, bias=True)
+        self.use_norm = use_norm
+        if use_norm:
+            self.fc1, self.bn, self.fc2 = reduce, batch_norm(rd_chs), expand
+        else:
+            self.conv_reduce, self.conv_expand = reduce, expand
         self.act = act if act is not None else nn.ReLU()
-        self.conv_expand = nn.Conv2d(rd_chs, chs, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         se = x.mean(dim=(2, 3), keepdim=True)
-        se = self.conv_expand(self.act(self.conv_reduce(se)))
+        if self.use_norm:
+            se = self.fc2(self.act(self.bn(self.fc1(se))))
+        else:
+            se = self.conv_expand(self.act(self.conv_reduce(se)))
         return x * torch.sigmoid(se)
 
 
@@ -133,6 +156,20 @@ class Dropout(_Drop):
 
     def _mask_shape(self, x: torch.Tensor) -> tuple:
         return tuple(x.shape)
+
+
+class ClassifierHead(nn.Module):
+    """timm's ``head``: global pool -> dropout -> ``fc`` (identity when
+    ``num_classes <= 0``); takes an NHWC map or pooled (B, C) features."""
+
+    def __init__(self, chs: int, num_classes: int, drop_rate: float = 0.0):
+        super().__init__()
+        self.drop = Dropout(drop_rate)
+        self.fc = (nn.Linear(chs, num_classes) if num_classes > 0
+                   else nn.Identity())
+
+    def forward(self, fm: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.drop(get_fm(fm)))
 
 
 class ConvStem(nn.Module):

@@ -60,7 +60,7 @@ def test_embed_and_features_match_jax(name, w, d, size):
 
     port = create_model(name, num_classes=7, width_mult=w, depth_mult=d,
                         device="cpu")
-    port.load_timm_state_dict(params_from_jax(variables, depth_mult=d))
+    port.load_timm_state_dict(params_from_jax(variables, port))
     with torch.no_grad():
         xt = torch.from_numpy(x)
         fm = port.forward_features(xt).numpy()
@@ -80,7 +80,7 @@ def test_state_dict_equals_jax_export(name, w, d, size):
     exported = export_torch_state_dict(bb, variables)
     port = create_model(name, num_classes=7, width_mult=w, depth_mult=d,
                         device="cpu")
-    port.load_timm_state_dict(params_from_jax(variables, depth_mult=d))
+    port.load_timm_state_dict(params_from_jax(variables, port))
     ours = port.net.state_dict()
     assert sorted(ours) == sorted(exported)
     for key, val in exported.items():
@@ -98,5 +98,11 @@ def test_b3a_full_width_shapes():
 
 
 def test_unported_family_raises():
-    with pytest.raises(ValueError, match="not ported yet"):
-        create_model("rexnet_150", device="cpu")
+    """Every family of the JAX registry is ported (tests/
+    test_torch_backbones.py builds each name); a name in neither registry
+    raises, as JAX's create_model does."""
+    for name in ("vit_base_patch16_224", "cspdarknet53"):
+        with pytest.raises(ValueError, match="Unknown model name"):
+            create_model(name, device="cpu")
+        with pytest.raises(ValueError, match="Unknown model name"):
+            jax_create(name)

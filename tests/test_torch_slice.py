@@ -86,7 +86,7 @@ def slice_run():
 
     model = create_model("efficientnet_b0", num_classes=0, width_mult=w,
                          depth_mult=d, device="cpu")
-    model.load_timm_state_dict(params_from_jax(variables, depth_mult=d))
+    model.load_timm_state_dict(params_from_jax(variables, model))
     engine = RetrievalEngine(model, transform=build_eval_transform(
         "squarepad", size, device="cpu"), device="cpu")
     ours = engine.embed_batch(images).numpy()

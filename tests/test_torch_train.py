@@ -319,7 +319,7 @@ def step_runs():
         model = create_model("efficientnet_b3a", num_classes=N_CLS,
                              width_mult=W, depth_mult=D, drop_rate=0.0,
                              device="cpu", seed=None)
-        model.load_timm_state_dict(params_from_jax(variables, depth_mult=D))
+        model.load_timm_state_dict(params_from_jax(variables, model))
         run["v0"] = {k: v.clone() for k, v in model.state_dict().items()}
         run["bn_rows"] = _bn_rows(model, _torch_batch(batches[0]))
         tstate = TrainState(model, make_optimizer(
@@ -336,7 +336,7 @@ def step_runs():
                                    width_mult=W, depth_mult=D, device="cpu",
                                    seed=None)
             trained.load_timm_state_dict(params_from_jax(run["jax_vars"],
-                                                         depth_mult=D))
+                                                         trained))
             run["eval"] = build_eval_step(cfg)(TrainState(trained, None),
                                                _torch_batch(batches[2]))
         runs[mode] = run
@@ -365,7 +365,7 @@ def test_train_step_parameters_after_two_steps_match_jax(step_runs, mode):
     cancels, such as the first block's BN shift under cos_con_ce, keeps
     the largest relative difference (3%)."""
     run = step_runs[mode]
-    want = params_from_jax(run["jax_vars"], depth_mult=D)
+    want = params_from_jax(run["jax_vars"], run["state"].model)
     got = run["state"].model.net.state_dict()
     assert set(got) == set(want)
     diff2 = upd2 = 0.0
@@ -387,7 +387,7 @@ def test_train_step_batchnorm_statistics_match_jax(step_runs):
     steps at momentum 0.1, v - 0.81 v0 = n / (n - 1) x (flax's v - 0.81 v0),
     n the rows each layer normalizes over (3B x H x W)."""
     run = step_runs["cos_con_ce"]
-    want = params_from_jax(run["jax_vars"], depth_mult=D)
+    want = params_from_jax(run["jax_vars"], run["state"].model)
     got = run["state"].model.net.state_dict()
     v0 = run["v0"]
     n_checked = 0
