@@ -148,7 +148,35 @@ Phases (any failure exits non-zero, with no result line):
    ``swin_s3_base_224`` at its 32 triplets under bf16 autocast: a fit of
    3 steps + 1 val batch, warm step ms, device busy against wall, peak
    memory. ``resnet50`` and ``darknet53``: a batch of 64 embedded.
-10. One JSON line of kernels, the nvidia-smi line, and the result line.
+10. Training from disk through the CLIs users run, in this process
+   (``build_parser().parse_args([...])`` -> ``run``). The port's
+   ``make_sketchy_tree`` writes 8 categories x 10 products at 256 px (240
+   JPEG photos, 160 PNG sketches; time to write); ``decode_image`` reads
+   every file (ms per JPEG and per PNG), each photo within the stated
+   error of its written pixels, each sketch exact, and every file bit for
+   bit against PIL's decode where PIL imports (in a child process; the
+   count that agree). ``cli.data_split --layout sketchy --policy prod``
+   gives 192 / 24 / 24 queries. ``cli.train --recipe
+   train_efficient_cos_con_ce_loss -bs 16 --max_epochs 2 --cache
+   --host_size 256`` (T3, efficientnet_b3a at 224 px, AutoAugment, bf16)
+   with ``IRT_FORCE_PALLAS_DW=1``, counts set to 0 just before and read
+   just after: kernels 5-8 at phase 5's counts per policy call x 3 roles
+   x 24 train steps, kernel 9's forward 26 per train step and per val
+   batch, dx and kernel 10 26 per train step, ``PLAIN_ON_CARD``
+   unchanged, no layout copy; ``hparams.yaml``, ``metrics.jsonl``,
+   ``best/`` and ``last/`` written, and the ``last/`` checkpoint read back
+   by ``models.convert.load_checkpoint`` embeds 4 images bit for bit as
+   the in-memory final state. Its times: the cache fill, each epoch's
+   wall and CUDA-event ms per step and the loader's wait, a warm epoch
+   profiled (device idle share, top host ops), 4 uncached steps' loader
+   wait, peak memory. ``cli.find_lr --recipe find_lr -bs 16
+   --num_lr_steps 30 --cache --host_size 256`` (rexnet_150) with the
+   opt-in: a finite suggestion inside [min_lr, max_lr] from at least 3
+   losses, 16 + 16 + 16 depthwise launches per sweep step, ms per step.
+   Rows 5-10 of the kernels line carry the train run's launches as
+   ``train_cli_launches`` (rows 5-8 by C entry), rows 9-10 the sweep's as
+   ``find_lr_launches``.
+11. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -167,6 +195,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import hashlib
 import io
 import json
 import os
@@ -188,13 +217,26 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device; nothing was run")
 
+from imageretrievalresearch_tpu_torch.cli import data_split as SPLIT_CLI  # noqa
+from imageretrievalresearch_tpu_torch.cli import find_lr as FIND_LR_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import gallery as CLI  # noqa: E402
+from imageretrievalresearch_tpu_torch.cli import train as TRAIN_CLI  # noqa
+from imageretrievalresearch_tpu_torch.data import synthetic as SYN  # noqa
+from imageretrievalresearch_tpu_torch.data.decode import (  # noqa: E402
+    DecodeCacheMixin,
+)
+from imageretrievalresearch_tpu_torch.data.loader import (  # noqa: E402
+    TripletLoader,
+)
 from imageretrievalresearch_tpu_torch.data.decode import (  # noqa: E402
     decode_image,
     resize_bilinear_host,
     square_pad_host,
 )
 from imageretrievalresearch_tpu_torch.models import create_model  # noqa: E402
+from imageretrievalresearch_tpu_torch.models.convert import (  # noqa: E402
+    load_checkpoint,
+)
 from imageretrievalresearch_tpu_torch.models.layers import (  # noqa: E402
     DepthwiseConv2d,
 )
@@ -234,6 +276,7 @@ from imageretrievalresearch_tpu_torch.tools.image_kernel_times import (  # noqa
 from imageretrievalresearch_tpu_torch.train import (  # noqa: E402
     Trainer,
     build_train_step,
+    lr_finder,
 )
 from imageretrievalresearch_tpu_torch.utils.profiling import trace  # noqa: E402
 
@@ -362,6 +405,42 @@ SERVE_TIE_ATOL = 2e-5
 SERVED = {"rexnet_150": 1920, "swin_s3_base_224": 768}
 EMBEDDED = ("resnet50", "darknet53")
 CPU_CHECK_N, CPU_FWD_RTOL = 4, 1e-4
+# phase 10, training from disk: the port's synthetic Sketchy tree at
+# Sketchy DB-256's 256 px (8 categories x 10 products: 240 JPEG photos,
+# 160 PNG sketches), split by product (JAX's data_split gives this tree
+# 192 / 24 / 24 queries), T3 for 2 epochs and the find_lr sweep at 16
+# triplets a step. Sketchy validation drops the remainder: 12 train steps
+# and 1 val batch an epoch.
+DISK_TREE = dict(n_cats=8, n_prods=10, n_photos=3, n_sketches=2, size=256,
+                 structured=True, seed=0)
+DISK_SPLIT = {"train": 192, "val": 24, "test": 24}
+DISK_BATCH, DISK_EPOCHS, DISK_LR_STEPS = 16, 2, 30
+DISK_STEPS = DISK_SPLIT["train"] // DISK_BATCH          # per epoch
+DISK_VAL_BATCHES = DISK_SPLIT["val"] // DISK_BATCH      # per epoch
+# depthwise layers of efficientnet_b3a (T3) and rexnet_150 (find_lr)
+B3A_DW_LAYERS, REXNET_DW_LAYERS = 26, 16
+# the writer codes each photo's pixels (a class pattern + N(0, 28) noise)
+# at quality 75 with 4:2:0 chroma, which drops most of the noise: a photo
+# decodes within these of its written pixels, mean |error| per photo and
+# the largest |error|; a decoder with swapped, shifted or unsampled planes
+# lands far outside the mean. PNG sketches decode exactly.
+DISK_JPEG_MEAN_ERR, DISK_JPEG_MAX_ERR = 24.0, 200
+# the uncached loader's steps measured after the CLI run (each decodes 48
+# files: query, positive and negative of 16 triplets)
+DISK_UNCACHED_STEPS = 4
+# PIL's decode of every file of the tree, in a child process (the smoke
+# imports no PIL): one line of JSON, path -> sha256 of the RGB array
+PIL_DIGESTS = r"""
+import hashlib, json, sys
+import numpy as np
+from PIL import Image
+out = {}
+for path in sys.argv[1:]:
+    with Image.open(path) as im:
+        a = np.ascontiguousarray(np.asarray(im.convert("RGB")))
+    out[path] = hashlib.sha256(repr(a.shape).encode() + a.tobytes()).hexdigest()
+print(json.dumps(out))
+"""
 CODEC_PROBE = r"""
 #include <stdio.h>
 #include <jpeglib.h>
@@ -2204,6 +2283,331 @@ def backbone_phase(gen, peaks: dict) -> tuple[dict, dict]:
     return served, t1
 
 
+@contextlib.contextmanager
+def patched(owner, name: str, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block: the
+    phase's measurement hooks around the code a user runs."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def write_disk_tree(root: str) -> dict:
+    """The port's ``make_sketchy_tree`` under ``root``; returns each
+    file's written pixels."""
+    written = {}
+
+    def capture(save):
+        def _save(path, arr):
+            written[path] = arr
+            save(path, arr)
+        return _save
+
+    with patched(SYN, "_save", capture):
+        SYN.make_sketchy_tree(root, **DISK_TREE)
+    return written
+
+
+def disk_decode_checks(written: dict) -> None:
+    """Every file of the tree through ``decode_image``: ms per JPEG and
+    per PNG, photos within the stated error of their written pixels,
+    sketches exact; bit for bit against PIL where PIL imports (a child
+    process), and the count that agree."""
+    times = {".jpg": [], ".png": []}
+    digests, errs = {}, []
+    for path, arr in sorted(written.items()):
+        t0 = time.perf_counter()
+        got = decode_image(path)
+        times[os.path.splitext(path)[1]].append(time.perf_counter() - t0)
+        assert got.shape == arr.shape and got.dtype == np.uint8, path
+        if path.endswith(".png"):
+            assert np.array_equal(got, arr), path
+        else:
+            e = np.abs(got.astype(np.int16) - arr.astype(np.int16))
+            errs.append((float(e.mean()), int(e.max())))
+        digests[path] = hashlib.sha256(
+            repr(got.shape).encode() + np.ascontiguousarray(got).tobytes()
+        ).hexdigest()
+    worst_mean = max(m for m, _ in errs)
+    worst_max = max(x for _, x in errs)
+    log(f"decode_image over the tree: {1e3 * np.mean(times['.jpg']):.1f} ms "
+        f"per 256 px JPEG photo ({len(times['.jpg'])}), "
+        f"{1e3 * np.mean(times['.png']):.1f} ms per 256 px PNG sketch "
+        f"({len(times['.png'])}), one host thread; photos against their "
+        f"written pixels: worst mean |error| {worst_mean:.2f} (limit "
+        f"{DISK_JPEG_MEAN_ERR}), largest |error| {worst_max} (limit "
+        f"{DISK_JPEG_MAX_ERR}); sketches exact")
+    assert worst_mean <= DISK_JPEG_MEAN_ERR and worst_max <= DISK_JPEG_MAX_ERR
+    r = subprocess.run([sys.executable, "-c", PIL_DIGESTS, *sorted(digests)],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        log("PIL cross-check skipped: PIL does not import here ("
+            f"{(r.stderr.strip().splitlines() or ['?'])[-1][:120]})")
+        return
+    pil = json.loads(r.stdout.strip().splitlines()[-1])
+    agree = sum(pil[p] == d for p, d in digests.items())
+    log(f"PIL cross-check: {agree} of {len(digests)} files decode bit for "
+        "bit as PIL decodes them")
+    assert agree == len(digests), "a file decodes unlike PIL"
+
+
+def disk_phase(card: str) -> dict:
+    """Phase 10: training from disk through the CLIs users run, in this
+    process (``build_parser().parse_args([...])`` -> ``run``): the tree,
+    ``cli.data_split``, ``cli.train`` (T3 on efficientnet_b3a) and
+    ``cli.find_lr`` (rexnet_150), with the opt-in depthwise kernels.
+    Returns the launches of kernels 5-10 in the train run (by C entry for
+    the image kernels) and of kernels 9-10 in the sweep."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="disk_phase_")
+    try:
+        tree = os.path.join(root, "sketchy")
+        t0 = time.perf_counter()
+        written = write_disk_tree(tree)
+        n_jpg = sum(p.endswith(".jpg") for p in written)
+        log(f"disk tree: make_sketchy_tree({DISK_TREE}) wrote {n_jpg} JPEG "
+            f"photos and {len(written) - n_jpg} PNG sketches in "
+            f"{time.perf_counter() - t0:.1f} s (the port's own writers)")
+        disk_decode_checks(written)
+
+        split = os.path.join(root, "split.json")
+        SPLIT_CLI.run(SPLIT_CLI.build_parser().parse_args([
+            "--data_dir", tree, "--out_path", split, "--layout", "sketchy",
+            "--policy", "prod", "--seed", "42"]))
+        with open(split) as f:
+            sizes = {k: len(v) for k, v in json.load(f).items()}
+        log(f"cli.data_split --layout sketchy --policy prod: {sizes}")
+        assert sizes == DISK_SPLIT, sizes
+
+        train = train_cli_run(tree, split, root, card)
+        sweep = find_lr_cli_run(tree, split, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        set_opt_in(False)
+    log(f"phase 10 (training from disk): "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"train": train, "sweep": sweep}
+
+
+def timed_loader_iter(waits: list):
+    """TripletLoader.__iter__ that records the consumer's wait for each
+    batch (host clock)."""
+    def wrap(orig):
+        def __iter__(self):
+            it = orig(self)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                it.close()
+        return __iter__
+    return wrap
+
+
+def train_cli_run(tree: str, split: str, root: str, card: str) -> dict:
+    """``cli.train --recipe train_efficient_cos_con_ce_loss`` for 2 epochs
+    with the opt-in: launch counts, the run's files, the last checkpoint
+    read back, and where the time goes."""
+    set_opt_in(True)
+    save = os.path.join(root, "models")
+    argv = ["--recipe", "train_efficient_cos_con_ce_loss", "-ip", tree,
+            "--split_json", split, "-bs", str(DISK_BATCH), "--max_epochs",
+            str(DISK_EPOCHS), "--cache", "--host_size", "256", "-sp", save]
+    fills, epochs, waits, trainers = [], [], [], []
+
+    def time_fill(orig):
+        def fill(self, *a, **kw):
+            t0 = time.perf_counter()
+            orig(self, *a, **kw)
+            fills.append((time.perf_counter() - t0, len(self._cache)))
+        return fill
+
+    def time_epoch(orig):
+        def train_epoch(self, state, epoch):
+            trainers.append(self)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = len(waits)
+            a.record()
+            out = orig(self, state, epoch)
+            b.record()
+            torch.cuda.synchronize()
+            epochs.append((time.perf_counter() - t0, a.elapsed_time(b) / 1e3,
+                           sum(waits[n:])))
+            return out
+        return train_epoch
+
+    plain_before = (dict(DW.PLAIN_ON_CARD), dict(IK.PLAIN_ON_CARD))
+    for mod in (DW, IK):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for owner, name, wrap in (
+                (DecodeCacheMixin, "_init_decode_cache", time_fill),
+                (Trainer, "train_epoch", time_epoch),
+                (TripletLoader, "__iter__", timed_loader_iter(waits))):
+            stack.enter_context(patched(owner, name, wrap))
+        (state, history), ms = sync_time(
+            lambda: TRAIN_CLI.run(TRAIN_CLI.build_parser().parse_args(argv)))
+    counts = {"dw": dict(DW.KERNEL_LAUNCHES), "image": dict(IK.KERNEL_LAUNCHES),
+              "entry": dict(IK.ENTRY_LAUNCHES),
+              "copies": dict(DW.LAYOUT_COPIES)}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = DISK_EPOCHS * DISK_STEPS
+    val = DISK_EPOCHS * DISK_VAL_BATCHES
+    n = B3A_DW_LAYERS
+    want_dw = {"depthwise_conv_forward": n * (steps + val),
+               "depthwise_conv_grad_x": n * steps,
+               "depthwise_conv_grad_w": n * steps}
+    want_image = {k: steps * 3 * p for k, p in launches_per_policy().items()}
+    log(f"cli.train T3 ({' '.join(argv)}): {ms / 1e3:.1f} s; state.step "
+        f"{state.step}; launches {counts}; expected depthwise {want_dw} "
+        f"({n} layers x (train steps {steps} + val batches {val}), x train "
+        f"steps), image kernels {want_image} (train steps x 3 roles x per "
+        "policy call)")
+    assert state.step == steps and len(history["epochs"]) == DISK_EPOCHS
+    assert counts["dw"] == want_dw, counts
+    assert counts["image"] == want_image, counts
+    assert (dict(DW.PLAIN_ON_CARD), dict(IK.PLAIN_ON_CARD)) == plain_before
+    assert counts["copies"] == {"nhwc": 0}, counts
+    ckpt = os.path.join(save, "efficientnet_b3a_Adam_0.0047863")
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert os.path.isfile(os.path.join(ckpt, "hparams.yaml"))
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    assert os.listdir(os.path.join(ckpt, "last")) == [str(steps)]
+    assert os.listdir(os.path.join(ckpt, "best")), "no best checkpoint"
+    last_epoch = history["epochs"][-1]
+    log(f"  files: hparams.yaml, metrics.jsonl ({len(recs)} records), "
+        f"best/{os.listdir(os.path.join(ckpt, 'best'))}, last/{steps}; "
+        f"last epoch train_loss {last_epoch['train_loss']:.5g}, val_loss "
+        f"{last_epoch['val_loss']:.5g}, cos_sims {last_epoch['cos_sims']:.5g}")
+
+    # the last checkpoint read back by load_checkpoint embeds as the
+    # in-memory final state does, bit for bit
+    only_last = os.path.join(root, "only_last")
+    os.makedirs(only_last)
+    os.symlink(os.path.join(ckpt, "last"), os.path.join(only_last, "last"))
+    loaded = load_checkpoint(only_last, create_model(
+        "efficientnet_b3a", num_classes=DISK_TREE["n_cats"], seed=SEED + 10))
+    rng = np.random.default_rng(SEED + 10)
+    four = torch.from_numpy(rng.integers(0, 256, (4, 256, 256, 3),
+                                         dtype=np.uint8)).to(DEV)
+    x = build_eval_transform("plain", SIZE)(four)
+    final = state.model.eval()
+    with torch.no_grad():
+        a, b = final.embed(x.float()), loaded.eval().embed(x.float())
+    assert torch.equal(a, b), (a - b).abs().max().item()
+    log("  last/ checkpoint read back by models.convert.load_checkpoint: 4 "
+        "images embed bit for bit as the in-memory final state")
+
+    # where the time goes: the cache fill, each epoch's wall and CUDA
+    # events and the loader's wait; a warm epoch profiled for the idle
+    # share; the loader's wait on uncached steps (decode in the loop)
+    for e, (wall, ev, wait) in enumerate(epochs):
+        log(f"  epoch {e}: {1e3 * wall / DISK_STEPS:.1f} ms wall, "
+            f"{1e3 * ev / DISK_STEPS:.1f} ms CUDA events per train step "
+            f"(epoch of {DISK_STEPS} steps + {DISK_VAL_BATCHES} val batch "
+            f"outside it), loader wait {1e3 * wait / DISK_STEPS:.1f} ms per "
+            f"step{' (first use, includes warm-up)' if e == 0 else ''}")
+    trainer = trainers[-1]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, pwall = sync_time(lambda: trainer.train_epoch(state, DISK_EPOCHS))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    idle = 1 - busy / pwall
+    log(f"  profiled warm epoch: {pwall / DISK_STEPS:.1f} ms wall per step, "
+        f"{busy / DISK_STEPS:.1f} ms device busy; idle share {idle:.3f}")
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    log("  top host ops by self time: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+        for e in host[:8]))
+
+    args = TRAIN_CLI.build_parser().parse_args(argv)
+    args.cache = False
+    cfg = TRAIN_CLI.build_config(args, vars(
+        TRAIN_CLI.build_parser().parse_args([])))
+    uncached = TRAIN_CLI.build_loader(
+        cfg, args, TRAIN_CLI.build_dataset(cfg, args, "train"))
+    uwaits = []
+    with patched(TripletLoader, "__iter__", timed_loader_iter(uwaits)):
+        it = iter(uncached)
+        tgen, dgen = trainer._generators(0)
+        for _ in range(DISK_UNCACHED_STEPS):
+            batch = trainer._prepare(trainer.transform(next(it), tgen))
+            trainer._train_step(state, batch, dgen)
+        torch.cuda.synchronize()
+        it.close()
+    log(f"  cache fill (--cache, decode once per dataset): "
+        + ", ".join(f"{t:.1f} s for {k} files" for t, k in fills)
+        + " (the train and val datasets); uncached loader wait per step over "
+        f"{DISK_UNCACHED_STEPS} steps: "
+        f"{', '.join(f'{1e3 * w:.0f}' for w in uwaits)} ms (each step "
+        f"decodes {3 * DISK_BATCH} files with {cfg.num_workers} loader "
+        "threads; the Huffman walk holds the GIL)")
+    log(f"  peak device memory {peak:.2f} GB; {card}")
+    return {"dw": counts["dw"], "entry": counts["entry"]}
+
+
+def find_lr_cli_run(tree: str, split: str, card: str) -> dict:
+    """``cli.find_lr --recipe find_lr`` (rexnet_150) with the opt-in: a
+    finite suggestion inside the range from at least 3 losses, 16 + 16 +
+    16 depthwise launches per sweep step, the ms per step."""
+    set_opt_in(True)
+    argv = ["--recipe", "find_lr", "-ip", tree, "--split_json", split, "-bs",
+            str(DISK_BATCH), "--num_lr_steps", str(DISK_LR_STEPS), "--cache",
+            "--host_size", "256"]
+    step_s = []
+
+    def time_steps(orig):
+        def lr_find(make_state, train_step, *a, **kw):
+            def timed(state, batch, gen):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = train_step(state, batch, gen)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return out
+            return orig(make_state, timed, *a, **kw)
+        return lr_find
+
+    args = FIND_LR_CLI.build_parser().parse_args(argv)
+    DW.reset_launch_counts()
+    plain_before = dict(DW.PLAIN_ON_CARD)
+    with patched(lr_finder, "lr_find", time_steps):
+        out, ms = sync_time(lambda: FIND_LR_CLI.run(args))
+    counts = dict(DW.KERNEL_LAUNCHES)
+    n, taken = REXNET_DW_LAYERS, len(step_s)
+    want = {k: n * taken for k in counts}
+    s, losses = out["suggestion"], out["losses"]
+    log(f"cli.find_lr ({' '.join(argv)}): {ms / 1e3:.1f} s; {taken} sweep "
+        f"steps, {len(losses)} losses recorded, suggestion {s}; launches "
+        f"{counts} (expected {want}); sweep step "
+        f"{1e3 * np.median(step_s[1:]):.1f} ms median wall (host clock, "
+        f"synchronised; first {1e3 * step_s[0]:.0f} ms); {card}")
+    assert s is not None and np.isfinite(s), s
+    # exp(linspace(log)) may leave [min_lr, max_lr] by rounding
+    assert (args.min_lr * (1 - 1e-12) <= s <= args.max_lr * (1 + 1e-12)), s
+    assert len(losses) >= 3 and np.all(np.isfinite(losses)), losses
+    assert counts == want, counts
+    assert dict(DW.PLAIN_ON_CARD) == plain_before
+    return counts
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
@@ -2451,9 +2855,22 @@ def main() -> None:
         if row["name"] in cli:
             row["cli_launches"] = cli[row["name"]]
         row["models"] = {m: rows[row["name"]] for m, rows in served.items()}
-    kernels += image_rows + dw_entries(t3, t1) + inference_rows
+    # 10. training from disk through the CLIs: rows 5-10 carry the train
+    # run's launches (the image kernels by C entry), rows 9-10 the sweep's
+    disk = disk_phase(PF.card())
+    dw_rows = dw_entries(t3, t1)
+    for row in image_rows:
+        row["train_cli_launches"] = disk["train"]["entry"][ENTRIES[row["name"]]]
+    for row in dw_rows:
+        counters = (("depthwise_conv_forward", "depthwise_conv_grad_x")
+                    if row["name"] == "depthwise_conv_forward"
+                    else ("depthwise_conv_grad_w",))
+        row["train_cli_launches"] = sum(disk["train"]["dw"][c]
+                                        for c in counters)
+        row["find_lr_launches"] = sum(disk["sweep"][c] for c in counters)
+    kernels += image_rows + dw_rows + inference_rows
 
-    # 10. result: the one card this run drove
+    # 11. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,12 @@ gradient and tap gradients as hand-written CUDA (``csrc/depthwise_conv.cu``,
 behind ``IRT_FORCE_PALLAS_DW=1`` as in JAX). Slice 11 adds the gallery
 CLI (``cli/gallery.py``: build, info, query, serve) on a PNG decoder that
 needs no PIL (``data/decode.py``) and a torch checkpoint loader
-(``models/convert.py::load_checkpoint``).
+(``models/convert.py::load_checkpoint``). Slice 12 adds the RexNet, Swin,
+ResNe(X)t and DarkNet backbones. Slice 13 adds training from disk: a
+baseline JPEG codec of the port's own (``data/jpeg.py``), the data layer
+(``data/``: splits, index, datasets, ``TripletLoader``, synthetic trees),
+``train/lr_finder.py``, ``utils/analysis.py`` and the ``data_split``,
+``train`` and ``find_lr`` CLIs.
 """
 
 __version__ = "0.1.0"

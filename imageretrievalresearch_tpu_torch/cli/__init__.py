@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (``cli.gallery``)."""
+"""Command-line entry points of the port: ``cli.gallery``,
+``cli.data_split``, ``cli.train`` and ``cli.find_lr``."""

@@ -23,8 +23,8 @@ most ``--max_batch``) take the dense path, as JAX's serve does.
 
 The port's own choices: ``--device`` (``cuda`` by default; with no card it
 raises unless ``--device cpu``) stands for JAX's ``JAX_PLATFORMS``;
-images are decoded by ``data.decode`` (PNG only: the card's machine has no
-PIL and the port no JPEG decoder yet); ``serve`` also takes
+images are decoded by ``data.decode`` (PNG and baseline JPEG, bit for bit
+PIL's: the port does not depend on PIL); ``serve`` also takes
 ``--precision`` and ``--shortlist``, which JAX's serve lacks
 (``--precision`` is only validated: both values compute the same f32).
 Stdout holds only the JSON output; every other message goes to stderr.

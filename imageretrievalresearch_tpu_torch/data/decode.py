@@ -1,30 +1,44 @@
 """Image decoding and host-side resampling on numpy, ``zlib`` and
-``struct`` alone.
+``struct`` alone, and the datasets' shared decode cache.
 
-Counterpart of the decode step of ``imageretrievalresearch_tpu/data/
-decode.py`` (``Image.open(..).convert("RGB")``) and of the gallery CLI's
-host helpers (``cli/gallery.py``: ``_square_pad_pil`` and
-``Image.resize(.., Image.BILINEAR)``), which run on PIL. The card's
-machine has no PIL, so the port decodes PNG itself and refuses JPEG:
+Counterpart of ``imageretrievalresearch_tpu/data/decode.py`` (its decode
+step, ``Image.open(..).convert("RGB")``, and its two mixins) and of the
+gallery CLI's host helpers (``cli/gallery.py``: ``_square_pad_pil`` and
+``Image.resize(.., Image.BILINEAR)``), which run on PIL. The port does not
+depend on PIL, so it decodes PNG and JPEG itself:
 
-- :func:`decode_image` — a PNG file or its bytes -> ``(H, W, 3) uint8``,
-  equal to ``np.asarray(Image.open(f).convert("RGB"))``: colour types 0
+- :func:`decode_image` — a PNG or JPEG file or its bytes -> ``(H, W, 3)
+  uint8``, equal to ``np.asarray(Image.open(f).convert("RGB"))``. JPEG
+  (signature ``FF D8 FF``) goes to ``data.jpeg.decode_jpeg``: baseline
+  sequential 8-bit, gray or YCbCr / RGB. PNG: colour types 0
   (gray at 1, 2, 4 or 8 bits, the lower depths scaled to 0-255 as PIL
   scales them), 2 (RGB), 3 (palette at 1, 2, 4 or 8 bits), 4 (gray +
   alpha) and 6 (RGBA), 8 bits apart from those. Gray is copied into the
   three channels, alpha is dropped (not composited), ``tRNS`` is ignored.
-  16-bit and Adam7-interlaced PNGs, JPEG and every other format raise
+  16-bit and Adam7-interlaced PNGs, progressive, lossless, arithmetic-
+  coded, 12-bit and CMYK JPEGs and every other format raise
   ``ValueError``, as do truncated files, chunks whose CRC disagrees and,
   as PIL's decompression bomb check refuses them, images of more than
-  ``MAX_PIXELS``. The image data is inflated only as far as the header's
+  ``MAX_PIXELS``. PNG image data is inflated only as far as the header's
   size needs (data that would inflate further is refused), so no input
   allocates more than its image.
+- :func:`encode_png` — ``(H, W, 3) uint8`` -> an RGB PNG (filter None on
+  every row), which decodes to the same array.
 - :func:`square_pad_host` — ``_square_pad_pil``: a white square canvas
   with the image pasted at ``((side - w) // 2, (side - h) // 2)``.
 - :func:`resize_bilinear_host` — Pillow's bilinear ``Image.resize``
   (``libImaging/Resample.c``) bit for bit: float64 triangle-filter
   coefficients fixed to 22 fractional bits, a horizontal then a vertical
   pass over uint8, a pass whose size is unchanged skipped.
+- :class:`DecodeCacheMixin` and :class:`TripletImageMixin` — the
+  datasets' decode-once RAM cache (optionally at a host size) and the
+  image-level triplet wrapper shared by the sketchy, original and soft
+  families.
+
+The decoders run in Python and numpy: zlib and numpy's array operations
+release the GIL, the JPEG Huffman walk and the PNG filter loop's Python
+steps hold it (PIL releases it for a whole decode), so the loader's
+threads overlap decodes only in part.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ from pathlib import Path
 
 import numpy as np
 
+from imageretrievalresearch_tpu_torch.data.jpeg import decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (channels, allowed bit depths); 16 bits is refused apart
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
@@ -48,13 +64,6 @@ _PRECISION_BITS = 22
 # PIL's decompression bomb limit: Image.open refuses more than twice
 # Image.MAX_IMAGE_PIXELS (1024 ** 3 // 4 // 3) pixels
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
-
-
-def _format_error(data: bytes) -> ValueError:
-    if data[:3] == b"\xff\xd8\xff":
-        return ValueError("JPEG input: the port has no JPEG decoder yet "
-                          "(ROADMAP); only PNG is decoded")
-    return ValueError("not a PNG file; only PNG is decoded by the port")
 
 
 def _chunks(data: bytes):
@@ -135,14 +144,17 @@ def _samples(rows: np.ndarray, width: int, depth: int,
 
 def decode_image(src: str | Path | bytes | bytearray | memoryview
                  ) -> np.ndarray:
-    """A PNG file (path) or its bytes -> ``(H, W, 3) uint8`` RGB, as
-    ``Image.open(..).convert("RGB")`` gives it. Raises ``ValueError`` for
-    JPEG and other formats, 16-bit and interlaced PNGs, and truncated or
-    corrupt files."""
+    """A PNG or JPEG file (path) or its bytes -> ``(H, W, 3) uint8`` RGB,
+    as ``Image.open(..).convert("RGB")`` gives it. Raises ``ValueError``
+    for other formats, 16-bit and interlaced PNGs, JPEGs other than
+    baseline 8-bit gray or colour, and truncated or corrupt files."""
     data = (bytes(src) if isinstance(src, (bytes, bytearray, memoryview))
             else Path(src).read_bytes())
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data, MAX_PIXELS)
     if not data.startswith(PNG_SIGNATURE):
-        raise _format_error(data)
+        raise ValueError("not a PNG or JPEG file; the port decodes PNG and "
+                         "baseline JPEG")
     header, palette, idat = None, None, []
     for ctype, payload in _chunks(data):
         if ctype == b"IHDR":
@@ -198,6 +210,22 @@ def decode_image(src: str | Path | bytes | bytearray | memoryview
         gray = px[..., 0] * np.uint8(_GRAY_SCALE[depth])
         return np.repeat(gray[..., None], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG, every row unfiltered."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
 def square_pad_host(img: np.ndarray) -> np.ndarray:
@@ -270,3 +298,82 @@ def resize_bilinear_host(img: np.ndarray, size: tuple[int, int]
     if h != img.shape[0]:
         out = _resample_axis(out, h, axis=0)
     return out.copy() if out is img else out
+
+
+class DecodeCacheMixin:
+    """Mixin for datasets exposing ``image_lst`` / ``sketch_lst`` path
+    lists. Call :meth:`_init_decode_cache` from ``__init__``; use
+    :meth:`_decode` in ``__getitem__``."""
+
+    def _init_decode_cache(self, load_images: bool,
+                           cache_size: int | None,
+                           cache_store: dict | None = None) -> None:
+        """``cache_store``: an externally shared path -> array dict. Pass
+        the SAME dict to sibling datasets over the same tree (the train
+        CLI's train / val TripleDataset pair, whose sketch universe is
+        the whole tree whatever the split) so each image is decoded and
+        held once per process. Share only between datasets with the same
+        ``cache_size``."""
+        self.load_images = load_images
+        self.cache_size = cache_size
+        self._cache: dict[str, np.ndarray] = (
+            cache_store if cache_store is not None else {})
+        if load_images:
+            for p in set(self.sketch_lst) | set(self.image_lst):
+                if p not in self._cache:
+                    self._cache[p] = self._decode(p)
+
+    def _decode(self, path: str) -> np.ndarray:
+        if path in self._cache:
+            return self._cache[path]
+        img = decode_image(path)
+        cs = self.cache_size
+        if cs is not None and img.shape[:2] != (cs, cs):
+            img = resize_bilinear_host(img, (cs, cs))
+        return img
+
+
+class TripletImageMixin(DecodeCacheMixin):
+    """Image-level wrapper over a path-level triplet dataset: decodes
+    sampled triplets, optionally applies a per-image ``transform_dic``,
+    and seeds a default rng (the loader passes a deterministic
+    per-(epoch, idx) one instead)."""
+
+    def __init__(self, transform_dic: dict | None = None,
+                 pos_return_num: int = 1, neg_return_num: int = 1,
+                 load_images: bool = False, cache_size: int | None = None,
+                 seed: int = 0, **kwargs):
+        if not kwargs.get("random", True):
+            # fail at construction: the materialized-json (random=False)
+            # image mode is path-level only, and the eager decode cache
+            # would otherwise run before __getitem__'s index check fired
+            raise ValueError(
+                f"{type(self).__name__} requires random=True indexing; the "
+                "materialized data_json mode is path-level only")
+        super().__init__(**kwargs)
+        self.transform_dic = transform_dic
+        self.pos_return_num = pos_return_num
+        self.neg_return_num = neg_return_num
+        self._rng = np.random.default_rng(seed)
+        self._init_decode_cache(load_images, cache_size)
+        if transform_dic:
+            self.qry_trans = transform_dic["qry"]
+            self.pos_trans = transform_dic["pos"]
+            self.neg_trans = transform_dic["neg"]
+
+    def __getitem__(self, idx: int,
+                    rng: np.random.Generator | None = None) -> dict:
+        assert self.index is not None
+        rng = rng or self._rng
+        s = self.index.sample(idx, rng, self.pos_return_num,
+                              self.neg_return_num)
+        qry = self._decode(s["qry"])
+        pos = [self._decode(p) for p in s["pos"]]
+        neg = [self._decode(p) for p in s["neg"]]
+        if self.transform_dic:
+            qry = self.qry_trans(qry)
+            pos = [self.pos_trans(i) for i in pos]
+            neg = [self.neg_trans(i) for i in neg]
+        return {"qry": qry, "pos": pos, "neg": neg,
+                "cat_idx": s["cat_idx"], "prod_idx": s["prod_idx"],
+                "paths": {"qry": s["qry"], "pos": s["pos"], "neg": s["neg"]}}

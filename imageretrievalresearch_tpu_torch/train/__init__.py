@@ -1,6 +1,7 @@
 """Training: optimizer and schedule, the loss-combination steps, the
-Trainer (one card)."""
+Trainer (one card) and the LR range test (``train.lr_finder``)."""
 
+from imageretrievalresearch_tpu_torch.train.lr_finder import lr_find
 from imageretrievalresearch_tpu_torch.train.steps import (
     build_classifier_eval_step,
     build_classifier_train_step,
@@ -27,4 +28,5 @@ __all__ = [
     "build_classifier_eval_step",
     "EarlyStopping",
     "Trainer",
+    "lr_find",
 ]

@@ -69,10 +69,17 @@ def tree(tmp_path_factory):
         for i in range(8):
             Image.fromarray(_image(rng, c)).save(
                 root / "tree" / f"cat{c}" / f"{i}.png")
+    # baseline JPEGs of one image per class, to query with
+    (root / "jpeg").mkdir()
+    jpegs = []
+    for c in range(3):
+        jpegs.append(str(root / "jpeg" / f"q{c}.jpg"))
+        Image.open(root / "tree" / f"cat{c}" / "1.png").save(jpegs[-1])
     ckpt = root / "b0.pt"
     torch.save(create_model("efficientnet_b0", num_classes=3, device="cpu",
                             seed=3).net.state_dict(), ckpt)
-    return {"root": root, "tree": str(root / "tree"), "ckpt": str(ckpt)}
+    return {"root": root, "tree": str(root / "tree"), "ckpt": str(ckpt),
+            "jpegs": jpegs}
 
 
 def _lines(fn, argv) -> list[dict]:
@@ -135,7 +142,9 @@ def parity(tree, artifact):
         jax_cli("build", gj, images, *MODEL, "-cp", ck)
         runs = {"jax_on_jax": jax_cli("query", gj, images, *dedup),
                 "jax_on_jax_raw": jax_cli("query", gj, images, *raw),
-                "jax_on_port": jax_cli("query", gt, images, *dedup)}
+                "jax_on_port": jax_cli("query", gt, images, *dedup),
+                "jax_on_jax_jpeg": jax_cli("query", gj, *tree["jpegs"],
+                                           *dedup)}
     return {"gj": gj, "gt": gt, **runs,
             "port_on_jax": port("query", gj, images, *dedup, *CPU),
             "port_on_jax_raw": port("query", gj, images, *raw, *CPU)}
@@ -322,13 +331,21 @@ def test_serve_endpoint(tree, tmp_path):
         assert _status(port_, "POST", "/search", 64 * 1024 * 1024) == 413
         # negative Content-Length -> 400, not read-until-EOF
         assert _status(port_, "POST", "/search", -1) == 400
-        # a malformed body, a JPEG and decompression bombs -> structured
-        # 400, server stays up
-        jpeg = io.BytesIO()
-        Image.open(photo).convert("RGB").save(jpeg, format="JPEG")
+        # a baseline JPEG body is served as query serves its file
+        jpg = tmp_path / "q.jpg"
+        Image.open(photo).convert("RGB").save(jpg, format="JPEG")
+        queried = port("query", npz, str(jpg), "-k", "24", "--num_unique",
+                       "2", "--matmul_dtype", "int8", "-bs", "1", *CPU)[0]
+        rec = _post(base, jpg.read_bytes(), "?num_unique=2")
+        assert rec == {key: queried[key] for key in rec}
+        # a malformed body, a progressive JPEG and decompression bombs ->
+        # structured 400, server stays up
+        progressive = io.BytesIO()
+        Image.open(photo).convert("RGB").save(progressive, format="JPEG",
+                                              progressive=True)
         bombs = bomb_pngs()
         for bad, why in ((b"not-an-img", "not a PNG"),
-                         (jpeg.getvalue(), "no JPEG decoder"),
+                         (progressive.getvalue(), "progressive"),
                          (bombs["inflates_past_ihdr"], "inflates past"),
                          (bombs["too_many_pixels"], "decompression bomb")):
             with pytest.raises(urllib.error.HTTPError) as e:
@@ -491,11 +508,17 @@ def test_query_rejects_mixed_resolutions(tree, tmp_path):
     assert G._decode(paths, 32).shape == (2, 32, 32, 3)
 
 
-def test_query_refuses_jpeg_and_approx(tree, artifact, tmp_path):
+def test_query_refuses_jpeg_and_approx(tree, artifact, parity, tmp_path):
+    """Baseline JPEG queries rank as the JAX CLI ranks them (near-tie
+    rule); a progressive JPEG and ``--method approx`` are refused."""
     npz = artifact
+    assert_rankings(port("query", parity["gj"], *tree["jpegs"], "-k", "24",
+                         "--num_unique", "3", "-bs", "8", *CPU),
+                    parity["jax_on_jax_jpeg"])
     jpg = tmp_path / "q.jpg"
-    Image.open(f"{tree['tree']}/cat0/0.png").convert("RGB").save(jpg)
-    with pytest.raises(ValueError, match="no JPEG decoder"):
+    Image.open(f"{tree['tree']}/cat0/0.png").convert("RGB").save(
+        jpg, progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
         port("query", npz, str(jpg), *CPU)
     with pytest.raises(NotImplementedError, match="approx"):
         port("query", npz, f"{tree['tree']}/cat0/0.png", "--method",

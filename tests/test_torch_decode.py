@@ -173,10 +173,17 @@ def test_decode_refusals():
             rng.integers(0, 65535, (8, 8)).astype(np.uint16))))
     with pytest.raises(ValueError, match="interlaced"):
         decode_image(write_png(smooth(rng, 8, 8), 2, interlace=1))
+    # a baseline JPEG decodes as PIL decodes it; a progressive one is
+    # refused
     jpeg = io.BytesIO()
     Image.fromarray(smooth(rng, 8, 8)).save(jpeg, format="JPEG")
-    with pytest.raises(ValueError, match="no JPEG decoder"):
-        decode_image(jpeg.getvalue())
+    np.testing.assert_array_equal(decode_image(jpeg.getvalue()),
+                                  pil_rgb(jpeg.getvalue()))
+    progressive = io.BytesIO()
+    Image.fromarray(smooth(rng, 8, 8)).save(progressive, format="JPEG",
+                                            progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
+        decode_image(progressive.getvalue())
     gif = io.BytesIO()
     Image.fromarray(smooth(rng, 8, 8)).save(gif, format="GIF")
     for other in (gif.getvalue(), b"not-an-img"):
