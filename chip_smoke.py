@@ -176,7 +176,34 @@ Phases (any failure exits non-zero, with no result line):
    Rows 5-10 of the kernels line carry the train run's launches as
    ``train_cli_launches`` (rows 5-8 by C entry), rows 9-10 the sweep's as
    ``find_lr_launches``.
-11. One JSON line of kernels, the nvidia-smi line, and the result line.
+11. Evaluation and analysis from disk, in this process. The port's
+   ``make_sketchy_tree`` writes 8 categories x 11 products at 256 px (264
+   JPEG photos, 176 PNG sketches). Whether matplotlib imports is asked in
+   a child process (a report of the machine: without it no ``--viz_dir``
+   step runs). ``cli.inference -ip <tree> -bs 64 --cache True
+   --save_gallery <npz> --gallery_dtype int8`` (+ ``--viz_dir`` where
+   matplotlib imports): rexnet_150, its default (D = 1920), seeded
+   weights, 224 px squarepad, class_dedup, counts set to 0 just before and
+   read just after: kernel 1 once (the evaluation's Q = G = 264), nothing
+   else, no plain version on the card; its printed top1 / top3 / scores
+   against ``RetrievalEngine.evaluate_class_dedup`` on the same embeddings
+   through ``method='dense'`` (true f32): deduplicated values within
+   ``EVAL_TIE_ATOL`` and top1 / top3 within the share of queries ranked
+   otherwise (near-ties); the grids written and not empty. Then
+   ``--topk_variant index_match`` (kernel 1 once, held to the dense path
+   the same way). ``cli.gallery query`` of 64 photos against the int8
+   artifact in int8 (kernel 3) and float32 (kernel 1), one launch each,
+   records and top-1 classes against the library path (near-tie rule).
+   ``grad_cam_pair`` and ``grad_cam_class`` on rexnet_150 and
+   swin_s3_base_224 (49 tokens folded to 7 x 7) for 8 queries on the card
+   against the CPU's maps of the same weights (``CAM_ATOL``).
+   ``method='approx'`` over the phase 2 gallery (G = 100,000) at Q = 64:
+   no kernel, indices and values equal to ``method='dense'``'s, recall
+   against exact, and both warm times. The wall of each CLI run, the
+   cache fill, embed ms per batch, the evaluation's ms, the query walls
+   and the CAM ms. Rows 1 and 3 of the kernels line carry these launches
+   as ``inference_cli_launches``.
+12. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -195,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import functools
 import hashlib
 import io
 import json
@@ -220,6 +248,7 @@ if not torch.cuda.is_available():
 from imageretrievalresearch_tpu_torch.cli import data_split as SPLIT_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import find_lr as FIND_LR_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import gallery as CLI  # noqa: E402
+from imageretrievalresearch_tpu_torch.cli import inference as INFER_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import train as TRAIN_CLI  # noqa
 from imageretrievalresearch_tpu_torch.data import synthetic as SYN  # noqa
 from imageretrievalresearch_tpu_torch.data.decode import (  # noqa: E402
@@ -255,6 +284,11 @@ from imageretrievalresearch_tpu_torch.recipes import make_config  # noqa: E402
 from imageretrievalresearch_tpu_torch.retrieval import (  # noqa: E402
     GalleryIndex,
     RetrievalEngine,
+)
+from imageretrievalresearch_tpu_torch.retrieval import engine as ENGINE  # noqa
+from imageretrievalresearch_tpu_torch.retrieval.gradcam import (  # noqa: E402
+    grad_cam_class,
+    grad_cam_pair,
 )
 from imageretrievalresearch_tpu_torch.tools import (  # noqa: E402
     profile_fused_kernel as PF,
@@ -428,6 +462,29 @@ DISK_JPEG_MEAN_ERR, DISK_JPEG_MAX_ERR = 24.0, 200
 # the uncached loader's steps measured after the CLI run (each decodes 48
 # files: query, positive and negative of 16 triplets)
 DISK_UNCACHED_STEPS = 4
+# phase 11, evaluation and analysis from disk: the port's synthetic Sketchy
+# tree at 256 px with 11 products a category (264 JPEG photos, 176 PNG
+# sketches), so the evaluation's gallery (one positive per photo, G = Q =
+# 264) reaches kernel 1's G >= 4 x FUSED_BINS = 256; phase 10's 8 x 10
+# tree has 240, and the generator's draws depend on n_prods, so the phase
+# writes its own. cli.inference runs rexnet_150, its default (D = 1920),
+# at 224 px and batches of 64; the artifact is queried with 64 photos.
+EVAL_TREE = dict(n_cats=8, n_prods=11, n_photos=3, n_sketches=2, size=256,
+                 structured=True, seed=0)
+EVAL_ITEMS, EVAL_BATCH, EVAL_QUERIES, EVAL_DIM = 264, 64, 64, 1920
+# kernel 1 computes 3xTF32 scores (within ~1e-7 of an f64 product), the
+# dense reference true f32: the evaluation's deduplicated values agree
+# within EVAL_TIE_ATOL, and a query's top classes may differ only where
+# they do (a near-tie); top1 / top3 then move by at most those queries
+EVAL_TIE_ATOL = 1e-6
+# Grad-CAM on the card against the CPU's, same weights and inputs, 8
+# queries, maps normalized to [0, 1]: f32 against f64 on the CPU differs
+# by up to 1.3e-5 (RexNet-150, pair CAM) and 1.0e-4 (Swin-S3-base, pair
+# CAM) on seeded images, so the card's f32 sums in other orders are held
+# to CAM_ATOL, ten times that
+CAM_MODELS = ("rexnet_150", "swin_s3_base_224")
+CAM_N, CAM_SIDE, CAM_ATOL = 8, 7, 1e-3
+APPROX_REPS = 5
 # PIL's decode of every file of the tree, in a child process (the smoke
 # imports no PIL): one line of JSON, path -> sha256 of the RGB array
 PIL_DIGESTS = r"""
@@ -1980,18 +2037,24 @@ def cli_stdout(argv: list) -> tuple[list, float]:
 
 
 def library_path(npz: str, paths: list):
-    """The library path for the same query files: ``data.decode`` with the
-    artifact's host size, ``RetrievalEngine`` over the same seeded model,
-    then (the returned function of the mode)
+    """The library path for the same query files: ``data.decode`` (with
+    the artifact's host size, where it records one), ``RetrievalEngine``
+    over the same seeded model, then (the returned function of the mode)
     ``GalleryIndex.query_class_dedup`` on the same artifact."""
     idx = GalleryIndex.load(npz)
-    host = idx.meta["host_size"]
-    x = np.stack([resize_bilinear_host(square_pad_host(decode_image(p)),
-                                       (host, host)) for p in paths])
-    model = create_model("efficientnet_b3a",
+    host = idx.meta.get("host_size")
+
+    def load(path):
+        im = decode_image(path)
+        if host:
+            im = resize_bilinear_host(square_pad_host(im), (host, host))
+        return im
+
+    x = np.stack([load(p) for p in paths])
+    model = create_model(idx.meta["model"],
                          num_classes=idx.meta["num_classes"])
     engine = RetrievalEngine(model, transform=build_eval_transform(
-        "squarepad", SIZE))
+        idx.meta["transform"], idx.meta["input_size"]))
     emb = engine.embed_batch(x)
 
     def records(mode: str) -> list:
@@ -2608,6 +2671,302 @@ def find_lr_cli_run(tree: str, split: str, card: str) -> dict:
     return counts
 
 
+def matplotlib_report() -> bool:
+    """Whether matplotlib imports on this machine (Agg backend), asked in
+    a child process as ``codec_report`` asks of the codecs: a report of
+    the machine, printed either way."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import matplotlib; matplotlib.use('Agg'); "
+         "import matplotlib.pyplot"], capture_output=True, text=True,
+        timeout=300)
+    if r.returncode == 0:
+        log("matplotlib imports on this machine: the phase renders "
+            "cli.inference's --viz_dir grids")
+        return True
+    log("matplotlib does not import on this machine ("
+        f"{(r.stderr.strip().splitlines() or ['?'])[-1][:120]}): the "
+        "phase runs no --viz_dir step")
+    return False
+
+
+def counters() -> tuple:
+    """Every launch and plain-version counter of the port's kernels."""
+    return (dict(R.KERNEL_LAUNCHES), dict(R.PLAIN_ON_CARD),
+            dict(IK.KERNEL_LAUNCHES), dict(IK.PLAIN_ON_CARD),
+            dict(DW.KERNEL_LAUNCHES), dict(DW.PLAIN_ON_CARD))
+
+
+def inference_cli_run(argv: list, card: str) -> dict:
+    """``cli.inference`` in this process with every launch count set to 0
+    just before and read just after: its printed metric lines, results,
+    launches, wall, cache fill, embed ms per batch and evaluation ms. Only
+    kernel 1 may launch (once: the evaluation ranks Q = G = 264), and no
+    plain version may run on the card."""
+    plain_before = counters()[1::2]
+    fills, embeds, evals, evaluated = [], [], [], []
+
+    def time_fill(orig):
+        def fill(self, *a, **kw):
+            t0 = time.perf_counter()
+            orig(self, *a, **kw)
+            fills.append((time.perf_counter() - t0, len(self._cache)))
+        return fill
+
+    def time_into(store, args=None):
+        def wrap(orig):
+            def timed(self, *a, **kw):
+                out, ms = sync_time(lambda: orig(self, *a, **kw))
+                store.append(ms)
+                if args is not None:
+                    args.append(a[0])
+                return out
+            return timed
+        return wrap
+
+    for mod in (R, IK, DW):
+        mod.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        for owner, name, wrap in (
+                (DecodeCacheMixin, "_init_decode_cache", time_fill),
+                (RetrievalEngine, "embed_batch", time_into(embeds)),
+                (RetrievalEngine, "evaluate_class_dedup",
+                 time_into(evals, evaluated)),
+                (RetrievalEngine, "evaluate_index_match",
+                 time_into(evals, evaluated))):
+            stack.enter_context(patched(owner, name, wrap))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        results, ms = sync_time(lambda: INFER_CLI.run(
+            INFER_CLI.build_parser().parse_args(argv)))
+    counts = counters()
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith(("Test ", "Saved ", "Wrote ", "The dataset",
+                               "Number of"))]
+    for ln in lines:
+        log(f"  | {ln}")
+    # the CLI's printed lines are the results it returns
+    for key in ("top1", "top3", "scores"):
+        name = "cos sim scores" if key == "scores" else key
+        assert f"Test {name}: {results[key]:.3f}" in lines, (key, lines)
+    assert counts[0]["fused_cosine_topk"] == 1, counts[0]
+    assert sum(counts[0].values()) == 1, counts[0]
+    assert not any(counts[2].values()) and not any(counts[4].values())
+    assert counts[1::2] == plain_before, (counts[1::2], plain_before)
+    fill_s = sum(t for t, _ in fills)
+    n_files = sum(n for _, n in fills)
+    log(f"cli.inference {' '.join(argv[2:])}: {ms / 1e3:.2f} s wall (host "
+        f"clock, synchronised), of it the cache fill {fill_s:.2f} s "
+        f"({n_files} files decoded), {len(embeds)} embed_batch calls "
+        f"(rexnet_150, {SIZE} px) {np.median(embeds):.1f} ms median, "
+        f"{sum(embeds):.0f} ms in all, the evaluation {evals[0]:.1f} ms; "
+        f"launches {counts[0]}, no plain version on the card; {card}")
+    return {"results": results, "embeds": evaluated[0],
+            "launches": counts[0]["fused_cosine_topk"]}
+
+
+def dense_reference(model, fn: str, embeds: dict) -> dict:
+    """``RetrievalEngine.<fn>`` on the CLI's own embeddings with
+    ``cosine_topk(method='dense')`` (true f32, TF32 off) in place of the
+    fused kernel."""
+    dense = lambda f: functools.partial(f, method="dense")  # noqa: E731
+    with patched(ENGINE, "cosine_topk", dense):
+        return getattr(RetrievalEngine(model), fn)(embeds)
+
+
+def held_to_dense(got: dict, ref: dict, what: str) -> int:
+    """The kernel's evaluation against the dense one: deduplicated values
+    within EVAL_TIE_ATOL, top classes differing only in rows where they
+    do, top1 / top3 within those rows' share; returns the rows."""
+    gv, rv = got["top_vals"], ref["top_vals"]
+    both_inf = np.isneginf(gv) & np.isneginf(rv)
+    gap = np.abs(np.where(both_inf, 0, gv - rv)).max()
+    assert gap <= EVAL_TIE_ATOL, (what, gap)
+    rows = int((got["top_r_list"] != ref["top_r_list"]).any(axis=1).sum())
+    q = len(gv)
+    for key in ("top1", "top3"):
+        assert abs(got[key] - ref[key]) <= rows / q + 1e-12, (what, key)
+    assert got["scores"] == ref["scores"], what
+    log(f"  {what} against the dense path (true f32): top1 {got['top1']:.4f}"
+        f" vs {ref['top1']:.4f}, top3 {got['top3']:.4f} vs {ref['top3']:.4f}"
+        f", scores {got['scores']:.6f} equal; deduplicated values within "
+        f"{gap:.2g} (limit {EVAL_TIE_ATOL}); {rows} of {q} queries rank "
+        "their top classes otherwise (near-ties)")
+    return rows
+
+
+def index_match_to_dense(model, got: dict, embeds: dict) -> None:
+    """index_match's loss and scores equal to the dense path's (no kernel
+    computes them); its top1 / top3 (kernel 1 at k = 3) within the share
+    of queries whose top-3 the kernel ranks otherwise than the dense path,
+    each such row at a near-tie (values within EVAL_TIE_ATOL)."""
+    ref = dense_reference(model, "evaluate_index_match", embeds)
+    assert got["loss"] == ref["loss"] and got["scores"] == ref["scores"]
+    q, g = (torch.as_tensor(embeds[k], device=DEV)
+            for k in ("fms_ims_all", "fms_poss_all"))
+    (kv, ki), (dv, di) = (R.cosine_topk(q, g, 3, method=m)
+                          for m in ("fused", "dense"))
+    gap = (kv - dv).abs().max().item()
+    rows = int((ki != di).any(dim=1).sum())
+    assert gap <= EVAL_TIE_ATOL, gap
+    for key in ("top1", "top3"):
+        assert abs(got[key] - ref[key]) <= rows / len(q) + 1e-12, key
+    log(f"  index_match against the dense path: loss {got['loss']:.6f} and "
+        f"scores equal, top1 {got['top1']:.4f} vs {ref['top1']:.4f}, top3 "
+        f"{got['top3']:.4f} vs {ref['top3']:.4f}; the k = 3 values within "
+        f"{gap:.2g}, {rows} of {len(q)} rows ranked otherwise (near-ties)")
+
+
+def artifact_queries(npz: str, qpaths: list, card: str) -> dict:
+    """``cli.gallery query`` of EVAL_QUERIES photos against the int8
+    artifact ``cli.inference`` saved, in int8 (kernel 3) and float32
+    (kernel 1), counts set to 0 just before each and read just after;
+    records against the library path (near-tie rule) and their top-1
+    classes."""
+    library = library_path(npz, qpaths)
+    launches = {}
+    for mode in ("int8", "float32"):
+        kernel = MODE_KERNELS[mode]
+        plain_before = counters()[1::2]
+        for mod in (R, IK, DW):
+            mod.reset_launch_counts()
+        recs, ms = cli_stdout(["query", npz, *qpaths, "-k", str(K),
+                               "--num_unique", "3", "--matmul_dtype", mode])
+        counts = counters()
+        assert len(recs) == EVAL_QUERIES, len(recs)
+        assert counts[0][kernel] == 1 and sum(counts[0].values()) == 1, (
+            mode, counts[0])
+        assert counts[1::2] == plain_before, mode
+        launches[kernel] = counts[0][kernel]
+        refs = library(mode)
+        n_diff = near_tie_records(recs, refs, f"artifact query {mode}")
+        top1 = sum(r["classes"][0] == f["classes"][0]
+                   for r, f in zip(recs, refs))
+        assert top1 >= EVAL_QUERIES - n_diff, (mode, top1, n_diff)
+        log(f"cli.gallery query of {EVAL_QUERIES} photos against the "
+            f"cli.inference int8 artifact, --matmul_dtype {mode}: "
+            f"{ms:.0f} ms wall; launches {counts[0]}; top-1 class equal to "
+            f"the library path's for {top1} of {EVAL_QUERIES}, {n_diff} "
+            f"records differ, all at near-ties; {card}")
+    return launches
+
+
+def gradcam_checks(xs: torch.Tensor, ps: torch.Tensor, card: str) -> None:
+    """``grad_cam_pair`` (against each query's positive sketch) and
+    ``grad_cam_class`` on the card for CAM_N queries, against the same
+    weights' maps on the CPU from the same inputs."""
+    cls = torch.arange(CAM_N)
+    for name in CAM_MODELS:
+        model = create_model(name, num_classes=EVAL_TREE["n_cats"],
+                             seed=SEED)
+        cpu = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            ref = model.embed(ps)
+        cams = [lambda m, x, r: grad_cam_pair(m, x, r),
+                lambda m, x, r: grad_cam_class(m, x, cls)]
+        errs, warm = [], []
+        for cam in cams:
+            cam(model, xs, ref)                         # warm-up
+            got, ms = sync_time(lambda: cam(model, xs, ref))
+            want = cam(cpu, xs.cpu(), ref.cpu())
+            assert got.shape == want.shape == (CAM_N, CAM_SIDE, CAM_SIDE)
+            assert torch.isfinite(got).all()
+            assert got.min() >= 0 and got.max() <= 1
+            errs.append((got.cpu() - want).abs().max().item())
+            warm.append(ms)
+        log(f"[{name}] Grad-CAM of {CAM_N} queries at {SIZE} px "
+            f"({CAM_SIDE} x {CAM_SIDE} maps): pair {warm[0]:.1f} ms, class "
+            f"{warm[1]:.1f} ms warm on the card (host clock, synchronised); "
+            f"against the CPU's largest |difference| {errs[0]:.3g} (pair), "
+            f"{errs[1]:.3g} (class), limit {CAM_ATOL}; {card}")
+        assert max(errs) <= CAM_ATOL, (name, errs)
+        del model, cpu
+
+
+def approx_check(index, q64, card: str) -> None:
+    """``method='approx'`` on the served G = 100,000 gallery at Q = 64:
+    the dense path (no kernel launch), indices and values equal to
+    ``method='dense'``'s, recall 1.0 against the exact (fused) request;
+    warm times of both."""
+    R.reset_launch_counts()
+    av, ai, _ = index.query(q64, k=K, method="approx")
+    assert not any(R.KERNEL_LAUNCHES.values()), R.KERNEL_LAUNCHES
+    dv, di, _ = index.query(q64, k=K, method="dense")
+    assert np.array_equal(ai, di) and np.array_equal(av, dv)
+    ev, ei, _ = index.query(q64, k=K)
+    recall = np.mean([len(set(a) & set(e)) / K for a, e in zip(ai, ei)])
+    assert np.abs(av - ev).max() <= 1e-5
+    times = {}
+    for method in ("approx", "exact"):
+        ms = [sync_time(lambda: index.query(q64, k=K, method=method))[1]
+              for _ in range(APPROX_REPS)]
+        times[method] = float(np.median(ms))
+    log(f"method='approx' at Q = 64 over G = {G_TOTAL:,} x {DIM}, k = {K}: "
+        f"the dense path, no kernel launched; indices and values equal to "
+        f"method='dense'; recall against exact (fused kernel 1) {recall:.4f} "
+        f"(positions swapped only at near-ties; values within 1e-5); warm "
+        f"GalleryIndex.query {times['approx']:.2f} ms against exact's "
+        f"{times['exact']:.2f} ms (median of {APPROX_REPS}, host clock, "
+        f"synchronised); {card}")
+
+
+def analysis_phase(index, q64, card: str) -> dict:
+    """Phase 11: evaluation and analysis from disk through the entry
+    points users run. Returns kernel 1's launches in the two
+    ``cli.inference`` runs and each kernel's launches in the artifact
+    queries."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="eval_phase_")
+    try:
+        tree = os.path.join(root, "sketchy")
+        t0 = time.perf_counter()
+        SYN.make_sketchy_tree(tree, **EVAL_TREE)
+        log(f"eval tree: make_sketchy_tree({EVAL_TREE}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        viz = os.path.join(root, "viz") if matplotlib_report() else None
+        npz = os.path.join(root, "gallery_int8.npz")
+        base = ["-ip", tree, "-bs", str(EVAL_BATCH), "--cache", "True"]
+        cd = inference_cli_run(
+            base + ["--save_gallery", npz, "--gallery_dtype", "int8"]
+            + (["--viz_dir", viz] if viz else []), card)
+        res = cd["results"]
+        assert res["fms_ims_all"].shape == (EVAL_ITEMS, EVAL_DIM)
+        assert np.isfinite(res["fms_ims_all"]).all()
+        model = create_model("rexnet_150", num_classes=EVAL_TREE["n_cats"])
+        held_to_dense(res, dense_reference(model, "evaluate_class_dedup",
+                                           cd["embeds"]), "class_dedup")
+        art = GalleryIndex.load(npz)
+        assert len(art) == EVAL_ITEMS and art.meta["model"] == "rexnet_150"
+        if viz:
+            files = sorted(os.listdir(viz))
+            assert files == [f"retrieval_{i:03d}.png" for i in range(8)]
+            assert all(os.path.getsize(os.path.join(viz, f)) > 0
+                       for f in files)
+            log(f"  --viz_dir: {len(files)} grids written, none empty")
+        im = inference_cli_run(base + ["--topk_variant", "index_match"], card)
+        index_match_to_dense(model, im["results"], im["embeds"])
+        del model
+
+        photos = sorted(
+            os.path.join(d, f) for d, _, fs in
+            os.walk(os.path.join(tree, "photo")) for f in fs)
+        qpaths = photos[::len(photos) // EVAL_QUERIES][:EVAL_QUERIES]
+        queries = artifact_queries(npz, qpaths, card)
+
+        tfm = build_eval_transform("squarepad", SIZE)
+        sketches = [p.replace("/photo/", "/sketch/").rsplit("-", 1)[0]
+                    + "-0.png" for p in qpaths[:CAM_N]]
+        xs = tfm(np.stack([decode_image(p) for p in qpaths[:CAM_N]]))
+        ps = tfm(np.stack([decode_image(p) for p in sketches]))
+        gradcam_checks(xs, ps, card)
+        approx_check(index, q64, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 11 (evaluation and analysis from disk): "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"class_dedup": cd["launches"], "index_match": im["launches"],
+            "artifact_query": queries}
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
@@ -2869,8 +3228,19 @@ def main() -> None:
                                         for c in counters)
         row["find_lr_launches"] = sum(disk["sweep"][c] for c in counters)
     kernels += image_rows + dw_rows + inference_rows
+    # 11. evaluation and analysis from disk: rows 1 and 3 carry kernel 1's
+    # launches in the two cli.inference runs and each kernel's in the
+    # artifact's queries
+    analysis = analysis_phase(index, q64, PF.card())
+    for row in kernels:
+        if row["name"] in ("fused_cosine_topk", "fused_cosine_topk_int8"):
+            own = row["name"] == "fused_cosine_topk"
+            row["inference_cli_launches"] = {
+                "class_dedup": analysis["class_dedup"] if own else 0,
+                "index_match": analysis["index_match"] if own else 0,
+                "artifact_query": analysis["artifact_query"][row["name"]]}
 
-    # 11. result: the one card this run drove
+    # 12. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

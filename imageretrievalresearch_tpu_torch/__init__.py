@@ -22,7 +22,14 @@ ResNe(X)t and DarkNet backbones. Slice 13 adds training from disk: a
 baseline JPEG codec of the port's own (``data/jpeg.py``), the data layer
 (``data/``: splits, index, datasets, ``TripletLoader``, synthetic trees),
 ``train/lr_finder.py``, ``utils/analysis.py`` and the ``data_split``,
-``train`` and ``find_lr`` CLIs.
+``train`` and ``find_lr`` CLIs. Slice 14 adds evaluation and analysis:
+the ``inference`` CLI, Grad-CAM (``retrieval/gradcam.py``), the retrieval
+grids (``retrieval/visualize.py``, matplotlib imported lazily),
+``method='approx'`` (the dense path: exact, as JAX off the TPU), the
+published-checkpoint registry (``checkpoints.py``) and the examples
+(``examples/``).
 """
 
-__version__ = "0.1.0"
+from imageretrievalresearch_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

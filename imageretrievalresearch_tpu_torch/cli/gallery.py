@@ -162,7 +162,9 @@ def _add_ranking_args(p: argparse.ArgumentParser) -> None:
                         "cell 2 semantics); 0 disables dedup")
     p.add_argument("--method", type=str, default="exact",
                    choices=["exact", "approx"],
-                   help="'approx' is not ported yet and raises")
+                   help="'approx' ranks on the dense path: on the port it "
+                        "equals exact (JAX's approx_max_k is exact off the "
+                        "TPU)")
     p.add_argument("--matmul_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16", "int8", "int8_rerank"],
                    help="bfloat16/int8 = half/quarter gallery bytes, "
@@ -539,8 +541,6 @@ def _make_server(args):
         # fail fast: every request would otherwise rank an empty gallery
         raise SystemExit(
             f"gallery artifact {args.gallery} is empty; build it first")
-    if args.method == "approx":
-        raise NotImplementedError("method='approx' is not ported yet")
     stack = _load_stack(args, idx)
     transform, input_size = stack.transform, stack.input_size
 

@@ -77,10 +77,6 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
-
-
 def l2_normalize(x: torch.Tensor, *, eps: float = COSINE_SIM_EPS
                  ) -> torch.Tensor:
     """Row-normalize with torch CosineSimilarity's per-norm eps clamp."""
@@ -741,7 +737,7 @@ def _scores_kernel_topk(q_hat, gallery, k, query_block: int = 512):
 
 def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                 *, query_block: int = 512, method: str = "exact",
-                matmul_dtype: str = "float32",
+                recall_target: float = 0.95, matmul_dtype: str = "float32",
                 gallery_scale: torch.Tensor | None = None,
                 gallery_norms: torch.Tensor | None = None,
                 precision: str = "default", use_pallas: bool = False
@@ -753,6 +749,12 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
       dense path otherwise; on the CPU the dense path (as JAX off-TPU).
     - ``method='fused'`` forces the fused path (on the CPU: its plain
       version); ``method='dense'`` forces the blocked dense path.
+    - ``method='approx'``: JAX ranks each dense query block with
+      ``lax.approx_max_k(recall_target=...)``, a partial reduce on a TPU
+      and the exact top-k on every other backend. The port runs the dense
+      path with its exact top-k, which is what JAX computes off the TPU:
+      approx equals exact here (recall 1.0), never fused.
+      ``recall_target`` must lie in (0, 1], as XLA requires.
     - ``matmul_dtype``: 'float32', 'bfloat16' or 'int8' (module
       docstring); the top-k is exact for the scores of that mode. The
       gallery is raw f32, or prepared: bf16 pre-normalized, or int8 codes
@@ -767,8 +769,7 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
       raw f32 gallery itself; the fused top-k is then never taken by
       ``method='exact'``. It needs a raw f32 gallery in float32 mode and
       takes no ``gallery_norms`` (JAX ignores them there; the port raises).
-
-    ``method='approx'`` is not ported yet."""
+    """
     _check_matmul_dtype(matmul_dtype)
     if gallery_norms is not None and (gallery.dtype != torch.float32
                                       or matmul_dtype != "float32"):
@@ -784,9 +785,10 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
     if use_pallas and gallery_norms is not None:
         raise ValueError("use_pallas scores normalize the gallery in the "
                          "kernel; gallery_norms would be ignored")
-    if method == "approx":
-        raise _not_ported("method='approx'")
-    if method not in ("exact", "dense", "fused"):
+    if method == "approx" and not 0 < recall_target <= 1:
+        raise ValueError(f"recall_target={recall_target} out of range "
+                         "(0, 1]")
+    if method not in ("exact", "dense", "fused", "approx"):
         raise ValueError(f"unknown method {method!r}")
     q, d = queries.shape
     g = gallery.shape[0]

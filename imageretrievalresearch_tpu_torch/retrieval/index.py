@@ -236,6 +236,10 @@ class GalleryIndex:
                        shortlist: int):
         if not len(self):
             raise ValueError("empty gallery")
+        if mesh is not None and method != "exact":
+            raise ValueError(
+                f"method={method!r} is not supported with mesh; the sharded"
+                " path is exact-only")
         q = torch.as_tensor(queries, dtype=torch.float32,
                             device=self.device)
         k = min(k, len(self))
@@ -273,7 +277,7 @@ class GalleryIndex:
         ``(vals, inds, classes)`` each (Q, k). ``method`` and
         ``precision`` follow :func:`ops.retrieval.cosine_topk` ('exact'
         takes the fused CUDA kernel of the mode on the card when
-        eligible). ``matmul_dtype``: 'float32', 'bfloat16' or 'int8' (exact
+        eligible; 'approx' the dense path, equal to exact on the port). ``matmul_dtype``: 'float32', 'bfloat16' or 'int8' (exact
         top-k of that mode's scores over its resident form), or
         'int8_rerank' (:func:`ops.retrieval.int8_rerank_topk` with this
         ``shortlist``; exact method and default precision only)."""

@@ -144,7 +144,9 @@ def parity(tree, artifact):
                 "jax_on_jax_raw": jax_cli("query", gj, images, *raw),
                 "jax_on_port": jax_cli("query", gt, images, *dedup),
                 "jax_on_jax_jpeg": jax_cli("query", gj, *tree["jpegs"],
-                                           *dedup)}
+                                           *dedup),
+                "jax_on_jax_approx": jax_cli("query", gj, *tree["jpegs"],
+                                             *dedup, "--method", "approx")}
     return {"gj": gj, "gt": gt, **runs,
             "port_on_jax": port("query", gj, images, *dedup, *CPU),
             "port_on_jax_raw": port("query", gj, images, *raw, *CPU)}
@@ -358,15 +360,19 @@ def test_serve_endpoint(tree, tmp_path):
         srv.shutdown()
         srv.server_close()
 
-    # the default float32 form, with serve's --precision and --shortlist
+    # the default float32 form, with serve's --precision and --shortlist,
+    # and --method approx (the dense path: query's approx record)
     srv2 = _make_server(build_parser().parse_args(
         ["serve", npz, "--port", "0", "-k", "8", "--num_unique", "2",
-         "--precision", "highest", *CPU]))
+         "--precision", "highest", "--method", "approx", *CPU]))
     threading.Thread(target=srv2.serve_forever, daemon=True).start()
     try:
         rec = _post(f"http://127.0.0.1:{srv2.server_address[1]}", body)
         assert len(rec["indices"]) == 2
         assert all(np.isfinite(rec["scores"]))
+        queried = port("query", npz, photo, "-k", "8", "--num_unique", "2",
+                       "--method", "approx", "-bs", "1", *CPU)[0]
+        assert rec == {key: queried[key] for key in rec}
     finally:
         srv2.shutdown()
         srv2.server_close()
@@ -510,19 +516,22 @@ def test_query_rejects_mixed_resolutions(tree, tmp_path):
 
 def test_query_refuses_jpeg_and_approx(tree, artifact, parity, tmp_path):
     """Baseline JPEG queries rank as the JAX CLI ranks them (near-tie
-    rule); a progressive JPEG and ``--method approx`` are refused."""
+    rule), with ``--method approx`` too (the dense path on the port, equal
+    to its exact records; JAX's approx_max_k is exact off the TPU); a
+    progressive JPEG is refused."""
     npz = artifact
-    assert_rankings(port("query", parity["gj"], *tree["jpegs"], "-k", "24",
-                         "--num_unique", "3", "-bs", "8", *CPU),
-                    parity["jax_on_jax_jpeg"])
+    dedup = ["-k", "24", "--num_unique", "3", "-bs", "8", *CPU]
+    exact = port("query", parity["gj"], *tree["jpegs"], *dedup)
+    assert_rankings(exact, parity["jax_on_jax_jpeg"])
+    approx = port("query", parity["gj"], *tree["jpegs"], *dedup,
+                  "--method", "approx")
+    assert approx == exact
+    assert_rankings(approx, parity["jax_on_jax_approx"])
     jpg = tmp_path / "q.jpg"
     Image.open(f"{tree['tree']}/cat0/0.png").convert("RGB").save(
         jpg, progressive=True)
     with pytest.raises(ValueError, match="progressive"):
         port("query", npz, str(jpg), *CPU)
-    with pytest.raises(NotImplementedError, match="approx"):
-        port("query", npz, f"{tree['tree']}/cat0/0.png", "--method",
-             "approx", *CPU)
 
 
 @pytest.mark.parametrize("cmd", ["build", "query", "serve"])

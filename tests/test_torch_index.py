@@ -106,11 +106,27 @@ def test_unported_modes_and_validation(data):
     with pytest.raises(ValueError):
         idx.add(g[:, :8], c)
     idx.add(g, c)
+    # approx is ported: the dense path, which is what JAX's approx_max_k
+    # computes off the TPU; bitwise on ±1 rows with duplicates
+    rng = np.random.default_rng(6)
+    pg = _pm1_rows(rng, 400)
+    pg[300] = pg[7]
+    pc = rng.integers(0, 9, 400).astype(np.int32)
+    pq = _pm1_rows(rng, 6)
+    jidx, tidx = _pair(pg, pc)
     for mode in ("float32", "bfloat16", "int8"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             idx.query(g[:2], k=5, matmul_dtype=mode, mesh=object())
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            idx.query(g[:2], k=5, matmul_dtype=mode, method="approx")
+        kw = {"k": 150, "method": "approx", "matmul_dtype": mode}
+        for ours, ref in zip(tidx.query(pq, **kw), jidx.query(pq, **kw)):
+            np.testing.assert_array_equal(ours, ref)
+        for ours, ref in zip(tidx.query_class_dedup(pq, **kw),
+                             jidx.query_class_dedup(pq, **kw)):
+            np.testing.assert_array_equal(ours, ref)
+        # JAX's refusal: the sharded path is exact-only
+        with pytest.raises(ValueError, match="exact-only"):
+            idx.query(g[:2], k=5, matmul_dtype=mode, method="approx",
+                      mesh=object())
     with pytest.raises(ValueError, match="unknown matmul_dtype"):
         idx.query(g[:2], k=5, matmul_dtype="float16")
 

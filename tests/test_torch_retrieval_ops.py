@@ -75,7 +75,7 @@ def test_chunked_topk_ties_to_lowest_index(rng, g, k, chunk):
     assert i.dtype == torch.int32
 
 
-@pytest.mark.parametrize("method", ["dense", "fused", "exact"])
+@pytest.mark.parametrize("method", ["dense", "fused", "exact", "approx"])
 def test_cosine_topk_bitwise_on_pm1_data_with_duplicates(rng, method):
     q, g = _int_qg(rng)
     g[500] = g[3]
@@ -85,6 +85,12 @@ def test_cosine_topk_bitwise_on_pm1_data_with_duplicates(rng, method):
     v, i = T.cosine_topk(_t(q), _t(g), 150, method=method)
     np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
+    if method == "approx":
+        # JAX's approx_max_k off the TPU ranks as the exact top-k
+        jv, ji = J.cosine_topk(jnp.asarray(q), jnp.asarray(g), 150,
+                               method="approx", recall_target=0.5)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
 
 
 def test_plain_fused_matches_pallas_bitwise_at_tpu_geometry(rng):
@@ -200,10 +206,19 @@ def test_unported_modes_raise(rng):
     q, g = _qg(rng)
     jq, jg = jnp.asarray(q), jnp.asarray(g)
     q, g = _t(q), _t(g)
+    # approx is ported: the dense path, as JAX's approx_max_k off the TPU
+    # (float rows: indices equal, values within f32 sums in other orders)
     for kw in ({"method": "approx"},
                {"method": "approx", "matmul_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.cosine_topk(q, g, 5, **kw)
+        jv, ji = J.cosine_topk(jq, jg, 5, **kw)
+        v, i = T.cosine_topk(q, g, 5, **kw)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0,
+                                   atol=1e-6)
+        # recall_target outside (0, 1] is refused (XLA's range)
+        for bad in (0.0, 1.5):
+            with pytest.raises(ValueError, match="recall_target"):
+                T.cosine_topk(q, g, 5, recall_target=bad, **kw)
     # use_pallas raises where JAX does: it scores a raw f32 gallery in
     # float32 mode only
     for gal, jgal, kw, match in (
@@ -435,7 +450,7 @@ def test_plain_fused_quantized_matches_pallas_bitwise(rng, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
-@pytest.mark.parametrize("method", ["dense", "fused", "exact"])
+@pytest.mark.parametrize("method", ["dense", "fused", "exact", "approx"])
 def test_cosine_topk_quantized_bitwise_on_pm1(rng, method, dtype):
     q, g = _int_qg(rng)
     g[500] = g[3]
