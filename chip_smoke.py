@@ -175,7 +175,17 @@ Phases (any failure exits non-zero, with no result line):
    losses, 16 + 16 + 16 depthwise launches per sweep step, ms per step.
    Rows 5-10 of the kernels line carry the train run's launches as
    ``train_cli_launches`` (rows 5-8 by C entry), rows 9-10 the sweep's as
-   ``find_lr_launches``.
+   ``find_lr_launches``. Then the decode pool (``data.native_loader``,
+   JAX's C++ loader's counterpart): ``decode_resize_batch`` over the
+   tree's 400 files on 1 and on ``os.cpu_count()`` processes (the pool's
+   start-up and the fill, every worker used, each image's digest the
+   in-process ``decode_image``'s); the uncached train loader with
+   ``use_native`` (wait per step at 1 process over 4 steps, and over an
+   epoch at cpu_count, whose batches equal bit for bit the threaded
+   loader's epoch, which reads the pool's images from its dataset's
+   cache); ``cli.train ... --max_epochs 1 --use_native_loader``: every
+   train and val batch from the pool, each pass's pool using all its
+   processes.
 11. Evaluation and analysis from disk, in this process. The port's
    ``make_sketchy_tree`` writes 8 categories x 11 products at 256 px (264
    JPEG photos, 176 PNG sketches). Whether matplotlib imports is asked in
@@ -203,7 +213,19 @@ Phases (any failure exits non-zero, with no result line):
    cache fill, embed ms per batch, the evaluation's ms, the query walls
    and the CAM ms. Rows 1 and 3 of the kernels line carry these launches
    as ``inference_cli_launches``.
-12. One JSON line of kernels, the nvidia-smi line, and the result line.
+12. Sharded retrieval (``parallel/``) on the one card, over the phase 2
+   gallery (G = 100,000 x 1536): ``GalleryIndex.query_class_dedup(
+   mesh=Mesh(["cuda:0"] * R))`` at Q = 64, k = 150, num_unique = 3, for R
+   = 2 and 4 in float32, bfloat16 and int8, the same gallery with 3
+   seeded rows more (G = 100,003) over R = 8 (5 pad rows), and
+   ``make_mesh()`` (one device) in float32; counts set to 0 just before
+   each request and read just after: one launch of the mode's kernel (1,
+   2 or 3) per shard, nothing else, no certificate repair, no plain
+   version; the dedup and the top-150 bit for bit the unsharded request's
+   (and the f32 shards' norms the unsharded norms); warm request times,
+   sharded against unsharded, in turns. Rows 1-3 of the kernels line
+   carry these launches as ``sharded_launches``.
+13. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -222,6 +244,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import io
@@ -250,6 +273,7 @@ from imageretrievalresearch_tpu_torch.cli import find_lr as FIND_LR_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import gallery as CLI  # noqa: E402
 from imageretrievalresearch_tpu_torch.cli import inference as INFER_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import train as TRAIN_CLI  # noqa
+from imageretrievalresearch_tpu_torch.data import native_loader as NL  # noqa
 from imageretrievalresearch_tpu_torch.data import synthetic as SYN  # noqa
 from imageretrievalresearch_tpu_torch.data.decode import (  # noqa: E402
     DecodeCacheMixin,
@@ -274,6 +298,10 @@ from imageretrievalresearch_tpu_torch.ops import autoaugment as A  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import depthwise as DW  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import image_kernels as IK  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import retrieval as R  # noqa: E402
+from imageretrievalresearch_tpu_torch.parallel import (  # noqa: E402
+    Mesh,
+    make_mesh,
+)
 from imageretrievalresearch_tpu_torch.ops.preprocess import (  # noqa: E402
     TransformSpec,
     build_eval_transform,
@@ -485,6 +513,18 @@ EVAL_TIE_ATOL = 1e-6
 CAM_MODELS = ("rexnet_150", "swin_s3_base_224")
 CAM_N, CAM_SIDE, CAM_ATOL = 8, 7, 1e-3
 APPROX_REPS = 5
+# phase 10's decode pool: the tree's 400 files decoded on 1 and on
+# os.cpu_count() processes; the uncached loader with use_native timed over
+# DISK_UNCACHED_STEPS steps at 1 process and over an epoch at cpu_count
+# (held bitwise against the threaded loader's epoch)
+# phase 12, sharded retrieval: the phase 2 gallery (G = 100,000 x 1536)
+# over R row shards of the one card for R in SHARDS, and G = 100,003 (3
+# seeded unit rows appended) over RAGGED_R = 8 shards, which pads 5 rows;
+# a Q = 64 request (phase 3's served queries), k = 150, num_unique = 3, in
+# each mode; SHARD_REPS warm requests timed per path, sharded and
+# unsharded in turns
+SHARDS, RAGGED_EXTRA, RAGGED_R, SHARD_REPS = (2, 4), 3, 8, 7
+SHARD_MODES = ("float32", "bfloat16", "int8")
 # PIL's decode of every file of the tree, in a child process (the smoke
 # imports no PIL): one line of JSON, path -> sha256 of the RGB array
 PIL_DIGESTS = r"""
@@ -2374,11 +2414,16 @@ def write_disk_tree(root: str) -> dict:
     return written
 
 
-def disk_decode_checks(written: dict) -> None:
+def digest(img: np.ndarray) -> str:
+    return hashlib.sha256(repr(img.shape).encode()
+                          + np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def disk_decode_checks(written: dict) -> dict:
     """Every file of the tree through ``decode_image``: ms per JPEG and
     per PNG, photos within the stated error of their written pixels,
     sketches exact; bit for bit against PIL where PIL imports (a child
-    process), and the count that agree."""
+    process), and the count that agree. Returns each file's digest."""
     times = {".jpg": [], ".png": []}
     digests, errs = {}, []
     for path, arr in sorted(written.items()):
@@ -2391,9 +2436,7 @@ def disk_decode_checks(written: dict) -> None:
         else:
             e = np.abs(got.astype(np.int16) - arr.astype(np.int16))
             errs.append((float(e.mean()), int(e.max())))
-        digests[path] = hashlib.sha256(
-            repr(got.shape).encode() + np.ascontiguousarray(got).tobytes()
-        ).hexdigest()
+        digests[path] = digest(got)
     worst_mean = max(m for m, _ in errs)
     worst_max = max(x for _, x in errs)
     log(f"decode_image over the tree: {1e3 * np.mean(times['.jpg']):.1f} ms "
@@ -2409,12 +2452,13 @@ def disk_decode_checks(written: dict) -> None:
     if r.returncode != 0:
         log("PIL cross-check skipped: PIL does not import here ("
             f"{(r.stderr.strip().splitlines() or ['?'])[-1][:120]})")
-        return
+        return digests
     pil = json.loads(r.stdout.strip().splitlines()[-1])
     agree = sum(pil[p] == d for p, d in digests.items())
     log(f"PIL cross-check: {agree} of {len(digests)} files decode bit for "
         "bit as PIL decodes them")
     assert agree == len(digests), "a file decodes unlike PIL"
+    return digests
 
 
 def disk_phase(card: str) -> dict:
@@ -2434,7 +2478,7 @@ def disk_phase(card: str) -> dict:
         log(f"disk tree: make_sketchy_tree({DISK_TREE}) wrote {n_jpg} JPEG "
             f"photos and {len(written) - n_jpg} PNG sketches in "
             f"{time.perf_counter() - t0:.1f} s (the port's own writers)")
-        disk_decode_checks(written)
+        digests = disk_decode_checks(written)
 
         split = os.path.join(root, "split.json")
         SPLIT_CLI.run(SPLIT_CLI.build_parser().parse_args([
@@ -2447,6 +2491,7 @@ def disk_phase(card: str) -> dict:
 
         train = train_cli_run(tree, split, root, card)
         sweep = find_lr_cli_run(tree, split, card)
+        decode_pool_checks(tree, split, root, digests, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         set_opt_in(False)
@@ -2669,6 +2714,150 @@ def find_lr_cli_run(tree: str, split: str, card: str) -> dict:
     assert counts == want, counts
     assert dict(DW.PLAIN_ON_CARD) == plain_before
     return counts
+
+
+@contextlib.contextmanager
+def recorded_pools():
+    """Every ``DecodePool`` started inside the block, in a list; on the
+    way out, wait (up to 60 s) until each has stopped its processes (a
+    loader closes its pool in its producer thread)."""
+    made = []
+
+    class Recorded(NL.DecodePool):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    with patched(NL, "DecodePool", lambda orig: Recorded):
+        yield made
+    t0 = time.perf_counter()
+    while any(p._procs for p in made):
+        assert time.perf_counter() - t0 < 60, "a decode pool did not stop"
+        time.sleep(0.05)
+
+
+def loader_steps(loader, steps: int | None = None) -> tuple[list, list]:
+    """The first ``steps`` batches of a pass (all by default) and the
+    consumer's wait for each (host clock); the pass is closed after."""
+    waits: list = []
+    with patched(TripletLoader, "__iter__", timed_loader_iter(waits)):
+        it = iter(loader)
+        batches = [b for _, b in zip(range(steps or len(loader)), it)]
+        it.close()
+    return batches, waits
+
+
+def same_batches(a: list, b: list) -> bool:
+    def flat(batch):
+        return [batch["qry"], *batch["pos"], *batch["neg"],
+                batch["cat_idx"], batch["prod_idx"]]
+    return len(a) == len(b) and all(
+        np.array_equal(x, y) for p, q in zip(a, b)
+        for x, y in zip(flat(p), flat(q)))
+
+
+def decode_pool_checks(tree: str, split: str, root: str, digests: dict,
+                       card: str) -> None:
+    """The decode pool (``data.native_loader``, the counterpart of JAX's
+    C++ loader): the tree's files at 1 and ``os.cpu_count()`` processes
+    (start-up and fill times, every worker used, each image's digest the
+    in-process decode's); the uncached train loader with ``use_native``
+    (its wait per step at 1 process, and over an epoch at cpu_count,
+    whose batches equal the threaded loader's epoch bit for bit, that
+    loader reading the in-process decodes from its dataset's cache); then
+    ``cli.train --use_native_loader`` for one epoch, each batch from the
+    pool."""
+    paths = sorted(digests)
+    n_max = os.cpu_count() or 1
+    assert NL.native_available(), "the decode pool does not start here"
+    decoded = {}
+    for n in (1, n_max):
+        t0 = time.perf_counter()
+        pool = NL.DecodePool(n).start()
+        start_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            out = NL.decode_resize_batch(paths, DISK_TREE["size"],
+                                         DISK_TREE["size"], strict=True,
+                                         pool=pool)
+            fill_s = time.perf_counter() - t0
+            used = len(pool.pids)
+        finally:
+            pool.close()
+        assert used == n, (n, used)
+        assert all(digest(img) == digests[p] for p, img in zip(paths, out))
+        decoded = dict(zip(paths, out))
+        log(f"decode pool of {n} process{'es' if n > 1 else ''}: start-up "
+            f"{start_s:.2f} s, {len(paths)} files decoded in {fill_s:.2f} s "
+            f"({1e3 * fill_s / len(paths):.1f} ms a file; every worker "
+            f"used); each image bit for bit the in-process decode_image; "
+            f"{card}")
+
+    argv = ["--recipe", "train_efficient_cos_con_ce_loss", "-ip", tree,
+            "--split_json", split, "-bs", str(DISK_BATCH), "--host_size",
+            "256"]
+    args = TRAIN_CLI.build_parser().parse_args(argv)
+    cfg = TRAIN_CLI.build_config(args, vars(
+        TRAIN_CLI.build_parser().parse_args([])))
+    ds = TRAIN_CLI.build_dataset(cfg, args, "train")
+    # the threaded loader's epoch from a twin dataset whose decode cache
+    # holds every file's in-process decode (the pool's images, each checked
+    # against decode_image's digest above): its pixels without its
+    # decodes, which took 4-5 s a step here on 8 threads
+    twin = TRAIN_CLI.build_dataset(cfg, args, "train")
+    assert set(twin.image_lst) | set(twin.sketch_lst) <= set(decoded)
+    twin._cache.update(decoded)
+    ref, _ = loader_steps(TRAIN_CLI.build_loader(cfg, args, twin))
+    args.use_native_loader = True
+    waits = {}
+    for n, steps in ((1, DISK_UNCACHED_STEPS), (n_max, None)):
+        with recorded_pools() as made:
+            loader = TRAIN_CLI.build_loader(
+                dataclasses.replace(cfg, num_workers=n), args, ds)
+            assert loader.use_native
+            got, waits[n] = loader_steps(loader, steps)
+        assert len(made) == 1 and len(made[0].pids) == n, (n, made)
+        if steps is None:
+            assert same_batches(got, ref), "a use_native batch differs"
+    log(f"  uncached train loader, loader wait per step (ms; {3 * DISK_BATCH}"
+        f" files a step, no training between steps): use_native at 1 "
+        "process "
+        + ", ".join(f"{1e3 * w:.0f}" for w in waits[1])
+        + f"; at {n_max} processes "
+        + ", ".join(f"{1e3 * w:.0f}" for w in waits[n_max])
+        + f" (the first wait includes the pool's start-up); the "
+        f"{len(ref)} use_native batches at {n_max} processes equal the "
+        f"threaded loader's epoch bit for bit; {card}")
+
+    save = os.path.join(root, "models_native")
+    argv_cli = argv + ["--max_epochs", "1", "--use_native_loader", "-sp",
+                       save]
+    native = []
+
+    def count(orig):
+        def _native_batch(self, indices, pool):
+            native.append(len(indices))
+            return orig(self, indices, pool)
+        return _native_batch
+
+    with recorded_pools() as made, \
+            patched(TripletLoader, "_native_batch", count):
+        (state, history), ms = sync_time(lambda: TRAIN_CLI.run(
+            TRAIN_CLI.build_parser().parse_args(argv_cli)))
+    assert state.step == DISK_STEPS, state.step
+    assert len(native) == DISK_STEPS + DISK_VAL_BATCHES, native
+    # a pool starts its processes at its first batch: every pass that had
+    # one used all of them
+    used = [p for p in made if p.pids]
+    assert len(used) == 1 + (DISK_VAL_BATCHES > 0) and all(
+        len(p.pids) == p.size == cfg.num_workers for p in used), [
+        (p.size, p.pids) for p in made]
+    loss = history["epochs"][0]["train_loss"]
+    assert np.isfinite(loss), loss
+    log(f"cli.train {' '.join(argv_cli)}: {ms / 1e3:.1f} s; "
+        f"{len(native)} batches from {len(used)} decode pools of "
+        f"{cfg.num_workers} processes (train and val passes); train_loss "
+        f"{loss:.5g}; {card}")
 
 
 def matplotlib_report() -> bool:
@@ -2967,6 +3156,103 @@ def analysis_phase(index, q64, card: str) -> dict:
             "artifact_query": queries}
 
 
+def sharded_request(index, q64, mode: str, mesh, card: str, tag: str
+                    ) -> int:
+    """A Q = 64 request of ``mode`` over ``mesh`` through
+    ``GalleryIndex.query_class_dedup(mesh=...)``, counts set to 0 just
+    before and read just after: one launch of the mode's kernel per shard,
+    nothing else, no row sent to the certificate repair; its dedup and
+    its top-k bitwise the unsharded request's; then the warm times of
+    both (median of SHARD_REPS, in turns). Returns the launches."""
+    r, name = mesh.shape["data"], MODE_KERNELS[mode]
+    kw = dict(k=K, matmul_dtype=mode)
+    form, t_up = sync_time(lambda: index._gallery_on_device(mode, mesh))
+    bad = []
+
+    def count_bad(orig):
+        def repair(q_hat, gallery, k, vals, inds, ok, **rkw):
+            bad.append(int((ok == 0).sum()))
+            return orig(q_hat, gallery, k, vals, inds, ok, **rkw)
+        return repair
+
+    R.reset_launch_counts()
+    plain_before = dict(R.PLAIN_ON_CARD)
+    with patched(R, "certified_topk_repair", count_bad):
+        got = index.query_class_dedup(q64, num_unique=3, mesh=mesh, **kw)
+    counts = dict(R.KERNEL_LAUNCHES)
+    assert counts[name] == r and sum(counts.values()) == r, (tag, counts)
+    assert dict(R.PLAIN_ON_CARD) == plain_before
+    assert bad == [0] * r, (tag, bad)
+    want = index.query_class_dedup(q64, num_unique=3, **kw)
+    sv, si, _ = index.query(q64, mesh=mesh, **kw)
+    uv, ui, _ = index.query(q64, **kw)
+    if mode == "float32":
+        norms = torch.cat(form[1].shards)[:len(index)]
+        same_norms = torch.equal(norms, index._gallery_on_device(mode)[1])
+    else:
+        same_norms = True
+    if not (np.array_equal(sv, uv) and np.array_equal(si, ui)
+            and all(np.array_equal(a, b) for a, b in zip(got, want))):
+        log(f"MISMATCH {tag}: top-k positions differing "
+            f"{int((si != ui).sum())}, largest |value difference| "
+            f"{float(np.abs(sv - uv).max()):.3g}, dedup equal "
+            f"{[np.array_equal(a, b) for a, b in zip(got, want)]}, norms "
+            f"equal {same_norms}")
+        raise AssertionError(f"{tag}: the sharded request is not the "
+                             "unsharded one bit for bit")
+    assert same_norms, tag
+    ts, tu = [], []
+    for _ in range(SHARD_REPS):
+        tu.append(sync_time(lambda: index.query_class_dedup(
+            q64, num_unique=3, **kw))[1])
+        ts.append(sync_time(lambda: index.query_class_dedup(
+            q64, num_unique=3, mesh=mesh, **kw))[1])
+    mb = sum(sh.numel() * sh.element_size() for t in form
+             for sh in t.shards) / 1e6
+    log(f"sharded {tag}: {mode} over {r} shard{'s' if r > 1 else ''} of "
+        f"{form[0].shards[0].shape[0]:,} rows (G = {len(index):,}, padded "
+        f"to {form[0].shape[0]:,}): {r} launch{'es' if r > 1 else ''} of "
+        f"{name}, no repair; dedup and top-{K} bit for bit the unsharded "
+        f"request's; warm request {np.median(ts):.3f} ms against unsharded "
+        f"{np.median(tu):.3f} ms (query_class_dedup, Q = 64, host clock, "
+        f"synchronised, median of {SHARD_REPS} in turns); shards made in "
+        f"{t_up:.0f} ms, {mb:.1f} MB resident; {card}")
+    return counts[name]
+
+
+def sharded_phase(index, q64, card: str) -> dict:
+    """Phase 12: sharded retrieval over the phase 2 gallery, on one card:
+    ``Mesh(["cuda:0"] * R)`` for R in SHARDS and each mode, a ragged
+    gallery (G = 100,003) over RAGGED_R shards, and ``make_mesh()`` once.
+    Returns each kernel's launches per case."""
+    t_phase = time.perf_counter()
+    out = {MODE_KERNELS[m]: {} for m in SHARD_MODES}
+    for r in SHARDS:
+        mesh = Mesh(["cuda:0"] * r)
+        for mode in SHARD_MODES:
+            out[MODE_KERNELS[mode]][f"R{r}"] = sharded_request(
+                index, q64, mode, mesh, card, f"R={r} {mode}")
+    rng = np.random.default_rng(SEED + 12)
+    extra = rng.normal(size=(RAGGED_EXTRA, DIM)).astype(np.float32)
+    ragged = GalleryIndex(DIM).add(index.embeddings, index.classes).add(
+        extra, rng.integers(0, 1000, RAGGED_EXTRA))
+    mesh = Mesh(["cuda:0"] * RAGGED_R)
+    assert (-len(ragged)) % RAGGED_R == 5
+    for mode in SHARD_MODES:
+        out[MODE_KERNELS[mode]][f"R{RAGGED_R}_ragged"] = sharded_request(
+            ragged, q64, mode, mesh, card, f"ragged R={RAGGED_R} {mode}")
+    del ragged
+    mesh = make_mesh()
+    if mesh.shape["data"] > 1:     # more cards visible: drive the first
+        mesh = make_mesh(1)
+    assert mesh.shape == {"data": 1}, mesh
+    out["fused_cosine_topk"]["make_mesh"] = sharded_request(
+        index, q64, "float32", mesh, card, "make_mesh() float32")
+    log(f"phase 12 (sharded retrieval): {time.perf_counter() - t_phase:.1f}"
+        f" s; {card}")
+    return out
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
@@ -3240,7 +3526,14 @@ def main() -> None:
                 "index_match": analysis["index_match"] if own else 0,
                 "artifact_query": analysis["artifact_query"][row["name"]]}
 
-    # 12. result: the one card this run drove
+    # 12. sharded retrieval over the phase 2 gallery: rows 1-3 carry each
+    # sharded request's launches (one per shard)
+    sharded = sharded_phase(index, q64, PF.card())
+    for row in kernels:
+        if row["name"] in sharded:
+            row["sharded_launches"] = sharded[row["name"]]
+
+    # 13. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

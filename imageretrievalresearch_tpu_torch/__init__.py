@@ -27,7 +27,10 @@ the ``inference`` CLI, Grad-CAM (``retrieval/gradcam.py``), the retrieval
 grids (``retrieval/visualize.py``, matplotlib imported lazily),
 ``method='approx'`` (the dense path: exact, as JAX off the TPU), the
 published-checkpoint registry (``checkpoints.py``) and the examples
-(``examples/``).
+(``examples/``). Slice 15 adds sharded retrieval (``parallel/``: a mesh of
+devices driven by one process, ``sharded_cosine_topk``, and
+``GalleryIndex(mesh=...)``) and the decode pool that stands for JAX's C++
+loader (``data/native_loader.py``).
 """
 
 from imageretrievalresearch_tpu_torch.version import __version__

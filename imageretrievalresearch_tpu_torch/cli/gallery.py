@@ -24,9 +24,11 @@ most ``--max_batch``) take the dense path, as JAX's serve does.
 The port's own choices: ``--device`` (``cuda`` by default; with no card it
 raises unless ``--device cpu``) stands for JAX's ``JAX_PLATFORMS``;
 images are decoded by ``data.decode`` (PNG and baseline JPEG, bit for bit
-PIL's: the port does not depend on PIL); ``serve`` also takes
-``--precision`` and ``--shortlist``, which JAX's serve lacks
-(``--precision`` is only validated: both values compute the same f32).
+PIL's: the port does not depend on PIL). As in JAX, ``query`` takes
+``--shortlist`` and ``--precision`` and ``serve`` takes neither: serve's
+``int8_rerank`` re-ranks a shortlist of 256, and its f32 scores are the
+default precision (on the port both precisions compute the same f32, so
+query's ``--precision`` is only validated).
 Stdout holds only the JSON output; every other message goes to stderr.
 """
 
@@ -113,6 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
     pq.add_argument("-is", "--input_size", type=int, default=None)
     pq.add_argument("-bs", "--batch_size", type=int, default=64)
     _add_ranking_args(pq)
+    pq.add_argument("--shortlist", type=int, default=256,
+                    help="int8_rerank only: stage-1 quantized shortlist "
+                         "size (>= k)")
+    pq.add_argument("--precision", type=str, default="default",
+                    choices=["default", "highest"],
+                    help="JAX's float32 matmul precision; on the port the "
+                         "value is only validated: both compute the same "
+                         "f32 arithmetic (true f32 on the dense path, "
+                         "3xTF32 in the fused kernel)")
     pq.add_argument("--transform", type=str, default=None,
                     choices=["squarepad", "plain"],
                     help="eval transform (default: the artifact's recorded "
@@ -154,8 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_ranking_args(p: argparse.ArgumentParser) -> None:
-    """The ranking flags query and serve share (JAX's serve has all but
-    --shortlist and --precision)."""
+    """The ranking flags of JAX's query and serve parsers alike."""
     p.add_argument("-k", "--topk", type=int, default=150)
     p.add_argument("--num_unique", type=int, default=3,
                    help="unique classes reported after dedup (notebook "
@@ -171,15 +181,6 @@ def _add_ranking_args(p: argparse.ArgumentParser) -> None:
                         "exact top-k of the rounded/quantized scores; "
                         "int8_rerank = certified two-stage capacity mode "
                         "(int8 shortlist + f32 re-rank, bf16 memory)")
-    p.add_argument("--shortlist", type=int, default=256,
-                   help="int8_rerank only: stage-1 quantized shortlist "
-                        "size (>= k)")
-    p.add_argument("--precision", type=str, default="default",
-                   choices=["default", "highest"],
-                   help="JAX's float32 matmul precision; on the port the "
-                        "value is only validated: both compute the same f32 "
-                        "arithmetic (true f32 on the dense path, 3xTF32 in "
-                        "the fused kernel)")
 
 
 def _collect_images(specs: list[str]) -> list[Path]:
@@ -584,9 +585,10 @@ def _make_server(args):
         which enters inference mode itself (grad mode is per thread)."""
         with torch.inference_mode():
             q = backbone.embed(tfm(xs)).float()
+            # JAX's serve ranks at query's defaults: precision
+            # 'default', an int8_rerank shortlist of 256
             vals, inds = idx._query_tensors(
-                q, k, args.method, args.matmul_dtype, None, args.precision,
-                args.shortlist)
+                q, k, args.method, args.matmul_dtype, None, "default", 256)
             if nu:
                 inds, vals, cls = M.unique_class_dedup(inds, vals, classes,
                                                        num_unique=nu)

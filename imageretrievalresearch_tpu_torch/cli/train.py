@@ -13,10 +13,13 @@ so T1-T5 are configs of one trainer rather than five scripts.
 
 The flags, shorthands and defaults are JAX's, except ``-d/--device``: it
 defaults to ``cuda`` and is where the trainer runs (``--device cpu`` runs
-on the CPU; without a card and without it the CLI raises). Not ported:
-the multi-process flags (``--coordinator_address``, ``--num_processes``,
-``--process_id``; :func:`init_distributed` raises), ``--param_sharding
-fsdp`` (the trainer raises) and ``--use_native_loader`` (raises).
+on the CPU; without a card and without it the CLI raises).
+``--use_native_loader`` decodes each batch on a pool of ``--num_workers``
+decode processes (``data.native_loader``), bitwise the default path's
+images, behind JAX's gates and warning. Not ported: the multi-process
+flags (``--coordinator_address``, ``--num_processes``, ``--process_id``;
+:func:`init_distributed` raises) and ``--param_sharding fsdp`` (the
+trainer raises).
 """
 
 from __future__ import annotations
@@ -88,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pos_return_num", type=int, default=1)
     p.add_argument("--neg_return_num", type=int, default=1)
     p.add_argument("--use_native_loader", action="store_true",
-                   help="the JAX package's C++ loader; not ported (raises)")
+                   help="decode each batch on a pool of --num_workers "
+                        "processes (needs --host_size or --image_size; "
+                        "falls back with a warning otherwise)")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="multi-process training; not ported (raises)")
     p.add_argument("--num_processes", type=int, default=None,
@@ -348,7 +353,8 @@ def build_loader(cfg, args, ds, kind: str = "train"):
 def init_distributed(args: argparse.Namespace) -> None:
     """JAX's multi-host bring-up from the shared CLI flags. The port
     trains on one card: any multi-process flag raises
-    ``NotImplementedError`` (multi-device is ROADMAP item 9)."""
+    ``NotImplementedError`` (multi-device training is ROADMAP queue 1,
+    item 3)."""
     if (args.coordinator_address or args.num_processes
             or args.process_id is not None):
         raise NotImplementedError(
@@ -359,8 +365,7 @@ def init_distributed(args: argparse.Namespace) -> None:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Refuse, before any work, what the port cannot run: ``--device
-    cuda`` (the default) without a card, the multi-process flags and
-    ``--use_native_loader``."""
+    cuda`` (the default) without a card, and the multi-process flags."""
     import torch
 
     if (torch.device(args.device).type == "cuda"
@@ -368,10 +373,6 @@ def check_ported(args: argparse.Namespace) -> None:
         raise RuntimeError("no CUDA device: the CLI trains on the GPU by "
                            "default; pass --device cpu to run on the CPU")
     init_distributed(args)
-    if args.use_native_loader:
-        raise ValueError(
-            "--use_native_loader: the C++ loader (native/) is not ported; "
-            "the port decodes with data.decode")
 
 
 def build_config(args: argparse.Namespace, parser_defaults: dict):

@@ -12,7 +12,8 @@ device-side preprocessing, and the port's own PNG and JPEG codecs
 - simple class-folder photo/sketch layout (reference data/triplet_dataset.py)
 - ImageFolder classification tree (reference train/train_vit_crossentropy.py:50)
 
-The JAX package's C++ loader (``data/native_loader.py``) is not ported.
+``data.native_loader`` stands for the JAX package's C++ batch decoder:
+the same contract, on a pool of decode processes over the port's codecs.
 """
 
 from imageretrievalresearch_tpu_torch.data.decode import (

@@ -15,7 +15,8 @@ depend on PIL, so it decodes PNG and JPEG itself:
   scales them), 2 (RGB), 3 (palette at 1, 2, 4 or 8 bits), 4 (gray +
   alpha) and 6 (RGBA), 8 bits apart from those. Gray is copied into the
   three channels, alpha is dropped (not composited), ``tRNS`` is ignored.
-  16-bit and Adam7-interlaced PNGs, progressive, lossless, arithmetic-
+  Adam7-interlaced PNGs are de-interlaced pass by pass. 16-bit PNGs,
+  progressive, lossless, arithmetic-
   coded, 12-bit and CMYK JPEGs and every other format raise
   ``ValueError``, as do truncated files, chunks whose CRC disagrees and,
   as PIL's decompression bomb check refuses them, images of more than
@@ -57,6 +58,9 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (channels, allowed bit depths); 16 bits is refused apart
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
                 4: (2, (8,)), 6: (4, (8,))}
+# Adam7's seven passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 # PIL's scaling of gray samples below 8 bits ("1", "L;2", "L;4")
 _GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
 # Resample.c's fixed point: coefficients carry 22 fractional bits
@@ -146,7 +150,7 @@ def decode_image(src: str | Path | bytes | bytearray | memoryview
                  ) -> np.ndarray:
     """A PNG or JPEG file (path) or its bytes -> ``(H, W, 3) uint8`` RGB,
     as ``Image.open(..).convert("RGB")`` gives it. Raises ``ValueError``
-    for other formats, 16-bit and interlaced PNGs, JPEGs other than
+    for other formats, 16-bit PNGs, JPEGs other than
     baseline 8-bit gray or colour, and truncated or corrupt files."""
     data = (bytes(src) if isinstance(src, (bytes, bytearray, memoryview))
             else Path(src).read_bytes())
@@ -177,17 +181,22 @@ def decode_image(src: str | Path | bytes | bytearray | memoryview
     if depth not in depths:
         raise ValueError(f"corrupt PNG: bit depth {depth} with colour type "
                          f"{ctype}")
-    if interlace:
-        raise ValueError("Adam7-interlaced PNG is not supported")
-    if compression or filt or not width or not height:
+    if compression or filt or interlace > 1 or not width or not height:
         raise ValueError("corrupt PNG: bad IHDR")
     if ctype == 3 and palette is None:
         raise ValueError("corrupt PNG: palette image without PLTE")
     if width * height > MAX_PIXELS:
         raise ValueError(f"image size ({width * height} pixels) exceeds the "
                          f"limit of {MAX_PIXELS} pixels (decompression bomb)")
-    rowbytes = (width * channels * depth + 7) // 8
-    need = height * (rowbytes + 1)
+    # (row step, column step, first row, first column, rows, columns) of
+    # each non-empty pass; one pass of the whole image when not interlaced
+    passes = [(ys, xs, y0, x0, -(-(height - y0) // ys),
+               -(-(width - x0) // xs))
+              for y0, x0, ys, xs in (_ADAM7 if interlace else
+                                     ((0, 0, 1, 1),))
+              if y0 < height and x0 < width]
+    rowbytes = [(p[5] * channels * depth + 7) // 8 for p in passes]
+    need = sum(p[4] * (rb + 1) for p, rb in zip(passes, rowbytes))
     try:
         # inflate at most the bytes the image needs, and one more to see
         # whether the stream holds more than that
@@ -199,8 +208,14 @@ def decode_image(src: str | Path | bytes | bytearray | memoryview
     if extra:
         raise ValueError("corrupt PNG: image data inflates past the "
                          f"{need} bytes of a {width} x {height} image")
-    rows = _unfilter(raw, height, rowbytes, max(1, channels * depth // 8))
-    px = _samples(rows, width, depth, channels)
+    bpp = max(1, channels * depth // 8)
+    px = np.empty((height, width, channels), np.uint8)
+    off = 0
+    for (ys, xs, y0, x0, ph, pw), rb in zip(passes, rowbytes):
+        # each pass is a small image of its own, filtered row by row
+        rows = _unfilter(raw[off:off + ph * (rb + 1)], ph, rb, bpp)
+        px[y0::ys, x0::xs] = _samples(rows, pw, depth, channels)
+        off += ph * (rb + 1)
     if ctype == 3:
         # indices past the palette's end read black
         lut = np.zeros((256, 3), np.uint8)

@@ -16,8 +16,10 @@ num_workers=8)`` (train/train.py:76-78). Differences, by design:
   (ops/preprocess.py), not per-sample on host.
 - Deterministic per-(epoch, index) sampling via ``np.random.SeedSequence``
   instead of global ``random`` state (reference sketch_dataset.py:294-297).
-- The JAX package's C++ batch decoder (``native/``) is not ported:
-  ``use_native=True`` raises.
+- ``use_native=True`` decodes each batch in one call on a pool of
+  decode processes (``data.native_loader``, the counterpart of JAX's C++
+  batch decoder), bitwise the threaded path's images, behind JAX's four
+  gates and warning.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Iterator
 
 import numpy as np
 
+from imageretrievalresearch_tpu_torch.data import native_loader
 from imageretrievalresearch_tpu_torch.data.decode import resize_bilinear_host
 
 
@@ -46,8 +49,12 @@ class TripletLoader:
         on the host (Pillow's bilinear, ``resize_bilinear_host``) so
         variable-size sources stack into one array. Sketchy DB-256 is
         uniform 256px, so the default (None) stacks directly.
-      use_native: the JAX package's C++ decoder is not ported; True
-        raises ``ValueError``.
+      use_native: decode each batch in one ``decode_resize_batch`` call
+        on a pool of ``num_workers`` decode processes (kept for one pass
+        over the data), when JAX's four gates pass: the pool starts, a
+        ``host_size`` is set, the dataset has a ``TripletIndex`` and no
+        per-sample ``transform_dic``; otherwise JAX's warning names the
+        failed gates and the threaded path runs.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
@@ -62,11 +69,6 @@ class TripletLoader:
         per-process"), and the per-(epoch, idx) sample
         RNG keeps the global batch composition identical to a
         single-process run."""
-        if use_native:
-            raise ValueError(
-                "use_native: the C++ batch decoder (native/) is not ported "
-                "(the card's machine has no jpeglib.h to build it); the port "
-                "decodes with data.decode")
         assert batch_size % max(1, process_count) == 0, (
             "the process count must divide the global batch size")
         self.process_index = process_index
@@ -93,6 +95,25 @@ class TripletLoader:
                 for p in params.values())
         except (TypeError, ValueError):
             self._pass_rng = False
+        # the decode pool: needs a TripletIndex dataset, a fixed host_size,
+        # no per-sample python transforms, and a pool that starts
+        self.use_native = False
+        if use_native:
+            gates = {
+                "decode pool unavailable": native_loader.native_available(),
+                "host_size not set": host_size is not None,
+                "dataset has no TripletIndex": getattr(
+                    dataset, "index", None) is not None,
+                "dataset carries per-sample python transforms": getattr(
+                    dataset, "transform_dic", None) is None,
+            }
+            self.use_native = all(gates.values())
+            if not self.use_native:
+                # say which gate failed: a silent downgrade makes the user
+                # attribute the threaded path's throughput to the pool
+                why = "; ".join(k for k, ok in gates.items() if not ok)
+                print(f"[loader] WARNING: use_native requested but falling "
+                      f"back to the threaded decode path: {why}")
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -164,6 +185,41 @@ class TripletLoader:
         }
         return batch
 
+    def _native_batch(self, indices: np.ndarray, pool) -> dict:
+        """Sample the triplets' paths here, decode the whole batch in one
+        call on the decode pool. The dataset's decode cache is bypassed,
+        as JAX's C++ path bypasses it."""
+        ds = self.dataset
+        pn = getattr(ds, "pos_return_num", 1)
+        nn = getattr(ds, "neg_return_num", 1)
+        samples = []
+        for idx in indices.tolist():
+            ss = np.random.SeedSequence(entropy=self.seed,
+                                        spawn_key=(self.epoch, idx))
+            samples.append(ds.index.sample(idx, np.random.default_rng(ss),
+                                           pn, nn))
+        paths: list[str] = []
+        for s in samples:
+            paths.append(s["qry"])
+            paths.extend(s["pos"])
+            paths.extend(s["neg"])
+        s_len = 1 + pn + nn
+        hs = self.host_size
+        # strict: a decode failure raises (as the threaded path's decode
+        # does) instead of silently training on gray-filled slots
+        imgs = native_loader.decode_resize_batch(paths, hs, hs, strict=True,
+                                                 pool=pool)
+        imgs = imgs.reshape(len(samples), s_len, hs, hs, 3)
+        return {
+            "qry": imgs[:, 0],
+            "pos": [imgs[:, 1 + j] for j in range(pn)],
+            "neg": [imgs[:, 1 + pn + j] for j in range(nn)],
+            "cat_idx": np.asarray([s["cat_idx"] for s in samples],
+                                  dtype=np.int32),
+            "prod_idx": np.asarray([s["prod_idx"] for s in samples],
+                                   dtype=np.int32),
+        }
+
     # --- iteration with bounded prefetch ---
 
     def __iter__(self) -> Iterator[dict]:
@@ -214,12 +270,24 @@ class TripletLoader:
             # always enqueue a terminal item — an exception here must not
             # leave the consumer blocked on q.get() forever
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                # the native path's decode pool lives for this pass: it is
+                # closed at the pass's end or when the consumer stops
+                if self.use_native:
+                    pool = native_loader.DecodePool(self.num_workers)
+
+                    def make(bidx):
+                        return self._native_batch(bidx, pool)
+                else:
+                    pool = ThreadPoolExecutor(self.num_workers)
+
+                    def make(bidx):
+                        return self._collate(list(pool.map(self._fetch,
+                                                           bidx.tolist())))
+                with pool:
                     for bidx in batches:
                         if stop.is_set():
                             return
-                        items = list(pool.map(self._fetch, bidx.tolist()))
-                        if not put(self._collate(items)):
+                        if not put(make(bidx)):
                             return
             except BaseException as e:  # noqa: BLE001 - relayed to consumer
                 put(e)

@@ -4,7 +4,8 @@ Counterpart of ``imageretrievalresearch_tpu/metrics.py``: the in-batch
 class match of training and validation (``inbatch_topk``), the gallery
 index match (``gallery_topk_index_match``), the unique-class dedup of
 ranked retrievals (``unique_class_dedup``, ``dedup_and_score``, with the
-batch dimension written out where JAX uses ``vmap``), the pairwise
+batch dimension written out where JAX uses ``vmap``) and the gallery
+metric over a dense score matrix (``gallery_topk_class_dedup``), the pairwise
 ``cos_sims`` / ``cos_unsims`` that drive checkpointing and early stopping,
 and the classifier top-k. Top-k ties go to the lowest index, as
 ``lax.top_k`` does (stable sorts; ``torch.topk`` does not promise it).
@@ -131,3 +132,18 @@ def dedup_and_score(vals: torch.Tensor, inds: torch.Tensor,
         "top_vals": uniq_vals,
         "top_r_list": uniq_cls,
     }
+
+
+def gallery_topk_class_dedup(sims: torch.Tensor, query_classes: torch.Tensor,
+                             gallery_classes: torch.Tensor, *, k: int = 150,
+                             num_unique: int = 3) -> dict[str, torch.Tensor]:
+    """Gallery unique-class-dedup top-k (metric definition #3, notebook
+    cell 2) over a dense (Q, G) score matrix: the stable top-``min(k, G)``
+    of each row, then :func:`dedup_and_score` (top1 / topN and the
+    deduplicated ``topk_inds`` / ``top_vals`` / ``top_r_list``)."""
+    sims = torch.as_tensor(sims)
+    vals, inds = _stable_topk(sims, min(k, sims.shape[1]))
+    return dedup_and_score(
+        vals, inds, torch.as_tensor(gallery_classes, device=sims.device),
+        torch.as_tensor(query_classes, device=sims.device),
+        num_unique=num_unique)

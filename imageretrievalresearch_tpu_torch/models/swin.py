@@ -18,10 +18,15 @@ padded, each padded cell a mask region of its own; an odd grid is padded
 before merging. Attention is written as JAX writes it: scaled q kᵀ + bias
 (+ the -100 mask), softmax in float32, then @ v.
 
-The relative-position index and the masks are static: non-persistent
-buffers, built at construction for ``img_size`` (as timm 0.4.12 builds
-them), so the model takes inputs of that size only. ``forward_features``
-returns the normed token grid (B, L, C); ``ops.pooling.get_fm`` pools it.
+The relative-position index and the masks at ``img_size`` are
+non-persistent buffers built at construction (as timm 0.4.12 builds them).
+Other input sizes run too, as in JAX: each block takes its window and
+shift from the resolution it is given and builds the mask for that (H, W)
+once, cached per size and device. A window's bias table is sized at
+construction, so a size that clamps a window to another width than
+``img_size`` did raises (JAX refuses it as a parameter of another shape).
+``forward_features`` returns the normed token grid (B, L, C);
+``ops.pooling.get_fm`` pools it.
 """
 
 from __future__ import annotations
@@ -91,10 +96,24 @@ def window_reverse(x: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
 
 
+def _window(h: int, w: int, ws: int, shift: int) -> tuple[int, int]:
+    """A block's window and shift at an (h, w) grid: a window never larger
+    than the resolution, and then no shift (global attention)."""
+    if min(h, w) <= ws:
+        return min(h, w), 0
+    return ws, shift
+
+
+def _padded(h: int, w: int, ws: int) -> tuple[int, int]:
+    """The grid padded at the bottom and right to window multiples."""
+    return -(-h // ws) * ws, -(-w // ws) * ws
+
+
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
         self.num_heads = num_heads
+        self.window_size = window_size
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -137,32 +156,53 @@ class Mlp(nn.Module):
 
 
 class SwinBlock(nn.Module):
+    """``window_size`` and ``shift_size`` are the configured ones; the
+    block clamps them per input resolution (:func:`_window`). The bias
+    table and the ``attn_mask`` buffer are those of ``input_resolution``
+    (the grid at ``img_size``)."""
+
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, input_resolution: tuple[int, int],
                  mlp_ratio: float = 4.0, drop_path: float = 0.0):
         super().__init__()
         h, w = self.input_resolution = tuple(input_resolution)
-        ws, shift = window_size, shift_size
-        # a window never larger than the resolution: no shift at global
-        # attention
-        if min(h, w) <= ws:
-            ws, shift = min(h, w), 0
-        self.window_size, self.shift_size = ws, shift
-        self.padded = (-(-h // ws) * ws, -(-w // ws) * ws)
+        self.window_size, self.shift_size = window_size, shift_size
+        ws, shift = _window(h, w, window_size, shift_size)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, ws)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.drop_path2 = DropPath(drop_path)
-        mask = _shift_attn_mask(h, w, *self.padded, ws, shift)
+        mask = _shift_attn_mask(h, w, *_padded(h, w, ws), ws, shift)
         self.register_buffer(
             "attn_mask", None if mask is None else torch.from_numpy(mask),
             persistent=False)
+        # masks of other resolutions: (h, w, device) -> mask or None
+        self._masks: dict = {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (h, w), (hp, wp) = self.input_resolution, self.padded
-        ws, shift = self.window_size, self.shift_size
+    def _mask(self, h: int, w: int, ws: int, shift: int,
+              device: torch.device) -> torch.Tensor | None:
+        if (h, w) == self.input_resolution:
+            return self.attn_mask
+        key = (h, w, device)
+        if key not in self._masks:
+            mask = _shift_attn_mask(h, w, *_padded(h, w, ws), ws, shift)
+            self._masks[key] = (None if mask is None
+                                else torch.from_numpy(mask).to(device))
+        return self._masks[key]
+
+    def forward(self, x: torch.Tensor,
+                resolution: tuple[int, int]) -> torch.Tensor:
+        h, w = resolution
+        ws, shift = _window(h, w, self.window_size, self.shift_size)
+        if ws != self.attn.window_size:
+            raise ValueError(
+                f"a {h} x {w} token grid needs a window of {ws} here, but "
+                f"this block's bias table is for {self.attn.window_size} "
+                f"(built at {self.input_resolution[0]} x "
+                f"{self.input_resolution[1]} tokens)")
+        hp, wp = _padded(h, w, ws)
         b, l, c = x.shape
         shortcut = x
         x = self.norm1(x).reshape(b, h, w, c)
@@ -170,7 +210,8 @@ class SwinBlock(nn.Module):
             x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        wins = self.attn(window_partition(x, ws), self.attn_mask)
+        wins = self.attn(window_partition(x, ws),
+                         self._mask(h, w, ws, shift, x.device))
         x = window_reverse(wins, ws, hp, wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
@@ -180,14 +221,14 @@ class SwinBlock(nn.Module):
 
 
 class PatchMerging(nn.Module):
-    def __init__(self, dim: int, input_resolution: tuple[int, int]):
+    def __init__(self, dim: int):
         super().__init__()
-        self.input_resolution = tuple(input_resolution)
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = self.input_resolution
+    def forward(self, x: torch.Tensor,
+                resolution: tuple[int, int]) -> torch.Tensor:
+        h, w = resolution
         b, _, c = x.shape
         x = x.reshape(b, h, w, c)
         if h % 2 or w % 2:    # odd grid: pad bottom / right
@@ -205,10 +246,15 @@ class SwinStage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, resolution: tuple[int, int]
+                ) -> tuple[torch.Tensor, tuple[int, int]]:
+        """Tokens of an (h, w) grid -> the stage's tokens and grid."""
         for blk in self.blocks:
-            x = blk(x)
-        return x if self.downsample is None else self.downsample(x)
+            x = blk(x, resolution)
+        if self.downsample is None:
+            return x, resolution
+        h, w = resolution
+        return self.downsample(x, resolution), (-(-h // 2), -(-w // 2))
 
 
 class PatchEmbed(nn.Module):
@@ -217,10 +263,12 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, H, W) -> (B, h*w, C) tokens, row-major."""
+    def forward(self, x: torch.Tensor
+                ) -> tuple[torch.Tensor, tuple[int, int]]:
+        """(B, 3, H, W) -> (B, h*w, C) tokens, row-major, and (h, w)."""
         x = self.proj(x).permute(0, 2, 3, 1)
-        return self.norm(x.reshape(x.shape[0], -1, x.shape[-1]))
+        b, h, w, c = x.shape
+        return self.norm(x.reshape(b, h * w, c)), (h, w)
 
 
 class SwinTransformer(nn.Module):
@@ -247,7 +295,7 @@ class SwinTransformer(nn.Module):
             bidx += depth
             down = None
             if sidx < len(depths) - 1:
-                down = PatchMerging(dim, res)
+                down = PatchMerging(dim)
                 res = (-(-res[0] // 2), -(-res[1] // 2))
                 dim *= 2
             stages.append(SwinStage(blocks, down))
@@ -258,13 +306,10 @@ class SwinTransformer(nn.Module):
                      else nn.Identity())
 
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) NHWC at ``img_size`` -> (B, L, C) normed tokens."""
-        if tuple(x.shape[1:3]) != (self.img_size,) * 2:
-            raise ValueError(f"this Swin is built for {self.img_size} px "
-                             f"inputs, got {tuple(x.shape[1:3])}")
-        x = self.patch_embed(x.permute(0, 3, 1, 2))
+        """(B, H, W, 3) NHWC -> (B, L, C) normed tokens."""
+        x, res = self.patch_embed(x.permute(0, 3, 1, 2))
         for stage in self.layers:
-            x = stage(x)
+            x, res = stage(x, res)
         return self.norm(x)
 
     def forward_head(self, fm: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,10 @@ version, and matched by the kernels):
 - ``int8``: per-row symmetric int8 codes of q̂ and ĝ, an exact int32 dot,
   rescaled as ``s32 * (qs * gsᵀ)`` in JAX's order.
 
+On the CPU the f32 and bf16 dense products accumulate each score in
+order over D (:func:`_rowwise_dots`), so a score does not depend on the
+tile or shard its row lies in.
+
 Ties go to the lowest gallery index everywhere (``lax.top_k`` order).
 ``torch.topk`` does not promise that, so ranking uses stable sorts.
 """
@@ -313,7 +317,37 @@ def _scores_prepared(q_prep, q_scale, g_prep, g_scale,
                      matmul_dtype: str = "float32") -> torch.Tensor:
     if matmul_dtype == "int8":
         return _int8_scores(q_prep, q_scale, g_prep, g_scale)
+    if q_prep.device.type == "cpu":
+        return _rowwise_dots(q_prep, g_prep.float())
     return torch.matmul(q_prep, g_prep.float().t())
+
+
+# elements of the (Q, rows) accumulator per step of _rowwise_dots: at
+# ATen's parallel grain (32,768) each pass stays on one thread, so D short
+# passes pay no thread hand-offs
+_ROWWISE_ELEMENTS = 1 << 15
+
+
+def _rowwise_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` in f32 on the CPU, each score accumulated over D in
+    order by one fused multiply-add per term (``addcmul``): the order of
+    the CPU's sgemm on short rows (D <= 64) and of JAX's CPU dot there.
+    A score then never depends on the other rows of either operand, which
+    sgemm does not promise (it sums a few queries or a gallery tile or
+    shard of a few rows in other orders): a row scores the same in any
+    tile or shard. Rows of ``b`` are taken in steps that bound the
+    accumulator."""
+    q, d = a.shape
+    # contiguous (D, rows) operands: each term is one broadcast FMA pass
+    at, bt = a.t().contiguous(), b.t().contiguous()
+    step = max(1, _ROWWISE_ELEMENTS // max(1, q))
+    out = torch.empty((q, b.shape[0]), dtype=torch.float32)
+    for lo in range(0, b.shape[0], step):
+        acc = torch.zeros((q, min(step, b.shape[0] - lo)))
+        for k in range(d):
+            acc.addcmul_(at[k, :, None], bt[k, None, lo:lo + step])
+        out[:, lo:lo + step] = acc
+    return out
 
 
 def _dense_scores(q_hat, gallery, matmul_dtype, gallery_scale=None,
@@ -813,12 +847,35 @@ def cosine_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                            gallery_scale=g_scale, gallery_norms=gallery_norms,
                            query_block=query_block)
 
+    return rank_normalized(q_hat, g_in, k, fused=fused,
+                           matmul_dtype=matmul_dtype, gallery_scale=g_scale,
+                           gallery_norms=gallery_norms, dense_rank=dense_rank)
+
+
+def rank_normalized(q_hat: torch.Tensor, gallery: torch.Tensor, k: int, *,
+                    fused: bool, matmul_dtype: str = "float32",
+                    gallery_scale: torch.Tensor | None = None,
+                    gallery_norms: torch.Tensor | None = None,
+                    dense_rank: Callable | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of normalized queries ``q_hat`` over one gallery in the
+    form the kernels take (raw f32 with optional ``gallery_norms`` in
+    float32 mode; bf16 normalized, or int8 codes with ``gallery_scale``):
+    the fused kernel and the certificate repair when ``fused``, else
+    ``dense_rank`` (by default the blocked dense path). The body of
+    :func:`cosine_topk` after q̂, and each shard's ranking in
+    ``parallel.gallery.sharded_cosine_topk``."""
+    if dense_rank is None:
+        def dense_rank():
+            return _dense_topk(q_hat, gallery, k, matmul_dtype,
+                               gallery_scale=gallery_scale,
+                               gallery_norms=gallery_norms)
     if not fused:
         return dense_rank()
-    vals, inds, ok = _fused(q_hat, g_in, k, gallery_norms, g_scale)
-    return certified_topk_repair(q_hat, g_in, k, vals, inds, ok,
+    vals, inds, ok = _fused(q_hat, gallery, k, gallery_norms, gallery_scale)
+    return certified_topk_repair(q_hat, gallery, k, vals, inds, ok,
                                  matmul_dtype=matmul_dtype,
-                                 gallery_scale=g_scale,
+                                 gallery_scale=gallery_scale,
                                  gallery_norms=gallery_norms,
                                  full_fallback=dense_rank)
 

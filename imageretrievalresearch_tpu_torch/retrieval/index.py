@@ -11,7 +11,15 @@ made on the device from the uploaded host rows once and cached, by the
 same quantizers the ops use; the f32 form's row norms are computed on the
 device at upload.
 
-Not ported yet: ``mesh`` sharding.
+With ``mesh`` (a :class:`parallel.mesh.Mesh`), the float32, bfloat16
+and int8 modes run sharded: the host rows are zero-padded to a multiple
+of the mesh size (int8 scales and f32 norms padded with 1.0, so a pad row
+scores exactly 0), each device makes only its own row shard of the
+mode's form, :func:`parallel.gallery.sharded_cosine_topk` ranks the
+shards and merges them, and the pad rows are dropped after an
+over-query of ``k + pad``. The result equals the unsharded query's bit
+for bit. ``int8_rerank`` and ``approx`` are refused with a mesh, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from imageretrievalresearch_tpu_torch import metrics as M
 from imageretrievalresearch_tpu_torch._device import resolve_device
 from imageretrievalresearch_tpu_torch.ops.retrieval import (
+    _stable_topk,
     cosine_topk,
     int8_rerank_topk,
     l2_normalize,
@@ -32,6 +41,10 @@ from imageretrievalresearch_tpu_torch.ops.retrieval import (
     quantize_rows_int8,
     quantize_rows_int8_residual,
 )
+from imageretrievalresearch_tpu_torch.parallel.gallery import (
+    sharded_cosine_topk,
+)
+from imageretrievalresearch_tpu_torch.parallel.mesh import RowSharded
 
 _FORMAT_VERSION = 1          # raw f32 embeddings
 _FORMAT_VERSION_COMPACT = 2  # bf16 bit-view / int8+scales storage
@@ -46,6 +59,30 @@ def _rerank_form(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     scales, packed residual codes and scales, and the two norm bounds."""
     c1, s1, c2, s2, g1max, rmax = quantize_rows_int8_residual(x)
     return c1, s1, pack_codes_int32(c2), s2, g1max, rmax
+
+
+def _f32_form(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 resident form of normalized rows: the rows and their
+    norms, computed on the rows' device."""
+    return x, torch.linalg.vector_norm(x, dim=1)
+
+
+# each mode's converter of uploaded rows, and the value of each of its
+# tensors in a pad row (0: a zero row; 1.0: its norm or scale), so that a
+# pad row scores exactly 0
+_FORMS = {"float32": (_f32_form, (0, 1.0)),
+          "bfloat16": (lambda x: (x.to(torch.bfloat16),), (0,)),
+          "int8": (quantize_rows_int8, (0, 1.0)),
+          "int8_rerank": (_rerank_form, None)}
+
+
+def _drop_pad_rows(vals: torch.Tensor, inds: torch.Tensor, n_real: int,
+                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A top-(k + pad) result re-ranked after masking pad rows (index >=
+    ``n_real``) to -inf: the stable top-k of the rest."""
+    vals = torch.where(inds < n_real, vals, -torch.inf)
+    vals, order = _stable_topk(vals, k)
+    return vals, torch.gather(inds, 1, order)
 
 
 def _bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -186,10 +223,10 @@ class GalleryIndex:
 
     # --- querying ---
 
-    def _gallery_on_device(self, matmul_dtype: str = "float32"
-                           ) -> tuple[torch.Tensor, ...]:
-        """The resident serving form of ``matmul_dtype``, made once on the
-        device from the host copy:
+    def _gallery_on_device(self, matmul_dtype: str = "float32", mesh=None
+                           ) -> tuple:
+        """The resident serving form of ``matmul_dtype``, made once per
+        (mode, mesh devices) on the device from the host copy:
 
         - float32: ``(embeddings, norms)``, the norms computed on the
           device;
@@ -198,32 +235,57 @@ class GalleryIndex:
         - int8_rerank: ``(codes, scales, packed residual codes (G, D/4)
           int32, residual scales, max primary norm, max residual norm)``.
 
-        The compact forms are converted in uploaded blocks of
-        ``_UPLOAD_ROWS`` rows. Codes and scales are per row and the bounds
-        are maxima over rows, so the blocks join to the same bits."""
-        if matmul_dtype not in self._device_gallery:
-            if matmul_dtype == "float32":
-                g = torch.from_numpy(self.embeddings).to(self.device)
-                form = (g, torch.linalg.vector_norm(g, dim=1))
-            elif matmul_dtype == "bfloat16":
-                form = self._converted(lambda x: (x.to(torch.bfloat16),))
-            elif matmul_dtype == "int8":
-                form = self._converted(quantize_rows_int8)
-            elif matmul_dtype == "int8_rerank":
-                form = self._converted(_rerank_form)
-            else:
+        The forms are converted in uploaded blocks of ``_UPLOAD_ROWS``
+        rows. Codes, scales and norms are per row and the bounds are
+        maxima over rows, so the blocks join to the same bits. With
+        ``mesh`` each tensor is a :class:`parallel.mesh.RowSharded`: device
+        i converts only rows ``[i * shard, (i + 1) * shard)`` of the host
+        copy, padded with pad rows to ``shard = ceil(G / n)`` (int8_rerank
+        has no sharded form)."""
+        key = (matmul_dtype if mesh is None
+               else (matmul_dtype, tuple(str(d) for d in mesh.devices)))
+        if key not in self._device_gallery:
+            if matmul_dtype not in _FORMS:
                 raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
-            self._device_gallery[matmul_dtype] = form
-        return self._device_gallery[matmul_dtype]
+            convert, pad_values = _FORMS[matmul_dtype]
+            if mesh is None:
+                form = self._converted(convert, 0, len(self), self.device)
+            elif pad_values is None:
+                raise ValueError(f"matmul_dtype={matmul_dtype!r} does not "
+                                 "support mesh sharding yet")
+            else:
+                form = self._sharded(convert, pad_values, mesh)
+            self._device_gallery[key] = form
+        return self._device_gallery[key]
 
-    def _converted(self, convert) -> tuple[torch.Tensor, ...]:
-        """``convert`` applied on the device to uploaded row blocks of the
-        host copy; row tensors concatenate, 0-d bounds take their max."""
+    def _converted(self, convert, lo: int, hi: int,
+                   device: torch.device) -> tuple[torch.Tensor, ...]:
+        """``convert`` applied on ``device`` to uploaded row blocks of rows
+        ``[lo, hi)`` of the host copy; row tensors concatenate (into an
+        allocation of their own), 0-d bounds take their max."""
         emb = self.embeddings
-        parts = [convert(torch.from_numpy(emb[lo:lo + _UPLOAD_ROWS]).to(
-            self.device)) for lo in range(0, emb.shape[0], _UPLOAD_ROWS)]
+        parts = [convert(torch.tensor(emb[b:min(b + _UPLOAD_ROWS, hi)],
+                                      device=device))
+                 for b in range(lo, max(hi, lo + 1), _UPLOAD_ROWS)]
         return tuple(torch.cat(ts) if ts[0].ndim else torch.stack(ts).amax()
                      for ts in zip(*parts))
+
+    def _sharded(self, convert, pad_values, mesh
+                 ) -> tuple[RowSharded, ...]:
+        """Each device's shard of the mode's form: its real rows converted
+        on the device, then the pad rows."""
+        n, g = mesh.shape["data"], len(self)
+        shard = -(-g // n)
+        per_device = []
+        for i, dev in enumerate(mesh.devices):
+            lo, hi = min(i * shard, g), min((i + 1) * shard, g)
+            real = self._converted(convert, lo, hi, dev)
+            per_device.append(tuple(
+                torch.cat([t, torch.full((shard - (hi - lo), *t.shape[1:]),
+                                         fill, dtype=t.dtype, device=dev)])
+                if hi - lo < shard else t
+                for t, fill in zip(real, pad_values)))
+        return tuple(RowSharded(ts) for ts in zip(*per_device))
 
     def _classes_on_device(self) -> torch.Tensor:
         if self._device_classes is None:
@@ -259,15 +321,22 @@ class GalleryIndex:
                 q, c1, s1, c2, s2, k, shortlist=shortlist,
                 gallery_norm_bound=g1m, residual_norm_bound=rm)
             return vals, inds
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet")
-        form = self._gallery_on_device(matmul_dtype)
+        form = self._gallery_on_device(matmul_dtype, mesh)
         g, aux = form[0], form[1] if len(form) > 1 else None
         f32 = matmul_dtype == "float32"
-        return cosine_topk(q, g, k, method=method, matmul_dtype=matmul_dtype,
-                           gallery_norms=aux if f32 else None,
-                           gallery_scale=None if f32 else aux,
-                           precision=precision)
+        kw = dict(matmul_dtype=matmul_dtype,
+                  gallery_norms=aux if f32 else None,
+                  gallery_scale=None if f32 else aux, precision=precision)
+        if mesh is None:
+            return cosine_topk(q, g, k, method=method, **kw)
+        # a zero pad row scores exactly 0, which outranks real rows of
+        # negative similarity: over-query by the pad count, then drop them
+        pad = g.shape[0] - len(self)
+        vals, inds = sharded_cosine_topk(q, g, min(k + pad, g.shape[0]),
+                                         mesh, **kw)
+        if pad:
+            vals, inds = _drop_pad_rows(vals, inds, len(self), k)
+        return vals[:, :k].to(self.device), inds[:, :k].to(self.device)
 
     def query(self, queries, k: int = 150, *, method: str = "exact",
               matmul_dtype: str = "float32", mesh=None,
@@ -280,7 +349,10 @@ class GalleryIndex:
         eligible; 'approx' the dense path, equal to exact on the port). ``matmul_dtype``: 'float32', 'bfloat16' or 'int8' (exact
         top-k of that mode's scores over its resident form), or
         'int8_rerank' (:func:`ops.retrieval.int8_rerank_topk` with this
-        ``shortlist``; exact method and default precision only)."""
+        ``shortlist``; exact method and default precision only). With
+        ``mesh`` (a :class:`parallel.mesh.Mesh`; float32, bfloat16 and
+        int8, exact method) the gallery is ranked in row shards over the
+        mesh's devices, with the unsharded result."""
         vals, inds = self._query_tensors(queries, k, method, matmul_dtype,
                                          mesh, precision, shortlist)
         inds = inds.cpu().numpy()

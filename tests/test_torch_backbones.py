@@ -303,8 +303,39 @@ def test_swin_softmax_runs_in_float32_under_bf16_autocast(monkeypatch):
 
 
 def test_swin_refuses_another_input_size():
-    with pytest.raises(ValueError, match="built for 32 px"):
+    """At 40 px the last stage's 3 x 3 grid needs a window of 3, but the
+    Swin built at 32 px has that stage's bias table for 2 (its 2 x 2
+    grid): refused, as JAX refuses a parameter of another shape."""
+    with pytest.raises(ValueError, match="bias table is for 2"):
         _small_swin(0).embed(torch.zeros((1, 40, 40, 3)))
+
+
+# windows (4, 4, 2) clamp to the same widths at 32, 36 and 40 px, so one
+# set of bias tables serves all three: at 32 px 8 x 8 tokens (shifted
+# windows of 4), then 4 x 4 and 2 x 2 (clamped, no shift); at 40 px 10 x
+# 10 padded to 12 x 12, then 5 x 5 shifted and padded to 8 x 8, then the
+# odd grid merged into 3 x 3 (windows of 2, shifted, padded to 4 x 4); at
+# 36 px 9 x 9 (not a window multiple, padded to 12 x 12, odd before the
+# first merge) and then as at 40 px
+SWIN_ANY = dict(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 4, 8),
+                window_sizes=(4, 4, 2))
+
+
+@pytest.mark.parametrize("size", [40, 36])
+def test_swin_built_at_32_px_runs_at_other_sizes_like_jax(size):
+    name, kw = "swin_tiny_patch4_window7_224", dict(img_size=32, **SWIN_ANY)
+    bb, variables, port = _pair(name, kw, 32)
+    x = _images(size)
+    ref = np.asarray(jax.jit(bb.embed)(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        xt = torch.from_numpy(x)
+        emb = port.embed(xt).numpy()
+        # the mask of this size is built once and reused
+        assert torch.equal(port.embed(xt), torch.from_numpy(emb))
+        at_32 = port.embed(torch.from_numpy(_images(32))).numpy()
+    assert np.abs(ref).max() > 1e-2
+    np.testing.assert_allclose(emb, ref, rtol=1e-4, atol=1e-4)
+    assert at_32.shape == emb.shape and np.isfinite(at_32).all()
 
 
 @pytest.mark.parametrize("cid", [c[0] for c in CASES if c[0] != "swin40"])

@@ -293,10 +293,11 @@ def _status(port_, method, path, length):
     return status
 
 
-def test_serve_endpoint(tree, tmp_path):
+def test_serve_endpoint(tree, tmp_path, monkeypatch):
     """build -> serve -> /healthz -> POST /search with a raw PNG body; the
     clamps, 404, 413 and 400 (decompression bombs too); then the float32
-    form on a fresh server.
+    form on a fresh server, and int8_rerank at JAX's shortlist of 256;
+    serve refuses query's --precision and --shortlist, as JAX's does.
     A served record equals the query CLI's for the same file."""
     npz = _build(tree, str(tmp_path / "gal.npz"), "--gallery_dtype", "int8")
     srv = _make_server(build_parser().parse_args(
@@ -360,11 +361,11 @@ def test_serve_endpoint(tree, tmp_path):
         srv.shutdown()
         srv.server_close()
 
-    # the default float32 form, with serve's --precision and --shortlist,
-    # and --method approx (the dense path: query's approx record)
+    # the default float32 form, and --method approx (the dense path:
+    # query's approx record)
     srv2 = _make_server(build_parser().parse_args(
         ["serve", npz, "--port", "0", "-k", "8", "--num_unique", "2",
-         "--precision", "highest", "--method", "approx", *CPU]))
+         "--method", "approx", *CPU]))
     threading.Thread(target=srv2.serve_forever, daemon=True).start()
     try:
         rec = _post(f"http://127.0.0.1:{srv2.server_address[1]}", body)
@@ -376,9 +377,34 @@ def test_serve_endpoint(tree, tmp_path):
     finally:
         srv2.shutdown()
         srv2.server_close()
-    args = build_parser().parse_args(["serve", npz, "--matmul_dtype",
-                                      "int8_rerank", "--shortlist", "12"])
-    assert (args.shortlist, args.precision) == (12, "default")
+    # JAX's serve has neither flag: argparse refuses them
+    for flag, value in (("--precision", "highest"), ("--shortlist", "12")):
+        with pytest.raises(SystemExit) as e:
+            build_parser().parse_args(["serve", npz, flag, value])
+        assert e.value.code == 2
+    # int8_rerank is served at JAX's default shortlist (256), as query
+    # ranks it by default
+    seen = []
+    query_tensors = GalleryIndex._query_tensors
+
+    def spy(self, *args):
+        seen.append(args[-2:])          # (precision, shortlist)
+        return query_tensors(self, *args)
+
+    monkeypatch.setattr(GalleryIndex, "_query_tensors", spy)
+    srv3 = _make_server(build_parser().parse_args(
+        ["serve", npz, "--port", "0", "-k", "8", "--num_unique", "2",
+         "--matmul_dtype", "int8_rerank", *CPU]))
+    threading.Thread(target=srv3.serve_forever, daemon=True).start()
+    try:
+        rec = _post(f"http://127.0.0.1:{srv3.server_address[1]}", body)
+        queried = port("query", npz, photo, "-k", "8", "--num_unique", "2",
+                       "--matmul_dtype", "int8_rerank", "-bs", "1", *CPU)[0]
+        assert rec == {key: queried[key] for key in rec}
+    finally:
+        srv3.shutdown()
+        srv3.server_close()
+    assert seen and set(seen) == {("default", 256)}
 
 
 def test_serve_rejects_empty_gallery(tmp_path):

@@ -343,7 +343,6 @@ def test_find_lr_sweeps_start_from_the_initial_weights(tree, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--use_native_loader"], ValueError, "not ported"),
     (["--num_processes", "2"], NotImplementedError, "multi-process"),
     (["--coordinator_address", "localhost:1234"], NotImplementedError,
      "multi-process"),

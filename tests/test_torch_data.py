@@ -447,10 +447,21 @@ def test_triplet_loader_equals_jax(trees, case):
     _assert_batches(_batches(got), _batches(ref))
 
 
-def test_loader_refuses_native_and_relays_errors(trees):
+def test_loader_refuses_native_and_relays_errors(trees, capsys,
+                                                monkeypatch):
+    """Where JAX's gates fail, ``use_native`` falls back to the threaded
+    path with JAX's warning, naming each failed gate (here the pool and
+    the host size); a producer's error reaches the consumer."""
+    from imageretrievalresearch_tpu_torch.data import native_loader
+    monkeypatch.setattr(native_loader, "native_available", lambda: False)
     ds = SketchyImageDataset(data_dir=trees["sketchy"]["port"])
-    with pytest.raises(ValueError, match="not ported"):
-        TripletLoader(ds, 4, use_native=True)
+    dl = TripletLoader(ds, 4, use_native=True)
+    assert not dl.use_native
+    out = capsys.readouterr().out
+    assert ("[loader] WARNING: use_native requested but falling back to "
+            "the threaded decode path: decode pool unavailable; host_size "
+            "not set") in out
+    assert _batches(dl)[0]["qry"].shape[0] == 4
 
     class Broken:
         def __len__(self):

@@ -77,6 +77,25 @@ def write_png(samples, color_type, depth=8, ftype=0, palette=None,
             + png_chunk(b"IEND", b""))
 
 
+def adam7_png(img: np.ndarray) -> bytes:
+    """An Adam7-interlaced RGB PNG of ``img`` (filter None on every row of
+    every pass); Pillow reads such files but does not write them."""
+    h, w = img.shape[:2]
+    raw = bytearray()
+    for y0, x0, ys, xs in ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4),
+                           (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+                           (1, 0, 2, 1)):
+        sub = img[y0::ys, x0::xs]
+        if sub.size:
+            for row in sub:
+                raw += b"\0" + row.tobytes()
+    return (b"\x89PNG\r\n\x1a\n"
+            + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                             1))
+            + png_chunk(b"IDAT", zlib.compress(bytes(raw)))
+            + png_chunk(b"IEND", b""))
+
+
 def png_chunk(kind: bytes, payload: bytes) -> bytes:
     return (struct.pack(">I", len(payload)) + kind + payload
             + struct.pack(">I", zlib.crc32(kind + payload)))
@@ -171,8 +190,13 @@ def test_decode_refusals():
     with pytest.raises(ValueError, match="16-bit"):
         decode_image(pil_bytes(Image.fromarray(
             rng.integers(0, 65535, (8, 8)).astype(np.uint16))))
-    with pytest.raises(ValueError, match="interlaced"):
-        decode_image(write_png(smooth(rng, 8, 8), 2, interlace=1))
+    # Adam7 interlacing is decoded as PIL decodes it (its passes at 13 x
+    # 11: every pass non-empty, the last ones ragged); an unknown
+    # interlace method is refused
+    inter = adam7_png(smooth(rng, 13, 11))
+    np.testing.assert_array_equal(decode_image(inter), pil_rgb(inter))
+    with pytest.raises(ValueError, match="bad IHDR"):
+        decode_image(write_png(smooth(rng, 8, 8), 2, interlace=2))
     # a baseline JPEG decodes as PIL decodes it; a progressive one is
     # refused
     jpeg = io.BytesIO()

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from imageretrievalresearch_tpu.retrieval import GalleryIndex as JaxIndex
+from imageretrievalresearch_tpu_torch.parallel import Mesh
 from imageretrievalresearch_tpu_torch.retrieval import GalleryIndex
 from imageretrievalresearch_tpu_torch.retrieval import index as index_mod
 
@@ -114,9 +115,12 @@ def test_unported_modes_and_validation(data):
     pc = rng.integers(0, 9, 400).astype(np.int32)
     pq = _pm1_rows(rng, 6)
     jidx, tidx = _pair(pg, pc)
+    mesh = Mesh(["cpu"] * 2)
     for mode in ("float32", "bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            idx.query(g[:2], k=5, matmul_dtype=mode, mesh=object())
+        # mesh sharding is ported: the sharded query is the unsharded one
+        for a, b in zip(idx.query(g[:2], k=5, matmul_dtype=mode, mesh=mesh),
+                        idx.query(g[:2], k=5, matmul_dtype=mode)):
+            np.testing.assert_array_equal(a, b)
         kw = {"k": 150, "method": "approx", "matmul_dtype": mode}
         for ours, ref in zip(tidx.query(pq, **kw), jidx.query(pq, **kw)):
             np.testing.assert_array_equal(ours, ref)
@@ -126,7 +130,7 @@ def test_unported_modes_and_validation(data):
         # JAX's refusal: the sharded path is exact-only
         with pytest.raises(ValueError, match="exact-only"):
             idx.query(g[:2], k=5, matmul_dtype=mode, method="approx",
-                      mesh=object())
+                      mesh=mesh)
     with pytest.raises(ValueError, match="unknown matmul_dtype"):
         idx.query(g[:2], k=5, matmul_dtype="float16")
 
@@ -141,7 +145,8 @@ def test_int8_rerank_mode_validation(data):
         idx.query(g[:2], k=5, matmul_dtype="int8_rerank",
                   precision="highest")
     with pytest.raises(ValueError, match="mesh"):
-        idx.query(g[:2], k=5, matmul_dtype="int8_rerank", mesh=object())
+        idx.query(g[:2], k=5, matmul_dtype="int8_rerank",
+                  mesh=Mesh(["cpu"] * 2))
 
 
 def _pair(g, c):

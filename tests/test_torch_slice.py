@@ -212,7 +212,9 @@ def test_port_imports_nothing_of_jax():
                    "checkpoints.py", "version.py",
                    "examples/serving_pipeline.py",
                    "examples/training_analysis.py",
-                   "examples/score_booster_demo.py"):
+                   "examples/score_booster_demo.py",
+                   "parallel/mesh.py", "parallel/gallery.py",
+                   "data/native_loader.py"):
         assert PORT / module in files
     bad = [(f.name, m) for f in files for m in _imports(f)
            if FORBIDDEN.match(m)]
@@ -241,7 +243,9 @@ def test_port_imports_nothing_of_jax():
             "imageretrievalresearch_tpu_torch.checkpoints, "
             "imageretrievalresearch_tpu_torch.examples.serving_pipeline, "
             "imageretrievalresearch_tpu_torch.examples.training_analysis, "
-            "imageretrievalresearch_tpu_torch.examples.score_booster_demo; "
+            "imageretrievalresearch_tpu_torch.examples.score_booster_demo, "
+            "imageretrievalresearch_tpu_torch.parallel, "
+            "imageretrievalresearch_tpu_torch.data.native_loader; "
             # matplotlib (and pandas) only inside the functions that draw
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'PIL', 'yaml', "
