@@ -225,7 +225,26 @@ Phases (any failure exits non-zero, with no result line):
    (and the f32 shards' norms the unsharded norms); warm request times,
    sharded against unsharded, in turns. Rows 1-3 of the kernels line
    carry these launches as ``sharded_launches``.
-13. One JSON line of kernels, the nvidia-smi line, and the result line.
+13. Multi-device training on the one card (``multidevice_phase``):
+   phase 6's T3 step (b3a, 64 triplets of 256 px sources, its seeds) in
+   f32 with SGD, once on the card without a process group (the
+   reference; and again, for the card's own run-to-run spread), then (a)
+   as DDP and (c) as FSDP in an NCCL group of one in this process, the
+   group-wide BatchNorm's own arithmetic at world size 1, (b) over 2
+   ranks sharing card 0 over gloo (NCCL refuses two ranks on one card,
+   which is checked too), launched as worker processes by the port's
+   launcher, 32 triplets each, and (f) ``Trainer.fit`` with FSDP, which
+   launches its workers, one per card. Each against the reference: the
+   loss, the parameters, the BatchNorm running statistics, the train
+   metrics (``MD_*``); kernels 9 and 10 at 26 + 26 + 26 and kernels 5-8
+   at phase 5's counts per step, in every rank. Where more cards are
+   visible, (e) the step on one rank per card over NCCL, replicated and
+   FSDP. (d) runs inside phase 10, on its tree: ``cli.train`` over
+   ``--coordinator_address localhost:<port> --num_processes 1
+   --process_id 0`` (one epoch, DDP in an NCCL group of one) against
+   phase 10's first epoch. Rows 5-10 of the kernels line carry (b)'s
+   launches per rank as ``multi_device_launches_per_rank``.
+14. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -247,6 +266,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import importlib
 import io
 import json
 import os
@@ -290,6 +310,7 @@ from imageretrievalresearch_tpu_torch.models import create_model  # noqa: E402
 from imageretrievalresearch_tpu_torch.models.convert import (  # noqa: E402
     load_checkpoint,
 )
+from imageretrievalresearch_tpu_torch.models import layers as GBN  # noqa
 from imageretrievalresearch_tpu_torch.models.layers import (  # noqa: E402
     DepthwiseConv2d,
 )
@@ -301,6 +322,9 @@ from imageretrievalresearch_tpu_torch.ops import retrieval as R  # noqa: E402
 from imageretrievalresearch_tpu_torch.parallel import (  # noqa: E402
     Mesh,
     make_mesh,
+)
+from imageretrievalresearch_tpu_torch.parallel import (  # noqa: E402
+    distributed,
 )
 from imageretrievalresearch_tpu_torch.ops.preprocess import (  # noqa: E402
     TransformSpec,
@@ -490,6 +514,31 @@ DISK_JPEG_MEAN_ERR, DISK_JPEG_MAX_ERR = 24.0, 200
 # the uncached loader's steps measured after the CLI run (each decodes 48
 # files: query, positive and negative of 16 triplets)
 DISK_UNCACHED_STEPS = 4
+# phase 13, multi-device training: phase 6's T3 step (b3a, TRAIN_BATCH
+# triplets of TRAIN_SRC px sources, the same weights, batch and seeds) in
+# f32 (TF32 off) with SGD, whose update is linear in the gradient (AdamW's
+# first update is about lr * sign(g), which turns rounding differences of
+# near-zero gradients into full-size steps). One step on one card, no
+# group, is the reference of (a) DDP and (c) FSDP at world size 1 over
+# NCCL and (b) MD_RANKS ranks over gloo sharing card 0, TRAIN_BATCH /
+# MD_RANKS rows each. The limits: the loss and the BatchNorm running
+# statistics (relative), the in-batch top-k equal, and the parameters as
+# tests/test_torch_train.py holds steps whose sums run in other orders:
+# all of them within MD_PARAM_NORM_RTOL of the update's norm, each
+# tensor's largest difference within MD_PARAM_TENSOR_SHARE of its largest
+# update. At random weights the T3 loss is ~443 and one SGD step moves
+# the early layers by as much as their values, so rounding shows in the
+# update: (b) read 1.3e-4 of the norm, and the group-wide BatchNorm's own
+# arithmetic in place of cuDNN's at world size 1 1.4e-4, against 3.4e-7
+# for the same step run twice (NVIDIA H100 80GB HBM3, 700 W); a missing
+# 1 / R on a gradient would read ~0.5.
+MD_RANKS = 2
+MD_LOSS_RTOL, MD_STAT_RTOL, MD_STAT_ATOL = 1e-4, 1e-4, 1e-6
+MD_PARAM_NORM_RTOL, MD_PARAM_TENSOR_SHARE = 1e-3, 1e-2
+# (d) cli.train over the multi-host flags at world size 1 against phase
+# 10's run: its first epoch's losses and cos_sims, relative (phase 6's
+# bf16 per-step limit; the same arithmetic is expected bit for bit)
+MD_CLI_RTOL = 5e-3
 # phase 11, evaluation and analysis from disk: the port's synthetic Sketchy
 # tree at 256 px with 11 products a category (264 JPEG photos, 176 PNG
 # sketches), so the evaluation's gallery (one positive per photo, G = Q =
@@ -556,6 +605,12 @@ int main(void) {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def profiled(ms: float | None) -> str:
+    """A kernel's device time from torch.profiler, or "not measured" where
+    the trace holds none of its launches (CUPTI may miss them)."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def sync_time(fn):
@@ -877,7 +932,8 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
         _, hbm_ms = device_ms(from_hbm(kernel, a), name)
         steps = host_steps(name, a)
         log(f"{name} at {tuple(a[0].shape)}: {ms:.4f} ms, back-to-back "
-            f"{b_ms:.4f}, device {dev_ms:.4f} per launch, {hbm_ms:.4f} with "
+            f"{b_ms:.4f}, device {profiled(dev_ms)} per launch, "
+            f"{profiled(hbm_ms)} with "
             f"its operands read from HBM (bound {bound_ms:.4f} ms, "
             f"{bound_by}); plain {plain_ms:.4f} ms; "
             + (f"library {library_ms:.4f} ms, back-to-back {lib_b_ms:.4f} "
@@ -909,8 +965,9 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     # from HBM (tools/image_kernel_times times the parent's beside it)
     _, const_hbm_ms = device_ms(from_hbm(IK.plane_histogram,
                                          (const_planes,)), "plane_histogram")
-    log(f"plane_histogram on {p} planes of one value: {const_hbm_ms:.4f} ms "
-        "per launch with its operands read from HBM")
+    log(f"plane_histogram on {p} planes of one value: "
+        f"{profiled(const_hbm_ms)} per launch with its operands read from "
+        "HBM")
     next(e for e in entries if e["name"] == "plane_histogram")[
         "device_hbm_one_value_ms"] = const_hbm_ms
 
@@ -2490,6 +2547,8 @@ def disk_phase(card: str) -> dict:
         assert sizes == DISK_SPLIT, sizes
 
         train = train_cli_run(tree, split, root, card)
+        multihost = multihost_cli_run(tree, split, root, train["epoch0"],
+                                      card)
         sweep = find_lr_cli_run(tree, split, card)
         decode_pool_checks(tree, split, root, digests, card)
     finally:
@@ -2497,7 +2556,7 @@ def disk_phase(card: str) -> dict:
         set_opt_in(False)
     log(f"phase 10 (training from disk): "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
-    return {"train": train, "sweep": sweep}
+    return {"train": train, "sweep": sweep, "multihost": multihost}
 
 
 def timed_loader_iter(waits: list):
@@ -2668,7 +2727,62 @@ def train_cli_run(tree: str, split: str, root: str, card: str) -> dict:
         f"decodes {3 * DISK_BATCH} files with {cfg.num_workers} loader "
         "threads; the Huffman walk holds the GIL)")
     log(f"  peak device memory {peak:.2f} GB; {card}")
-    return {"dw": counts["dw"], "entry": counts["entry"]}
+    return {"dw": counts["dw"], "entry": counts["entry"],
+            "epoch0": history["epochs"][0]}
+
+
+def multihost_cli_run(tree: str, split: str, root: str, ref: dict,
+                      card: str) -> dict:
+    """Phase 13 (d), run here while phase 10's tree exists: ``cli.train``
+    over the multi-host flags at world size 1 (``--coordinator_address
+    localhost:<port> --num_processes 1 --process_id 0``: one process, an
+    NCCL group of one, the model in DDP), one epoch of phase 10's run,
+    against that run's first epoch; launch counts set to 0 just before
+    and read just after."""
+    set_opt_in(True)
+    argv = ["--recipe", "train_efficient_cos_con_ce_loss", "-ip", tree,
+            "--split_json", split, "-bs", str(DISK_BATCH), "--max_epochs",
+            "1", "--cache", "--host_size", "256", "-sp",
+            os.path.join(root, "multihost"), "--coordinator_address",
+            f"localhost:{distributed.free_port()}", "--num_processes", "1",
+            "--process_id", "0"]
+    wrapped = []
+
+    def record(orig):
+        def train_epoch(self, state, epoch):
+            wrapped.append(type(self.model).__name__)
+            return orig(self, state, epoch)
+        return train_epoch
+
+    for mod in (DW, IK):
+        mod.reset_launch_counts()
+    with patched(Trainer, "train_epoch", record):
+        (state, history), ms = sync_time(lambda: TRAIN_CLI.run(
+            TRAIN_CLI.build_parser().parse_args(argv)))
+    counts = {**DW.KERNEL_LAUNCHES, **IK.KERNEL_LAUNCHES}
+    assert not distributed.in_group(), "the CLI left its group running"
+    assert wrapped == ["DistributedDataParallel"], wrapped
+    n = B3A_DW_LAYERS
+    want = {"depthwise_conv_forward": n * (DISK_STEPS + DISK_VAL_BATCHES),
+            "depthwise_conv_grad_x": n * DISK_STEPS,
+            "depthwise_conv_grad_w": n * DISK_STEPS,
+            **{k: DISK_STEPS * 3 * p
+               for k, p in launches_per_policy().items()}}
+    assert counts == want, (counts, want)
+    got = history["epochs"][0]
+    assert set(got) == set(ref), (sorted(got), sorted(ref))
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in ref}
+    log(f"13 (d) cli.train over the multi-host flags, world size 1 (NCCL, "
+        f"DDP), 1 epoch of phase 10's run ({DISK_STEPS} steps of "
+        f"{DISK_BATCH} triplets + {DISK_VAL_BATCHES} val batch): "
+        f"{ms / 1e3:.1f} s; launches {counts}; against phase 10's first "
+        f"epoch: {'bit for bit' if got == ref else 'not bit for bit'}, "
+        f"relative differences {rel}; limit {MD_CLI_RTOL} on train_loss, "
+        f"val_loss, cos_sims; {card}")
+    for k in ("train_loss", "val_loss", "cos_sims"):
+        assert rel[k] <= MD_CLI_RTOL, (k, rel[k])
+    set_opt_in(False)
+    return {"launches": counts, "bitwise": got == ref}
 
 
 def find_lr_cli_run(tree: str, split: str, card: str) -> dict:
@@ -3253,11 +3367,276 @@ def sharded_phase(index, q64, card: str) -> dict:
     return out
 
 
+def md_config(**kw):
+    return run_config(T3, None, compute_dtype="float32",
+                      optimizer_name="SGD", **kw)
+
+
+def md_batch() -> dict:
+    """Phase 6's first train batch: the same seeded generator, drawn in
+    the same order."""
+    return MemoryLoader(np.random.default_rng(SEED), 1, TRAIN_BATCH
+                        ).batches[0]
+
+
+def md_step(trainer: Trainer, raw: dict) -> dict:
+    """One train step of ``trainer`` (the compared one; launch counts set
+    to 0 just before and read just after), then a second, timed (host
+    clock around a synchronised step); the state after the first."""
+    set_opt_in(True)
+    state = trainer.init_state()
+    gens = trainer._generators(0)
+    for mod in (DW, IK):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = trainer.train_batch(state, raw, gens)
+    counts = {**DW.KERNEL_LAUNCHES, **IK.KERNEL_LAUNCHES}
+    entry = dict(IK.ENTRY_LAUNCHES)
+    plain = {**DW.PLAIN_ON_CARD, **IK.PLAIN_ON_CARD}
+    model = {k: v.detach().cpu() for k, v in
+             state.state_dict()["model"].items()}
+    _, step_ms = sync_time(lambda: trainer.train_batch(state, raw, gens))
+    set_opt_in(False)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "model": model, "launches": counts, "entry": entry,
+            "plain": plain,
+            "step_ms": step_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wrapper": type(state.model).__name__}
+
+
+def md_rank(payload: dict) -> dict:
+    """A launched rank: the T3 step on this rank's rows in the payload's
+    layout; rank 0 keeps the whole state, every rank its launches and
+    times."""
+    model = create_model(T3.model, num_classes=N_CLASSES, seed=SEED)
+    out = md_step(Trainer(md_config(param_sharding=payload["layout"]),
+                          model, [payload["raw"]]), payload["raw"])
+    if distributed.rank() != 0:
+        out["model"] = None
+    return out
+
+
+def md_nccl_probe(payload) -> None:
+    torch.distributed.all_reduce(torch.ones(1, device="cuda"))
+
+
+def md_compare(tag: str, got: dict, ref: dict, init: dict) -> bool:
+    """``got``'s step against the reference step, by phase 13's limits;
+    logs each difference (the worst tensors beside their updates from
+    ``init``) and returns whether all is bit for bit."""
+    loss = abs(got["metrics"]["train_loss"] - ref["metrics"]["train_loss"]
+               ) / abs(ref["metrics"]["train_loss"])
+    worst_stat = 0.0
+    params = []
+    bitwise = got["metrics"] == ref["metrics"]
+    diff2 = upd2 = 0.0
+    for k, want in ref["model"].items():
+        have = got["model"][k]
+        bitwise &= torch.equal(have, want)
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(have, want), (tag, k)
+            continue
+        d = (have.double() - want.double()).abs()
+        if k.endswith(("running_mean", "running_var")):
+            worst_stat = max(worst_stat, (d / (MD_STAT_ATOL + MD_STAT_RTOL
+                                               * want.double().abs())
+                                          ).max().item())
+            continue
+        upd = (want.double() - init[k].double()).abs()
+        diff2 += float(d.square().sum())
+        upd2 += float(upd.square().sum())
+        params.append(((d.max() / (MD_PARAM_TENSOR_SHARE * upd.max()
+                                   + 1e-6)).item(), k, d.max().item(),
+                       upd.max().item()))
+    params.sort(reverse=True)
+    norm = (diff2 / upd2) ** 0.5
+    log(f"13 {tag}: train_loss {got['metrics']['train_loss']:.7g} against "
+        f"{ref['metrics']['train_loss']:.7g} (relative {loss:.3g}, limit "
+        f"{MD_LOSS_RTOL}); the parameters' |diff| / |update| {norm:.3g} "
+        f"(limit {MD_PARAM_NORM_RTOL}), the worst tensor at "
+        f"{params[0][0]:.3g} of its limit ({MD_PARAM_TENSOR_SHARE} of its "
+        f"largest update + 1e-6); BatchNorm running statistics at "
+        f"{worst_stat:.3g} of theirs (rtol {MD_STAT_RTOL}, atol "
+        f"{MD_STAT_ATOL}); top-3 / top-1 "
+        f"{got['metrics']['train_top3']:.4f} / "
+        f"{got['metrics']['train_top1']:.4f} against "
+        f"{ref['metrics']['train_top3']:.4f} / "
+        f"{ref['metrics']['train_top1']:.4f}; "
+        f"{'bit for bit' if bitwise else 'not bit for bit'}")
+    log("  worst tensors (share of the limit, name, max |diff|, max "
+        "|update|): " + "; ".join(f"{r:.3g} {k} {dm:.3g} {um:.3g}"
+                                  for r, k, dm, um in params[:4]))
+    assert loss <= MD_LOSS_RTOL, (tag, loss)
+    assert norm <= MD_PARAM_NORM_RTOL, (tag, norm)
+    assert params[0][0] <= 1 and worst_stat <= 1, (tag, params[0],
+                                                   worst_stat)
+    for k in ("train_top3", "train_top1"):
+        assert got["metrics"][k] == ref["metrics"][k], (tag, k)
+    return bitwise
+
+
+def group_bn_arithmetic(orig):
+    """GroupBatchNorm2d taking its group path (the all-reduces, its own
+    f32 arithmetic) at world size 1 too, in place of nn.BatchNorm2d's."""
+    def forward(self, x):
+        if not self.training:
+            return orig(self, x)
+        y, mean, var, n = GBN._GroupBatchNorm.apply(x, self.weight,
+                                                    self.bias, self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.mul_(1 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(
+                var * (n / (n - 1)), alpha=self.momentum)
+        return y
+    return forward
+
+
+def md_launches_ok(tag: str, got: dict) -> None:
+    """One step's launches: kernels 9 and 10 on each of b3a's depthwise
+    layers, kernels 5-8 at phase 5's counts per policy call x 3 roles; no
+    plain version on the card."""
+    n = B3A_DW_LAYERS
+    want = {"depthwise_conv_forward": n, "depthwise_conv_grad_x": n,
+            "depthwise_conv_grad_w": n,
+            **{k: 3 * p for k, p in launches_per_policy().items()}}
+    assert got["launches"] == want, (tag, got["launches"], want)
+    assert not any(got["plain"].values()), (tag, got["plain"])
+
+
+def multidevice_phase(card: str, multihost: dict) -> dict:
+    """Phase 13: multi-device training on the one card, each layout's T3
+    step against the step on one card without a group (see MD_*): (a) DDP
+    and (c) FSDP at world size 1 over NCCL in this process, (b) MD_RANKS
+    ranks over gloo sharing card 0, launched as worker processes by the
+    port's launcher; the NCCL refusal of two ranks on one card; (d) came
+    from phase 10. Returns each rank's launches in (b)."""
+    t_phase = time.perf_counter()
+    raw = md_batch()
+    init = {k: v.cpu() for k, v in create_model(
+        T3.model, num_classes=N_CLASSES, seed=SEED).state_dict().items()}
+    ref = md_step(Trainer(md_config(), create_model(
+        T3.model, num_classes=N_CLASSES, seed=SEED), [raw]), raw)
+    md_launches_ok("reference", ref)
+    # the same step again: the card's own spread (cuDNN's weight-gradient
+    # algorithms may sum in another order from run to run)
+    again = md_step(Trainer(md_config(), create_model(
+        T3.model, num_classes=N_CLASSES, seed=SEED), [raw]), raw)
+    md_compare("the reference again", again, ref, init)
+    log(f"13 reference: one T3 step (f32, SGD) of {TRAIN_BATCH} triplets on "
+        f"one card without a group: warm step {ref['step_ms']:.1f} ms, peak "
+        f"{ref['peak_gb']:.2f} GB; launches {ref['launches']}; {card}")
+
+    distributed.init_group(
+        world_size=1, rank=0, device="cuda:0",
+        init_method=f"tcp://localhost:{distributed.free_port()}")
+    try:
+        results = {}
+        for tag, layout in (("(a) DDP, world size 1, NCCL", "replicated"),
+                            ("(c) FSDP, world size 1, NCCL", "fsdp")):
+            trainer = Trainer(md_config(param_sharding=layout),
+                              create_model(T3.model, num_classes=N_CLASSES,
+                                           seed=SEED), [raw])
+            got = md_step(trainer, raw)
+            md_launches_ok(tag, got)
+            if layout == "fsdp":
+                constrain = {type(p).__name__
+                             for p in trainer.model.parameters()}
+                assert constrain == {"DTensor"}, constrain
+            log(f"13 {tag} ({got['wrapper']}): warm step "
+                f"{got['step_ms']:.1f} ms, peak {got['peak_gb']:.2f} GB; "
+                f"{card}")
+            results[tag] = md_compare(tag, got, ref, init)
+        # what (b) differs by: the group-wide BatchNorm's arithmetic in
+        # place of cuDNN's, on one rank (its f64 all-reduces over NCCL)
+        with patched(GBN.GroupBatchNorm2d, "forward", group_bn_arithmetic):
+            got = md_step(Trainer(md_config(), create_model(
+                T3.model, num_classes=N_CLASSES, seed=SEED), [raw]), raw)
+        md_compare("world size 1, the group-wide BatchNorm's own "
+                   "arithmetic", got, ref, init)
+    finally:
+        distributed.destroy_group()
+
+    def launched(tag, devices, backend=None, layout="replicated"):
+        t0 = time.perf_counter()
+        ranks = distributed.launch(
+            "chip_smoke:md_rank", len(devices),
+            {"raw": raw, "layout": layout}, devices=devices,
+            backend=backend, timeout_s=600)
+        wall = time.perf_counter() - t0
+        for r, got in enumerate(ranks):
+            md_launches_ok(f"{tag}, rank {r}", got)
+            log(f"13 {tag}, rank {r} ({got['wrapper']}, "
+                f"{TRAIN_BATCH // len(devices)} triplets): warm step "
+                f"{got['step_ms']:.1f} ms against the reference's "
+                f"{ref['step_ms']:.1f} ms, peak {got['peak_gb']:.2f} GB; "
+                f"launches {got['launches']}; {card}")
+            assert got["metrics"] == ranks[0]["metrics"], (tag, r)
+        log(f"13 {tag}: the launch (fresh interpreters, import, build, "
+            f"two steps) {wall:.1f} s")
+        results[tag] = md_compare(tag, ranks[0], ref, init)
+        return ranks
+
+    ranks = launched(f"(b) {MD_RANKS} ranks over gloo sharing card 0",
+                     ["cuda:0"] * MD_RANKS, "gloo")
+    log("13 (b): gloo carried the all-reduces, all-gathers and broadcasts "
+        "of CUDA tensors (no host copies in the port's code)")
+    cards = torch.cuda.device_count()
+    if cards > 1:   # a machine with more cards: one rank on each
+        for layout in ("replicated", "fsdp"):
+            launched(f"(e) {cards} ranks over NCCL, one per card, {layout}",
+                     [f"cuda:{i}" for i in range(cards)], layout=layout)
+
+    # (f) the path a user calls: Trainer.fit with FSDP outside a group
+    # launches its workers, one per card (one here), and loads rank 0's
+    # state. The workers unpickle the loader, so its class comes from
+    # this file imported by name (not __main__): phase 6's first batch
+    loader = importlib.import_module("chip_smoke").MemoryLoader(
+        np.random.default_rng(SEED), 1, TRAIN_BATCH)
+    set_opt_in(True)
+    trainer = Trainer(md_config(param_sharding="fsdp", num_devices=cards,
+                                max_epochs=1), create_model(
+        T3.model, num_classes=N_CLASSES, seed=SEED), loader)
+    (state, history), ms = sync_time(lambda: trainer.fit())
+    set_opt_in(False)
+    got = {"metrics": dict(history["epochs"][0]),
+           "model": {k: v.cpu() for k, v in
+                     state.state_dict()["model"].items()}}
+    log(f"13 (f) Trainer(param_sharding='fsdp', num_devices={cards}).fit(), "
+        f"one step: {ms / 1e3:.1f} s with the workers' start; {card}")
+    results["(f)"] = md_compare(f"(f) Trainer.fit launching {cards} "
+                                "FSDP worker(s)", got, ref, init)
+
+    try:
+        distributed.launch("chip_smoke:md_nccl_probe", MD_RANKS, None,
+                           devices=["cuda:0"] * MD_RANKS, backend="nccl",
+                           timeout_s=180)
+    except RuntimeError as e:
+        said = [line for line in str(e).splitlines()
+                if any(w in line.lower() for w in ("invalid usage",
+                                                   "duplicate gpu"))]
+        assert said, str(e)
+        log("13 NCCL refuses two ranks on one card, as expected: "
+            + said[0].strip()[:200])
+    else:
+        raise AssertionError("NCCL ran two ranks on one card")
+    log(f"13 (d) from phase 10: "
+        f"{'bit for bit' if multihost['bitwise'] else 'within its limit'}")
+    log(f"phase 13 (multi-device training): "
+        f"{time.perf_counter() - t_phase:.1f} s; bit for bit: {results}; "
+        f"{card}")
+    return {"ranks": [{**got["launches"], **got["entry"]}
+                      for got in ranks]}
+
+
 def main() -> None:
     card = torch.cuda.get_device_name(0)
     # 1. build
     log(f"card: {PF.card()}; {torch.cuda.device_count()} visible, this run "
-        "drives card 0 only")
+        "drives card 0 only (phase 13's (e) and (f) take every visible "
+        "card)")
     t0 = time.perf_counter()
     # one nvcc per source, all started together (each waits in its thread)
     with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
@@ -3533,7 +3912,20 @@ def main() -> None:
         if row["name"] in sharded:
             row["sharded_launches"] = sharded[row["name"]]
 
-    # 13. result: the one card this run drove
+    # 13. multi-device training on the one card: rows 5-10 carry each
+    # rank's launches in (b)
+    md = multidevice_phase(PF.card(), disk["multihost"])
+    for row in image_rows:
+        row["multi_device_launches_per_rank"] = [
+            ranks[ENTRIES[row["name"]]] for ranks in md["ranks"]]
+    for row in dw_rows:
+        counters = (("depthwise_conv_forward", "depthwise_conv_grad_x")
+                    if row["name"] == "depthwise_conv_forward"
+                    else ("depthwise_conv_grad_w",))
+        row["multi_device_launches_per_rank"] = [
+            sum(ranks[c] for c in counters) for ranks in md["ranks"]]
+
+    # 14. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

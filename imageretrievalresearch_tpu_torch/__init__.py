@@ -30,7 +30,11 @@ published-checkpoint registry (``checkpoints.py``) and the examples
 (``examples/``). Slice 15 adds sharded retrieval (``parallel/``: a mesh of
 devices driven by one process, ``sharded_cosine_topk``, and
 ``GalleryIndex(mesh=...)``) and the decode pool that stands for JAX's C++
-loader (``data/native_loader.py``).
+loader (``data/native_loader.py``). Slice 16 adds multi-device training:
+a ``torch.distributed`` process group of one process per device
+(``parallel/distributed.py``), DDP and FSDP2 in the ``Trainer``
+(``parallel/fsdp.py``), the group-wide BatchNorm
+(``models/layers.py::GroupBatchNorm2d``) and the CLIs' multi-host flags.
 """
 
 from imageretrievalresearch_tpu_torch.version import __version__

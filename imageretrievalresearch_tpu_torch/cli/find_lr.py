@@ -1,17 +1,21 @@
 """LR-finder CLI — the reference's train/find_lr.py capability.
 
-Counterpart of ``imageretrievalresearch_tpu/cli/find_lr.py`` on one card.
+Counterpart of ``imageretrievalresearch_tpu/cli/find_lr.py``.
 Runs the exponential LR range test (Lightning tuner equivalent,
 train/find_lr.py:435-436), prints the suggestion, then optionally trains
 with it (``--train_after``): the find_lr recipe logs its validation
 ``cos_sims`` through the score booster (train/find_lr.py:87-95,337) and
 pickles test results with the reference's keys (train/find_lr.py:440-457).
 
-The sweep runs the Trainer's own path on raw loader batches: the batch
-transform on the device, ``Trainer._prepare`` and a train step built for
-the sweep's schedule, so the suggested lr reflects real training
-arithmetic. Each sweep starts from the model's initial weights, and so
-does ``--train_after``.
+The sweep runs the Trainer's own path on raw loader batches
+(``Trainer.train_batch``: the batch transform on the device, this rank's
+rows in a process group, and a train step built for the sweep's
+schedule), so the suggested lr reflects real training arithmetic. Each
+sweep starts from the model's initial weights, and so does
+``--train_after``. Across the cards of one launch (no multi-host flags)
+the sweep runs in this process on one card, on the same global batches
+(data-parallel invariance: the losses are the group's), and
+``--train_after`` trains on all of them.
 """
 
 from __future__ import annotations
@@ -34,6 +38,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(args: argparse.Namespace) -> dict:
+    from imageretrievalresearch_tpu_torch.cli.train import check_ported
+
+    # the same refusals, multi-host flags and --recipe handling as the
+    # train CLI (this parser inherits both flag groups)
+    with check_ported(args):
+        return _run(args)
+
+
+def _run(args: argparse.Namespace) -> dict:
+    import copy
+    import dataclasses
     import functools
     import os
 
@@ -41,20 +56,18 @@ def run(args: argparse.Namespace) -> dict:
         build_config,
         build_dataset,
         build_loader,
-        check_ported,
     )
-
-    # the same refusals and --recipe handling as the train CLI (this
-    # parser inherits both flag groups)
-    check_ported(args)
-
     from imageretrievalresearch_tpu_torch.models import create_model
     from imageretrievalresearch_tpu_torch.train import (
         Trainer,
         build_classifier_train_step,
         build_train_step,
     )
+    from imageretrievalresearch_tpu_torch.parallel import distributed
     from imageretrievalresearch_tpu_torch.train.lr_finder import lr_find
+    from imageretrievalresearch_tpu_torch.train.train_state import (
+        load_model_state_dict,
+    )
     from imageretrievalresearch_tpu_torch.utils.analysis import (
         find_lr_cos_sim_score,
     )
@@ -73,36 +86,40 @@ def run(args: argparse.Namespace) -> dict:
     # reference eps/alpha for the booster (train/find_lr.py:87)
     booster = functools.partial(find_lr_cos_sim_score, eps=5, alpha=1,
                                 mode="for_pos")
-    trainer = Trainer(cfg, backbone, loader, val_loader,
-                      metric_transforms={"cos_sims": booster})
+    # the sweep trains a copy (which its trainer may wrap for the group),
+    # so --train_after starts from the untouched backbone; outside a
+    # group the sweep runs here, on one card
     init = {k: v.detach().clone() for k, v in backbone.state_dict().items()}
+    sweep_cfg = (cfg if distributed.in_group() else dataclasses.replace(
+        cfg, num_devices=1, param_sharding="replicated"))
+    trainer = Trainer(sweep_cfg, copy.deepcopy(backbone), loader, val_loader,
+                      metric_transforms={"cos_sims": booster})
     build_step = (build_classifier_train_step
                   if cfg.effective_task == "classification"
                   else build_train_step)
     swept = {}
-    transform_gen, dropout_gen = trainer._generators(0)
+    gens = trainer._generators(0)
 
     def make_state(schedule):
         # a fresh state: the initial weights, a new optimizer at step 0,
         # and a step that takes its lr from the sweep's schedule
-        backbone.load_state_dict(init)
         swept["step"] = build_step(cfg, schedule)
-        return trainer.init_state()
+        state = trainer.init_state()
+        load_model_state_dict(state.model, init)
+        return state
 
     def sweep_step(state, batch, generator):
         # raw host batches, transformed per step exactly as
         # Trainer.train_epoch does: lr_find keeps every batch for replay,
         # and device-resident ones would pin num_lr_steps batches on the
         # card for the whole sweep
-        return swept["step"](state, trainer._prepare(
-            trainer.transform(batch, generator)), dropout_gen)
+        return trainer.train_batch(state, batch, gens, step=swept["step"])
 
-    out = lr_find(make_state, sweep_step, loader, transform_gen,
+    out = lr_find(make_state, sweep_step, loader, gens[0],
                   min_lr=args.min_lr, max_lr=args.max_lr,
                   num_steps=args.num_lr_steps)
     print(f"Suggested lr: {out['suggestion']}")
     if args.train_after and out["suggestion"]:
-        backbone.load_state_dict(init)
         cfg.learning_rate = out["suggestion"]
         save_name = (f"{cfg.model_name}_{cfg.optimizer_name}_"
                      f"{cfg.learning_rate:.6g}")

@@ -1,6 +1,6 @@
 """Training CLI — flag parity with reference train/train.py:480-498.
 
-Counterpart of ``imageretrievalresearch_tpu/cli/train.py`` on one card.
+Counterpart of ``imageretrievalresearch_tpu/cli/train.py``.
 Usage (same surface as README.md:100):
 
     python -m imageretrievalresearch_tpu_torch.cli.train \
@@ -16,15 +16,24 @@ defaults to ``cuda`` and is where the trainer runs (``--device cpu`` runs
 on the CPU; without a card and without it the CLI raises).
 ``--use_native_loader`` decodes each batch on a pool of ``--num_workers``
 decode processes (``data.native_loader``), bitwise the default path's
-images, behind JAX's gates and warning. Not ported: the multi-process
-flags (``--coordinator_address``, ``--num_processes``, ``--process_id``;
-:func:`init_distributed` raises) and ``--param_sharding fsdp`` (the
-trainer raises).
+images, behind JAX's gates and warning.
+
+Across cards: with ``num_devices`` at its default (every visible card)
+the trainer launches one worker process per card, each loading every
+batch whole and training on its rows. Across hosts (or processes): each
+process passes ``--coordinator_address host:port --num_processes N
+--process_id i`` and drives one card (``LOCAL_RANK``, else ``i`` modulo
+the visible cards); the processes form one ``torch.distributed`` group
+(NCCL, gloo with ``--device cpu``) and each loads its slice of every
+batch. ``--param_sharding fsdp`` shards the state over the ranks of one
+launch (FSDP2); with ``--num_processes`` > 1 it raises, as JAX's trainer
+does.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 
@@ -95,11 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "processes (needs --host_size or --image_size; "
                         "falls back with a warning otherwise)")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-process training; not ported (raises)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="multi-process training; not ported (raises)")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="multi-process training; not ported (raises)")
+                   help="multi-host: the process group's rendezvous "
+                        "host:port (set with --num_processes/--process_id;"
+                        " all three together)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("-c", "--cache", action="store_true",
                    help="decode-once RAM cache at host size (the "
                         "reference's inference cache flag, applied to "
@@ -121,8 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--param_sharding", type=str, default="replicated",
                    choices=("replicated", "fsdp"),
-                   help="state layout: replicated (one card); fsdp is not "
-                        "ported (the trainer raises)")
+                   help="state layout over the process group: replicated "
+                        "(DDP, the reference's strategy) or fsdp (ZeRO-3: "
+                        "params+optimizer sharded over the ranks by FSDP2, "
+                        "~1/n_devices state bytes per card)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--wandb", action="store_true")
     return p
@@ -331,7 +342,9 @@ def build_loader(cfg, args, ds, kind: str = "train"):
     the reference's random_split DataLoaders (shuffle=False, drop_last=False,
     train_vit_crossentropy.py:63, train_vit_triplet.py:52) so eval order is
     deterministic and the partial final batch is scored exactly; test keeps
-    every item. One process: the loader's slice is the whole batch."""
+    every item. Where each process loads its own slice (the multi-host
+    flags), the loader yields this process's slice of every batch."""
+    from imageretrievalresearch_tpu_torch.parallel import distributed
     from imageretrievalresearch_tpu_torch.data import TripletLoader
 
     seed_offset = {"train": 0, "val": 1, "test": 2}[kind]
@@ -347,32 +360,62 @@ def build_loader(cfg, args, ds, kind: str = "train"):
                          seed=cfg.seed + seed_offset,
                          host_size=args.host_size or cfg.image_size,
                          use_native=args.use_native_loader,
-                         process_index=0, process_count=1, **conv)
+                         process_index=distributed.process_index(),
+                         process_count=distributed.process_count(), **conv)
 
 
-def init_distributed(args: argparse.Namespace) -> None:
-    """JAX's multi-host bring-up from the shared CLI flags. The port
-    trains on one card: any multi-process flag raises
-    ``NotImplementedError`` (multi-device training is ROADMAP queue 1,
-    item 3)."""
-    if (args.coordinator_address or args.num_processes
-            or args.process_id is not None):
+def init_distributed(args: argparse.Namespace) -> bool:
+    """JAX's multi-host bring-up from the shared CLI flags: this process
+    joins the group as ``--process_id`` of ``--num_processes`` at
+    ``tcp://--coordinator_address``, one device per process (NCCL on a
+    card, gloo with ``--device cpu``). The three flags go together (the
+    port has no auto-detection); FSDP over several processes raises before
+    the group starts, as JAX's trainer refuses it. Returns whether a
+    group was started. Shared by the train and find_lr CLIs."""
+    flags = (args.coordinator_address, args.num_processes, args.process_id)
+    if all(f is None for f in flags):
+        return False
+    if any(f is None for f in flags):
+        raise ValueError("--coordinator_address, --num_processes and "
+                         "--process_id go together (the port does not "
+                         "detect them)")
+    n, pid = args.num_processes, args.process_id
+    if n < 1 or not 0 <= pid < n:
+        raise ValueError(f"--process_id {pid} of --num_processes {n}")
+    if args.param_sharding == "fsdp" and n > 1:
         raise NotImplementedError(
-            "multi-process training (--coordinator_address, "
-            "--num_processes, --process_id) is not ported yet: the port "
-            "trains on one card")
+            "param_sharding='fsdp' is single-process (single-controller) "
+            "only; multi-process runs use replicated state")
+    from imageretrievalresearch_tpu_torch.parallel import distributed
+
+    distributed.init_group(world_size=n, rank=pid,
+                           init_method=f"tcp://{args.coordinator_address}",
+                           device=args.device, multi_host=True)
+    print(f"[distributed] process {distributed.rank()} of "
+          f"{distributed.world_size()}, 1 local / "
+          f"{distributed.world_size()} global devices")
+    return True
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Refuse, before any work, what the port cannot run: ``--device
-    cuda`` (the default) without a card, and the multi-process flags."""
+@contextlib.contextmanager
+def check_ported(args: argparse.Namespace):
+    """Refuse, before any work, what the port cannot run (``--device
+    cuda``, the default, without a card), then hold the multi-host group
+    of the flags for the ``with`` block, leaving it at the end."""
     import torch
+
+    from imageretrievalresearch_tpu_torch.parallel import distributed
 
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device: the CLI trains on the GPU by "
                            "default; pass --device cpu to run on the CPU")
-    init_distributed(args)
+    started = init_distributed(args)
+    try:
+        yield
+    finally:
+        if started:
+            distributed.destroy_group()
 
 
 def build_config(args: argparse.Namespace, parser_defaults: dict):
@@ -392,9 +435,13 @@ def build_config(args: argparse.Namespace, parser_defaults: dict):
 
 
 def run(args: argparse.Namespace):
-    """Train as JAX's CLI does, on one card; returns ``Trainer.fit``'s
-    (state, history)."""
-    check_ported(args)
+    """Train as JAX's CLI does; returns ``Trainer.fit``'s (state,
+    history)."""
+    with check_ported(args):
+        return _run(args)
+
+
+def _run(args: argparse.Namespace):
     # heavy imports deferred so --help is instant
     import os
 

@@ -5,11 +5,13 @@ argparse surface with its flag names and defaults. ``loss_mode`` is the
 reference's only_features / only_labels triad (train/train.py:105-111)
 plus the T3 contrastive recipe.
 
-The port runs on one CUDA card: ``device`` defaults to ``"cuda"``, and
+The port runs on CUDA cards: ``device`` defaults to ``"cuda"``, and
 ``compute_dtype="bfloat16"`` means ``torch.autocast`` in bf16 around the
 forward and the losses (parameters and optimizer state stay f32).
-``num_devices`` > 1 and ``param_sharding="fsdp"`` are not ported yet: the
-``Trainer`` raises ``NotImplementedError`` for them.
+``num_devices`` (None: every visible card, as JAX's None takes every
+device) and ``param_sharding`` (``"replicated"``: DDP; ``"fsdp"``: FSDP2)
+lay training out over a process group, one process per card (see
+``train.trainer``).
 """
 
 from __future__ import annotations
@@ -65,8 +67,8 @@ class TrainConfig:
 
     # --- device knobs (no reference counterpart) ---
     compute_dtype: str = "bfloat16"   # autocast type (reference: fp16 AMP)
-    num_devices: int | None = None    # one card; > 1 is not ported yet
-    param_sharding: str = "replicated"  # fsdp is not ported yet
+    num_devices: int | None = None    # None = all visible cards
+    param_sharding: str = "replicated"  # or "fsdp" (ZeRO-3 via FSDP2)
     checkpoint_dir: str | None = None
     wandb: bool = False
     profile_dir: str | None = None    # torch.profiler trace of early steps

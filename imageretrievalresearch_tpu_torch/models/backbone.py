@@ -94,28 +94,37 @@ class Backbone(nn.Module):
         """get_fm(forward_features(x)) — the reference's embedding path."""
         return get_fm(self.forward_features(x))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, features_and_logits: bool = False,
+                **kw):
+        """The logits; with ``features_and_logits`` the pair that
+        :meth:`features_and_logits` returns (``kw`` are its keywords).
+        The train steps call it so, through the module's ``__call__``,
+        which a ``DistributedDataParallel`` or FSDP wrapper hooks."""
+        if features_and_logits:
+            return self.features_and_logits(x, **kw)
         return self.head(self.forward_features(x))
 
     def features_and_logits(self, x: torch.Tensor, *, train: bool = False,
-                            generator: torch.Generator | None = None
+                            generator: torch.Generator | None = None,
+                            rows: tuple[int, torch.Tensor] | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
         """One pass -> (pooled embedding, logits). ``train`` switches the
         module to training (BatchNorm on batch statistics, updating its
         running ones; dropout on) or evaluation; the dropout layers draw
         their masks from ``generator``, a ``torch.Generator`` on x's
-        device."""
+        device, for ``rows`` = (the global batch's rows, the index of each
+        of x's rows among them) where x is one rank's part of it."""
         self.train(train)
         drops = [m for m in self.modules()
                  if isinstance(m, (Dropout, DropPath))]
         for m in drops:
-            m.generator = generator
+            m.generator, m.rows = generator, rows
         try:
             emb = self.embed(x)
             return emb, self.head(emb)
         finally:
             for m in drops:
-                m.generator = None
+                m.generator = m.rows = None
 
     @property
     def num_features(self) -> int:

@@ -14,12 +14,21 @@ leaky ReLU) are torch's ``nn.ReLU6`` and ``nn.LeakyReLU``.
 The two random layers, ``DropPath`` and ``Dropout``, draw their masks from
 an explicit ``torch.Generator`` (their ``generator`` attribute, which
 ``Backbone.features_and_logits`` sets for a pass), as JAX draws from the
-``dropout`` key; the streams do not follow ``jax.random``.
+``dropout`` key; the streams do not follow ``jax.random``. On a rank of a
+process group, their ``rows`` attribute names the global rows this rank
+holds: the mask is drawn for the global batch and this rank keeps its
+rows, so the draws do not depend on how the batch is split.
+
+Every BatchNorm is :class:`GroupBatchNorm2d` (``batch_norm``): in training
+inside a process group of more than one rank, its batch statistics cover
+the group's global batch, as JAX's do over a sharded batch; otherwise it
+is ``nn.BatchNorm2d``'s own forward.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from imageretrievalresearch_tpu_torch.ops.depthwise import (
@@ -62,8 +71,86 @@ class DepthwiseConv2d(nn.Conv2d):
         return super().forward(x)
 
 
+class _GroupBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization over the rows of every rank, in f32.
+    Forward: each rank's (count, mean, M2) are all-reduced (each rank
+    fills its own row of an (R, 2C + 1) buffer) and merged in f64 as
+    Chan's parallel variance does; backward: (sum dy, sum dy * x_hat) are
+    all-reduced, so each rank's dx is that of the global batch's loss sum
+    (DDP then averages the parameters' gradients over the ranks, as
+    ``SyncBatchNorm`` does)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        c = x.shape[1]
+        x32 = x.float()
+        n_local = x.numel() // c
+        var_l, mean_l = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+        rows = torch.zeros((dist.get_world_size(), 2 * c + 1),
+                           dtype=torch.float64, device=x.device)
+        mine = rows[dist.get_rank()]
+        mine[0] = n_local
+        mine[1:c + 1] = mean_l
+        mine[c + 1:] = var_l * n_local
+        dist.all_reduce(rows)
+        counts, means, m2 = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
+        n = counts.sum()
+        mean = (counts * means).sum(0) / n
+        var = (m2 + counts * (means - mean) ** 2).sum(0) / n
+        invstd = torch.rsqrt(var + eps).float()
+        mean = mean.float()
+        x_hat = (x32 - mean.view(1, -1, 1, 1)) * invstd.view(1, -1, 1, 1)
+        w = weight.float().view(1, -1, 1, 1)
+        y = x_hat * w + bias.float().view(1, -1, 1, 1)
+        n = n.float()
+        ctx.save_for_backward(x_hat, weight, invstd, n)
+        ctx.in_dtype = x.dtype
+        var = var.float()
+        ctx.mark_non_differentiable(mean, var, n)
+        return y.to(x.dtype), mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        x_hat, weight, invstd, n = ctx.saved_tensors
+        dy32 = dy.float()
+        c = dy.shape[1]
+        sums = torch.cat([dy32.sum((0, 2, 3)),
+                          (dy32 * x_hat).sum((0, 2, 3))])
+        dw = sums[c:].clone()        # this rank's own: DDP averages it
+        db = sums[:c].clone()
+        dist.all_reduce(sums)
+        sum_dy, sum_dy_xhat = sums[:c], sums[c:]
+        dx = (dy32 - (sum_dy / n).view(1, -1, 1, 1)
+              - x_hat * (sum_dy_xhat / n).view(1, -1, 1, 1))
+        dx = dx * (weight.float() * invstd).view(1, -1, 1, 1)
+        return (dx.to(ctx.in_dtype), dw.to(weight.dtype),
+                db.to(weight.dtype), None)
+
+
+class GroupBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training statistics cover every rank of
+    the process group (the same parameters, buffers and state-dict keys).
+    The running variance takes torch's unbiased factor from the global row
+    count. Outside a group, at world size 1 and in evaluation it is
+    ``nn.BatchNorm2d.forward`` itself."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and dist.is_available()
+                and dist.is_initialized() and dist.get_world_size() > 1):
+            return super().forward(x)
+        y, mean, var, n = _GroupBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = (1.0 / float(self.num_batches_tracked)
+                 if self.momentum is None else self.momentum)
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var * (n / (n - 1)), alpha=m)
+        return y
+
+
 def batch_norm(chs: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(chs, eps=1e-5, momentum=0.1)
+    return GroupBatchNorm2d(chs, eps=1e-5, momentum=0.1)
 
 
 class ConvBnAct(nn.Module):
@@ -127,6 +214,8 @@ class _Drop(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+        # (global rows, index of each local row among them) or None
+        self.rows: tuple[int, torch.Tensor] | None = None
 
     def _mask_shape(self, x: torch.Tensor) -> tuple:
         raise NotImplementedError
@@ -138,8 +227,14 @@ class _Drop(nn.Module):
             raise ValueError(f"{type(self).__name__} in training needs a "
                              "generator (Backbone.features_and_logits)")
         keep = 1.0 - self.rate
-        mask = torch.rand(self._mask_shape(x), generator=self.generator,
-                          device=x.device) < keep
+        shape = self._mask_shape(x)
+        if self.rows is None:
+            mask = torch.rand(shape, generator=self.generator,
+                              device=x.device) < keep
+        else:
+            total, index = self.rows
+            mask = (torch.rand((total, *shape[1:]), generator=self.generator,
+                               device=x.device) < keep)[index]
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -506,11 +506,20 @@ def apply_policy(images: torch.Tensor, ops: torch.Tensor, mags: torch.Tensor,
 
 
 def imagenet_policy_batch(images: torch.Tensor,
-                          generator: torch.Generator) -> torch.Tensor:
+                          generator: torch.Generator,
+                          rows: tuple[int, int] | None = None
+                          ) -> torch.Tensor:
     """(B, H, W, 3) uint8 + generator (on the images' device) -> augmented
     uint8 batch: per image a sub-policy, then its two stages with
-    independent random signs."""
-    return apply_policy(images, *draw_policy(images.shape[0], generator))
+    independent random signs. ``rows = (first, total)``: the images are
+    rows ``[first, first + B)`` of a batch of ``total`` (one rank's part);
+    the draws are the whole batch's, and these rows take theirs."""
+    if rows is None:
+        return apply_policy(images, *draw_policy(images.shape[0], generator))
+    first, total = rows
+    drawn = draw_policy(total, generator)
+    return apply_policy(images, *(t[first:first + images.shape[0]]
+                                  for t in drawn))
 
 
 def imagenet_policy(img: torch.Tensor,

@@ -114,7 +114,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _apply(spec: TransformSpec, images, generator: torch.Generator | None,
-           device) -> torch.Tensor:
+           device, rows: tuple[int, int] | None = None) -> torch.Tensor:
     # every batch goes to ``device``, the card when it is None (a CUDA
     # tensor stays where it is); with no card and no device it raises
     x = torch.as_tensor(images, device=resolve_device(device))
@@ -129,7 +129,7 @@ def _apply(spec: TransformSpec, images, generator: torch.Generator | None,
             # round (not truncate) post-resize floats back to the uint8
             # domain AutoAugment operates in
             x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
-        x = imagenet_policy_batch(x, generator)
+        x = imagenet_policy_batch(x, generator, rows)
     x = x.float() / 255.0
     if spec.normalize is not None:
         mean, std = (torch.tensor(v, dtype=torch.float32, device=x.device)
@@ -156,11 +156,16 @@ def build_batch_transform(spec: TransformSpec, *,
 def build_image_transform(spec: TransformSpec, *,
                           device: str | torch.device | None = None
                           ) -> Callable:
-    """``fn({'image': u8 NHWC, 'label': i32}, generator=None)`` for
-    single-image classification batches (the T5 recipe's
-    ``Compose([ToTensor()])`` plus the resize)."""
-    def fn(batch: dict, generator: torch.Generator | None = None) -> dict:
-        out = {"image": _apply(spec, batch["image"], generator, device)}
+    """``fn({'image': u8 NHWC, 'label': i32}, generator=None, rows=None)``
+    for single-image classification batches (the T5 recipe's
+    ``Compose([ToTensor()])`` plus the resize). ``rows = (first, total)``
+    says the batch is rows ``[first, first + B)`` of a global batch of
+    ``total`` (one rank's part): the random draws are the global batch's,
+    and these rows take theirs."""
+    def fn(batch: dict, generator: torch.Generator | None = None,
+           rows: tuple[int, int] | None = None) -> dict:
+        out = {"image": _apply(spec, batch["image"], generator, device,
+                               rows)}
         if "label" in batch:
             out["label"] = batch["label"]
         return out
@@ -172,14 +177,16 @@ def build_triplet_transform(qry: TransformSpec, pos: TransformSpec,
                             neg: TransformSpec, *,
                             device: str | torch.device | None = None
                             ) -> Callable:
-    """``fn({'qry': u8, 'pos': [u8...], 'neg': [u8...]}, generator=None)``
-    -> the same dict of float batches. AutoAugment roles draw from the one
-    generator in a fixed order: qry, then pos..., then neg...."""
-    def fn(batch: dict, generator: torch.Generator | None = None) -> dict:
-        out = {"qry": _apply(qry, batch["qry"], generator, device),
-               "pos": [_apply(pos, b, generator, device)
+    """``fn({'qry': u8, 'pos': [u8...], 'neg': [u8...]}, generator=None,
+    rows=None)`` -> the same dict of float batches. AutoAugment roles draw
+    from the one generator in a fixed order: qry, then pos..., then
+    neg...; ``rows`` as for :func:`build_image_transform`."""
+    def fn(batch: dict, generator: torch.Generator | None = None,
+           rows: tuple[int, int] | None = None) -> dict:
+        out = {"qry": _apply(qry, batch["qry"], generator, device, rows),
+               "pos": [_apply(pos, b, generator, device, rows)
                        for b in batch["pos"]],
-               "neg": [_apply(neg, b, generator, device)
+               "neg": [_apply(neg, b, generator, device, rows)
                        for b in batch["neg"]]}
         for extra in ("cat_idx", "prod_idx"):
             if extra in batch:

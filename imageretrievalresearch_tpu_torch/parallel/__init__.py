@@ -1,24 +1,50 @@
-"""Parallelism: the device mesh and the sharded gallery retrieval.
+"""Parallelism: device meshes, data-parallel training over a process
+group, FSDP, and the sharded gallery retrieval.
 
-Counterpart of ``imageretrievalresearch_tpu/parallel``, for retrieval: a
-:class:`Mesh` is one process driving a tuple of devices (JAX's single
-controller), the gallery's rows are placed shard by shard
-(``put_row_sharded``) and ranked per shard with an all-gather merge
-(``sharded_cosine_topk``). Multi-device training (``shard_batch``,
-``put_replicated``, ``replicate``, ``data_sharding`` and ``fsdp.py``) is
-not ported yet.
+Counterpart of ``imageretrievalresearch_tpu/parallel``. JAX runs one
+controller over its devices; the mapping here:
+
+- retrieval: a :class:`Mesh` of devices that one process drives; the
+  gallery's rows are placed shard by shard (``put_row_sharded``) and
+  ranked per shard with an all-gather merge (``sharded_cosine_topk``);
+- training: one process per device, joined by a ``torch.distributed``
+  process group (``parallel.distributed``: NCCL on cards, gloo on the
+  CPU), whose ranks :func:`make_mesh` describes inside the group. The
+  global batch is split on its leading dim (``shard_batch``), the state
+  is replicated (``put_replicated``, then ``DistributedDataParallel``) or
+  sharded (``put_fsdp``: FSDP2's ``fully_shard`` on ``fsdp_spec``'s dims);
+  BatchNorm's statistics and the in-batch metrics cover the global batch
+  (``models.layers.batch_norm``, ``distributed.all_gather_rows``).
+
+Not ported: JAX's ``check_model_axis_safety`` (the 2-D hybrid layout's
+guard; the port's mesh has one axis).
 """
 
+from imageretrievalresearch_tpu_torch.parallel.fsdp import (
+    MIN_SHARD_ELEMS,
+    constrain_fsdp,
+    fsdp_sharding,
+    fsdp_spec,
+    put_fsdp,
+)
 from imageretrievalresearch_tpu_torch.parallel.gallery import (
     sharded_cosine_topk,
 )
 from imageretrievalresearch_tpu_torch.parallel.mesh import (
     Mesh,
+    NamedSharding,
     RowSharded,
+    data_sharding,
     make_mesh,
     pad_to_multiple,
+    put_replicated,
     put_row_sharded,
+    replicate,
+    shard_batch,
 )
 
-__all__ = ["Mesh", "RowSharded", "make_mesh", "pad_to_multiple",
-           "put_row_sharded", "sharded_cosine_topk"]
+__all__ = ["make_mesh", "shard_batch", "replicate", "put_replicated",
+           "data_sharding", "sharded_cosine_topk",
+           "fsdp_spec", "fsdp_sharding", "put_fsdp", "constrain_fsdp",
+           "MIN_SHARD_ELEMS", "Mesh", "NamedSharding", "RowSharded",
+           "pad_to_multiple", "put_row_sharded"]

@@ -77,6 +77,7 @@ def sharded_cosine_topk(queries, gallery, k: int, mesh: Mesh, *,
     where its device is CUDA and ``_fused_eligible(Q, shard, D, k_local)``
     holds (``use_fused=True`` on a CPU shard runs the kernel's plain
     version), else the dense path."""
+    mesh.check_single_process("sharded_cosine_topk")
     gallery, gallery_scale, gallery_norms = map(
         _as_tensor, (gallery, gallery_scale, gallery_norms))
     _check_matmul_dtype(matmul_dtype)

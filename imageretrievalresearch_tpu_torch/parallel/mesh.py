@@ -1,19 +1,24 @@
-"""Device mesh for sharded retrieval: one process driving a tuple of
-devices.
+"""Device meshes: one process driving a tuple of devices (sharded
+retrieval), or the ranks of a process group (multi-device training).
 
-Counterpart of the gallery half of ``imageretrievalresearch_tpu/parallel/
-mesh.py``. JAX's gallery mesh has one controller: one process drives
-every device, and ``put_row_sharded`` places each row shard from the
-host. The port keeps that model. A :class:`Mesh` is a tuple of torch
-devices that the calling process drives, with one axis (``data``): it
-uses no ``torch.distributed`` process group and no collective library
-(the sharded top-k's all-gather is a copy of each shard's candidates to
-``mesh.devices[0]``). A device may repeat: ``Mesh(["cuda:0"] * 4)`` is
-four shards on one card, ``Mesh(["cpu"] * 8)`` the counterpart of JAX's
-eight virtual CPU devices.
+Counterpart of ``imageretrievalresearch_tpu/parallel/mesh.py``. JAX has
+one kind of mesh: one controller drives every device, and a multi-host
+run adds a controller per host. The port has two readings of one
+:class:`Mesh` class, both with one axis (``data``):
 
-Not ported yet (they belong to multi-device training): ``shard_batch``,
-``put_replicated``, ``replicate`` and ``data_sharding``.
+- ``Mesh(devices)`` (``rank`` None): the calling process drives every
+  device, with no process group and no collective library. Sharded
+  retrieval runs on it (``put_row_sharded``; the sharded top-k's
+  all-gather is a copy of each shard's candidates to
+  ``mesh.devices[0]``). A device may repeat: ``Mesh(["cuda:0"] * 4)`` is
+  four shards on one card, ``Mesh(["cpu"] * 8)`` the counterpart of JAX's
+  eight virtual CPU devices.
+- :func:`make_mesh` inside a process group (``parallel.distributed``):
+  ``devices`` lists each rank's device in rank order and ``rank`` is this
+  process's; it drives ``devices[rank]`` only, and the group's
+  collectives join the rest. Training runs on it: :func:`shard_batch`
+  takes this rank's rows of a batch, :func:`put_replicated` places a
+  module or state the same on every rank, ``fsdp.put_fsdp`` shards it.
 """
 
 from __future__ import annotations
@@ -25,17 +30,22 @@ import numpy as np
 import torch
 
 from imageretrievalresearch_tpu_torch._device import set_float32_precision
+from imageretrievalresearch_tpu_torch.parallel import distributed
 
 
 class Mesh:
     """A one-axis mesh: ``devices`` (repeats allowed) and ``axis_names``
     (one name). ``shape`` maps the axis name to the device count, as
-    ``jax.sharding.Mesh.shape`` does."""
+    ``jax.sharding.Mesh.shape`` does. ``rank`` None: this process drives
+    every device; an int: the mesh of a process group, whose rank
+    ``rank`` this process is (it drives ``local_device`` only)."""
 
     def __init__(self, devices: Sequence[str | torch.device],
-                 axis_names: Sequence[str] = ("data",)):
+                 axis_names: Sequence[str] = ("data",), *,
+                 rank: int | None = None):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis_names = tuple(axis_names)
+        self.rank = rank
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         if len(self.axis_names) != 1:
@@ -48,16 +58,45 @@ class Mesh:
     def shape(self) -> dict[str, int]:
         return {self.axis_names[0]: len(self.devices)}
 
+    @property
+    def local_device(self) -> torch.device:
+        """The device this process drives on a process group's mesh."""
+        if self.rank is None:
+            raise ValueError("a mesh that one process drives has no "
+                             "local device: training (shard_batch, "
+                             "put_replicated, FSDP) takes a process "
+                             "group's mesh")
+        return self.devices[self.rank]
+
+    def check_single_process(self, what: str) -> None:
+        if self.rank is not None:
+            raise ValueError(f"{what} runs on a mesh that one process "
+                             "drives (Mesh(devices)), not on a process "
+                             "group's mesh")
+
     def __repr__(self) -> str:
+        rank = "" if self.rank is None else f", rank={self.rank}"
         return (f"Mesh({[str(d) for d in self.devices]}, "
-                f"{self.axis_names})")
+                f"{self.axis_names}{rank})")
 
 
 def make_mesh(num_devices: int | None = None,
               axis_name: str = "data") -> Mesh:
-    """The first ``num_devices`` CUDA devices (all by default), as JAX
-    takes ``jax.devices()[:num_devices]``. Raises without a GPU: build a
-    ``Mesh`` of explicit devices (e.g. ``["cpu"] * 8``) to run elsewhere."""
+    """Inside a process group: the group's mesh (each rank's device, this
+    process's rank; ``num_devices``, if given, must be the group's size).
+    Otherwise the first ``num_devices`` CUDA devices (all by default), as
+    JAX takes ``jax.devices()[:num_devices]``; that raises without a GPU:
+    build a ``Mesh`` of explicit devices (e.g. ``["cpu"] * 8``) to run
+    elsewhere."""
+    if distributed.in_group():
+        n = distributed.world_size()
+        if num_devices is not None and num_devices != n:
+            raise ValueError(f"num_devices={num_devices} in a process group "
+                             f"of {n} ranks")
+        names = [None] * n
+        torch.distributed.all_gather_object(
+            names, str(distributed.local_device()))
+        return Mesh(names, (axis_name,), rank=distributed.rank())
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: make_mesh takes the GPUs; build "
@@ -102,6 +141,7 @@ def put_row_sharded(arr, mesh: Mesh, axis_name: str = "data"
     own (so each shard's base address is the allocator's, aligned for
     the kernels' 16-byte TMA rows). The rows must divide the mesh (pad
     upstream, :func:`pad_to_multiple` or ``GalleryIndex``)."""
+    mesh.check_single_process("put_row_sharded")
     n = mesh.shape[axis_name]
     if not isinstance(arr, torch.Tensor):
         arr = np.ascontiguousarray(arr)
@@ -145,3 +185,77 @@ def pad_to_multiple(batch: Any, multiple: int) -> tuple[Any, int]:
         return np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1), mode="edge")
 
     return _tree_map(pad_fn, batch), n
+
+
+# ----------------------------------------------------------- training
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A layout on a mesh, as ``jax.sharding.NamedSharding``: ``spec`` is
+    a tuple with the axis name at the sharded dim and None elsewhere
+    (``()`` replicates), as a ``PartitionSpec`` reads."""
+
+    mesh: Mesh
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        """The ``torch.distributed.tensor`` placement of this layout."""
+        from torch.distributed.tensor import Replicate, Shard
+        dims = [i for i, a in enumerate(self.spec) if a is not None]
+        return (Shard(dims[0]),) if dims else (Replicate(),)
+
+
+def data_sharding(mesh: Mesh, ndim: int = 1,
+                  axis_name: str = "data") -> NamedSharding:
+    """Shard the leading (batch) dim, replicate the rest."""
+    return NamedSharding(mesh, (axis_name,) + (None,) * (ndim - 1))
+
+
+def replicate(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def shard_batch(mesh: Mesh, batch: Any, axis_name: str = "data") -> Any:
+    """This rank's rows of a host batch (a dict / list / tuple of arrays),
+    as tensors on its device, on a process group's mesh: where every
+    process loads its own slice (``distributed.process_count() > 1``, the
+    multi-host flags), the batch IS this rank's slice; otherwise it is the
+    global batch and rank r takes rows ``[r * b, (r + 1) * b)``, ``b`` the
+    rows over the ranks (which must divide)."""
+    n, r, dev = mesh.shape[axis_name], mesh.rank, mesh.local_device
+    local = distributed.process_count() > 1
+
+    def put(x):
+        x = torch.as_tensor(np.asarray(x))
+        if not local:
+            if x.shape[0] % n:
+                raise ValueError(f"{x.shape[0]} rows do not divide the "
+                                 f"{n} ranks of the mesh")
+            b = x.shape[0] // n
+            x = x[r * b:(r + 1) * b]
+        return x.to(dev)
+
+    return _tree_map(put, batch)
+
+
+def put_replicated(mesh: Mesh, tree: Any) -> Any:
+    """The same values on every rank of a process group's mesh: a
+    module's parameters and buffers (in place; the module is returned) or
+    a tree of tensors, moved to this rank's device and broadcast from rank
+    0, so a same-seed state holds rank 0's values everywhere."""
+    dev = mesh.local_device
+
+    def put(x):
+        x = torch.as_tensor(x).to(dev)
+        if distributed.world_size() > 1:
+            torch.distributed.broadcast(x, 0)
+        return x
+
+    if isinstance(tree, torch.nn.Module):
+        tree.to(dev)
+        with torch.no_grad():
+            for t in list(tree.parameters()) + list(tree.buffers()):
+                put(t.data)
+        return tree
+    return _tree_map(put, tree)

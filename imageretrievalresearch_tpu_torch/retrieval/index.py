@@ -254,6 +254,7 @@ class GalleryIndex:
                 raise ValueError(f"matmul_dtype={matmul_dtype!r} does not "
                                  "support mesh sharding yet")
             else:
+                mesh.check_single_process("GalleryIndex(mesh=...)")
                 form = self._sharded(convert, pad_values, mesh)
             self._device_gallery[key] = form
         return self._device_gallery[key]

@@ -1,5 +1,6 @@
 """Training: optimizer and schedule, the loss-combination steps, the
-Trainer (one card) and the LR range test (``train.lr_finder``)."""
+Trainer (one card, or a process group's ranks) and the LR range test
+(``train.lr_finder``)."""
 
 from imageretrievalresearch_tpu_torch.train.lr_finder import lr_find
 from imageretrievalresearch_tpu_torch.train.steps import (

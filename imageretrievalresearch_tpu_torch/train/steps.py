@@ -17,6 +17,20 @@ device and runs the three roles as ONE backbone pass, so BatchNorm sees the
 ``torch.autocast`` in bf16. A train step updates the state in place and
 returns it with its metrics (tensors on the device, so a step does not wait
 for the card; ``lr`` is a float).
+
+On a rank of a process group the batch is that rank's part of a global
+batch, and ``batch['rows'] = (first, total)`` says which: its rows are
+``[first, first + B)`` of each role's ``total``. The forward goes through
+the model's ``__call__`` (which a ``DistributedDataParallel`` or FSDP
+wrapper hooks for the gradient reduction), dropout draws the global
+batch's masks and keeps this rank's (``Backbone.features_and_logits``),
+and the metrics cover the global batch, as JAX's over a sharded batch: the
+in-batch top-k ranks the embeddings and labels gathered from every rank
+(no gradient), the row means (losses, the cosine statistics, the
+classifier top-k) are averaged over the ranks, whose parts are equal. The
+losses themselves stay this rank's row means: DDP averages their
+gradients over the ranks. A batch without ``rows`` is whole, and nothing
+is gathered.
 """
 
 from __future__ import annotations
@@ -28,6 +42,10 @@ import torch
 from imageretrievalresearch_tpu_torch import losses as L
 from imageretrievalresearch_tpu_torch import metrics as M
 from imageretrievalresearch_tpu_torch.config import TrainConfig
+from imageretrievalresearch_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    mean_over_group,
+)
 from imageretrievalresearch_tpu_torch.train.train_state import TrainState
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -41,6 +59,23 @@ def _autocast(cfg: TrainConfig, device: torch.device):
                           enabled=cfg.compute_dtype == "bfloat16")
 
 
+def _features_and_logits(model, x: torch.Tensor, batch: dict, train: bool,
+                         generator: torch.Generator | None, roles: int):
+    """One pass of ``x`` (``roles`` roles of the batch's rows, stacked)
+    through the model's ``__call__``; dropout draws for the global rows
+    where the batch is one rank's part."""
+    rows = None
+    if "rows" in batch:
+        first, total = batch["rows"]
+        b = x.shape[0] // roles
+        local = torch.arange(first, first + b, device=x.device)
+        rows = (roles * total, torch.cat([local + r * total
+                                          for r in range(roles)]))
+    model.train(train)
+    return model(x, features_and_logits=True, train=train,
+                 generator=generator, rows=rows)
+
+
 def _forward_triplet(model, batch: dict, train: bool,
                      generator: torch.Generator | None):
     """(fm_q, fm_p, fm_n), (lb_q, lb_p, lb_n) from one pass over the
@@ -48,9 +83,24 @@ def _forward_triplet(model, batch: dict, train: bool,
     qry = batch["qry"]
     b = qry.shape[0]
     x = torch.cat([qry, batch["pos"][0], batch["neg"][0]], dim=0)
-    emb, logits = model.features_and_logits(x, train=train,
-                                            generator=generator)
+    emb, logits = _features_and_logits(model, x, batch, train, generator, 3)
     return emb.split(b), logits.split(b)
+
+
+def _inbatch_topk(fms, batch: dict) -> dict:
+    """The in-batch top-k over the global batch: gathered where the batch
+    is one rank's part."""
+    fm_q, fm_p, classes = fms[0], fms[1], batch["cat_idx"]
+    if "rows" in batch:
+        fm_q, fm_p, classes = map(all_gather_rows,
+                                  (fm_q.detach(), fm_p.detach(), classes))
+    return M.inbatch_topk(fm_q, fm_p, classes, k=3)
+
+
+def _global_means(batch: dict, values: dict) -> dict:
+    """Row means over the global batch: averaged over the ranks where the
+    batch is one rank's part."""
+    return mean_over_group(values) if "rows" in batch else values
 
 
 def _losses_for_mode(cfg: TrainConfig, fms, lbls, batch: dict) -> dict:
@@ -94,7 +144,7 @@ def _update(state: TrainState, loss: torch.Tensor, schedule) -> float | None:
 
 
 def _train_metrics(loss, tk, lr_used) -> dict:
-    metrics = {"train_loss": loss.detach(), "train_top3": tk["top3"],
+    metrics = {"train_loss": loss, "train_top3": tk["top3"],
                "train_top1": tk["top1"]}
     if lr_used is not None:
         metrics["lr"] = lr_used
@@ -112,11 +162,15 @@ def build_train_step(cfg: TrainConfig, schedule=None) -> Callable:
             loss_dict = _losses_for_mode(cfg, fms, lbls, batch)
         lr_used = _update(state, loss_dict["loss"], schedule)
         with torch.no_grad():
+            means = {"loss": loss_dict["loss"].detach()}
             if cfg.loss_mode == "ce_only":
                 tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
+                means.update(tk)
             else:
-                tk = M.inbatch_topk(fms[0], fms[1], batch["cat_idx"], k=3)
-        return state, _train_metrics(loss_dict["loss"], tk, lr_used)
+                tk = _inbatch_topk(fms, batch)
+            means = _global_means(batch, means)
+            tk = {k: means.get(k, v) for k, v in tk.items()}
+        return state, _train_metrics(means["loss"], tk, lr_used)
 
     return train_step
 
@@ -132,10 +186,11 @@ def build_eval_step(cfg: TrainConfig) -> Callable:
             fms, lbls = _forward_triplet(state.model, batch, False, None)
             loss_dict = _losses_for_mode(cfg, fms, lbls, batch)
         pair = M.pairwise_cos_stats(*fms)
-        if cfg.loss_mode == "ce_only":
-            tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
+        inbatch = cfg.loss_mode != "ce_only"
+        if inbatch:
+            tk = _inbatch_topk(fms, batch)
         else:
-            tk = M.inbatch_topk(fms[0], fms[1], batch["cat_idx"], k=3)
+            tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
         metrics = {"val_loss": loss_dict["loss"],
                    "cos_sims": pair["cos_sims"],
                    "cos_unsims": pair["cos_unsims"],
@@ -143,6 +198,11 @@ def build_eval_step(cfg: TrainConfig) -> Callable:
         for k, v in loss_dict.items():
             if k != "loss":
                 metrics[f"val_{k}"] = v
+        # the in-batch top-k is global already; every other value is a
+        # row mean
+        metrics.update(_global_means(batch, {
+            k: v for k, v in metrics.items()
+            if not (inbatch and k in ("val_top3", "val_top1"))}))
         return metrics
 
     return eval_step
@@ -157,13 +217,14 @@ def build_classifier_train_step(cfg: TrainConfig, schedule=None
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
         with _autocast(cfg, batch["image"].device):
-            _, logits = state.model.features_and_logits(
-                batch["image"], train=True, generator=generator)
+            _, logits = _features_and_logits(state.model, batch["image"],
+                                             batch, True, generator, 1)
             loss = L.cross_entropy_loss(logits, batch["label"])
         lr_used = _update(state, loss, schedule)
         with torch.no_grad():
             tk = M.classifier_topk(logits, batch["label"], k=3)
-        return state, _train_metrics(loss, tk, lr_used)
+            m = _global_means(batch, {"loss": loss.detach(), **tk})
+        return state, _train_metrics(m["loss"], m, lr_used)
 
     return train_step
 
@@ -176,11 +237,11 @@ def build_classifier_eval_step(cfg: TrainConfig) -> Callable:
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         with _autocast(cfg, batch["image"].device):
-            _, logits = state.model.features_and_logits(batch["image"],
-                                                        train=False)
+            _, logits = _features_and_logits(state.model, batch["image"],
+                                             batch, False, None, 1)
             loss = L.cross_entropy_loss(logits, batch["label"])
         tk = M.classifier_topk(logits, batch["label"], k=3)
-        return {"val_loss": loss, "val_top3": tk["top3"],
-                "val_top1": tk["top1"]}
+        return _global_means(batch, {"val_loss": loss, "val_top3": tk["top3"],
+                                     "val_top1": tk["top1"]})
 
     return eval_step

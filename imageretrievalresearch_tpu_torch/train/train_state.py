@@ -51,20 +51,70 @@ def make_optimizer(optimizer_name: str, params: Iterable[torch.Tensor],
     raise ValueError(f'Unknown optimizer: "{optimizer_name}"')
 
 
+def unwrap(model: torch.nn.Module) -> torch.nn.Module:
+    """The model inside a ``DistributedDataParallel`` wrapper (FSDP2
+    shards a module in place and keeps its names)."""
+    return model.module if isinstance(
+        model, torch.nn.parallel.DistributedDataParallel) else model
+
+
+def _full(t):
+    """A DTensor gathered whole (a collective: every rank calls it in the
+    same order); any other value as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _like(value, held):
+    """``value`` (a whole tensor) placed as ``held`` is: sharded the same
+    where ``held`` is a DTensor."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(held, DTensor) and not isinstance(value, DTensor):
+        return distribute_tensor(value.to(held.device_mesh.device_type),
+                                 held.device_mesh, held.placements)
+    return value
+
+
+def load_model_state_dict(model: torch.nn.Module, sd: dict) -> None:
+    """Load a whole (unwrapped) model state dict into ``model``, wrapped
+    or not; FSDP's parameters take their shards of it."""
+    inner = unwrap(model)
+    held = inner.state_dict()
+    inner.load_state_dict({k: _like(v, held[k]) for k, v in sd.items()})
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BatchNorm running statistics), its
-    optimizer and the count of updates taken. Steps update it in place."""
+    optimizer and the count of updates taken. Steps update it in place.
+    ``model`` may be wrapped for a process group (DDP, or sharded by
+    FSDP); the state dict is the unwrapped model's, whole, with the
+    optimizer's state in its own (index-keyed) form, so a checkpoint of
+    any layout loads on one card and the reverse."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        """Whole tensors. Under FSDP every rank must call it (the shards
+        are gathered)."""
+        model = {k: _full(v) for k, v in unwrap(self.model).state_dict(
+            ).items()}
+        opt = self.optimizer.state_dict()
+        opt = {**opt, "state": {i: {k: _full(v) for k, v in st.items()}
+                                for i, st in opt["state"].items()}}
+        return {"model": model, "optimizer": opt, "step": self.step}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        """Load a whole state dict; FSDP's parameters and their optimizer
+        state take their shards of it."""
+        load_model_state_dict(self.model, sd["model"])
+        params = [p for g in self.optimizer.param_groups
+                  for p in g["params"]]
+        opt = sd["optimizer"]
+        self.optimizer.load_state_dict({**opt, "state": {
+            i: {k: (_like(v, params[int(i)]) if k != "step" else v)
+                for k, v in st.items()}
+            for i, st in opt["state"].items()}})
         self.step = int(sd["step"])

@@ -14,6 +14,9 @@ retention sets:
 - ``last/<step>/``: the most recent save, kept unconditionally, so
   ``Trainer.fit(resume=True)`` continues from where training stopped.
 
+In a process group only rank 0 writes (every rank calls ``save``, in
+step; the others wait for its write at a barrier) and every rank reads.
+
 Each checkpoint directory holds ``state.pt`` (the state dict) and
 ``metrics.json`` (the monitored value, the save ordinal and the mode); a
 save is written under a temporary name and renamed, so a directory that
@@ -29,6 +32,8 @@ import shutil
 from typing import Any
 
 import torch
+
+from imageretrievalresearch_tpu_torch.parallel import distributed
 
 
 def _step_dirs(directory: str) -> list[int]:
@@ -87,8 +92,10 @@ class CheckpointManager:
         directory = os.path.abspath(directory)
         self._dirs = {kind: os.path.join(directory, kind)
                       for kind in ("best", "last")}
-        for d in self._dirs.values():
-            os.makedirs(d, exist_ok=True)
+        self._writer = distributed.rank() == 0
+        if self._writer:
+            for d in self._dirs.values():
+                os.makedirs(d, exist_ok=True)
         ords = [self._metrics(s).get("_ord", 0.0)
                 for s in self._steps("best")]
         self._ord = int(max(ords)) if ords else 0
@@ -118,6 +125,9 @@ class CheckpointManager:
         """Save ``state`` (a state dict) at ``step`` into both sets, then
         keep the top k in ``best/`` and the newest in ``last/``."""
         self._ord += 1
+        if not self._writer:
+            distributed.barrier()
+            return
         m = {self.monitor: float(metrics[self.monitor]),
              "_ord": float(self._ord), "_mode": self.mode}
         self._write("best", step, state, m)
@@ -128,6 +138,7 @@ class CheckpointManager:
         for s in self._steps("last"):
             shutil.rmtree(self._path("last", s))
         self._write("last", step, state, m)
+        distributed.barrier()
 
     def restore(self, step: int | None = None,
                 map_location: str | torch.device = "cpu") -> Any:

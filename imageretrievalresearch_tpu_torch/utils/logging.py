@@ -8,6 +8,8 @@ The reference logs through wandb with a hardcoded API key
 (stdout / jsonl / tensorboard / wandb-if-available), no credentials baked in.
 Metric names are preserved verbatim (train_loss, val_loss, cos_sims,
 cos_unsims, train/val top1/top3, lr — train/train.py:258-260, :365-373).
+In a process group only rank 0 writes (the others' loggers are silent),
+and a logger pickles as its settings, so a launched worker opens its own.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 import time
 from typing import Any
 
+from imageretrievalresearch_tpu_torch.parallel import distributed
+
 
 class MetricLogger:
     def __init__(self, log_dir: str | None = None, *, stdout: bool = True,
@@ -24,6 +28,12 @@ class MetricLogger:
                  project: str = "Sketchy-Dataset-Training",
                  run_name: str | None = None,
                  log_every_n_steps: int = 15):
+        self._settings = dict(log_dir=log_dir, stdout=stdout, jsonl=jsonl,
+                              use_wandb=use_wandb, project=project,
+                              run_name=run_name,
+                              log_every_n_steps=log_every_n_steps)
+        if distributed.rank() != 0:
+            stdout = jsonl = use_wandb = False
         self.stdout = stdout
         self.log_every_n_steps = log_every_n_steps
         self._jsonl = None
@@ -57,6 +67,12 @@ class MetricLogger:
             self._jsonl.flush()
         if self._wandb:
             self._wandb.log(payload, step=step)
+
+    def __getstate__(self) -> dict:
+        return self._settings
+
+    def __setstate__(self, settings: dict) -> None:
+        self.__init__(**settings)
 
     def close(self) -> None:
         if self._jsonl:

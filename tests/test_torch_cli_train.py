@@ -342,17 +342,43 @@ def test_find_lr_sweeps_start_from_the_initial_weights(tree, monkeypatch):
     assert not all(torch.equal(a, b) for a, b in zip(first, stepped))
 
 
-@pytest.mark.parametrize("flags,error,match", [
-    (["--num_processes", "2"], NotImplementedError, "multi-process"),
-    (["--coordinator_address", "localhost:1234"], NotImplementedError,
-     "multi-process"),
-    (["--process_id", "0"], NotImplementedError, "multi-process"),
-])
+@pytest.mark.parametrize("case", ["one_process", "fsdp_across_processes",
+                                  "incomplete", "process_id_out_of_range"])
 @pytest.mark.parametrize("cli", [train_cli, find_lr_cli])
-def test_cli_refusals(cli, flags, error, match, tree):
-    with pytest.raises(error, match=match):
-        cli.run(cli.build_parser().parse_args(
-            ["--ims_path", tree["root"], *TINY, *CPU, *flags]))
+def test_cli_multi_process_flags(cli, case, tree, tmp_path, capsys):
+    """The multi-host flags: one process over them starts a group of one
+    (JAX's line printed), runs, and leaves the group; FSDP across
+    processes raises before any group starts, as JAX's trainer refuses
+    it; the flags go together, with a process id below the count."""
+    from imageretrievalresearch_tpu_torch.parallel import distributed
+    addr = ["--coordinator_address", f"localhost:{distributed.free_port()}"]
+    flags, error, match = {
+        "one_process": ([*addr, "--num_processes", "1", "--process_id", "0",
+                         "--max_epochs", "1", "--num_lr_steps", "3"],
+                        None, None),
+        "fsdp_across_processes": ([*addr, "--num_processes", "2",
+                                   "--process_id", "0", "--param_sharding",
+                                   "fsdp"], NotImplementedError,
+                                  "single-process"),
+        "incomplete": (["--num_processes", "2"], ValueError, "go together"),
+        "process_id_out_of_range": ([*addr, "--num_processes", "2",
+                                     "--process_id", "2"], ValueError,
+                                    "--process_id 2 of --num_processes 2"),
+    }[case]
+    if cli is train_cli:
+        flags = [f for f in flags if f not in ("--num_lr_steps", "3")]
+    args = cli.build_parser().parse_args(
+        ["--ims_path", tree["root"], *TINY, *CPU, "-sp", str(tmp_path),
+         *flags])
+    if error is None:
+        cli.run(args)
+        assert ("[distributed] process 0 of 1, 1 local / 1 global devices"
+                in capsys.readouterr().out)
+    else:
+        with pytest.raises(error, match=match):
+            cli.run(args)
+    assert not distributed.in_group()
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("cli", [train_cli, find_lr_cli])

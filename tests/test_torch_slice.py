@@ -214,6 +214,7 @@ def test_port_imports_nothing_of_jax():
                    "examples/training_analysis.py",
                    "examples/score_booster_demo.py",
                    "parallel/mesh.py", "parallel/gallery.py",
+                   "parallel/distributed.py", "parallel/fsdp.py",
                    "data/native_loader.py"):
         assert PORT / module in files
     bad = [(f.name, m) for f in files for m in _imports(f)
@@ -245,6 +246,7 @@ def test_port_imports_nothing_of_jax():
             "imageretrievalresearch_tpu_torch.examples.training_analysis, "
             "imageretrievalresearch_tpu_torch.examples.score_booster_demo, "
             "imageretrievalresearch_tpu_torch.parallel, "
+            "imageretrievalresearch_tpu_torch.parallel.distributed, "
             "imageretrievalresearch_tpu_torch.data.native_loader; "
             # matplotlib (and pandas) only inside the functions that draw
             "bad = [m for m in sys.modules if m.split('.')[0] in "

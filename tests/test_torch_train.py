@@ -545,9 +545,18 @@ def test_trainer_raises_without_a_device_and_without_cuda(monkeypatch,
     assert cfg.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, model, MemoryLoader(0, [B]))
-    for bad in (dict(num_devices=2), dict(param_sharding="fsdp")):
-        with pytest.raises(NotImplementedError):
-            Trainer(_t3(tmp_path, **bad), model, MemoryLoader(0, [B]))
+    # more devices, or FSDP, outside a process group: fit() launches that
+    # many workers (one for FSDP on one device)
+    for kw, ranks in ((dict(num_devices=2), 2),
+                      (dict(param_sharding="fsdp"), 1)):
+        trainer = Trainer(_t3(tmp_path, **kw), model, MemoryLoader(0, [B]))
+        assert trainer._launch == ranks and trainer.mesh is None
+    # more cards than are visible
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 CUDA devices are visible"):
+        Trainer(dataclasses.replace(cfg, num_devices=2), model,
+                MemoryLoader(0, [B]))
 
 
 
