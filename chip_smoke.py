@@ -244,7 +244,28 @@ Phases (any failure exits non-zero, with no result line):
    --process_id 0`` (one epoch, DDP in an NCCL group of one) against
    phase 10's first epoch. Rows 5-10 of the kernels line carry (b)'s
    launches per rank as ``multi_device_launches_per_rank``.
-14. One JSON line of kernels, the nvidia-smi line, and the result line.
+14. The last of the JAX package. (a) runs inside phase 10, on its
+   ``cli.train`` run directory: ``cli.convert --to torch
+   --lightning_out`` and the file back ``--to native`` (each CLI call's
+   seconds), each read by ``load_checkpoint`` into a fresh b3a on the
+   card; the tree's 400 files embed bit for bit through the three, and a
+   Q = 64 class-dedup query over them ranks the same through kernel 1
+   (row 1's ``convert_launches``). (b) the 2-D (data, model) hybrid
+   layout (``group_mesh((2, 2), ("data", "model"))``, ``put_fsdp(...,
+   axis_name="model")``: FSDP2's HSDP; ``shard_batch``; the step built
+   with ``mesh=``) over 4 gloo ranks sharing card 0, launched by the
+   port's launcher (target ``chip_smoke:hybrid_rank``): one f32 SGD step
+   of full-width b3a (T3, 32 triplets, 16 a data row; kernels 5-10 in
+   every rank, rows 5-10's ``hybrid_launches_per_rank``) and one of
+   full-width ``swin_s3_tiny_224`` (T4's recipe at SGD 1e-2, 16
+   triplets), each against the same step on one card by phase 13's
+   limits, with each rank's step ms, peak GB, launches and shard sizes.
+   (c) the b3a step on a (1, 1) mesh at world size 1 over NCCL; where
+   four cards are visible, (b) with one rank per card over NCCL (else a
+   line says it did not run; ``python -c "import chip_smoke as C;
+   C.hybrid_phase(C.PF.card())"`` runs (b) and (c) alone, and
+   ``C.hybrid_four_cards(C.PF.card())`` the four-card stanza alone).
+15. One JSON line of kernels, the nvidia-smi line, and the result line.
 
 Times are CUDA events. Each row of the kernels line has ``ms`` and
 ``library_ms`` measured as every earlier version of this script measured
@@ -265,6 +286,7 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import gc
 import hashlib
 import importlib
 import io
@@ -288,6 +310,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device; nothing was run")
 
+from imageretrievalresearch_tpu_torch.cli import convert as CONVERT_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import data_split as SPLIT_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import find_lr as FIND_LR_CLI  # noqa
 from imageretrievalresearch_tpu_torch.cli import gallery as CLI  # noqa: E402
@@ -321,7 +344,11 @@ from imageretrievalresearch_tpu_torch.ops import image_kernels as IK  # noqa: E4
 from imageretrievalresearch_tpu_torch.ops import retrieval as R  # noqa: E402
 from imageretrievalresearch_tpu_torch.parallel import (  # noqa: E402
     Mesh,
+    fsdp_spec,
+    group_mesh,
     make_mesh,
+    put_fsdp,
+    shard_batch,
 )
 from imageretrievalresearch_tpu_torch.parallel import (  # noqa: E402
     distributed,
@@ -361,8 +388,14 @@ from imageretrievalresearch_tpu_torch.tools.image_kernel_times import (  # noqa
 )
 from imageretrievalresearch_tpu_torch.train import (  # noqa: E402
     Trainer,
+    TrainState,
     build_train_step,
     lr_finder,
+    make_optimizer,
+    multistep_lr,
+)
+from imageretrievalresearch_tpu_torch.train.trainer import (  # noqa: E402
+    _generator_seeds,
 )
 from imageretrievalresearch_tpu_torch.utils.profiling import trace  # noqa: E402
 
@@ -539,6 +572,25 @@ MD_PARAM_NORM_RTOL, MD_PARAM_TENSOR_SHARE = 1e-3, 1e-2
 # 10's run: its first epoch's losses and cos_sims, relative (phase 6's
 # bf16 per-step limit; the same arithmetic is expected bit for bit)
 MD_CLI_RTOL = 5e-3
+# phase 14, the last of the JAX package. (a) inside phase 10, on its run
+# directory: cli.convert --to torch --lightning_out and back --to native,
+# each read by load_checkpoint on the card; the tree's 400 files (decoded
+# at 224 px on a pool of CONVERT_DECODERS processes) embed bit for bit,
+# and a Q = CONVERT_QUERIES class-dedup query over them (G = 400 >= 256:
+# kernel 1) ranks the same. (b) the 2-D (data, model) hybrid layout of
+# JAX's tests/test_fsdp.py over HYBRID_SHAPE gloo ranks sharing card 0:
+# one f32 SGD step of full-width b3a (T3, phase 13's first batch cut to
+# HYBRID_B3A_BATCH triplets, HYBRID_B3A_BATCH / 2 a data row; kernels 5-10
+# in every rank) and one of full-width swin_s3_tiny_224 (T4's recipe at
+# JAX's hybrid case's SGD 1e-2: T4's own 1e-5 moves a parameter by less
+# than its f32 rounding; HYBRID_SWIN_BATCH triplets), each against the
+# same step on one card without a group by phase 13's limits. (c) the
+# b3a step on a (1, 1) mesh at world size 1 over NCCL, and, where four
+# cards are visible, (b) with one rank per card over NCCL.
+HYBRID_SHAPE, HYBRID_AXES = (2, 2), ("data", "model")
+HYBRID_B3A_BATCH, HYBRID_SWIN_BATCH, HYBRID_SWIN_LR = 32, 16, 1e-2
+HYBRID_SWIN = "swin_s3_tiny_224"
+CONVERT_QUERIES, CONVERT_DECODERS = 64, 8
 # phase 11, evaluation and analysis from disk: the port's synthetic Sketchy
 # tree at 256 px with 11 products a category (264 JPEG photos, 176 PNG
 # sketches), so the evaluation's gallery (one positive per photo, G = Q =
@@ -2522,9 +2574,10 @@ def disk_phase(card: str) -> dict:
     """Phase 10: training from disk through the CLIs users run, in this
     process (``build_parser().parse_args([...])`` -> ``run``): the tree,
     ``cli.data_split``, ``cli.train`` (T3 on efficientnet_b3a) and
-    ``cli.find_lr`` (rexnet_150), with the opt-in depthwise kernels.
-    Returns the launches of kernels 5-10 in the train run (by C entry for
-    the image kernels) and of kernels 9-10 in the sweep."""
+    ``cli.find_lr`` (rexnet_150), with the opt-in depthwise kernels, and
+    phase 14 (a) on the train run's directory. Returns the launches of
+    kernels 5-10 in the train run (by C entry for the image kernels), of
+    kernels 9-10 in the sweep and of kernel 1 in 14 (a)."""
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="disk_phase_")
     try:
@@ -2549,6 +2602,7 @@ def disk_phase(card: str) -> dict:
         train = train_cli_run(tree, split, root, card)
         multihost = multihost_cli_run(tree, split, root, train["epoch0"],
                                       card)
+        convert = convert_cli_run(train["run_dir"], written, root, card)
         sweep = find_lr_cli_run(tree, split, card)
         decode_pool_checks(tree, split, root, digests, card)
     finally:
@@ -2556,7 +2610,8 @@ def disk_phase(card: str) -> dict:
         set_opt_in(False)
     log(f"phase 10 (training from disk): "
         f"{time.perf_counter() - t_phase:.1f} s; {card}")
-    return {"train": train, "sweep": sweep, "multihost": multihost}
+    return {"train": train, "sweep": sweep, "multihost": multihost,
+            "convert": convert}
 
 
 def timed_loader_iter(waits: list):
@@ -2728,7 +2783,7 @@ def train_cli_run(tree: str, split: str, root: str, card: str) -> dict:
         "threads; the Huffman walk holds the GIL)")
     log(f"  peak device memory {peak:.2f} GB; {card}")
     return {"dw": counts["dw"], "entry": counts["entry"],
-            "epoch0": history["epochs"][0]}
+            "epoch0": history["epochs"][0], "run_dir": ckpt}
 
 
 def multihost_cli_run(tree: str, split: str, root: str, ref: dict,
@@ -3421,10 +3476,11 @@ def md_nccl_probe(payload) -> None:
     torch.distributed.all_reduce(torch.ones(1, device="cuda"))
 
 
-def md_compare(tag: str, got: dict, ref: dict, init: dict) -> bool:
+def md_compare(tag: str, got: dict, ref: dict, init: dict,
+               phase: int = 13) -> bool:
     """``got``'s step against the reference step, by phase 13's limits;
     logs each difference (the worst tensors beside their updates from
-    ``init``) and returns whether all is bit for bit."""
+    ``init``) under ``phase`` and returns whether all is bit for bit."""
     loss = abs(got["metrics"]["train_loss"] - ref["metrics"]["train_loss"]
                ) / abs(ref["metrics"]["train_loss"])
     worst_stat = 0.0
@@ -3451,7 +3507,8 @@ def md_compare(tag: str, got: dict, ref: dict, init: dict) -> bool:
                        upd.max().item()))
     params.sort(reverse=True)
     norm = (diff2 / upd2) ** 0.5
-    log(f"13 {tag}: train_loss {got['metrics']['train_loss']:.7g} against "
+    log(f"{phase} {tag}: train_loss "
+        f"{got['metrics']['train_loss']:.7g} against "
         f"{ref['metrics']['train_loss']:.7g} (relative {loss:.3g}, limit "
         f"{MD_LOSS_RTOL}); the parameters' |diff| / |update| {norm:.3g} "
         f"(limit {MD_PARAM_NORM_RTOL}), the worst tensor at "
@@ -3483,7 +3540,8 @@ def group_bn_arithmetic(orig):
         if not self.training:
             return orig(self, x)
         y, mean, var, n = GBN._GroupBatchNorm.apply(x, self.weight,
-                                                    self.bias, self.eps)
+                                                    self.bias, self.eps,
+                                                    self.group)
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             self.running_mean.mul_(1 - self.momentum).add_(
@@ -3629,6 +3687,292 @@ def multidevice_phase(card: str, multihost: dict) -> dict:
         f"{card}")
     return {"ranks": [{**got["launches"], **got["entry"]}
                       for got in ranks]}
+
+
+
+def convert_cli_run(run_dir: str, written: dict, root: str,
+                    card: str) -> dict:
+    """Phase 14 (a), run inside phase 10 while its ``cli.train`` run
+    directory exists: ``cli.convert --to torch --lightning_out`` of it,
+    read by ``load_checkpoint`` into a fresh b3a on the card, then the
+    file ``--to native`` and read again. The tree's files embed bit for
+    bit through all three, and a class-dedup query of CONVERT_QUERIES of
+    them over all of them ranks the same, each through kernel 1 (counts
+    set to 0 just before the query and read just after). Returns kernel
+    1's launches."""
+    t_phase = time.perf_counter()
+    n_cls = DISK_TREE["n_cats"]
+    common = ["--model_name", "efficientnet_b3a", "--num_classes",
+              str(n_cls)]
+    exported = os.path.join(root, "exported.ckpt")
+    native = os.path.join(root, "native")
+    walls = {}
+
+    def convert(tag: str, argv: list) -> None:
+        _, ms = sync_time(lambda: CONVERT_CLI.main([*argv, *common]))
+        walls[tag] = ms / 1e3
+
+    convert("--to torch --lightning_out", [
+        "--checkpoint", run_dir, "--out", exported, "--to", "torch",
+        "--lightning_out"])
+    convert("--to native", ["--checkpoint", exported, "--out", native])
+    payload = torch.load(exported, map_location="cpu", weights_only=False)
+    assert set(payload) == {"state_dict"} and all(
+        k.startswith("model.") for k in payload["state_dict"])
+    models = {src: load_checkpoint(src, create_model(
+        "efficientnet_b3a", num_classes=n_cls, seed=SEED + 20 + i)).eval()
+        for i, src in enumerate((run_dir, exported, native))}
+    paths = sorted(written)
+    t0 = time.perf_counter()
+    pixels = NL.decode_resize_batch(paths, SIZE, SIZE,
+                                     num_threads=CONVERT_DECODERS)
+    decode_s = time.perf_counter() - t0
+    names = sorted({os.path.basename(os.path.dirname(p)) for p in paths})
+    classes = np.array([names.index(os.path.basename(os.path.dirname(p)))
+                        for p in paths], np.int32)
+    tf = build_eval_transform("plain", SIZE)
+    embeds, ranked, launches = {}, {}, 0
+    for src, model in models.items():
+        with torch.no_grad():
+            embeds[src] = torch.cat([
+                model.embed(tf(torch.from_numpy(pixels[i:i + 64]).to(DEV)
+                               ).float())
+                for i in range(0, len(paths), 64)])
+        index = GalleryIndex(DIM)
+        index.add(embeds[src].cpu().numpy(), classes)
+        R.reset_launch_counts()
+        ranked[src] = index.query_class_dedup(
+            embeds[src][:CONVERT_QUERIES], k=K, num_unique=3)
+        counts = dict(R.KERNEL_LAUNCHES)
+        assert counts["fused_cosine_topk"] == 1, counts
+        assert sum(counts.values()) == 1, counts
+        launches += 1
+    ref = embeds[run_dir]
+    assert torch.isfinite(ref).all() and ref.shape == (len(paths), DIM)
+    for src in (exported, native):
+        assert torch.equal(embeds[src], ref), (src, (
+            embeds[src] - ref).abs().max().item())
+        for got, want in zip(ranked[src], ranked[run_dir]):
+            np.testing.assert_array_equal(got, want)
+    log(f"14 (a) cli.convert of phase 10's run directory "
+        f"({os.path.basename(run_dir)}): " + ", ".join(
+            f"{tag} {t:.2f} s" for tag, t in walls.items())
+        + f"; the run directory, the exported Lightning file and the "
+        f"native directory read by load_checkpoint on the card embed the "
+        f"tree's {len(paths)} files ({SIZE} px, decoded on "
+        f"{CONVERT_DECODERS} processes in {decode_s:.1f} s) bit for bit, "
+        f"and a Q = {CONVERT_QUERIES} class-dedup query (k = {K}, 3 "
+        f"unique) over them ranks the same, kernel 1 once each "
+        f"({launches} launches); {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return {"fused_cosine_topk": launches}
+
+
+def hybrid_config(case: str):
+    """b3a: phase 13's T3 config; swin: T4's recipe at HYBRID_SWIN_LR."""
+    if case == "b3a":
+        return run_config(T3._replace(batch=HYBRID_B3A_BATCH), None,
+                          compute_dtype="float32", optimizer_name="SGD")
+    return run_config(T4._replace(model=HYBRID_SWIN,
+                                  batch=HYBRID_SWIN_BATCH), None,
+                      compute_dtype="float32", optimizer_name="SGD",
+                      model_name=HYBRID_SWIN, learning_rate=HYBRID_SWIN_LR)
+
+
+def hybrid_raw(case: str) -> dict:
+    """Phase 13's first batch, its first rows."""
+    n = HYBRID_B3A_BATCH if case == "b3a" else HYBRID_SWIN_BATCH
+    return {k: ([a[:n] for a in v] if isinstance(v, list) else v[:n])
+            for k, v in md_batch().items()}
+
+
+def hybrid_reference(case: str) -> dict:
+    """The case's step on one card without a group (md_step)."""
+    cfg = hybrid_config(case)
+    raw = hybrid_raw(case)
+    return md_step(Trainer(cfg, create_model(
+        cfg.model_name, num_classes=N_CLASSES, seed=SEED), [raw]), raw)
+
+
+def hybrid_step(mesh, case: str) -> dict:
+    """The case's step on this rank of a (data, model) mesh, through the
+    path a user calls: ``put_fsdp(mesh, model, axis_name="model")``,
+    ``shard_batch``, the Trainer's transform with ``rows=mesh.rows_of``,
+    ``build_train_step(cfg, schedule, mesh=mesh)``; launch counts set to
+    0 just before the first step and read just after, a second step timed
+    (as md_step). Every rank returns its launches, times and shards, rank
+    0 the whole state."""
+    cfg = hybrid_config(case)
+    raw = hybrid_raw(case)
+    dev = mesh.local_device
+    model = create_model(cfg.model_name, num_classes=N_CLASSES, seed=SEED,
+                         device=dev)
+    put_fsdp(mesh, model, axis_name="model")
+    n_model = mesh.shape["model"]
+    shards = [(n, p.to_local().numel(), p.numel())
+              for n, p in model.named_parameters()
+              if fsdp_spec(p.shape, n_model, "model") != ()]
+    assert shards and all(local == total // n_model
+                          for _, local, total in shards), shards
+    spec = (TransformSpec.train_autoaugment(cfg.image_size)
+            if cfg.autoaugment else TransformSpec.train_plain(cfg.image_size))
+    spec = dataclasses.replace(spec, dtype=cfg.compute_dtype)
+    transform = build_triplet_transform(spec, spec, spec, device=dev)
+    step = build_train_step(cfg, multistep_lr(
+        cfg.learning_rate, cfg.milestones, cfg.lr_gamma, 1), mesh=mesh)
+    state = TrainState(model, make_optimizer(
+        cfg.optimizer_name, model.parameters(), cfg.learning_rate,
+        cfg.weight_decay))
+    tgen, dgen = (torch.Generator(device=dev).manual_seed(s)
+                  for s in _generator_seeds(cfg.seed + 1000))
+
+    def train_batch():
+        local = shard_batch(mesh, raw)
+        rows = mesh.rows_of(len(local["qry"]))
+        batch = transform(local, tgen, rows=rows)
+        batch = {k: (v.long() if k in ("cat_idx", "prod_idx") else v)
+                 for k, v in batch.items()}
+        return step(state, {**batch, "rows": rows}, dgen)
+
+    set_opt_in(True)
+    for mod in (DW, IK):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, m = train_batch()
+    counts = {**DW.KERNEL_LAUNCHES, **IK.KERNEL_LAUNCHES}
+    entry = dict(IK.ENTRY_LAUNCHES)
+    plain = {**DW.PLAIN_ON_CARD, **IK.PLAIN_ON_CARD}
+    whole = {k: v.detach().cpu() for k, v in
+             state.state_dict()["model"].items()}
+    _, step_ms = sync_time(train_batch)
+    set_opt_in(False)
+    local_mb = sum(p.to_local().numel() * 4 for p in model.parameters())
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "model": whole if mesh.rank == 0 else None,
+            "launches": counts, "entry": entry, "plain": plain,
+            "step_ms": step_ms, "coords": mesh.coords,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "shards": len(shards), "local_mb": local_mb / 1e6,
+            "whole_mb": sum(p.numel() * 4 for p in model.parameters()) / 1e6}
+
+
+def hybrid_rank(payload: dict) -> dict:
+    """A launched rank of phase 14: both cases on the group's (data,
+    model) mesh of ``payload["shape"]``."""
+    mesh = group_mesh(payload["shape"], HYBRID_AXES)
+    return {case: hybrid_step(mesh, case) for case in ("b3a", "swin")}
+
+
+def hybrid_checks(tag: str, ranks: list, refs: dict, inits: dict,
+                  card: str) -> dict:
+    """Each rank's steps against the one-card steps (md_compare), the
+    ranks' metrics equal, b3a's kernels 5-10 in every rank; logs each
+    rank's step, peak and shards. Returns whether each case is bit for
+    bit."""
+    out = {}
+    for case in ("b3a", "swin"):
+        for r, rank in enumerate(ranks):
+            got = rank[case]
+            if case == "b3a":
+                md_launches_ok(f"14 {tag} b3a, rank {r}", got)
+            else:
+                assert not any(got["plain"].values()), (tag, got["plain"])
+            assert got["metrics"] == ranks[0][case]["metrics"], (tag, r)
+            log(f"14 {tag} {case}, rank {r} {got['coords']}: warm step "
+                f"{got['step_ms']:.1f} ms against one card's "
+                f"{refs[case]['step_ms']:.1f} ms, peak {got['peak_gb']:.2f} "
+                f"GB; {got['shards']} large parameters at half their size "
+                f"over 'model' ({got['local_mb']:.1f} of "
+                f"{got['whole_mb']:.1f} MB of parameters held here); "
+                f"launches {got['launches']}; {card}")
+        out[case] = md_compare(f"{tag} {case}", ranks[0][case],
+                               refs[case], inits[case], phase=14)
+    return out
+
+
+def hybrid_references(card: str) -> tuple[dict, dict]:
+    """Each case's step on one card without a group, and its initial
+    weights (on the host); the card's memory freed after."""
+    refs, inits = {}, {}
+    for case in ("b3a", "swin"):
+        cfg = hybrid_config(case)
+        inits[case] = {k: v.cpu() for k, v in create_model(
+            cfg.model_name, num_classes=N_CLASSES, seed=SEED
+        ).state_dict().items()}
+        refs[case] = hybrid_reference(case)
+        log(f"14 reference {case} ({cfg.model_name}, "
+            f"{len(hybrid_raw(case)['qry'])} triplets, f32 SGD at lr "
+            f"{cfg.learning_rate}) on one card without a group: warm step "
+            f"{refs[case]['step_ms']:.1f} ms, peak "
+            f"{refs[case]['peak_gb']:.2f} GB; {card}")
+    md_launches_ok("14 reference b3a", refs["b3a"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs, inits
+
+
+def hybrid_four_cards(card: str, refs: dict | None = None,
+                      inits: dict | None = None) -> dict | None:
+    """Phase 14 (c)'s four-card stanza: (b)'s steps with one rank per
+    card over NCCL, where four cards are visible (else a line says it did
+    not run, and None). Alone: ``python -c "import chip_smoke as C;
+    C.hybrid_four_cards(C.PF.card())"``."""
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"14 (c) the four-card stanza did NOT run: {cards} card(s) "
+            "visible (python -c \"import chip_smoke as C; "
+            "C.hybrid_four_cards(C.PF.card())\" on four cards runs it)")
+        return None
+    if refs is None:
+        refs, inits = hybrid_references(card)
+    t0 = time.perf_counter()
+    four = distributed.launch(
+        "chip_smoke:hybrid_rank", 4, {"shape": HYBRID_SHAPE},
+        devices=[f"cuda:{i}" for i in range(4)], timeout_s=600)
+    tag = f"(c) {HYBRID_SHAPE} over NCCL, one rank per card"
+    log(f"14 {tag}: the launch {time.perf_counter() - t0:.1f} s")
+    return hybrid_checks(tag, four, refs, inits, card)
+
+
+def hybrid_phase(card: str) -> dict:
+    """Phase 14 (b) and (c): the (data, model) layout's steps against
+    the one-card steps (freed before the launch). Returns each rank's
+    launches of kernels 5-10 in (b)'s b3a step."""
+    t_phase = time.perf_counter()
+    refs, inits = hybrid_references(card)
+    results = {}
+
+    t0 = time.perf_counter()
+    ranks = distributed.launch(
+        "chip_smoke:hybrid_rank", int(np.prod(HYBRID_SHAPE)),
+        {"shape": HYBRID_SHAPE}, devices=["cuda:0"] * 4, backend="gloo",
+        timeout_s=600)
+    tag = f"(b) {HYBRID_SHAPE} over gloo, 4 ranks sharing card 0"
+    log(f"14 {tag}: the launch (fresh interpreters, import, both cases' "
+        f"two steps) {time.perf_counter() - t0:.1f} s")
+    results["(b)"] = hybrid_checks(tag, ranks, refs, inits, card)
+
+    distributed.init_group(
+        world_size=1, rank=0, device="cuda:0",
+        init_method=f"tcp://localhost:{distributed.free_port()}")
+    try:
+        mesh = group_mesh((1, 1), HYBRID_AXES)
+        assert torch.distributed.get_backend(mesh.batch_group) == "nccl"
+        got = hybrid_step(mesh, "b3a")
+    finally:
+        distributed.destroy_group()
+    md_launches_ok("14 (c) (1, 1) NCCL", got)
+    log(f"14 (c) (1, 1) mesh at world size 1 over NCCL (the 2-D DeviceMesh "
+        f"and its sub-groups under NCCL), b3a: warm step "
+        f"{got['step_ms']:.1f} ms, peak {got['peak_gb']:.2f} GB; {card}")
+    results["(c)"] = md_compare("(c) (1, 1) NCCL b3a", got, refs["b3a"],
+                                inits["b3a"], phase=14)
+    results["(c) four cards"] = hybrid_four_cards(card, refs, inits)
+    log(f"phase 14 (b), (c) (the 2-D hybrid layout): "
+        f"{time.perf_counter() - t_phase:.1f} s; bit for bit: {results}; "
+        f"{card}")
+    return {"ranks": [{**rank["b3a"]["launches"], **rank["b3a"]["entry"]}
+                      for rank in ranks]}
 
 
 def main() -> None:
@@ -3925,7 +4269,24 @@ def main() -> None:
         row["multi_device_launches_per_rank"] = [
             sum(ranks[c] for c in counters) for ranks in md["ranks"]]
 
-    # 14. result: the one card this run drove
+    # 14. the converter (inside phase 10: row 1 carries kernel 1's
+    # launches in its queries) and the 2-D hybrid layout: rows 5-10 carry
+    # each rank's launches in (b)'s b3a step
+    for row in kernels:
+        if row["name"] in disk["convert"]:
+            row["convert_launches"] = disk["convert"][row["name"]]
+    hybrid = hybrid_phase(PF.card())
+    for row in image_rows:
+        row["hybrid_launches_per_rank"] = [
+            ranks[ENTRIES[row["name"]]] for ranks in hybrid["ranks"]]
+    for row in dw_rows:
+        counters = (("depthwise_conv_forward", "depthwise_conv_grad_x")
+                    if row["name"] == "depthwise_conv_forward"
+                    else ("depthwise_conv_grad_w",))
+        row["hybrid_launches_per_rank"] = [
+            sum(ranks[c] for c in counters) for ranks in hybrid["ranks"]]
+
+    # 15. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))
     print(PF.card())
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,13 @@ a ``torch.distributed`` process group of one process per device
 (``parallel/distributed.py``), DDP and FSDP2 in the ``Trainer``
 (``parallel/fsdp.py``), the group-wide BatchNorm
 (``models/layers.py::GroupBatchNorm2d``) and the CLIs' multi-host flags.
+Slice 17 adds the last of the JAX package: the checkpoint converter
+(``cli/convert.py``, ``models/convert.py::export_timm_state_dict``; the
+port's native checkpoint directory in one direction, a timm / Lightning
+torch file in the other) and the 2-D ``(data, model)`` hybrid layout of
+``parallel/fsdp.py`` (``parallel.mesh.group_mesh``, FSDP2's HSDP, the
+batch-wide collectives over the ``data`` sub-group). The port now covers
+every module of the JAX package.
 """
 
 from imageretrievalresearch_tpu_torch.version import __version__

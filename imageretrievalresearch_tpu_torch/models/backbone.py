@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import math
 import re
+import sys
 
 import torch
 from torch import nn
@@ -33,6 +34,7 @@ from imageretrievalresearch_tpu_torch.models.layers import (
     ConvStem,
     Dropout,
     DropPath,
+    GroupBatchNorm2d,
 )
 from imageretrievalresearch_tpu_torch.models.resnet import (
     RESNET_CONFIGS,
@@ -106,43 +108,71 @@ class Backbone(nn.Module):
 
     def features_and_logits(self, x: torch.Tensor, *, train: bool = False,
                             generator: torch.Generator | None = None,
-                            rows: tuple[int, torch.Tensor] | None = None
+                            rows: tuple[int, torch.Tensor] | None = None,
+                            group=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
         """One pass -> (pooled embedding, logits). ``train`` switches the
         module to training (BatchNorm on batch statistics, updating its
         running ones; dropout on) or evaluation; the dropout layers draw
         their masks from ``generator``, a ``torch.Generator`` on x's
         device, for ``rows`` = (the global batch's rows, the index of each
-        of x's rows among them) where x is one rank's part of it."""
+        of x's rows among them) where x is one rank's part of it. The
+        BatchNorms' statistics cover ``group``'s rows (a mesh's
+        ``batch_group``; None: the whole process group)."""
         self.train(train)
         drops = [m for m in self.modules()
                  if isinstance(m, (Dropout, DropPath))]
+        norms = [m for m in self.modules()
+                 if isinstance(m, GroupBatchNorm2d)]
         for m in drops:
             m.generator, m.rows = generator, rows
+        for m in norms:
+            m.group = group
         try:
             emb = self.embed(x)
             return emb, self.head(emb)
         finally:
             for m in drops:
                 m.generator = m.rows = None
+            for m in norms:
+                m.group = None
 
     @property
     def num_features(self) -> int:
         return self.net.num_features
 
-    def load_timm_state_dict(self, state_dict: dict) -> None:
-        """Load a timm-layout state dict (strict, but for timm Swin's
+    def load_timm_state_dict(self, state_dict: dict,
+                             strict: bool = True) -> None:
+        """Load a timm-layout state dict (but for timm Swin's
         ``relative_position_index`` / ``attn_mask`` buffers, which the
         model recomputes). A ``conv_input`` model takes the reference's
         Sequential layout: the stem conv at ``0.0.weight`` and the timm
-        keys under ``1.``."""
+        keys under ``1.``. ``strict``: every key of the model present and
+        none left over, else raise; otherwise (JAX's ``strict=False``) a
+        missing key keeps the model's value, and the missing and unused
+        keys are reported on stderr."""
         sd = dict(state_dict)
+        missing, unused = [], []
         if self.stem is not None:
-            self.stem.conv.weight.data.copy_(sd.pop("0.0.weight"))
+            if "0.0.weight" in sd or strict:
+                self.stem.conv.weight.data.copy_(sd.pop("0.0.weight"))
+            else:
+                missing.append("0.0.weight")
+            unused += [k for k in sd if not k.startswith("1.")]
             sd = {k[2:]: v for k, v in sd.items() if k.startswith("1.")}
         sd = {k: v for k, v in sd.items()
               if not _RECOMPUTED_BUFFERS.search(k)}
-        self.net.load_state_dict(sd, strict=True)
+        if strict:
+            self.net.load_state_dict(sd, strict=True)
+            return
+        result = self.net.load_state_dict(sd, strict=False)
+        missing += result.missing_keys
+        unused += result.unexpected_keys
+        if missing or unused:
+            print(f"Model {self.name}: lenient load kept the init for "
+                  f"{len(missing)} missing key(s) {missing[:8]}; "
+                  f"{len(unused)} unused key(s) {unused[:8]}",
+                  file=sys.stderr)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -5,7 +5,10 @@
 ``models/convert.py::load_checkpoint``: an empty path keeps the model's
 seeded init, a directory is read as the port's ``CheckpointManager``
 layout, a file as a torch / Lightning state dict (``strip_model_prefix``),
-for every family.
+for every family. ``export_timm_state_dict(backbone)`` is the counterpart
+of ``export_torch_state_dict``: the port's model as the timm-layout
+state dict that the reference's torch tooling and JAX's loader read
+(``cli/convert.py`` writes it).
 
 ``params_from_jax(variables, backbone)`` takes the JAX ``variables`` pytree
 as nested (numpy-convertible) dicts — ``net/params/forward_features/...``
@@ -264,13 +267,63 @@ def params_from_jax(variables: dict, backbone) -> dict:
     return sd
 
 
+def _whole_cpu(t: torch.Tensor) -> torch.Tensor:
+    """A tensor gathered whole (a DTensor of an FSDP model: a collective,
+    every rank calls it), on the CPU, contiguous, floats in f32."""
+    from imageretrievalresearch_tpu_torch.parallel.fsdp import full_tensor
+    t = full_tensor(t).detach().to("cpu")
+    if t.is_floating_point():
+        t = t.float()
+    return t.contiguous().clone()
+
+
+def export_timm_state_dict(backbone, *, lightning: bool = False,
+                           template: dict | None = None,
+                           strict: bool = True) -> dict:
+    """The port's ``backbone`` -> a timm-layout torch state dict, the
+    inverse of :meth:`Backbone.load_timm_state_dict` and the counterpart
+    of the JAX package's ``export_torch_state_dict``: what the
+    reference's torch tooling (inference/inference.py:114-124) and JAX's
+    ``load_checkpoint`` load strictly.
+
+    The port's ``net`` carries timm's keys already, so the export is
+    ``net.state_dict()`` (every BatchNorm with its ``num_batches_tracked``)
+    with tensors on the CPU, contiguous, floats in f32; a ``conv_input``
+    model takes the reference's Sequential layout (the stem conv at
+    ``0.0.weight``, the timm keys under ``1.``); ``lightning=True``
+    prefixes every key with ``model.`` (the published checkpoints'
+    layout). With a ``template`` (a ``state_dict()`` of the target torch
+    module) the export is overlaid on a copy of it, as JAX's is, so
+    buffers the port does not save (Swin's ``relative_position_index`` and
+    ``attn_mask``, which it rebuilds) keep the template's values; with
+    ``strict`` a key the template lacks raises ``KeyError`` (else it is
+    dropped). An FSDP-sharded model's parameters are gathered whole."""
+    seq = "1." if backbone.stem is not None else ""
+    prefix = "model." if lightning else ""
+    sd: dict = ({f"{prefix}{k}": v for k, v in template.items()}
+                if template is not None else {})
+    if seq:
+        sd[f"{prefix}0.0.weight"] = _whole_cpu(backbone.stem.conv.weight)
+    for key, val in backbone.net.state_dict().items():
+        out = f"{prefix}{seq}{key}"
+        if template is not None and out not in sd:
+            if strict:
+                raise KeyError(f"{key}: not present in the provided "
+                               "template")
+            continue
+        sd[out] = _whole_cpu(val)
+    return sd
+
+
 def strip_model_prefix(state_dict: dict) -> dict:
     """Lightning 'model.' prefix strip (inference/inference.py:117-121)."""
     return {k.replace("model.", "", 1) if k.startswith("model.") else k: v
             for k, v in state_dict.items()}
 
 
-def load_checkpoint(checkpoint_path: str, backbone):
+def load_checkpoint(checkpoint_path: str, backbone, *,
+                    from_pytorch_lightning: bool = True,
+                    strict: bool = True):
     """Load weights into ``backbone`` in place and return it (reference
     load_checkpoint, inference/inference.py:77-149).
 
@@ -280,9 +333,10 @@ def load_checkpoint(checkpoint_path: str, backbone):
       ``best/``, else the newest of ``last/``; ``TrainState.state_dict``)
       goes to ``Backbone.load_state_dict``;
     - a file: ``torch.load``, its ``state_dict`` entry if it has one,
-      Lightning's ``model.`` prefix stripped, then
-      ``Backbone.load_timm_state_dict`` (strict; the ``conv_input`` layout
-      too).
+      Lightning's ``model.`` prefix stripped (``from_pytorch_lightning``),
+      then ``Backbone.load_timm_state_dict`` (the ``conv_input`` layout
+      too; ``strict=False``: keys missing from the file keep the seeded
+      init and unused ones are reported, as JAX's ``strict=False``).
 
     Messages go to stderr. Tensors saved from the card load to the CPU
     first and are copied into the model's device."""
@@ -306,7 +360,9 @@ def load_checkpoint(checkpoint_path: str, backbone):
                          weights_only=False)
     state_dict = (payload.get("state_dict", payload)
                   if isinstance(payload, dict) else payload)
-    backbone.load_timm_state_dict(strip_model_prefix(state_dict))
+    if from_pytorch_lightning:
+        state_dict = strip_model_prefix(state_dict)
+    backbone.load_timm_state_dict(state_dict, strict=strict)
     print(f"Model {backbone.name} trained checkpoint successfully loaded",
           file=sys.stderr)
     return backbone

@@ -21,8 +21,9 @@ rows, so the draws do not depend on how the batch is split.
 
 Every BatchNorm is :class:`GroupBatchNorm2d` (``batch_norm``): in training
 inside a process group of more than one rank, its batch statistics cover
-the group's global batch, as JAX's do over a sharded batch; otherwise it
-is ``nn.BatchNorm2d``'s own forward.
+the group's global batch (over the ranks that hold distinct rows), as
+JAX's do over a sharded batch; otherwise it is ``nn.BatchNorm2d``'s own
+forward.
 """
 
 from __future__ import annotations
@@ -78,21 +79,22 @@ class _GroupBatchNorm(torch.autograd.Function):
     Chan's parallel variance does; backward: (sum dy, sum dy * x_hat) are
     all-reduced, so each rank's dx is that of the global batch's loss sum
     (DDP then averages the parameters' gradients over the ranks, as
-    ``SyncBatchNorm`` does)."""
+    ``SyncBatchNorm`` does). ``group``: the ranks that hold distinct rows
+    (None: the whole process group)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, group):
         c = x.shape[1]
         x32 = x.float()
         n_local = x.numel() // c
         var_l, mean_l = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
-        rows = torch.zeros((dist.get_world_size(), 2 * c + 1),
+        rows = torch.zeros((dist.get_world_size(group), 2 * c + 1),
                            dtype=torch.float64, device=x.device)
-        mine = rows[dist.get_rank()]
+        mine = rows[dist.get_rank(group)]
         mine[0] = n_local
         mine[1:c + 1] = mean_l
         mine[c + 1:] = var_l * n_local
-        dist.all_reduce(rows)
+        dist.all_reduce(rows, group=group)
         counts, means, m2 = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
         n = counts.sum()
         mean = (counts * means).sum(0) / n
@@ -105,6 +107,7 @@ class _GroupBatchNorm(torch.autograd.Function):
         n = n.float()
         ctx.save_for_backward(x_hat, weight, invstd, n)
         ctx.in_dtype = x.dtype
+        ctx.group = group
         var = var.float()
         ctx.mark_non_differentiable(mean, var, n)
         return y.to(x.dtype), mean, var, n
@@ -118,28 +121,35 @@ class _GroupBatchNorm(torch.autograd.Function):
                           (dy32 * x_hat).sum((0, 2, 3))])
         dw = sums[c:].clone()        # this rank's own: DDP averages it
         db = sums[:c].clone()
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         sum_dy, sum_dy_xhat = sums[:c], sums[c:]
         dx = (dy32 - (sum_dy / n).view(1, -1, 1, 1)
               - x_hat * (sum_dy_xhat / n).view(1, -1, 1, 1))
         dx = dx * (weight.float() * invstd).view(1, -1, 1, 1)
         return (dx.to(ctx.in_dtype), dw.to(weight.dtype),
-                db.to(weight.dtype), None)
+                db.to(weight.dtype), None, None)
 
 
 class GroupBatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training statistics cover every rank of
-    the process group (the same parameters, buffers and state-dict keys).
-    The running variance takes torch's unbiased factor from the global row
-    count. Outside a group, at world size 1 and in evaluation it is
+    """``nn.BatchNorm2d`` whose training statistics cover the rows of
+    every rank of ``group`` (the same parameters, buffers and state-dict
+    keys). ``group`` is None (the whole process group), or, for a pass
+    on a mesh of more axes, the mesh's ``batch_group``: the ranks that
+    hold distinct rows (``Backbone.features_and_logits`` sets it for the
+    pass), so rows that several ranks hold count once. The running
+    variance takes torch's unbiased factor from the global row count.
+    Outside a group, over one rank and in evaluation it is
     ``nn.BatchNorm2d.forward`` itself."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and dist.is_available()
-                and dist.is_initialized() and dist.get_world_size() > 1):
+                and dist.is_initialized()
+                and dist.get_world_size(self.group) > 1):
             return super().forward(x)
         y, mean, var, n = _GroupBatchNorm.apply(x, self.weight, self.bias,
-                                                self.eps)
+                                                self.eps, self.group)
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             m = (1.0 / float(self.num_batches_tracked)

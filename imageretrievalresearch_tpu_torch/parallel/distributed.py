@@ -152,31 +152,39 @@ def barrier() -> None:
 
 # ------------------------------------------------------------ collectives
 
+def group_size(group=None) -> int:
+    """The ranks of ``group`` (None: the whole group; 1 outside one)."""
+    return dist.get_world_size(group) if in_group() else 1
+
+
 @torch.no_grad()
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` (the same shape on each) concatenated on dim 0
-    in rank order, without gradient; ``x`` itself outside a group."""
-    n = world_size()
+    in rank order, over ``group`` (None: the whole group; a mesh's
+    ``batch_group``: the ranks that hold distinct rows), without
+    gradient; ``x`` itself outside a group or over one rank."""
+    n = group_size(group)
     if n == 1:
         return x
     src = x.contiguous()
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.all_gather_into_tensor(out, src)
+    dist.all_gather_into_tensor(out, src, group=group)
     return out
 
 
 @torch.no_grad()
-def mean_over_group(values: dict[str, torch.Tensor]
+def mean_over_group(values: dict[str, torch.Tensor], group=None
                     ) -> dict[str, torch.Tensor]:
-    """Each scalar averaged over the ranks, in one all-reduce (f32)."""
-    n = world_size()
+    """Each scalar averaged over the ranks of ``group`` (as
+    :func:`all_gather_rows`), in one all-reduce (f32)."""
+    n = group_size(group)
     if n == 1 or not values:
         return values
     keys = list(values)
     flat = torch.stack([values[k].detach().float().reshape(())
                         for k in keys])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     flat /= n
     return {k: flat[i] for i, k in enumerate(keys)}
 

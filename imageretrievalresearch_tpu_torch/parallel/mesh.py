@@ -4,21 +4,26 @@ retrieval), or the ranks of a process group (multi-device training).
 Counterpart of ``imageretrievalresearch_tpu/parallel/mesh.py``. JAX has
 one kind of mesh: one controller drives every device, and a multi-host
 run adds a controller per host. The port has two readings of one
-:class:`Mesh` class, both with one axis (``data``):
+:class:`Mesh` class:
 
-- ``Mesh(devices)`` (``rank`` None): the calling process drives every
-  device, with no process group and no collective library. Sharded
-  retrieval runs on it (``put_row_sharded``; the sharded top-k's
-  all-gather is a copy of each shard's candidates to
+- ``Mesh(devices)`` (``rank`` None, one axis, ``data``): the calling
+  process drives every device, with no process group and no collective
+  library. Sharded retrieval runs on it (``put_row_sharded``; the sharded
+  top-k's all-gather is a copy of each shard's candidates to
   ``mesh.devices[0]``). A device may repeat: ``Mesh(["cuda:0"] * 4)`` is
   four shards on one card, ``Mesh(["cpu"] * 8)`` the counterpart of JAX's
   eight virtual CPU devices.
-- :func:`make_mesh` inside a process group (``parallel.distributed``):
-  ``devices`` lists each rank's device in rank order and ``rank`` is this
-  process's; it drives ``devices[rank]`` only, and the group's
-  collectives join the rest. Training runs on it: :func:`shard_batch`
-  takes this rank's rows of a batch, :func:`put_replicated` places a
-  module or state the same on every rank, ``fsdp.put_fsdp`` shards it.
+- :func:`make_mesh` (one axis) or :func:`group_mesh` (any shape, e.g.
+  ``group_mesh((2, 2), ("data", "model"))``) inside a process group
+  (``parallel.distributed``): ``devices`` lists each rank's device in
+  rank order and ``rank`` is this process's; it drives ``devices[rank]``
+  only, and the group's collectives join the rest. Training runs on it:
+  :func:`shard_batch` takes this rank's rows of a batch (split over
+  ``data``, whole over ``model``), :func:`put_replicated` places a module
+  or state the same on every rank, ``fsdp.put_fsdp`` shards it (over
+  ``data`` on a one-axis mesh, over ``model`` on a ``(data, model)``
+  one). The batch-wide collectives run over ``Mesh.batch_group``, the
+  ranks that hold distinct rows.
 """
 
 from __future__ import annotations
@@ -34,29 +39,50 @@ from imageretrievalresearch_tpu_torch.parallel import distributed
 
 
 class Mesh:
-    """A one-axis mesh: ``devices`` (repeats allowed) and ``axis_names``
-    (one name). ``shape`` maps the axis name to the device count, as
-    ``jax.sharding.Mesh.shape`` does. ``rank`` None: this process drives
-    every device; an int: the mesh of a process group, whose rank
-    ``rank`` this process is (it drives ``local_device`` only)."""
+    """A mesh of ``devices`` (repeats allowed) over ``axis_names``.
+    ``shape`` gives each axis's size in ``axis_names``' order (default:
+    one axis of every device); ``mesh.shape`` maps each axis name to its
+    size, as ``jax.sharding.Mesh.shape`` does. The devices lie in
+    row-major order over the axes: on a ``(data, model)`` mesh the device
+    (and rank) ``r`` sits at ``(r // model, r % model)``, as
+    ``np.reshape(devices, (data, model))`` places it.
+
+    ``rank`` None: this process drives every device (one axis only); an
+    int: the mesh of a process group, whose rank ``rank`` this process is
+    (it drives ``local_device`` only). A group's mesh of more than one
+    axis carries ``device_mesh``, the ``torch.distributed`` DeviceMesh of
+    the same layout (its sub-groups: :func:`group_mesh` builds it)."""
 
     def __init__(self, devices: Sequence[str | torch.device],
-                 axis_names: Sequence[str] = ("data",), *,
-                 rank: int | None = None):
+                 axis_names: Sequence[str] = ("data",),
+                 shape: Sequence[int] | None = None, *,
+                 rank: int | None = None, device_mesh=None):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis_names = tuple(axis_names)
         self.rank = rank
+        self.device_mesh = device_mesh
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
-        if len(self.axis_names) != 1:
-            raise ValueError(f"one mesh axis is supported, got "
+        sizes = (tuple(int(n) for n in shape) if shape is not None
+                 else (len(self.devices),))
+        if len(sizes) != len(self.axis_names):
+            raise ValueError(f"mesh shape {sizes} for axes "
                              f"{self.axis_names}")
+        if int(np.prod(sizes)) != len(self.devices):
+            raise ValueError(f"a mesh of shape {sizes} needs "
+                             f"{int(np.prod(sizes))} devices, got "
+                             f"{len(self.devices)}")
+        if rank is None and len(sizes) != 1:
+            raise ValueError("a mesh that one process drives has one axis "
+                             f"(got {self.axis_names}); a mesh of more "
+                             "axes is a process group's (group_mesh)")
+        self._sizes = sizes
         if any(d.type == "cuda" for d in self.devices):
             set_float32_precision()
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, self._sizes))
 
     @property
     def local_device(self) -> torch.device:
@@ -68,6 +94,30 @@ class Mesh:
                              "group's mesh")
         return self.devices[self.rank]
 
+    @property
+    def coords(self) -> dict[str, int]:
+        """This rank's index along each axis (row-major) on a process
+        group's mesh."""
+        self.local_device       # raises on a mesh that one process drives
+        index = np.unravel_index(self.rank, self._sizes)
+        return {a: int(i) for a, i in zip(self.axis_names, index)}
+
+    @property
+    def batch_group(self):
+        """The process group over which the ranks hold distinct rows of a
+        batch (``shard_batch``'s ``data`` axis), for the batch-wide
+        collectives: None (the whole group) on a one-axis mesh, the
+        ``data`` axis's sub-group of this rank on a mesh of more axes."""
+        if self.device_mesh is None or len(self.axis_names) == 1:
+            return None
+        return self.device_mesh.get_group("data")
+
+    def rows_of(self, n: int) -> tuple[int, int]:
+        """``(first, total)``: where this rank's ``n`` rows (its
+        ``shard_batch`` part) lie in the global batch; the steps and the
+        transforms take it as ``rows``."""
+        return self.coords["data"] * n, n * self.shape["data"]
+
     def check_single_process(self, what: str) -> None:
         if self.rank is not None:
             raise ValueError(f"{what} runs on a mesh that one process "
@@ -76,27 +126,61 @@ class Mesh:
 
     def __repr__(self) -> str:
         rank = "" if self.rank is None else f", rank={self.rank}"
+        shape = ("" if len(self._sizes) == 1
+                 else f", shape={self._sizes}")
         return (f"Mesh({[str(d) for d in self.devices]}, "
-                f"{self.axis_names}{rank})")
+                f"{self.axis_names}{shape}{rank})")
+
+
+def group_mesh(shape: Sequence[int] | None = None,
+               axis_names: Sequence[str] = ("data",)) -> Mesh:
+    """The mesh of the process group this process is in: every rank's
+    device in rank order, this process's rank, laid out as ``shape`` over
+    ``axis_names`` (default: one axis of every rank). Every rank calls it
+    together (it gathers the ranks' devices, and a mesh of more axes
+    builds its DeviceMesh, whose sub-groups are new process groups). A
+    2-D ``(data, model)`` mesh is JAX's
+    ``Mesh(devices.reshape(data, model), ("data", "model"))``: the batch
+    splits over ``data`` (:func:`shard_batch`) and ``fsdp.put_fsdp(...,
+    axis_name="model")`` shards the parameters over ``model``."""
+    if not distributed.in_group():
+        raise RuntimeError("not in a process group: a group's mesh needs "
+                           "parallel.distributed.init_group first")
+    n = distributed.world_size()
+    sizes = tuple(shape) if shape is not None else (n,)
+    axis_names = tuple(axis_names)
+    if int(np.prod(sizes)) != n:
+        raise ValueError(f"a mesh of shape {sizes} in a process group of "
+                         f"{n} ranks")
+    if len(sizes) > 1 and "data" not in axis_names:
+        raise ValueError(f"a group's mesh of axes {axis_names} needs a "
+                         "'data' axis (the batch's)")
+    names = [None] * n
+    torch.distributed.all_gather_object(names,
+                                        str(distributed.local_device()))
+    device_mesh = None
+    if len(sizes) > 1:
+        from torch.distributed.device_mesh import init_device_mesh
+        device_mesh = init_device_mesh(distributed.local_device().type,
+                                       sizes, mesh_dim_names=axis_names)
+    return Mesh(names, axis_names, sizes, rank=distributed.rank(),
+                device_mesh=device_mesh)
 
 
 def make_mesh(num_devices: int | None = None,
               axis_name: str = "data") -> Mesh:
-    """Inside a process group: the group's mesh (each rank's device, this
-    process's rank; ``num_devices``, if given, must be the group's size).
-    Otherwise the first ``num_devices`` CUDA devices (all by default), as
-    JAX takes ``jax.devices()[:num_devices]``; that raises without a GPU:
-    build a ``Mesh`` of explicit devices (e.g. ``["cpu"] * 8``) to run
-    elsewhere."""
+    """A one-axis mesh, as JAX's ``make_mesh``. Inside a process group:
+    the group's (:func:`group_mesh`; ``num_devices``, if given, must be
+    the group's size). Otherwise the first ``num_devices`` CUDA devices
+    (all by default), as JAX takes ``jax.devices()[:num_devices]``; that
+    raises without a GPU: build a ``Mesh`` of explicit devices (e.g.
+    ``["cpu"] * 8``) to run elsewhere."""
     if distributed.in_group():
         n = distributed.world_size()
         if num_devices is not None and num_devices != n:
             raise ValueError(f"num_devices={num_devices} in a process group "
                              f"of {n} ranks")
-        names = [None] * n
-        torch.distributed.all_gather_object(
-            names, str(distributed.local_device()))
-        return Mesh(names, (axis_name,), rank=distributed.rank())
+        return group_mesh((n,), (axis_name,))
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: make_mesh takes the GPUs; build "
@@ -200,10 +284,12 @@ class NamedSharding:
 
     @property
     def placements(self) -> tuple:
-        """The ``torch.distributed.tensor`` placement of this layout."""
+        """The ``torch.distributed.tensor`` placements of this layout, one
+        per mesh axis: ``Shard(d)`` where the spec names the axis at dim
+        d, ``Replicate()`` elsewhere."""
         from torch.distributed.tensor import Replicate, Shard
-        dims = [i for i, a in enumerate(self.spec) if a is not None]
-        return (Shard(dims[0]),) if dims else (Replicate(),)
+        return tuple(Shard(self.spec.index(a)) if a in self.spec
+                     else Replicate() for a in self.mesh.axis_names)
 
 
 def data_sharding(mesh: Mesh, ndim: int = 1,
@@ -221,10 +307,19 @@ def shard_batch(mesh: Mesh, batch: Any, axis_name: str = "data") -> Any:
     as tensors on its device, on a process group's mesh: where every
     process loads its own slice (``distributed.process_count() > 1``, the
     multi-host flags), the batch IS this rank's slice; otherwise it is the
-    global batch and rank r takes rows ``[r * b, (r + 1) * b)``, ``b`` the
-    rows over the ranks (which must divide)."""
-    n, r, dev = mesh.shape[axis_name], mesh.rank, mesh.local_device
+    global batch, split on its leading dim over the ``axis_name`` axis and
+    whole over the others (JAX's ``P(axis_name)``): the rank at index d of
+    that axis takes rows ``[d * b, (d + 1) * b)``, ``b`` the rows over the
+    axis's size (which must divide). On a ``(data, model)`` mesh the ranks
+    at one ``data`` index hold the same rows."""
+    n, dev = mesh.shape[axis_name], mesh.local_device
+    r = mesh.coords[axis_name]
     local = distributed.process_count() > 1
+    if local and len(mesh.axis_names) > 1:
+        raise NotImplementedError(
+            "processes that each load their own slice (the multi-host "
+            "flags) train on a one-axis mesh; a mesh of more axes takes "
+            "the global batch on every rank")
 
     def put(x):
         x = torch.as_tensor(np.asarray(x))

@@ -30,7 +30,11 @@ in-batch top-k ranks the embeddings and labels gathered from every rank
 classifier top-k) are averaged over the ranks, whose parts are equal. The
 losses themselves stay this rank's row means: DDP averages their
 gradients over the ranks. A batch without ``rows`` is whole, and nothing
-is gathered.
+is gathered. A step built with a ``mesh`` of more axes (a ``(data,
+model)`` mesh, where the ranks at one ``data`` index hold the same rows)
+runs these collectives and BatchNorm's over ``mesh.batch_group``, the
+ranks that hold distinct rows; with a one-axis mesh or none, over the
+whole group.
 """
 
 from __future__ import annotations
@@ -59,11 +63,19 @@ def _autocast(cfg: TrainConfig, device: torch.device):
                           enabled=cfg.compute_dtype == "bfloat16")
 
 
+def _group(mesh):
+    """The process group of the batch-wide collectives (None: the whole
+    group)."""
+    return None if mesh is None else mesh.batch_group
+
+
 def _features_and_logits(model, x: torch.Tensor, batch: dict, train: bool,
-                         generator: torch.Generator | None, roles: int):
+                         generator: torch.Generator | None, roles: int,
+                         group=None):
     """One pass of ``x`` (``roles`` roles of the batch's rows, stacked)
     through the model's ``__call__``; dropout draws for the global rows
-    where the batch is one rank's part."""
+    where the batch is one rank's part, BatchNorm's statistics cover
+    ``group``'s rows."""
     rows = None
     if "rows" in batch:
         first, total = batch["rows"]
@@ -72,35 +84,37 @@ def _features_and_logits(model, x: torch.Tensor, batch: dict, train: bool,
         rows = (roles * total, torch.cat([local + r * total
                                           for r in range(roles)]))
     model.train(train)
+    kw = {} if group is None else {"group": group}
     return model(x, features_and_logits=True, train=train,
-                 generator=generator, rows=rows)
+                 generator=generator, rows=rows, **kw)
 
 
 def _forward_triplet(model, batch: dict, train: bool,
-                     generator: torch.Generator | None):
+                     generator: torch.Generator | None, group=None):
     """(fm_q, fm_p, fm_n), (lb_q, lb_p, lb_n) from one pass over the
     concatenated roles."""
     qry = batch["qry"]
     b = qry.shape[0]
     x = torch.cat([qry, batch["pos"][0], batch["neg"][0]], dim=0)
-    emb, logits = _features_and_logits(model, x, batch, train, generator, 3)
+    emb, logits = _features_and_logits(model, x, batch, train, generator, 3,
+                                       group)
     return emb.split(b), logits.split(b)
 
 
-def _inbatch_topk(fms, batch: dict) -> dict:
-    """The in-batch top-k over the global batch: gathered where the batch
-    is one rank's part."""
+def _inbatch_topk(fms, batch: dict, group=None) -> dict:
+    """The in-batch top-k over the global batch: gathered over ``group``
+    where the batch is one rank's part."""
     fm_q, fm_p, classes = fms[0], fms[1], batch["cat_idx"]
     if "rows" in batch:
-        fm_q, fm_p, classes = map(all_gather_rows,
-                                  (fm_q.detach(), fm_p.detach(), classes))
+        fm_q, fm_p, classes = (all_gather_rows(t, group) for t in
+                               (fm_q.detach(), fm_p.detach(), classes))
     return M.inbatch_topk(fm_q, fm_p, classes, k=3)
 
 
-def _global_means(batch: dict, values: dict) -> dict:
-    """Row means over the global batch: averaged over the ranks where the
-    batch is one rank's part."""
-    return mean_over_group(values) if "rows" in batch else values
+def _global_means(batch: dict, values: dict, group=None) -> dict:
+    """Row means over the global batch: averaged over ``group``'s ranks
+    where the batch is one rank's part."""
+    return mean_over_group(values, group) if "rows" in batch else values
 
 
 def _losses_for_mode(cfg: TrainConfig, fms, lbls, batch: dict) -> dict:
@@ -151,14 +165,19 @@ def _train_metrics(loss, tk, lr_used) -> dict:
     return metrics
 
 
-def build_train_step(cfg: TrainConfig, schedule=None) -> Callable:
+def build_train_step(cfg: TrainConfig, schedule=None, mesh=None
+                     ) -> Callable:
     """``train_step(state, batch, generator) -> (state, metrics)``;
-    ``generator`` (on the batch's device) drives dropout."""
+    ``generator`` (on the batch's device) drives dropout; ``mesh``: the
+    process group's mesh the batch was sharded on (see the module's
+    docstring)."""
+    group = _group(mesh)
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
         with _autocast(cfg, batch["qry"].device):
-            fms, lbls = _forward_triplet(state.model, batch, True, generator)
+            fms, lbls = _forward_triplet(state.model, batch, True, generator,
+                                         group)
             loss_dict = _losses_for_mode(cfg, fms, lbls, batch)
         lr_used = _update(state, loss_dict["loss"], schedule)
         with torch.no_grad():
@@ -167,28 +186,30 @@ def build_train_step(cfg: TrainConfig, schedule=None) -> Callable:
                 tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
                 means.update(tk)
             else:
-                tk = _inbatch_topk(fms, batch)
-            means = _global_means(batch, means)
+                tk = _inbatch_topk(fms, batch, group)
+            means = _global_means(batch, means, group)
             tk = {k: means.get(k, v) for k, v in tk.items()}
         return state, _train_metrics(means["loss"], tk, lr_used)
 
     return train_step
 
 
-def build_eval_step(cfg: TrainConfig) -> Callable:
+def build_eval_step(cfg: TrainConfig, mesh=None) -> Callable:
     """``eval_step(state, batch) -> metrics`` with the reference's
     validation keys (train/train.py:365-373): val_loss and each loss
     component, cos_sims / cos_unsims, val_top3 / val_top1."""
+    group = _group(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         with _autocast(cfg, batch["qry"].device):
-            fms, lbls = _forward_triplet(state.model, batch, False, None)
+            fms, lbls = _forward_triplet(state.model, batch, False, None,
+                                         group)
             loss_dict = _losses_for_mode(cfg, fms, lbls, batch)
         pair = M.pairwise_cos_stats(*fms)
         inbatch = cfg.loss_mode != "ce_only"
         if inbatch:
-            tk = _inbatch_topk(fms, batch)
+            tk = _inbatch_topk(fms, batch, group)
         else:
             tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
         metrics = {"val_loss": loss_dict["loss"],
@@ -202,46 +223,49 @@ def build_eval_step(cfg: TrainConfig) -> Callable:
         # row mean
         metrics.update(_global_means(batch, {
             k: v for k, v in metrics.items()
-            if not (inbatch and k in ("val_top3", "val_top1"))}))
+            if not (inbatch and k in ("val_top3", "val_top1"))}, group))
         return metrics
 
     return eval_step
 
 
-def build_classifier_train_step(cfg: TrainConfig, schedule=None
-                                ) -> Callable:
+def build_classifier_train_step(cfg: TrainConfig, schedule=None,
+                                mesh=None) -> Callable:
     """Single-image CE classification step (T5,
     train/train_vit_crossentropy.py:180-223) on ``{'image': (B,H,W,3),
     'label': (B,)}``: CE over the folder classes, logit top-1/top-3."""
+    group = _group(mesh)
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
         with _autocast(cfg, batch["image"].device):
             _, logits = _features_and_logits(state.model, batch["image"],
-                                             batch, True, generator, 1)
+                                             batch, True, generator, 1,
+                                             group)
             loss = L.cross_entropy_loss(logits, batch["label"])
         lr_used = _update(state, loss, schedule)
         with torch.no_grad():
             tk = M.classifier_topk(logits, batch["label"], k=3)
-            m = _global_means(batch, {"loss": loss.detach(), **tk})
+            m = _global_means(batch, {"loss": loss.detach(), **tk}, group)
         return state, _train_metrics(m["loss"], m, lr_used)
 
     return train_step
 
 
-def build_classifier_eval_step(cfg: TrainConfig) -> Callable:
+def build_classifier_eval_step(cfg: TrainConfig, mesh=None) -> Callable:
     """Validation with the reference's keys
     (train/train_vit_crossentropy.py:265-268): val_loss, val_top3,
     val_top1."""
+    group = _group(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         with _autocast(cfg, batch["image"].device):
             _, logits = _features_and_logits(state.model, batch["image"],
-                                             batch, False, None, 1)
+                                             batch, False, None, 1, group)
             loss = L.cross_entropy_loss(logits, batch["label"])
         tk = M.classifier_topk(logits, batch["label"], k=3)
         return _global_means(batch, {"val_loss": loss, "val_top3": tk["top3"],
-                                     "val_top1": tk["top1"]})
+                                     "val_top1": tk["top1"]}, group)
 
     return eval_step

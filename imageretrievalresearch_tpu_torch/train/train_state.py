@@ -16,6 +16,8 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from imageretrievalresearch_tpu_torch.parallel.fsdp import full_tensor
+
 
 def multistep_lr(lr: float, milestones: Sequence[int], gamma: float,
                  steps_per_epoch: int) -> Callable[[int], float]:
@@ -58,13 +60,6 @@ def unwrap(model: torch.nn.Module) -> torch.nn.Module:
         model, torch.nn.parallel.DistributedDataParallel) else model
 
 
-def _full(t):
-    """A DTensor gathered whole (a collective: every rank calls it in the
-    same order); any other value as it is."""
-    from torch.distributed.tensor import DTensor
-    return t.full_tensor() if isinstance(t, DTensor) else t
-
-
 def _like(value, held):
     """``value`` (a whole tensor) placed as ``held`` is: sharded the same
     where ``held`` is a DTensor."""
@@ -99,10 +94,10 @@ class TrainState:
     def state_dict(self) -> dict:
         """Whole tensors. Under FSDP every rank must call it (the shards
         are gathered)."""
-        model = {k: _full(v) for k, v in unwrap(self.model).state_dict(
+        model = {k: full_tensor(v) for k, v in unwrap(self.model).state_dict(
             ).items()}
         opt = self.optimizer.state_dict()
-        opt = {**opt, "state": {i: {k: _full(v) for k, v in st.items()}
+        opt = {**opt, "state": {i: {k: full_tensor(v) for k, v in st.items()}
                                 for i, st in opt["state"].items()}}
         return {"model": model, "optimizer": opt, "step": self.step}
 

@@ -207,10 +207,18 @@ class Trainer:
         self.mesh = None
         if distributed.in_group():
             self.mesh = mesh if mesh is not None else make_mesh()
-            n = self.mesh.shape["data"]
             if self.mesh.rank is None:
                 raise ValueError("the trainer's mesh is a process group's "
                                  "(make_mesh() inside the group)")
+            if tuple(self.mesh.axis_names) != ("data",):
+                # as JAX's trainer, which builds 1-D meshes only
+                raise ValueError(
+                    f"the trainer trains on a one-axis ('data',) mesh, got "
+                    f"{self.mesh.axis_names}: a (data, model) mesh is "
+                    "driven through put_fsdp(mesh, model, "
+                    "axis_name='model'), shard_batch and the steps built "
+                    "with mesh=")
+            n = self.mesh.shape["data"]
             if cfg.num_devices is not None and cfg.num_devices != n:
                 raise ValueError(f"num_devices={cfg.num_devices} in a "
                                  f"process group of {n} ranks")
@@ -339,8 +347,8 @@ class Trainer:
         if self.mesh is None or not sharded:
             return self._prepare(transform(raw, generator))
         raw = shard_batch(self.mesh, raw)
-        n = len(raw["qry"] if "qry" in raw else raw["image"])
-        rows = (self.mesh.rank * n, n * self.mesh.shape["data"])
+        rows = self.mesh.rows_of(len(raw["qry"] if "qry" in raw
+                                     else raw["image"]))
         return {**self._prepare(transform(raw, generator, rows=rows)),
                 "rows": rows}
 
@@ -416,7 +424,7 @@ class Trainer:
         if distributed.process_count() == 1:
             return n % r == 0
         sizes = distributed.all_gather_rows(
-            torch.tensor([n], device=self.device))
+            torch.tensor([n], device=self.device), self.mesh.batch_group)
         if bool((sizes == n).all()):
             return True
         if self._is_main:
