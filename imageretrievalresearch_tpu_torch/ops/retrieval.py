@@ -48,6 +48,7 @@ import torch
 
 from imageretrievalresearch_tpu_torch.losses import COSINE_SIM_EPS
 from imageretrievalresearch_tpu_torch.ops import _cuda
+from imageretrievalresearch_tpu_torch.utils.profiling import count, span
 
 # Geometry of the CUDA kernels (compile-time constants of csrc/fused_topk.cu;
 # the launcher rejects a mismatch). The TPU kernels used 512 bins of depth 6.
@@ -706,22 +707,28 @@ def certified_topk_repair(q_hat, gallery, k, vals, inds, ok, *,
     """Bounded certificate repair, an eager branch on the number of bad
     rows: none -> unchanged; at most RETRY = min(64, Q) -> re-rank those
     rows densely with the same score arithmetic (:func:`_dense_topk`);
-    more -> the caller's full dense pass."""
+    more -> the caller's full dense pass. Counts ``topk.rows`` (Q),
+    ``topk.repaired_rows`` and ``topk.fallback_rows`` (Q of a full pass)
+    while spans are on."""
     q = q_hat.shape[0]
     retry = min(64, q)
-    bad = torch.nonzero(ok == 0).reshape(-1)
-    n_bad = int(bad.numel())
-    if n_bad == 0:
+    with span("topk.certificate"):
+        count("topk.rows", q)
+        bad = torch.nonzero(ok == 0).reshape(-1)
+        n_bad = int(bad.numel())
+        if n_bad == 0:
+            return vals, inds
+        if n_bad > retry:
+            count("topk.fallback_rows", q)
+            return full_fallback()
+        count("topk.repaired_rows", n_bad)
+        rvals, rinds = _dense_topk(q_hat[bad], gallery, k, matmul_dtype,
+                                   gallery_scale=gallery_scale,
+                                   gallery_norms=gallery_norms)
+        vals, inds = vals.clone(), inds.clone()
+        vals[bad] = rvals
+        inds[bad] = rinds
         return vals, inds
-    if n_bad > retry:
-        return full_fallback()
-    rvals, rinds = _dense_topk(q_hat[bad], gallery, k, matmul_dtype,
-                               gallery_scale=gallery_scale,
-                               gallery_norms=gallery_norms)
-    vals, inds = vals.clone(), inds.clone()
-    vals[bad] = rvals
-    inds[bad] = rinds
-    return vals, inds
 
 
 def _rows(t: torch.Tensor | None, lo: int, hi: int):
@@ -872,7 +879,9 @@ def rank_normalized(q_hat: torch.Tensor, gallery: torch.Tensor, k: int, *,
                                gallery_norms=gallery_norms)
     if not fused:
         return dense_rank()
-    vals, inds, ok = _fused(q_hat, gallery, k, gallery_norms, gallery_scale)
+    with span("topk.kernel"):
+        vals, inds, ok = _fused(q_hat, gallery, k, gallery_norms,
+                                gallery_scale)
     return certified_topk_repair(q_hat, gallery, k, vals, inds, ok,
                                  matmul_dtype=matmul_dtype,
                                  gallery_scale=gallery_scale,

@@ -28,6 +28,7 @@ from imageretrievalresearch_tpu_torch.ops.retrieval import (
     cosine_topk,
     l2_normalize,
 )
+from imageretrievalresearch_tpu_torch.utils.profiling import span
 
 
 class RetrievalEngine:
@@ -53,10 +54,14 @@ class RetrievalEngine:
     def embed_batch(self, images) -> torch.Tensor:
         """(B, H, W, C) uint8/float NHWC -> (B, D) embeddings on the
         device (transform first, when one is set)."""
-        x = self._tensor(images)
-        if self.transform is not None:
-            x = self.transform(x)
-        return self.backbone.embed(x.float())
+        with span("engine.embed"):
+            with span("engine.upload"):
+                x = self._tensor(images)
+            if self.transform is not None:
+                with span("engine.transform"):
+                    x = self.transform(x)
+            with span("engine.backbone"):
+                return self.backbone.embed(x.float())
 
     def embed_triplet_loader(self, loader: Iterable, *,
                              keep_images: bool = False) -> dict:

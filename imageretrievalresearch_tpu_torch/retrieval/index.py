@@ -45,6 +45,7 @@ from imageretrievalresearch_tpu_torch.parallel.gallery import (
     sharded_cosine_topk,
 )
 from imageretrievalresearch_tpu_torch.parallel.mesh import RowSharded
+from imageretrievalresearch_tpu_torch.utils.profiling import span
 
 _FORMAT_VERSION = 1          # raw f32 embeddings
 _FORMAT_VERSION_COMPACT = 2  # bf16 bit-view / int8+scales storage
@@ -354,10 +355,13 @@ class GalleryIndex:
         ``mesh`` (a :class:`parallel.mesh.Mesh`; float32, bfloat16 and
         int8, exact method) the gallery is ranked in row shards over the
         mesh's devices, with the unsharded result."""
-        vals, inds = self._query_tensors(queries, k, method, matmul_dtype,
-                                         mesh, precision, shortlist)
-        inds = inds.cpu().numpy()
-        return vals.cpu().numpy(), inds, self.classes[inds]
+        with span("index.query"):
+            vals, inds = self._query_tensors(queries, k, method,
+                                             matmul_dtype, mesh, precision,
+                                             shortlist)
+            with span("index.fetch"):
+                inds = inds.cpu().numpy()
+                return vals.cpu().numpy(), inds, self.classes[inds]
 
     def query_class_dedup(self, queries, *, k: int = 150,
                           num_unique: int = 3, method: str = "exact",
@@ -367,9 +371,14 @@ class GalleryIndex:
         """Top-k, then the first ``num_unique`` unique classes
         (training_analysis.ipynb cell 2). Returns numpy ``(vals, inds,
         classes)`` each (Q, num_unique)."""
-        vals, inds = self._query_tensors(queries, k, method, matmul_dtype,
-                                         mesh, precision, shortlist)
-        uniq_inds, uniq_vals, uniq_cls = M.unique_class_dedup(
-            inds, vals, self._classes_on_device(), num_unique=num_unique)
-        return (uniq_vals.cpu().numpy(), uniq_inds.cpu().numpy(),
-                uniq_cls.cpu().numpy())
+        with span("index.query"):
+            vals, inds = self._query_tensors(queries, k, method,
+                                             matmul_dtype, mesh, precision,
+                                             shortlist)
+            with span("index.dedup"):
+                uniq_inds, uniq_vals, uniq_cls = M.unique_class_dedup(
+                    inds, vals, self._classes_on_device(),
+                    num_unique=num_unique)
+            with span("index.fetch"):
+                return (uniq_vals.cpu().numpy(), uniq_inds.cpu().numpy(),
+                        uniq_cls.cpu().numpy())

@@ -51,6 +51,7 @@ from imageretrievalresearch_tpu_torch.parallel.distributed import (
     mean_over_group,
 )
 from imageretrievalresearch_tpu_torch.train.train_state import TrainState
+from imageretrievalresearch_tpu_torch.utils.profiling import span
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -146,13 +147,16 @@ def _losses_for_mode(cfg: TrainConfig, fms, lbls, batch: dict) -> dict:
 def _update(state: TrainState, loss: torch.Tensor, schedule) -> float | None:
     """Backward and one optimizer update at the schedule's rate for the
     step before the increment (the rate this update uses)."""
-    lr_used = schedule(state.step) if schedule is not None else None
-    if lr_used is not None:
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr_used
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
+    with span("train.optimizer"):
+        lr_used = schedule(state.step) if schedule is not None else None
+        if lr_used is not None:
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr_used
+        state.optimizer.zero_grad(set_to_none=True)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        state.optimizer.step()
     state.step += 1
     return lr_used
 
@@ -175,12 +179,12 @@ def build_train_step(cfg: TrainConfig, schedule=None, mesh=None
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
-        with _autocast(cfg, batch["qry"].device):
+        with span("train.forward"), _autocast(cfg, batch["qry"].device):
             fms, lbls = _forward_triplet(state.model, batch, True, generator,
                                          group)
             loss_dict = _losses_for_mode(cfg, fms, lbls, batch)
         lr_used = _update(state, loss_dict["loss"], schedule)
-        with torch.no_grad():
+        with span("train.metrics"), torch.no_grad():
             means = {"loss": loss_dict["loss"].detach()}
             if cfg.loss_mode == "ce_only":
                 tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
@@ -238,13 +242,13 @@ def build_classifier_train_step(cfg: TrainConfig, schedule=None,
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
-        with _autocast(cfg, batch["image"].device):
+        with span("train.forward"), _autocast(cfg, batch["image"].device):
             _, logits = _features_and_logits(state.model, batch["image"],
                                              batch, True, generator, 1,
                                              group)
             loss = L.cross_entropy_loss(logits, batch["label"])
         lr_used = _update(state, loss, schedule)
-        with torch.no_grad():
+        with span("train.metrics"), torch.no_grad():
             tk = M.classifier_topk(logits, batch["label"], k=3)
             m = _global_means(batch, {"loss": loss.detach(), **tk}, group)
         return state, _train_metrics(m["loss"], m, lr_used)

@@ -87,6 +87,7 @@ from imageretrievalresearch_tpu_torch.train.train_state import (
 from imageretrievalresearch_tpu_torch.utils.checkpoint import (
     CheckpointManager,
 )
+from imageretrievalresearch_tpu_torch.utils import profiling
 from imageretrievalresearch_tpu_torch.utils.logging import MetricLogger
 
 # batch entries that are labels, not images
@@ -358,10 +359,12 @@ class Trainer:
         ``generators[0]``), then ``step`` (the trainer's by default; its
         dropout draws from ``generators[1]``)."""
         tgen, dgen = generators
-        batch = self._batch(raw, self.transform, tgen)
-        state, metrics = (step or self._train_step)(state, batch, dgen)
-        if self._fsdp:
-            constrain_fsdp(self.mesh, state.model, state.optimizer)
+        with profiling.span("train.step"):
+            with profiling.span("train.transform"):
+                batch = self._batch(raw, self.transform, tgen)
+            state, metrics = (step or self._train_step)(state, batch, dgen)
+            if self._fsdp:
+                constrain_fsdp(self.mesh, state.model, state.optimizer)
         return state, metrics
 
     def _generators(self, epoch: int):
@@ -379,10 +382,11 @@ class Trainer:
             if (self.cfg.profile_dir and epoch == 0 and i == 1
                     and self._is_main):
                 # trace steps 1-3 of the first epoch (step 0 warms up)
-                prof = self._start_profile()
+                prof = profiling.start()
             state, metrics = self.train_batch(state, raw, gens)
             if prof is not None and i >= 3:
-                prof = self._stop_profile(prof)
+                self._stop_profile(prof)
+                prof = None
             if (i + 1) % self.cfg.log_every_n_steps == 0:
                 self.logger.log(metrics, state.step, force=True)
             for k, v in metrics.items():
@@ -392,22 +396,9 @@ class Trainer:
         return state, {k: float(np.mean([float(x) for x in v]))
                        for k, v in agg.items()}
 
-    def _start_profile(self):
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-        return prof
-
     def _stop_profile(self, prof) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        os.makedirs(self.cfg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.cfg.profile_dir,
-                                              "trace.json"))
-        return None
+        profiling.stop(prof, os.path.join(self.cfg.profile_dir, "trace.json"),
+                       self.device)
 
     def _eval_sharded(self, n: int) -> bool | None:
         """Whether an eval batch of ``n`` rows (this process's) runs

@@ -1,47 +1,132 @@
-"""The port's profiling helpers and profiling tool on the CPU.
+"""The port's profiling facility and profiling tool on the CPU.
 
-``utils/profiling.py`` is held against the JAX package's. The tool's
-kernels (the ablation ladder of the fused top-k kernel and the row-block
-stream probe) run only on the card; here their plain versions, which
-define what each kernel computes, are held against restatements of the
-kernels' arithmetic in numpy. JAX's ``build_variants``
-(``tools/profile_fused_kernel.py:72``) cannot serve as the reference on
-the CPU: it is hardwired to TPU memory spaces and has no ``interpret``
-flag (``:188-203``), so its kernels cannot run here. Its probe body
-(``:275-289``) is plain enough to restate: ``acc += sum(x_block, axis=1)``
-over the row blocks. The card's comparisons are in
-``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``.
+``utils/profiling.py``: spans and counters (off, on, nested, in a trace,
+at the engine's, the index's, the top-k's and the train step's
+boundaries, and the profile stopped where its block or its sync
+fails). The tool's kernels (the
+ablation ladder of the fused top-k kernel and the row-block stream probe)
+run only on the card; here their plain versions, which define what each
+kernel computes, are held against restatements of the kernels' arithmetic
+in numpy. JAX's ``build_variants`` (``tools/profile_fused_kernel.py:72``)
+cannot serve as the reference on the CPU: it is hardwired to TPU memory
+spaces and has no ``interpret`` flag (``:188-203``), so its kernels cannot
+run here. Its probe body (``:275-289``) is plain enough to restate:
+``acc += sum(x_block, axis=1)`` over the row blocks. The card's
+comparisons are in ``tests/test_torch_cuda_kernels.py`` and
+``chip_smoke.py``.
 """
 
 import json
 import time
+import tracemalloc
 
 import numpy as np
 import pytest
 import torch
 
-from imageretrievalresearch_tpu.utils import profiling as JP
+from imageretrievalresearch_tpu_torch.models import create_model
 from imageretrievalresearch_tpu_torch.ops import retrieval as R
+from imageretrievalresearch_tpu_torch.ops.preprocess import (
+    build_eval_transform,
+)
+from imageretrievalresearch_tpu_torch.recipes import make_config
+from imageretrievalresearch_tpu_torch.retrieval import (
+    GalleryIndex,
+    RetrievalEngine,
+)
 from imageretrievalresearch_tpu_torch.tools import profile_fused_kernel as P
+from imageretrievalresearch_tpu_torch.train.trainer import Trainer
 from imageretrievalresearch_tpu_torch.utils import profiling as TP
 
 BINS, DEPTH = R.FUSED_BINS, R.FUSED_T_DEPTH
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    clock = [0.0, 0.010, 0.025, 0.026, 0.050, 0.090, 0.093]
-    timers = {}
-    for name, module in (("jax", JP), ("port", TP)):
-        ticks = iter(clock)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        timer = module.StepTimer(window=3)
-        assert timer.mean_ms == 0.0 and timer.throughput(64) == 0.0
-        timers[name] = ([timer.tick() for _ in clock], timer.times,
-                        timer.mean_ms, timer.throughput(64))
-    assert timers["port"] == timers["jax"]
-    dts, times, mean_ms, _ = timers["port"]
-    assert dts[0] is None and len(times) == 3
-    assert mean_ms == pytest.approx(1000 * (0.024 + 0.040 + 0.003) / 3)
+@pytest.fixture
+def no_counts(monkeypatch):
+    """The program's counters, emptied for the test."""
+    monkeypatch.setattr(TP, "_COUNTS", {})
+
+
+def _profiling():
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def _spans(tmp_path):
+    """(name, start µs, end µs) of the program's spans in the one trace
+    file under ``tmp_path``, in start order; each is a host operator."""
+    path, = tmp_path.glob("**/*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    got = [e for e in events if e.get("ph") == "X"
+           and e["name"].split(".")[0] in ("a", "b", "t", "engine", "index",
+                                           "topk", "train")]
+    assert {e["cat"] for e in got} <= {"cpu_op"}
+    return sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in got),
+                  key=lambda s: (s[1], -s[2]))
+
+
+def _inside(spans, outer):
+    """Names of the spans inside ``outer`` (a span of ``spans``), in start
+    order."""
+    _, s, e = outer
+    return [n for n, a, b in spans if (n, a, b) != outer and s <= a
+            and b <= e]
+
+
+def test_span_off_is_one_shared_no_op(monkeypatch, no_counts):
+    assert not _profiling()
+
+    def forbidden(*a, **k):
+        raise AssertionError("called with spans off")
+
+    monkeypatch.setattr(TP, "_record", forbidden)
+    monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
+    assert TP.span("a.b") is TP.span("c.d")
+    for _ in range(10):
+        with TP.span("a.b"):
+            TP.count("a.n", 3)
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        for _ in range(10_000):
+            with TP.span("a.b"):
+                TP.count("a.n", 3)
+        grown = tracemalloc.get_traced_memory()[0] - before
+    finally:
+        tracemalloc.stop()
+    assert grown < 2048          # nothing kept per span
+    assert TP.counts() == {}
+
+
+def test_spans_nest_in_a_trace(tmp_path):
+    with TP.trace(str(tmp_path)):
+        with TP.span("a.outer"):
+            with TP.span("a.inner"):
+                with TP.span("a.leaf"):
+                    time.sleep(0.002)
+            with TP.span("a.inner"):
+                pass
+        with TP.span("b.outer"):
+            pass
+    got = _spans(tmp_path)
+    assert [n for n, _, _ in got] == ["a.outer", "a.inner", "a.leaf",
+                                      "a.inner", "b.outer"]
+    outer, first, leaf, _, other = got
+    assert _inside(got, outer) == ["a.inner", "a.leaf", "a.inner"]
+    assert _inside(got, first) == ["a.leaf"]
+    assert _inside(got, other) == []
+    assert leaf[2] - leaf[1] >= 2000
+
+
+def test_counters_add_up(no_counts):
+    TP.count("x.calls")          # off: not counted
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        TP.count("x.calls")
+        TP.count("x.rows", 64)
+        TP.count("x.rows", 3)
+        TP.count("x.calls")
+    TP.count("x.rows", 5)
+    assert TP.counts() == {"x.calls": 2, "x.rows": 67}
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
@@ -51,6 +136,167 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1 and files[0].stat().st_size > 0
     assert json.loads(files[0].read_text())["traceEvents"]
     assert len(prof.key_averages()) > 0
+
+
+def test_a_trace_holds_the_spans(tmp_path):
+    assert TP.span("t.outer") is TP.span("t.inner")
+    with TP.trace(str(tmp_path / "trace")) as prof:
+        assert TP.span("t.outer") is not TP.span("t.inner")
+        with TP.span("t.outer"):
+            with TP.span("t.inner"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not _profiling()
+    path, = (tmp_path / "trace").glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    named = {e["name"]: e for e in events if e.get("ph") == "X"}
+    outer, inner = named["t.outer"], named["t.inner"]
+    # the benchmark's trace reader keeps host operators only
+    assert outer["cat"] == "cpu_op" and inner["cat"] == "cpu_op"
+    assert outer["ts"] <= inner["ts"] and (inner["ts"] + inner["dur"]
+                                           <= outer["ts"] + outer["dur"])
+    assert named["aten::mm"]["ts"] >= inner["ts"]
+    assert len(prof.key_averages()) > 0
+
+
+def test_trace_stops_without_a_sync_when_its_block_fails(monkeypatch,
+                                                          tmp_path):
+    """A block that failed on the card must not fail again in the sync:
+    the profile stops, and spans are off after it."""
+    def fails(*a, **k):
+        raise RuntimeError("the card failed again")
+
+    with pytest.raises(ValueError, match="the block"):
+        with TP.trace(str(tmp_path)):
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+            monkeypatch.setattr(torch.cuda, "synchronize", fails)
+            raise ValueError("the block")
+    assert not _profiling() and TP.span("a.b") is TP.span("c.d")
+    assert not list(tmp_path.glob("*.json"))
+
+
+def test_stop_stops_the_profile_when_the_sync_fails(monkeypatch):
+    def fails(*a, **k):
+        raise RuntimeError("the sync")
+
+    prof = TP.start()
+    assert _profiling()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", fails)
+    with pytest.raises(RuntimeError, match="the sync"):
+        TP.stop(prof)
+    assert not _profiling() and TP.span("a.b") is TP.span("c.d")
+
+
+def _ok(q, bad):
+    ok = torch.ones(q, dtype=torch.int32)
+    ok[list(bad)] = 0
+    return ok
+
+
+def test_certificate_counts_repairs_and_fallbacks(rng, no_counts,
+                                                  tmp_path):
+    qh = R.l2_normalize(torch.from_numpy(
+        rng.normal(size=(80, 16)).astype(np.float32)))
+    g = torch.from_numpy(rng.normal(size=(300, 16)).astype(np.float32))
+    vals, inds = R._dense_topk(qh, g, 5, "float32")
+    calls = []
+
+    def full():
+        calls.append(1)
+        return vals, inds
+
+    with TP.trace(str(tmp_path)):
+        v, i = R.certified_topk_repair(qh, g, 5, vals, inds, _ok(80, ()),
+                                       full_fallback=full)
+        assert v is vals and TP.counts() == {"topk.rows": 80}
+        v, i = R.certified_topk_repair(qh, g, 5, vals * 0, inds * 0,
+                                       _ok(80, (3, 41)), full_fallback=full)
+        torch.testing.assert_close(v[[3, 41]], vals[[3, 41]])
+        assert TP.counts() == {"topk.rows": 160, "topk.repaired_rows": 2}
+        R.certified_topk_repair(qh, g, 5, vals, inds, _ok(80, range(65)),
+                                full_fallback=full)
+    assert calls == [1]
+    assert TP.counts() == {"topk.rows": 240, "topk.repaired_rows": 2,
+                           "topk.fallback_rows": 80}
+    assert [n for n, _, _ in _spans(tmp_path)] == ["topk.certificate"] * 3
+
+
+def test_engine_and_index_spans(rng, no_counts, tmp_path):
+    model = create_model("efficientnet_b3a", num_classes=5, width_mult=0.5,
+                         depth_mult=0.1, device="cpu", seed=1)
+    engine = RetrievalEngine(model, device="cpu", transform=(
+        build_eval_transform("squarepad", 32, device="cpu")))
+    images = rng.integers(0, 256, (32, 40, 40, 3), dtype=np.uint8)
+    index = GalleryIndex(engine.embed_batch(images).shape[1], device="cpu")
+    index.add(rng.normal(size=(300, index.dim)).astype(np.float32),
+              rng.integers(0, 12, 300))
+    with TP.trace(str(tmp_path)):
+        emb = engine.embed_batch(images)
+        index.query_class_dedup(emb, k=20, num_unique=3, method="fused")
+        index.query(emb, k=20)
+    got = _spans(tmp_path)
+    tops = [s for s in got if s[0] in ("engine.embed", "index.query")]
+    assert [n for n, _, _ in tops] == ["engine.embed", "index.query",
+                                       "index.query"]
+    embed, query, query2 = (_inside(got, s) for s in tops)
+    assert embed == ["engine.upload", "engine.transform", "engine.backbone"]
+    assert query == ["topk.kernel", "topk.certificate", "index.dedup",
+                     "index.fetch"]
+    assert query2 == ["index.fetch"]
+    assert len(got) == 3 + len(embed) + len(query) + len(query2)
+    assert TP.counts() == {"topk.rows": 32}
+
+
+def test_train_step_spans(rng, tmp_path):
+    cfg = make_config("train_efficient_cos_con_ce_loss", batch_size=4,
+                      image_size=32, compute_dtype="float32", device="cpu")
+    model = create_model("efficientnet_b3a", num_classes=5, width_mult=0.5,
+                         depth_mult=0.1, device="cpu", seed=1)
+    trainer = Trainer(cfg, model, [None])
+    state = trainer.init_state()
+
+    def u8():
+        return rng.integers(0, 256, (4, 40, 40, 3), dtype=np.uint8)
+
+    raw = {"qry": u8(), "pos": [u8()], "neg": [u8()],
+           "cat_idx": rng.integers(0, 5, 4), "prod_idx": rng.integers(0, 5, 4)}
+    gens = trainer._generators(0)
+    trainer.train_batch(state, raw, gens)
+    with TP.trace(str(tmp_path)):
+        trainer.train_batch(state, raw, gens)
+    got = _spans(tmp_path)
+    assert got[0][0] == "train.step"
+    assert _inside(got, got[0]) == [
+        "train.transform", "train.forward", "train.optimizer",
+        "train.backward", "train.optimizer", "train.metrics"]
+    assert len(got) == 7
+
+
+class _Loader(list):
+    def set_epoch(self, epoch):
+        pass
+
+
+def test_trainer_profile_dir_traces_steps_one_to_three(rng, tmp_path):
+    cfg = make_config("train_efficient_cos_con_ce_loss", batch_size=4,
+                      image_size=32, compute_dtype="float32", device="cpu",
+                      profile_dir=str(tmp_path / "profile"))
+    model = create_model("efficientnet_b3a", num_classes=5, width_mult=0.5,
+                         depth_mult=0.1, device="cpu", seed=1)
+
+    def u8():
+        return rng.integers(0, 256, (4, 40, 40, 3), dtype=np.uint8)
+
+    loader = _Loader({"qry": u8(), "pos": [u8()], "neg": [u8()],
+                      "cat_idx": rng.integers(0, 5, 4),
+                      "prod_idx": rng.integers(0, 5, 4)} for _ in range(5))
+    trainer = Trainer(cfg, model, loader)
+    trainer.train_epoch(trainer.init_state(), 0)
+    assert not _profiling()
+    assert (tmp_path / "profile" / "trace.json").exists()
+    names = [n for n, _, _ in _spans(tmp_path / "profile")]
+    assert names.count("train.step") == 3
+    assert names.count("train.optimizer") == 6
 
 
 def _pm1_case(rng, q=10, g=700, d=32):
