@@ -20,6 +20,15 @@ _COS_EMBED_SQ_EPS = 1e-12
 CONTRASTIVE_EPS = 1e-9
 
 
+def _f32_on(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as f32 on ``like``'s device: a Python number is filled in
+    there, not copied from the host (a copy that waits for the card, and
+    that a CUDA graph's capture refuses)."""
+    if isinstance(value, (int, float)):
+        return torch.full((), value, dtype=torch.float32, device=like.device)
+    return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+
+
 def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor, *, dim: int = -1,
                       eps: float = COSINE_SIM_EPS) -> torch.Tensor:
     """torch >= 1.12 CosineSimilarity: each norm clamped at eps,
@@ -42,7 +51,7 @@ def contrastive_loss(fm1: torch.Tensor, fm2: torch.Tensor,
     fm1 = fm1.float()
     fm2 = fm2.float()
     dis = torch.sum(torch.square(fm2 - fm1), dim=1)
-    label = torch.as_tensor(label, dtype=torch.float32, device=dis.device)
+    label = _f32_on(label, dis)
     hinge = torch.relu(margin - torch.sqrt(dis + eps))
     losses = 0.5 * (label * dis + (1.0 - label) * torch.square(hinge))
     return losses.mean() if mean else losses.sum()
@@ -71,8 +80,7 @@ def cosine_embedding_loss(x1: torch.Tensor, x2: torch.Tensor,
     sq1 = torch.sum(torch.square(x1), dim=-1) + _COS_EMBED_SQ_EPS
     sq2 = torch.sum(torch.square(x2), dim=-1) + _COS_EMBED_SQ_EPS
     cos = dot / torch.sqrt(sq1 * sq2)
-    target = torch.as_tensor(target, dtype=torch.float32,
-                             device=cos.device).expand(cos.shape)
+    target = _f32_on(target, cos).expand(cos.shape)
     losses = torch.where(target > 0, 1.0 - cos,
                          torch.clamp(cos - margin, min=0.0))
     return _reduce(losses, reduction)

@@ -35,33 +35,63 @@ model)`` mesh, where the ranks at one ``data`` index hold the same rows)
 runs these collectives and BatchNorm's over ``mesh.batch_group``, the
 ranks that hold distinct rows; with a one-axis mesh or none, over the
 whole group.
+
+On one card the triplet train step replays its model work from two CUDA
+graphs, so that the host no longer launches the step's kernels one by
+one: ``forward`` (the forward and the losses under autocast) and
+``backward`` (``loss.backward()``, which writes each gradient into the
+tensor it left in ``.grad``), in one memory pool, over static copies of
+the batch. The step decides from what it observes: a batch on a CUDA
+device, without ``rows``, outside a process group and a ``mesh``, a
+backbone without module hooks, the depthwise opt-in off, and a batch
+signature (the shapes and dtypes of its tensors, the loss mode, the
+compute type, the parameters' storages) an earlier step has seen. The
+first step of a signature runs eagerly (cuDNN's first calls, the
+optimizer's lazy state), the second captures and replays, later ones
+replay; at most two signatures keep graphs (a loader's full batch and an
+epoch's last one). Every other step runs eagerly. Around the replays the
+rate, ``optimizer.step()`` and the metrics stay eager, so the optimizer
+and its state dict are the eager step's, and dropout's masks are the
+draws eager step k would make. While a profiler records, the counters
+``train.graph_captures``, ``train.graph_replays`` and
+``train.eager_steps`` count the steps of each kind (a capture's own
+replay counts as its capture).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from imageretrievalresearch_tpu_torch import losses as L
 from imageretrievalresearch_tpu_torch import metrics as M
 from imageretrievalresearch_tpu_torch.config import TrainConfig
+from imageretrievalresearch_tpu_torch.ops.depthwise import use_depthwise_kernel
 from imageretrievalresearch_tpu_torch.parallel.distributed import (
     all_gather_rows,
     mean_over_group,
 )
 from imageretrievalresearch_tpu_torch.train.train_state import TrainState
-from imageretrievalresearch_tpu_torch.utils.profiling import span
+from imageretrievalresearch_tpu_torch.utils.profiling import count, span
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
+# batch signatures whose steps keep CUDA graphs
+_GRAPHED_SIGNATURES = 2
 
 
-def _autocast(cfg: TrainConfig, device: torch.device):
+def _autocast(cfg: TrainConfig, device: torch.device, cache: bool = True):
+    """``cache=False`` inside a graph's capture: a weight cast the
+    autocast cache kept would be made once, in the capture, and not on a
+    replay."""
     if cfg.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}, "
                          f"got {cfg.compute_dtype!r}")
     return torch.autocast(device.type, dtype=torch.bfloat16,
-                          enabled=cfg.compute_dtype == "bfloat16")
+                          enabled=cfg.compute_dtype == "bfloat16",
+                          cache_enabled=cache)
 
 
 def _group(mesh):
@@ -144,14 +174,20 @@ def _losses_for_mode(cfg: TrainConfig, fms, lbls, batch: dict) -> dict:
     return out
 
 
+def _set_rate(state: TrainState, schedule) -> float | None:
+    """The schedule's rate for the step before the increment (the rate
+    this update uses) into the optimizer's groups."""
+    lr_used = schedule(state.step) if schedule is not None else None
+    if lr_used is not None:
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr_used
+    return lr_used
+
+
 def _update(state: TrainState, loss: torch.Tensor, schedule) -> float | None:
-    """Backward and one optimizer update at the schedule's rate for the
-    step before the increment (the rate this update uses)."""
+    """Backward and one optimizer update at the schedule's rate."""
     with span("train.optimizer"):
-        lr_used = schedule(state.step) if schedule is not None else None
-        if lr_used is not None:
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr_used
+        lr_used = _set_rate(state, schedule)
         state.optimizer.zero_grad(set_to_none=True)
     with span("train.backward"):
         loss.backward()
@@ -169,31 +205,204 @@ def _train_metrics(loss, tk, lr_used) -> dict:
     return metrics
 
 
+def _batch_tensors(batch: dict) -> list:
+    """The tensors of a triplet batch that the forward and losses read."""
+    return [batch["qry"], batch["pos"][0], batch["neg"][0],
+            batch["cat_idx"], batch["prod_idx"]]
+
+
+def _on_card(batch: dict) -> bool:
+    return batch["qry"].is_cuda
+
+
+class _StepGraphs:
+    """One batch signature's train step as two CUDA graphs in one memory
+    pool, over static copies of the batch (``inputs``): ``forward`` (the
+    forward and the losses under autocast) and ``backward``
+    (``loss.backward()``, captured with every ``.grad`` None, so that a
+    replay writes the gradients and adds to nothing). Dropout draws from
+    a generator of the graphs' own, given the caller's state before a
+    replay and handing it back after, so that replay k draws what eager
+    step k would. Capturing runs nothing: the first replay is the step."""
+
+    def __init__(self, cfg: TrainConfig, state: TrainState, batch: dict,
+                 generator: torch.Generator | None):
+        device = batch["qry"].device
+        self.inputs = {"qry": batch["qry"].clone(),
+                       "pos": [batch["pos"][0].clone()],
+                       "neg": [batch["neg"][0].clone()],
+                       "cat_idx": batch["cat_idx"].clone(),
+                       "prod_idx": batch["prod_idx"].clone()}
+        self.generator = (None if generator is None
+                          else torch.Generator(device=device))
+        self.forward, self.backward = (torch.cuda.CUDAGraph(),
+                                       torch.cuda.CUDAGraph())
+        if self.generator is not None:
+            for graph in (self.forward, self.backward):
+                graph.register_generator_state(self.generator)
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.graph(self.forward, stream=stream,
+                              capture_error_mode="thread_local"), \
+                _autocast(cfg, device, cache=False):
+            self.fms, self.lbls = _forward_triplet(
+                state.model, self.inputs, True, self.generator)
+            loss = _losses_for_mode(cfg, self.fms, self.lbls,
+                                    self.inputs)["loss"]
+        with torch.cuda.graph(self.backward, pool=self.forward.pool(),
+                              stream=stream,
+                              capture_error_mode="thread_local"):
+            loss.backward()
+        # nothing keeps the captured autograd graph: a later eager step
+        # or capture makes its own gradient accumulators on its own stream
+        self.fms, self.lbls = ([t.detach() for t in self.fms],
+                               [t.detach() for t in self.lbls])
+        self.loss = loss.detach()
+        self.grads = [(p, p.grad) for p in params if p.grad is not None]
+
+    def step(self, state: TrainState, batch: dict,
+             generator: torch.Generator | None, schedule) -> float | None:
+        """The model's part of one step on ``batch``: its tensors into
+        the static inputs, the rate, both replays, the eager update."""
+        for dst, src in zip(_batch_tensors(self.inputs),
+                            _batch_tensors(batch)):
+            dst.copy_(src)
+        with span("train.optimizer"):
+            lr_used = _set_rate(state, schedule)
+        if generator is not None:
+            self.generator.set_state(generator.get_state())
+        with span("train.forward"):
+            self.forward.replay()
+            if not state.model.training:
+                # the flags as the eager forward leaves them
+                state.model.train(True)
+        with span("train.backward"):
+            self.backward.replay()
+            for p, g in self.grads:
+                if p.grad is not g:
+                    p.grad = g
+        if generator is not None:
+            generator.set_state(self.generator.get_state())
+        with span("train.optimizer"):
+            state.optimizer.step()
+        state.step += 1
+        return lr_used
+
+
+class _GraphCache:
+    """Which steps replay graphs (see the module's docstring): the
+    signatures seen, and the graphs kept by signature (None where a
+    capture failed: that signature runs eagerly)."""
+
+    def __init__(self, cfg: TrainConfig, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.seen: set = set()
+        self.held: dict = {}
+        # the last model's parameters and buffers, listed once: walking
+        # the modules costs milliseconds of host a step
+        self.model, self.params, self.buffers = None, [], []
+
+    def _signature(self, model, batch: dict,
+                   generator: torch.Generator | None) -> tuple:
+        if model is not self.model:
+            self.model = model
+            self.params = list(model.parameters())
+            self.buffers = list(model.buffers())
+        return (self.cfg.loss_mode, self.cfg.compute_dtype,
+                generator is None, batch["qry"].device,
+                tuple((t.shape, t.stride(), t.dtype)
+                      for t in _batch_tensors(batch)),
+                tuple(p.data_ptr() for p in self.params),
+                tuple(p.requires_grad for p in self.params),
+                tuple(b.data_ptr() for b in self.buffers))
+
+    def action(self, state: TrainState, batch: dict,
+               generator: torch.Generator | None) -> tuple[str, tuple]:
+        """``("eager" | "capture" | "replay", signature)`` for a step on
+        ``batch``; records the signature as seen."""
+        if (self.mesh is not None or "rows" in batch or not _on_card(batch)
+                or (dist.is_available() and dist.is_initialized())):
+            return "eager", ()
+        model = state.model
+        sig = self._signature(model, batch, generator)
+        hooked = (model._forward_hooks or model._forward_pre_hooks
+                  or model._backward_hooks or model._backward_pre_hooks)
+        if not (hooked or use_depthwise_kernel()):
+            if self.held.get(sig) is not None:
+                return "replay", sig
+            if (sig in self.seen and sig not in self.held
+                    and len(self.held) < _GRAPHED_SIGNATURES):
+                return "capture", sig
+        if len(self.held) < _GRAPHED_SIGNATURES:
+            self.seen.add(sig)
+        return "eager", sig
+
+    def capture(self, sig: tuple, state: TrainState, batch: dict,
+                generator: torch.Generator | None) -> bool:
+        """Capture ``sig``'s graphs; False where the capture failed (a
+        host sync in the model, memory), and the signature stays eager."""
+        try:
+            self.held[sig] = _StepGraphs(self.cfg, state, batch, generator)
+        except RuntimeError as err:
+            self.held[sig] = None
+            warnings.warn(f"train step: the CUDA graph capture failed "
+                          f"({err}); steps on this batch's shapes run "
+                          "eagerly")
+            return False
+        return True
+
+
+def _triplet_metrics(cfg: TrainConfig, fms, lbls, loss: torch.Tensor,
+                     batch: dict, group) -> tuple:
+    """The step's loss and top-k over the global batch."""
+    with span("train.metrics"), torch.no_grad():
+        means = {"loss": loss}
+        if cfg.loss_mode == "ce_only":
+            tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
+            means.update(tk)
+        else:
+            tk = _inbatch_topk(fms, batch, group)
+        means = _global_means(batch, means, group)
+        tk = {k: means.get(k, v) for k, v in tk.items()}
+    return means["loss"], tk
+
+
 def build_train_step(cfg: TrainConfig, schedule=None, mesh=None
                      ) -> Callable:
     """``train_step(state, batch, generator) -> (state, metrics)``;
     ``generator`` (on the batch's device) drives dropout; ``mesh``: the
     process group's mesh the batch was sharded on (see the module's
-    docstring)."""
+    docstring). The step keeps its CUDA graphs, if any."""
     group = _group(mesh)
+    graphs = _GraphCache(cfg, mesh)
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None):
-        with span("train.forward"), _autocast(cfg, batch["qry"].device):
-            fms, lbls = _forward_triplet(state.model, batch, True, generator,
-                                         group)
-            loss_dict = _losses_for_mode(cfg, fms, lbls, batch)
-        lr_used = _update(state, loss_dict["loss"], schedule)
-        with span("train.metrics"), torch.no_grad():
-            means = {"loss": loss_dict["loss"].detach()}
-            if cfg.loss_mode == "ce_only":
-                tk = M.classifier_topk(lbls[0], batch["prod_idx"], k=3)
-                means.update(tk)
+        action, sig = graphs.action(state, batch, generator)
+        if action == "capture":
+            if graphs.capture(sig, state, batch, generator):
+                count("train.graph_captures")
             else:
-                tk = _inbatch_topk(fms, batch, group)
-            means = _global_means(batch, means, group)
-            tk = {k: means.get(k, v) for k, v in tk.items()}
-        return state, _train_metrics(means["loss"], tk, lr_used)
+                action = "eager"
+        if action == "eager":
+            count("train.eager_steps")
+            with span("train.forward"), _autocast(cfg, batch["qry"].device):
+                fms, lbls = _forward_triplet(state.model, batch, True,
+                                             generator, group)
+                loss = _losses_for_mode(cfg, fms, lbls, batch)["loss"]
+            lr_used = _update(state, loss, schedule)
+            loss = loss.detach()
+        else:
+            if action == "replay":
+                count("train.graph_replays")
+            held = graphs.held[sig]
+            lr_used = held.step(state, batch, generator, schedule)
+            # the next replay overwrites the static loss
+            fms, lbls, loss = held.fms, held.lbls, held.loss.clone()
+        loss, tk = _triplet_metrics(cfg, fms, lbls, loss, batch, group)
+        return state, _train_metrics(loss, tk, lr_used)
 
     return train_step
 

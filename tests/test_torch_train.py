@@ -568,3 +568,55 @@ def test_trainer_no_card_message_names_the_config_field(monkeypatch):
         Trainer(cfg, _tiny(), MemoryLoader(0, [B]))
     assert 'pass TrainConfig(device="cpu")' in str(info.value)
     assert "device='cpu'" not in str(info.value)
+
+
+# ---------------------------------------------------------------------------
+# when the train step replays CUDA graphs (the decision alone: the CPU
+# captures none; tests/test_torch_train_graph.py replays on the card)
+# ---------------------------------------------------------------------------
+
+def _sized_batch(b, **extra):
+    x = torch.zeros(b, 8, 8, 3)
+    i = torch.zeros(b, dtype=torch.long)
+    return {"qry": x, "pos": [x], "neg": [x], "cat_idx": i, "prod_idx": i,
+            **extra}
+
+
+@pytest.mark.parametrize("case,sizes,want", [
+    ("cpu", [4, 4, 4], ["eager"] * 3),
+    ("rows", [4, 4, 4], ["eager"] * 3),
+    ("mesh", [4, 4, 4], ["eager"] * 3),
+    ("depthwise_opt_in", [4, 4, 4], ["eager"] * 3),
+    # two hooked steps, then the hook removed: the hooked steps saw the
+    # signature
+    ("hooked", [4, 4, 4, 4], ["eager", "eager", "capture", "replay"]),
+    ("sightings", [4, 4, 4, 4], ["eager", "capture", "replay", "replay"]),
+    ("third_signature", [4, 4, 3, 3, 2, 2, 4, 3],
+     ["eager", "capture", "eager", "capture", "eager", "eager", "replay",
+      "replay"]),
+])
+def test_train_step_graph_engagement(monkeypatch, case, sizes, want):
+    cfg = TrainConfig(device="cpu", compute_dtype="float32")
+    cache = S._GraphCache(cfg, object() if case == "mesh" else None)
+    if case != "cpu":
+        monkeypatch.setattr(S, "_on_card", lambda batch: True)
+    if case == "depthwise_opt_in":
+        monkeypatch.setenv("IRT_FORCE_PALLAS_DW", "1")
+    model = torch.nn.Linear(3, 2)
+    hook = (model.register_forward_hook(lambda *a: None)
+            if case == "hooked" else None)
+    state = TrainState(model, None, 0)
+    got = []
+    for i, b in enumerate(sizes):
+        if hook is not None and i == 2:
+            hook.remove()
+        extra = {"rows": (0, 2 * b)} if case == "rows" else {}
+        action, sig = cache.action(state, _sized_batch(b, **extra), None)
+        if action == "capture":
+            cache.held[sig] = object()     # what a capture leaves
+        got.append(action)
+    assert got == want
+    # another model (new parameter storages) is another signature
+    if case == "sightings":
+        other = TrainState(torch.nn.Linear(3, 2), None, 0)
+        assert cache.action(other, _sized_batch(4), None)[0] == "eager"
