@@ -27,6 +27,14 @@ construction, so a size that clamps a window to another width than
 ``img_size`` did raises (JAX refuses it as a parameter of another shape).
 ``forward_features`` returns the normed token grid (B, L, C);
 ``ops.pooling.get_fm`` pools it.
+
+While a profiler records (``utils/profiling.py``), the blocks mark spans
+``swin.attention`` (qkv through proj), ``swin.window`` (pad, roll and
+partition before the attention; reverse, roll back and crop after it),
+``swin.mlp`` and ``swin.merge`` (patch merging), and count, from shapes
+alone, for each block call: ``swin.windows`` (B x windows),
+``swin.masked_windows`` (the same, where the block adds a shift or pad
+mask) and ``swin.attn_scores`` (B x windows x heads x N^2).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from torch import nn
 
 from imageretrievalresearch_tpu_torch.models.layers import DropPath
 from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
+from imageretrievalresearch_tpu_torch.utils.profiling import count, span
 
 
 def _rel_pos_index(ws: int) -> np.ndarray:
@@ -125,23 +134,25 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
-        bn, n, c = x.shape
-        hd = c // self.num_heads
-        qkv = self.qkv(x).reshape(bn, n, 3, self.num_heads, hd)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        attn = (q * hd ** -0.5) @ k.transpose(-2, -1)
-        bias = self.relative_position_bias_table[self.relative_position_index]
-        attn = attn + bias.reshape(n, n, -1).permute(2, 0, 1)[None].to(
-            attn.dtype)
-        if mask is not None:
-            nw = mask.shape[0]
-            attn = attn.reshape(bn // nw, nw, self.num_heads, n, n)
-            attn = attn + mask[None, :, None].to(attn.dtype)
-            attn = attn.reshape(bn, self.num_heads, n, n)
-        # float32 softmax, also under bf16 autocast; back to qkv's type
-        attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(bn, n, c)
-        return self.proj(out)
+        with span("swin.attention"):
+            bn, n, c = x.shape
+            hd = c // self.num_heads
+            qkv = self.qkv(x).reshape(bn, n, 3, self.num_heads, hd)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+            attn = (q * hd ** -0.5) @ k.transpose(-2, -1)
+            bias = self.relative_position_bias_table[
+                self.relative_position_index]
+            attn = attn + bias.reshape(n, n, -1).permute(2, 0, 1)[None].to(
+                attn.dtype)
+            if mask is not None:
+                nw = mask.shape[0]
+                attn = attn.reshape(bn // nw, nw, self.num_heads, n, n)
+                attn = attn + mask[None, :, None].to(attn.dtype)
+                attn = attn.reshape(bn, self.num_heads, n, n)
+            # float32 softmax, also under bf16 autocast; back to qkv's type
+            attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+            out = (attn @ v).transpose(1, 2).reshape(bn, n, c)
+            return self.proj(out)
 
 
 class Mlp(nn.Module):
@@ -152,7 +163,8 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        with span("swin.mlp"):
+            return self.fc2(self.act(self.fc1(x)))
 
 
 class SwinBlock(nn.Module):
@@ -206,16 +218,25 @@ class SwinBlock(nn.Module):
         b, l, c = x.shape
         shortcut = x
         x = self.norm1(x).reshape(b, h, w, c)
-        if (hp, wp) != (h, w):
-            x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
-        if shift > 0:
-            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        wins = self.attn(window_partition(x, ws),
-                         self._mask(h, w, ws, shift, x.device))
-        x = window_reverse(wins, ws, hp, wp)
-        if shift > 0:
-            x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = x[:, :h, :w].reshape(b, l, c)
+        with span("swin.window"):
+            if (hp, wp) != (h, w):
+                x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+            if shift > 0:
+                x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+            wins = window_partition(x, ws)
+        mask = self._mask(h, w, ws, shift, x.device)
+        windows = wins.shape[0]
+        count("swin.windows", windows)
+        if mask is not None:
+            count("swin.masked_windows", windows)
+        count("swin.attn_scores",
+              windows * self.attn.num_heads * wins.shape[1] ** 2)
+        wins = self.attn(wins, mask)
+        with span("swin.window"):
+            x = window_reverse(wins, ws, hp, wp)
+            if shift > 0:
+                x = torch.roll(x, (shift, shift), dims=(1, 2))
+            x = x[:, :h, :w].reshape(b, l, c)
         x = shortcut + self.drop_path1(x)
         return x + self.drop_path2(self.mlp(self.norm2(x)))
 
@@ -228,14 +249,15 @@ class PatchMerging(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 resolution: tuple[int, int]) -> torch.Tensor:
-        h, w = resolution
-        b, _, c = x.shape
-        x = x.reshape(b, h, w, c)
-        if h % 2 or w % 2:    # odd grid: pad bottom / right
-            x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
-                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return self.reduction(self.norm(x.reshape(b, -1, 4 * c)))
+        with span("swin.merge"):
+            h, w = resolution
+            b, _, c = x.shape
+            x = x.reshape(b, h, w, c)
+            if h % 2 or w % 2:    # odd grid: pad bottom / right
+                x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                           x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+            return self.reduction(self.norm(x.reshape(b, -1, 4 * c)))
 
 
 class SwinStage(nn.Module):
