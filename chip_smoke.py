@@ -148,6 +148,18 @@ Phases (any failure exits non-zero, with no result line):
    ``swin_s3_base_224`` at its 32 triplets under bf16 autocast: a fit of
    3 steps + 1 val batch, warm step ms, device busy against wall, peak
    memory. ``resnet50`` and ``darknet53``: a batch of 64 embedded.
+   The serving path's window attention launches (kernel 13), counted
+   around each request's embed: one a block (36 a Swin-S3-B request),
+   none for rexnet_150; none over T4's fit and timed epochs (autograd,
+   autocast). Then row 13 (``window_attention_phase``) at every shape
+   Swin-S3-B's serving gives the kernel, for 64 images: stage 3 (768
+   (window, head) pairs at N = 196, global), stage 1 (12,288 at N = 49,
+   shifted and masked), stage 2 (1,536 at N = 196, shifted and masked)
+   and stage 4 (1,536 at N = 49, global): against its plain version, its
+   median single-call time beside its bound, the plain version's and the
+   library's (``F.scaled_dot_product_attention`` with the bias and mask
+   as one additive mask, timed only); the row's ``models`` carry the
+   serving path's launches.
 10. Training from disk through the CLIs users run, in this process
    (``build_parser().parse_args([...])`` -> ``run``). The port's
    ``make_sketchy_tree`` writes 8 categories x 10 products at 256 px (240
@@ -306,6 +318,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device; nothing was run")
@@ -337,7 +350,9 @@ from imageretrievalresearch_tpu_torch.models import layers as GBN  # noqa
 from imageretrievalresearch_tpu_torch.models.layers import (  # noqa: E402
     DepthwiseConv2d,
 )
+from imageretrievalresearch_tpu_torch.models import swin as SWIN  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import _cuda  # noqa: E402
+from imageretrievalresearch_tpu_torch.ops import attention as ATT  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import autoaugment as A  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import depthwise as DW  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import image_kernels as IK  # noqa: E402
@@ -2389,8 +2404,10 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
     request in each mode, cold then warm, counts set to 0 just before
     each and read just after (one launch of the mode's kernel); kernels
     1-3 against their plain versions over this gallery (``topk_checks``)
-    and their times (``topk_times``). Returns, by kernel name, its
-    launches, largest |kernel - plain| and times."""
+    and their times (``topk_times``). Each request's embed launches kernel
+    13 once a Swin block (f32 under ``no_grad``), none for a CNN. Returns,
+    by kernel name, its launches, largest |kernel - plain| and times, and
+    under ``window_attention`` kernel 13's launches over the requests."""
     model = create_model(name, seed=SEED)
     assert model.num_features == dim, (name, model.num_features)
     card_vs_cpu(name, model)
@@ -2411,11 +2428,18 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
     index.add(rows.cpu().numpy(), classes[N_IMAGES:])
     del rows, emb
     launches = dict.fromkeys(MODE_KERNELS.values(), 0)
+    blocks = sum(isinstance(m, SWIN.WindowAttention) for m in model.modules())
+    attn = {"launches": 0, "requests": 0, "blocks": blocks}
     for mode, kernel in MODE_KERNELS.items():
         batch = images(gen, 64)
         for rnd in ("cold", "warm"):
             R.reset_launch_counts()
+            ATT.reset_launch_counts()
             q, embed_ms = sync_time(lambda: engine.embed_batch(batch))
+            att = ATT.KERNEL_LAUNCHES["window_attention"]
+            assert att == blocks, (name, mode, rnd, att, blocks)
+            attn["launches"] += att
+            attn["requests"] += 1
             (vals, inds, cls), query_ms = sync_time(
                 lambda: index.query_class_dedup(q, k=K, num_unique=3,
                                                 matmul_dtype=mode,
@@ -2433,13 +2457,15 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
             log(f"[{name}] {mode} request Q=64, {rnd}: "
                 f"{embed_ms + query_ms:.1f} ms end to end = embed "
                 f"{embed_ms:.1f} + k={K} top-k and class dedup "
-                f"{query_ms:.1f}{upload}; launches {counts}")
+                f"{query_ms:.1f}{upload}; launches {counts}, window "
+                f"attention {att}")
     q_hat = R.l2_normalize(q)
     errs, _ = topk_checks(index, q_hat, gen, f"[{name}, D = {dim}] ")
     times = topk_times(index, q_hat, peaks, f"[{name}] ")
-    return {kernel: {"launches": launches[kernel],
-                     "max_abs_err": errs[mode], **times[mode], "D": dim}
-            for mode, (kernel, _) in KERNELS.items()}
+    return {**{kernel: {"launches": launches[kernel],
+                        "max_abs_err": errs[mode], **times[mode], "D": dim}
+               for mode, (kernel, _) in KERNELS.items()},
+            "window_attention": attn}
 
 
 def embed_backbone(name: str, gen) -> None:
@@ -2481,11 +2507,16 @@ def backbone_phase(gen, peaks: dict) -> tuple[dict, dict]:
     init = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(SEED)
     train = MemoryLoader(rng, T4.steps, T4.batch)
+    ATT.reset_launch_counts()   # the card-vs-CPU forward took kernel 13
     fit = fit_once(model, init, train, MemoryLoader(rng, 1, T4.batch),
                    False, T4)
     assert not any(v for c in fit["counts"].values() for v in c.values()), (
         fit["counts"])
     timed_epochs(model, init, train, False, T4)
+    # autograd and bf16 autocast keep the eager attention
+    assert ATT.KERNEL_LAUNCHES["window_attention"] == 0, ATT.KERNEL_LAUNCHES
+    log(f"T4 on {T4.model}: window attention kernel launches over the fit "
+        f"and the timed epochs: 0 (eager under autocast and autograd)")
     del model, init
 
     for name in EMBEDDED:
@@ -2493,6 +2524,85 @@ def backbone_phase(gen, peaks: dict) -> tuple[dict, dict]:
     log(f"phase 9 (other backbones): {time.perf_counter() - t0:.1f} s; "
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
     return served, t1
+
+
+# row 13: Swin-S3-B's attention calls for 64 images at 224 px, (heads,
+# window, grid, shift): stage 3 (global, N = 196), stage 1's shifted
+# block (N = 49, masked), stage 2's shifted block (N = 196, masked) and
+# stage 4 (global, N = 49): every shape its serving path gives the
+# kernel; the kernel against its plain version within ATTN_TOL (both f32,
+# sums in other orders: a few ulps of O(1) outputs)
+ATTN_SHAPES = {"window_attention_n196": (12, 14, 14, 0),
+               "window_attention_n49": (3, 7, 56, 3),
+               "window_attention_n196_masked": (6, 14, 28, 7),
+               "window_attention_n49_global": (24, 7, 7, 0)}
+ATTN_IMAGES, ATTN_TOL = 64, 1e-5
+
+
+def window_attention_phase(peaks: dict) -> list:
+    """Row 13 at each of ``ATTN_SHAPES``: qkv and a unit-normal bias table
+    from the seed, the kernel (one launch) against its plain version, and
+    median single-call times of the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` (the bias, and the mask, added into
+    one (windows, heads, N, N) f32 mask before the timed call), beside the
+    bound: 4 x 32 f32-FMA FLOPs a score against q, k, v and mask read
+    once and the output written once."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    entries = []
+    for name, (heads, ws, grid, shift) in ATTN_SHAPES.items():
+        n = ws * ws
+        nw = (grid // ws) ** 2
+        windows = ATTN_IMAGES * nw
+        qkv = torch.randn((windows, n, 3, heads, 32), generator=gen,
+                          device=DEV)
+        table = torch.randn(((2 * ws - 1) ** 2, heads), generator=gen,
+                            device=DEV)
+        index = ATT.relative_position_index(ws).to(DEV)
+        m = SWIN._shift_attn_mask(grid, grid, grid, grid, ws, shift)
+        mask = None if m is None else torch.from_numpy(m).to(DEV)
+        ATT.reset_launch_counts()
+        with torch.no_grad():
+            got = ATT.window_attention(qkv, table, mask, heads)
+            want = ATT.window_attention_reference(qkv, table, index, mask,
+                                                heads)
+        launches = ATT.KERNEL_LAUNCHES["window_attention"]
+        assert launches == 1, launches
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        with torch.no_grad():
+            ms = event_ms(lambda: ATT.window_attention(
+                qkv, table, mask, heads), reps=50)
+            plain_ms = event_ms(lambda: ATT.window_attention_reference(
+                qkv, table, index, mask, heads), reps=10)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+            bias = table[index].reshape(n, n, heads).permute(2, 0, 1)
+            add = (bias[None] if mask is None else (
+                bias[None, None] + mask[None, :, None]).expand(
+                    ATTN_IMAGES, nw, heads, n, n).reshape(
+                        windows, heads, n, n)).contiguous()
+            library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=add), reps=10)
+            del add
+        pairs = windows * heads
+        nbytes = 4 * (4 * pairs * n * 32
+                      + (0 if mask is None else nw * n * n))
+        bound_ms, bound_by = bound(nbytes, 4 * 32 * pairs * n * n, peaks)
+        log(f"window attention kernel, {pairs} (window, head) pairs at N = "
+            f"{n}{' (masked)' if mask is not None else ''}: max |kernel - "
+            f"plain| {err:.3g}; kernel {ms:.4f} ms (bound {bound_ms:.4f}, "
+            f"{bound_by}: {100 * bound_ms / ms:.1f}%), plain "
+            f"{plain_ms:.4f} ms, library (SDPA, additive mask) "
+            f"{library_ms:.4f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "imageretrievalresearch_tpu_torch/csrc/"
+                      "window_attention.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "ms_by": "median single call"})
+        del qkv, got, want
+    return entries
 
 
 @contextlib.contextmanager
@@ -4219,10 +4329,15 @@ def main() -> None:
     # just before it and read just after), beside the main path's
     cli = cli_phase(PF.card())
     served, t1 = backbone_phase(gen, peaks)
+    attention_rows = window_attention_phase(peaks)
     for row in kernels:
         if row["name"] in cli:
             row["cli_launches"] = cli[row["name"]]
         row["models"] = {m: rows[row["name"]] for m, rows in served.items()}
+    # row 13's launches on the serving path, beside its isolated calls
+    for row in attention_rows:
+        row["models"] = {m: rows["window_attention"]
+                         for m, rows in served.items()}
     # 10. training from disk through the CLIs: rows 5-10 carry the train
     # run's launches (the image kernels by C entry), rows 9-10 the sweep's
     disk = disk_phase(PF.card())
@@ -4236,7 +4351,7 @@ def main() -> None:
         row["train_cli_launches"] = sum(disk["train"]["dw"][c]
                                         for c in counters)
         row["find_lr_launches"] = sum(disk["sweep"][c] for c in counters)
-    kernels += image_rows + dw_rows + inference_rows
+    kernels += image_rows + dw_rows + inference_rows + attention_rows
     # 11. evaluation and analysis from disk: rows 1 and 3 carry kernel 1's
     # launches in the two cli.inference runs and each kernel's in the
     # artifact's queries

@@ -16,7 +16,8 @@ Linear) between stages. A window never exceeds its stage's resolution (and
 then does not shift); a grid that is not a multiple of the window is
 padded, each padded cell a mask region of its own; an odd grid is padded
 before merging. Attention is written as JAX writes it: scaled q kᵀ + bias
-(+ the -100 mask), softmax in float32, then @ v.
+(+ the -100 mask), softmax in float32, then @ v (``ops/attention.py``: on
+the card one kernel for f32 inference).
 
 The relative-position index and the masks at ``img_size`` are
 non-persistent buffers built at construction (as timm 0.4.12 builds them).
@@ -34,7 +35,10 @@ partition before the attention; reverse, roll back and crop after it),
 ``swin.mlp`` and ``swin.merge`` (patch merging), and count, from shapes
 alone, for each block call: ``swin.windows`` (B x windows),
 ``swin.masked_windows`` (the same, where the block adds a shift or pad
-mask) and ``swin.attn_scores`` (B x windows x heads x N^2).
+mask) and ``swin.attn_scores`` (B x windows x heads x N^2); and for each
+attention call, which path it took: ``swin.attn_fused`` (the window
+attention kernel, ``ops/attention.py``: f32 inference on the card) or
+``swin.attn_eager`` (the eager arithmetic: the CPU, autograd, autocast).
 """
 
 from __future__ import annotations
@@ -47,18 +51,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from imageretrievalresearch_tpu_torch.models.layers import DropPath
+from imageretrievalresearch_tpu_torch.ops import attention
 from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
 from imageretrievalresearch_tpu_torch.utils.profiling import count, span
-
-
-def _rel_pos_index(ws: int) -> np.ndarray:
-    """Static (ws*ws, ws*ws) index into the (2ws-1)^2 relative bias table."""
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws),
-                                  indexing="ij"))          # (2, ws, ws)
-    flat = coords.reshape(2, -1)                            # (2, ws*ws)
-    rel = flat[:, :, None] - flat[:, None, :]               # (2, N, N)
-    rel = rel.transpose(1, 2, 0) + (ws - 1)
-    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
 
 
 def _shift_attn_mask(h: int, w: int, hp: int, wp: int, ws: int,
@@ -129,29 +124,25 @@ class WindowAttention(nn.Module):
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer(
             "relative_position_index",
-            torch.from_numpy(_rel_pos_index(window_size).reshape(-1)),
+            attention.relative_position_index(window_size),
             persistent=False)
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         with span("swin.attention"):
             bn, n, c = x.shape
-            hd = c // self.num_heads
-            qkv = self.qkv(x).reshape(bn, n, 3, self.num_heads, hd)
-            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-            attn = (q * hd ** -0.5) @ k.transpose(-2, -1)
-            bias = self.relative_position_bias_table[
-                self.relative_position_index]
-            attn = attn + bias.reshape(n, n, -1).permute(2, 0, 1)[None].to(
-                attn.dtype)
-            if mask is not None:
-                nw = mask.shape[0]
-                attn = attn.reshape(bn // nw, nw, self.num_heads, n, n)
-                attn = attn + mask[None, :, None].to(attn.dtype)
-                attn = attn.reshape(bn, self.num_heads, n, n)
-            # float32 softmax, also under bf16 autocast; back to qkv's type
-            attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-            out = (attn @ v).transpose(1, 2).reshape(bn, n, c)
+            qkv = self.qkv(x).reshape(bn, n, 3, self.num_heads,
+                                      c // self.num_heads)
+            table = self.relative_position_bias_table
+            if attention.takes_kernel(qkv, table):
+                count("swin.attn_fused")
+                out = attention.window_attention(qkv, table, mask,
+                                                 self.num_heads)
+            else:
+                count("swin.attn_eager")
+                out = attention.window_attention_reference(
+                    qkv, table, self.relative_position_index, mask,
+                    self.num_heads)
             return self.proj(out)
 
 

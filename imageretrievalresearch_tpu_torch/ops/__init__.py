@@ -1,7 +1,8 @@
 """Device-side ops: preprocessing with on-device AutoAugment, pooling,
 retrieval, depthwise convolution; the hand-written CUDA kernels of the
 fused top-k and the dense cosine scores (``retrieval``), of AutoAugment
-(``image_kernels``) and of the depthwise convolution (``depthwise``)."""
+(``image_kernels``), of the depthwise convolution (``depthwise``) and of
+Swin's window attention (``attention``)."""
 
 from imageretrievalresearch_tpu_torch.ops.autoaugment import (
     imagenet_policy_batch,

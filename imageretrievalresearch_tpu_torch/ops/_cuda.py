@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"fused_topk": _PKG / "csrc" / "fused_topk.cu",
            "image_ops": _PKG / "csrc" / "image_ops.cu",
            "depthwise_conv": _PKG / "csrc" / "depthwise_conv.cu",
-           "stream_probe": _PKG / "csrc" / "stream_probe.cu"}
+           "stream_probe": _PKG / "csrc" / "stream_probe.cu",
+           "window_attention": _PKG / "csrc" / "window_attention.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -66,6 +67,11 @@ SIGNATURES = {
                        "dw_conv_grad_w": [_P] * 4 + [_I] * 13 + [_P]},
     # x, N, D, rows, the row sums, the output, the stream
     "stream_probe": {"stream_probe_f32": [_P] + [_I] * 3 + [_P] * 3},
+    # qkv, the bias table, the mask (or none), the output; the windows,
+    # the window's side, heads, the mask's windows, the scale (c_float),
+    # the stream
+    "window_attention": {"window_attention_f32": [_P] * 4 + [_I] * 4
+                         + [ctypes.c_float, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

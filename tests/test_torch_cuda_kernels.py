@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from imageretrievalresearch_tpu_torch.models import create_model
+from imageretrievalresearch_tpu_torch.models import swin as S
+from imageretrievalresearch_tpu_torch.ops import attention as A
 from imageretrievalresearch_tpu_torch.ops import image_kernels as K
 from imageretrievalresearch_tpu_torch.ops import retrieval as T
 from imageretrievalresearch_tpu_torch.tools import profile_fused_kernel as P
+from imageretrievalresearch_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -867,3 +871,126 @@ def test_depthwise_forward_and_grad_x_ragged(cuda_device, shape, dtype):
     # profiled device activity of the dx call: the band kernel alone (or
     # nothing, where the profiler cannot trace the card)
     assert all("dw_band_kernel" in name for name in kernels), kernels
+
+
+# The window attention kernel against its plain version: both f32, the
+# sums in other orders (cuBLAS's blocked products against the kernel's
+# d-ordered FMAs, another order of the softmax's sum, the division after
+# · v), so O(1) scores and outputs part by a few f32 ulps, ~1e-6; a
+# wrong bias index or a dropped mask moves them by 0.1 or more.
+ATTN_TOL = 1e-5
+
+
+def _window_case(rng, heads, ws, grid, shift, images, device):
+    """A block call's operands at an (grid, grid) token grid: qkv and the
+    bias table drawn from numpy (the table a unit normal: the benchmark
+    draws it as zeros, so only this comparison holds the kernel's gather
+    to the index), the index (for the plain version; the kernel computes
+    it) and the block's mask."""
+    hp, wp = S._padded(grid, grid, ws)
+    m = S._shift_attn_mask(grid, grid, hp, wp, ws, shift)
+    windows, n = images * (hp // ws) * (wp // ws), ws * ws
+    qkv = torch.from_numpy(rng.standard_normal(
+        (windows, n, 3, heads, 32), dtype=np.float32)).to(device)
+    table = torch.from_numpy(rng.standard_normal(
+        ((2 * ws - 1) ** 2, heads), dtype=np.float32)).to(device)
+    index = A.relative_position_index(ws).to(device)
+    mask = None if m is None else torch.from_numpy(m).to(device)
+    return qkv, table, index, mask
+
+
+# (heads, window, grid, shift, images): Swin-S3-B and Swin-T at 224 px
+# (stage 1 unshifted and shifted, stage 2 shifted, stage 3 global, stage
+# 4 global), Swin-S3-B's stage 2 at 288 px (a 36² grid padded to 42²:
+# shift and padding regions) and a padded grid at 7-token windows
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,ws,grid,shift,images", [
+    (3, 7, 56, 0, 4), (3, 7, 56, 3, 4), (6, 14, 28, 7, 16),
+    (12, 14, 14, 0, 64), (24, 7, 7, 0, 64), (6, 14, 36, 7, 2),
+    (6, 7, 10, 0, 8)])
+def test_window_attention_kernel_matches_plain_version(
+        cuda_device, heads, ws, grid, shift, images):
+    rng = np.random.default_rng(grid + heads)
+    qkv, table, index, mask = _window_case(rng, heads, ws, grid, shift,
+                                           images, cuda_device)
+    assert (mask is not None) == (shift > 0 or grid % ws > 0)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = A.window_attention(qkv, table, mask, heads)
+    assert A.KERNEL_LAUNCHES["window_attention"] == 1
+    want = A.window_attention_reference(qkv, table, index, mask, heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    # the comparison sees the bias: a transposed index moves the output
+    wrong = A.window_attention_reference(
+        qkv, table, index.reshape(ws * ws, -1).T.reshape(-1), mask, heads)
+    assert (wrong - want).abs().max() > 100 * ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_window_attention_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    rng = np.random.default_rng(3)
+    qkv, table, index, mask = _window_case(rng, 3, 7, 56, 3, 1, cuda_device)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="table"):
+            A.window_attention(qkv, table[:-1], mask, 3)
+        with pytest.raises(ValueError, match="mask"):
+            A.window_attention(qkv, table, mask[:5], 3)
+        with pytest.raises(ValueError, match="qkv"):
+            A.window_attention(qkv.transpose(1, 2), table, mask, 3)
+        with pytest.raises(ValueError, match="at most 208"):
+            A.window_attention(qkv.new_zeros((1, 225, 3, 3, 32)),
+                               table.new_zeros((841, 3)), None, 3)
+    with pytest.raises(ValueError, match="backward"):
+        A.window_attention(qkv, table.requires_grad_(), mask, 3)
+
+
+@pytest.mark.cuda
+def test_swin_attention_takes_the_kernel_only_without_autograd(
+        cuda_device, monkeypatch):
+    """A CUDA f32 block call under no_grad launches the kernel and counts
+    ``swin.attn_fused``; the same call under autograd keeps the eager path
+    (``swin.attn_eager``, no launch) and its backward runs."""
+    monkeypatch.setattr(profiling, "_COUNTS", {})
+    torch.manual_seed(0)
+    mod = S.WindowAttention(96, 3, 7).to(cuda_device)
+    x = torch.randn((8, 49, 96), device=cuda_device)
+    A.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.no_grad():
+            fused = mod(x)
+        eager = mod(x)
+        eager.sum().backward()
+    assert A.KERNEL_LAUNCHES["window_attention"] == 1
+    assert profiling.counts() == {"swin.attn_fused": 1, "swin.attn_eager": 1}
+    assert mod.qkv.weight.grad is not None
+    torch.testing.assert_close(fused, eager.detach(), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_swin_s3_base_embedding_through_the_kernel(cuda_device,
+                                                   monkeypatch):
+    """swin_s3_base_224's f32 no_grad embedding of 8 images through the
+    kernel (36 launches, one per block) within 1e-5 (relative, per row)
+    of the eager path's on the card, the bias tables drawn non-zero."""
+    model = create_model("swin_s3_base_224", seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, S.WindowAttention):
+                m.relative_position_bias_table.normal_(generator=g)
+    x = torch.rand((8, 224, 224, 3), generator=g, device=cuda_device)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        fused = model.embed(x)
+    assert A.KERNEL_LAUNCHES["window_attention"] == 36
+    monkeypatch.setattr(A, "takes_kernel", lambda qkv, table: False)
+    with torch.no_grad():
+        eager = model.embed(x)
+    assert A.KERNEL_LAUNCHES["window_attention"] == 36
+    rel = ((fused - eager).norm(dim=1) / eager.norm(dim=1)).max().item()
+    print(f"swin_s3_base_224 embedding, kernel vs eager: emb_rel {rel:.3g}")
+    assert rel <= 1e-5, rel

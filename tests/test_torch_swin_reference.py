@@ -132,8 +132,9 @@ def test_counters_and_spans_under_a_profiler(monkeypatch):
     # (14, 14, 4), (7, 7, 8), two blocks each; a block call's windows are
     # B (grid / window)² = 2 x (64, 4, 1, 1), its scores windows x heads x
     # (window²)², and the odd block of stages 1 and 2 (grid > window) is
-    # shifted and masked
+    # shifted and masked; on the CPU every attention call is eager
     assert profiling.counts() == {
+        "swin.attn_eager": 8,
         "swin.windows": 2 * 2 * (64 + 4 + 1 + 1),
         "swin.masked_windows": 2 * (64 + 4),
         "swin.attn_scores": 2 * 2 * (64 * 1 * 49 ** 2 + 4 * 2 * 196 ** 2
