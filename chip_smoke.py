@@ -14,8 +14,10 @@ Phases (any failure exits non-zero, with no result line):
    embeds 512 seeded uint8 224x224 images through the squarepad eval
    transform into a ``GalleryIndex``, which then takes 99,488 seeded unit
    rows (G = 100,000 x 1536 on the device).
-3. Requests, one path per serving mode, each driven with the kernels'
-   launch counts set to 0 just before it and read just after:
+3. Requests, one path per serving mode, each with the launches the
+   kernel layer counted from just before it to just after (every count
+   this script reads is such a block of ``ops._cuda.ledger``, keyed by C
+   entry):
    ``RetrievalEngine.embed_batch`` -> ``query_class_dedup(k=150,
    num_unique=3, matmul_dtype=...)``. float32: two batches of 64 (fused
    kernel) and one of 8 (dense path), a cold round then a warm one; then
@@ -45,10 +47,10 @@ Phases (any failure exits non-zero, with no result line):
 5. AutoAugment training input: a seeded triplet batch (qry, one pos, one
    neg; 64 x 256 x 256 x 3 uint8 each) through
    ``build_triplet_transform`` with three ``train_autoaugment(224)``
-   specs and a seeded generator, launch counts set to 0 just before and
-   read just after (histogram 6, LUT 9, cubic row shift 3, row shift 18:
-   12 on rows and 6 on columns, counted by C entry as well; worked out
-   from ``_STAGE_OPS``; no plain version on the card), the
+   specs and a seeded generator, launches counted from just before to
+   just after (histogram 6, LUT 9, cubic row shift 3, integer shift 12
+   on rows and 6 on columns; worked out from ``_STAGE_OPS``; no plain
+   version on the card), the
    augmented queries through the b3a embed. The transform equals its
    pieces, and the card's policy the CPU table's on every image no rotate
    touched; the 3-shear rotate's agreement with the exact gather rotate.
@@ -78,8 +80,8 @@ Phases (any failure exits non-zero, with no result line):
    of ``make_config("train_efficient_cos_con_ce_loss", batch_size=64)``
    on ``efficientnet_b3a`` (125 classes, seeded weights) over in-memory
    loaders (3 train batches, 1 val batch of seeded 256 px uint8
-   triplets), first with the opt-in, counts set to 0 just before and read
-   just after (kernel 9: the forward 26 per train step and 26 per val
+   triplets), first with the opt-in, launches counted from just before
+   to just after (kernel 9: the forward 26 per train step and 26 per val
    batch, dx 26 per train step; kernel 10: 26 per train step; kernels
    5-8 at phase 5's counts per step; no plain version on the card, no
    layout copy), then from the same weights
@@ -94,7 +96,7 @@ Phases (any failure exits non-zero, with no result line):
    profiling tool's kernels. ``RetrievalEngine(use_pallas=True)`` on the
    phase 2 b3a: ``embed_triplet_loader`` over 8 batches of 64 seeded
    256 px triplets, then ``evaluate_class_dedup`` (k=150, num_unique=3)
-   and ``evaluate_index_match``, counts set to 0 just before and read just
+   and ``evaluate_index_match``, launches counted from just before to just
    after (one scores launch per evaluation, no top-k kernel, no plain
    version on the card); the same evaluations with ``use_pallas=False``
    give equal top1 / top3. ``search`` over the 100,000 x 1536 gallery at
@@ -117,9 +119,9 @@ Phases (any failure exits non-zero, with no result line):
    ``data.decode`` (time per image), built with ``-mn efficientnet_b3a
    -is 224 -bs 64 --host_size 256`` (images/s) and described by ``info``;
    then ``query`` of the 64 images, k = 150, num_unique = 3, in each
-   ``--matmul_dtype``, counts set to 0 just before and read just after:
-   64 JSON lines, one launch of the mode's fused kernel (1, 2 or 3),
-   ``PLAIN_ON_CARD`` unchanged, records equal to the library path's
+   ``--matmul_dtype``, launches counted from just before to just after:
+   64 JSON lines, one launch of the mode's fused kernel (1, 2 or 3), no
+   plain version on the card, records equal to the library path's
    (``data.decode`` -> ``RetrievalEngine`` -> ``query_class_dedup`` on
    the artifact: indices and classes equal, scores within 1e-6); wall ms
    per mode. ``serve`` (``_make_server``, port 0, in a thread): healthz,
@@ -134,7 +136,7 @@ Phases (any failure exits non-zero, with no result line):
    images (``CPU_FWD_RTOL``). ``rexnet_150`` (D = 1920) and
    ``swin_s3_base_224`` (D = 768) serve as phases 2-4 do: 512 embedded
    images + seeded unit rows (G = 100,000), a Q = 64 request in each
-   mode, cold then warm, counts set to 0 just before each and read just
+   mode, cold then warm, launches counted from just before each to just
    after (one launch of the mode's kernel), then kernels 1-3 against
    their plain versions by phase 4's rules and timed over that gallery
    (rows 1-3's ``models``). T1 (``make_config("train")``, cos 0.5 + CE)
@@ -171,11 +173,11 @@ Phases (any failure exits non-zero, with no result line):
    gives 192 / 24 / 24 queries. ``cli.train --recipe
    train_efficient_cos_con_ce_loss -bs 16 --max_epochs 2 --cache
    --host_size 256`` (T3, efficientnet_b3a at 224 px, AutoAugment, bf16)
-   with ``IRT_FORCE_PALLAS_DW=1``, counts set to 0 just before and read
+   with ``IRT_FORCE_PALLAS_DW=1``, launches counted from just before to
    just after: kernels 5-8 at phase 5's counts per policy call x 3 roles
    x 24 train steps, kernel 9's forward 26 per train step and per val
-   batch, dx and kernel 10 26 per train step, ``PLAIN_ON_CARD``
-   unchanged, no layout copy; ``hparams.yaml``, ``metrics.jsonl``,
+   batch, dx and kernel 10 26 per train step, no plain version on the
+   card, no layout copy; ``hparams.yaml``, ``metrics.jsonl``,
    ``best/`` and ``last/`` written, and the ``last/`` checkpoint read back
    by ``models.convert.load_checkpoint`` embeds 4 images bit for bit as
    the in-memory final state. Its times: the cache fill, each epoch's
@@ -186,7 +188,7 @@ Phases (any failure exits non-zero, with no result line):
    opt-in: a finite suggestion inside [min_lr, max_lr] from at least 3
    losses, 16 + 16 + 16 depthwise launches per sweep step, ms per step.
    Rows 5-10 of the kernels line carry the train run's launches as
-   ``train_cli_launches`` (rows 5-8 by C entry), rows 9-10 the sweep's as
+   ``train_cli_launches``, rows 9-10 the sweep's as
    ``find_lr_launches``. Then the decode pool (``data.native_loader``,
    JAX's C++ loader's counterpart): ``decode_resize_batch`` over the
    tree's 400 files on 1 and on ``os.cpu_count()`` processes (the pool's
@@ -205,8 +207,8 @@ Phases (any failure exits non-zero, with no result line):
    step runs). ``cli.inference -ip <tree> -bs 64 --cache True
    --save_gallery <npz> --gallery_dtype int8`` (+ ``--viz_dir`` where
    matplotlib imports): rexnet_150, its default (D = 1920), seeded
-   weights, 224 px squarepad, class_dedup, counts set to 0 just before and
-   read just after: kernel 1 once (the evaluation's Q = G = 264), nothing
+   weights, 224 px squarepad, class_dedup, launches counted from just
+   before to just after: kernel 1 once (the evaluation's Q = G = 264), nothing
    else, no plain version on the card; its printed top1 / top3 / scores
    against ``RetrievalEngine.evaluate_class_dedup`` on the same embeddings
    through ``method='dense'`` (true f32): deduplicated values within
@@ -230,8 +232,8 @@ Phases (any failure exits non-zero, with no result line):
    mesh=Mesh(["cuda:0"] * R))`` at Q = 64, k = 150, num_unique = 3, for R
    = 2 and 4 in float32, bfloat16 and int8, the same gallery with 3
    seeded rows more (G = 100,003) over R = 8 (5 pad rows), and
-   ``make_mesh()`` (one device) in float32; counts set to 0 just before
-   each request and read just after: one launch of the mode's kernel (1,
+   ``make_mesh()`` (one device) in float32; launches counted from just
+   before each request to just after: one launch of the mode's kernel (1,
    2 or 3) per shard, nothing else, no certificate repair, no plain
    version; the dedup and the top-150 bit for bit the unsharded request's
    (and the f32 shards' norms the unsharded norms); warm request times,
@@ -524,10 +526,16 @@ LADDER = {"stream_only": 104, "matmul_only": 116, "insert_only": 131}
 # where an index differs, both records' scores there lie within
 # SERVE_TIE_ATOL (1e-5, plus the records' 5-decimal rounding)
 CLI_CLASSES, CLI_PER_CLASS, CLI_SRC, CLI_QUERIES, CLI_POSTS = 8, 64, 256, 64, 16
-MODE_KERNELS = {"float32": "fused_cosine_topk",
-             "bfloat16": "fused_cosine_topk_bf16",
-             "int8": "fused_cosine_topk_int8",
-             "int8_rerank": "fused_cosine_topk_int8"}
+# each serving mode's fused top-k, by C entry
+MODE_ENTRIES = {"float32": "fused_topk_f32", "bfloat16": "fused_topk_bf16",
+                "int8": "fused_topk_int8", "int8_rerank": "fused_topk_int8"}
+# the C entries whose launches a row of the kernels line carries (kernel
+# 9's row: the forward's and dx's)
+ROW_ENTRIES = {**{name: (MODE_ENTRIES[mode],)
+                  for mode, (name, _) in KERNELS.items()},
+               **{name: (entry,) for name, entry in ENTRIES.items()},
+               "depthwise_conv_forward": ("dw_conv_forward", "dw_conv_grad_x"),
+               "depthwise_conv_grad_w": ("dw_conv_grad_w",)}
 SERVE_TIE_ATOL = 2e-5
 # a ten-line program against the native loader's libraries
 # (native/Makefile: -ljpeg -lpng)
@@ -833,17 +841,35 @@ def host_dispatch(mode: str, q_hat, g_in, kw) -> dict:
     return {"now": steps, "earlier_steps": before}
 
 
+def row_launches(name: str, counts: dict) -> int:
+    """The launches in ``counts`` (by C entry) that row ``name`` of the
+    kernels line carries."""
+    return sum(counts.get(e, 0) for e in ROW_ENTRIES[name])
+
+
+def lib_launches(counts: dict, *libs: str) -> dict:
+    """The launches in ``counts`` of the C entries of libraries ``libs``,
+    every entry listed."""
+    return {e: counts.get(e, 0) for lib in libs for e in _cuda.SIGNATURES[lib]}
+
+
+def plain_runs(counts: dict) -> dict:
+    """The plain versions that ``counts`` saw run on the card."""
+    return {k: n for k, n in counts.items() if k.startswith("plain:")}
+
+
 def launches_per_policy() -> dict:
-    """Image kernel launches of one policy call on the card, from the ops
-    each stage can select (every one is computed batch-wide): equalize a
-    histogram and a LUT, autocontrast a LUT, shearX a cubic row shift,
-    rotate three row shifts."""
+    """Image kernel launches of one policy call on the card, by C entry,
+    from the ops each stage can select (every one is computed batch-wide):
+    equalize a histogram and a LUT, autocontrast a LUT, shearX a cubic row
+    shift, rotate a shift of rows, of columns and of rows."""
     def stages(op):
         return sum(op in ops for ops in A._STAGE_OPS)
-    return {"plane_histogram": stages(A.EQUALIZE),
-            "lut_apply": stages(A.EQUALIZE) + stages(A.AUTOCONTRAST),
-            "row_shift_cubic": stages(A.SHEAR_X),
-            "row_shift": 3 * stages(A.ROTATE)}
+    return {"image_histogram": stages(A.EQUALIZE),
+            "image_lut_apply": stages(A.EQUALIZE) + stages(A.AUTOCONTRAST),
+            "image_row_shift_cubic": stages(A.SHEAR_X),
+            "image_row_shift": 2 * stages(A.ROTATE),
+            "image_column_shift": stages(A.ROTATE)}
 
 
 def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
@@ -858,26 +884,19 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
     spec = TransformSpec.train_autoaugment(SIZE)
     transform = build_triplet_transform(spec, spec, spec)
     per_call = launches_per_policy()
-    assert per_call == {"plane_histogram": 2, "lut_apply": 3,
-                        "row_shift_cubic": 1, "row_shift": 6}, per_call
+    assert per_call == {"image_histogram": 2, "image_lut_apply": 3,
+                        "image_row_shift_cubic": 1, "image_row_shift": 4,
+                        "image_column_shift": 2}, per_call
 
-    IK.reset_launch_counts()
-    out, ms = sync_time(lambda: transform(
-        batch, torch.Generator(device=DEV).manual_seed(SEED)))
-    launches = dict(IK.KERNEL_LAUNCHES)
-    by_entry = dict(IK.ENTRY_LAUNCHES)
-    plain = dict(IK.PLAIN_ON_CARD)
+    with _cuda.ledger() as got:
+        out, ms = sync_time(lambda: transform(
+            batch, torch.Generator(device=DEV).manual_seed(SEED)))
+    launches = lib_launches(got, "image_ops")
     log(f"AutoAugment triplet transform (3 x {AUG_BATCH} x {AUG_SRC} px -> "
-        f"{SIZE}, first call): {ms:.1f} ms; launches {launches}, by C "
-        f"entry {by_entry}")
+        f"{SIZE}, first call): {ms:.1f} ms; launches {launches}")
     assert launches == {k: AUG_ROLES * n for k, n in per_call.items()}, (
         launches)
-    # the integer shift's two forms share the row_shift counter: a rotate
-    # runs two passes on rows and one on columns
-    assert by_entry == {ENTRIES[k]: launches[k] for k in launches} | {
-        "image_row_shift": 2 * launches["row_shift"] // 3,
-        "image_column_shift": launches["row_shift"] // 3}, by_entry
-    assert not any(plain.values()), f"plain versions ran on the card: {plain}"
+    assert not plain_runs(got), f"plain versions ran on the card: {got}"
     for x in (out["qry"], *out["pos"], *out["neg"]):
         assert x.shape == (AUG_BATCH, SIZE, SIZE, 3), x.shape
         assert x.dtype == torch.float32 and x.device.type == DEV.type
@@ -1013,7 +1032,7 @@ def augment_phase(model, gen: torch.Generator, peaks: dict) -> list:
             "route": "cuda",
             "source": "imageretrievalresearch_tpu_torch/csrc/image_ops.cu",
             "replaces": f"imageretrievalresearch_tpu/{IMAGE_KERNELS[name]}",
-            "launches": by_entry[ENTRIES[name]],
+            "launches": launches[ENTRIES[name]],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -1289,22 +1308,16 @@ def set_opt_in(on: bool) -> None:
 
 def fit_once(model, init: dict, train, val, kernels: bool, run: TrainRun,
              label: str | None = None) -> dict:
-    """One epoch of ``Trainer.fit`` of ``run`` from ``init``, launch
-    counts set to 0 just before and read just after; its per-step losses
-    from metrics.jsonl."""
+    """One epoch of ``Trainer.fit`` of ``run`` from ``init``, with what the
+    kernel layer counted over it (``counts``, ``_cuda.ledger``); its
+    per-step losses from metrics.jsonl."""
     set_opt_in(kernels)
     model.load_state_dict(init)
     with tempfile.TemporaryDirectory() as d:
         trainer = Trainer(run_config(run, d, log_every_n_steps=1), model,
                           train, val)
-        for mod in (DW, IK):
-            mod.reset_launch_counts()
-        (state, hist), ms = sync_time(lambda: trainer.fit(max_epochs=1))
-        counts = {"dw": dict(DW.KERNEL_LAUNCHES),
-                  "dw_plain": dict(DW.PLAIN_ON_CARD),
-                  "copies": dict(DW.LAYOUT_COPIES),
-                  "image": dict(IK.KERNEL_LAUNCHES),
-                  "image_plain": dict(IK.PLAIN_ON_CARD)}
+        with _cuda.ledger() as counts:
+            (state, hist), ms = sync_time(lambda: trainer.fit(max_epochs=1))
         with open(os.path.join(d, "metrics.jsonl")) as f:
             losses = [r["train_loss"] for r in map(json.loads, f)
                       if "train_loss" in r]
@@ -1319,7 +1332,7 @@ def fit_once(model, init: dict, train, val, kernels: bool, run: TrainRun,
         f"{label or ('depthwise kernels' if kernels else 'cuDNN')}: "
         f"{ms:.0f} ms (first use, includes warm-up); train_loss per step "
         f"{losses}; val_loss {epoch['val_loss']:.5g}, cos_sims "
-        f"{epoch['cos_sims']:.5g}; launches {counts}")
+        f"{epoch['cos_sims']:.5g}; launches {dict(counts)}")
     return {"losses": losses, "counts": counts}
 
 
@@ -1469,22 +1482,21 @@ def depthwise_training(run: TrainRun, gen, peaks: dict,
     # the main path: kernels 9 and 10 on every depthwise layer, and the
     # image kernels where the recipe augments
     ours = fit_once(model, init, train, val, True, run)
-    launches = ours["counts"]["dw"]
+    launches = lib_launches(ours["counts"], "depthwise_conv")
     n = len(shapes)
-    assert launches == {
-        "depthwise_conv_forward": n * run.steps + n,
-        "depthwise_conv_grad_x": n * run.steps,
-        "depthwise_conv_grad_w": n * run.steps}, launches
+    assert launches == {"dw_conv_forward": n * run.steps + n,
+                        "dw_conv_grad_x": n * run.steps,
+                        "dw_conv_grad_w": n * run.steps}, launches
     augment = run_config(run, None).autoaugment
-    assert ours["counts"]["image"] == {
+    assert lib_launches(ours["counts"], "image_ops") == {
         k: run.steps * 3 * p * augment
         for k, p in launches_per_policy().items()}, ours["counts"]
-    for plain in ("dw_plain", "image_plain"):
-        assert not any(ours["counts"][plain].values()), ours["counts"]
+    assert not plain_runs(ours["counts"]), ours["counts"]
     # the activations reach the kernels as channels-last views
-    assert ours["counts"]["copies"] == {"nhwc": 0}, ours["counts"]
+    assert not ours["counts"]["nhwc_copy"], ours["counts"]
     ref = fit_once(model, init, train, val, False, run)
-    assert not any(ref["counts"]["dw"].values()), ref["counts"]
+    assert not any(lib_launches(ref["counts"], "depthwise_conv").values()), (
+        ref["counts"])
 
     def rel(r):
         return [abs(a - b) / abs(b) for a, b in zip(r["losses"],
@@ -1539,15 +1551,13 @@ def dw_entries(t3: dict, t1: dict) -> list:
     forward and dx kernels together. The top-level numbers are T3's on
     b3a (phase 6), ``models`` holds T1's on rexnet_150."""
     entries = []
-    for name, passes, counters in (
-            ("depthwise_conv_forward", ("forward", "dx"),
-             ("depthwise_conv_forward", "depthwise_conv_grad_x")),
-            ("depthwise_conv_grad_w", ("dw",), ("depthwise_conv_grad_w",))):
+    for name, passes in (("depthwise_conv_forward", ("forward", "dx")),
+                         ("depthwise_conv_grad_w", ("dw",))):
         def numbers(res):
             def total(key):
                 return sum(res["tot"][p][key] for p in passes)
             return {
-                "launches": sum(res["launches"][c] for c in counters),
+                "launches": row_launches(name, res["launches"]),
                 "max_abs_err": (res["err"] if name == "depthwise_conv_grad_w"
                                 else 0.0),
                 "ms": total("ms"),
@@ -1593,7 +1603,6 @@ def topk_checks(index, q_hat, gen,
     splits = R.fused_splits(64, g_total, K, DEV)
 
     def compare(mode, qh, g, kw, k=K):
-        R.reset_launch_counts()   # comparison launches are not counted
         kv, ki, kok = R.fused_cosine_topk(qh, g, k, **kw)
         rv, ri, rok = R.fused_cosine_topk_reference(
             qh, g, k, matmul_dtype=mode,
@@ -1763,10 +1772,9 @@ def scores_bounds(q: int, g: int, d: int, peaks: dict) -> dict:
 
 
 def scores_check(qh, g, exact: bool) -> float:
-    """Kernel 4 against its plain version on the card, one launch each
-    (not counted): bitwise where ``exact``, else within 1e-5. Returns the
-    largest |kernel - plain|."""
-    R.reset_launch_counts()
+    """Kernel 4 against its plain version on the card, one launch each:
+    bitwise where ``exact``, else within 1e-5. Returns the largest
+    |kernel - plain|."""
     got, want = R.fused_cosine_scores(qh, g), R.cosine_scores_reference(qh, g)
     torch.cuda.synchronize()
     assert got.shape == (qh.shape[0], g.shape[0])
@@ -1791,28 +1799,31 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     n_eval = EVAL_BATCHES * TRAIN_BATCH
 
     # 7.1 the inference CLI's evaluation on kernel 4: embed_triplet_loader
-    # -> evaluate_class_dedup / evaluate_index_match, counts set to 0 just
-    # before and read just after
-    R.reset_launch_counts()
-    embeds, embed_ms = sync_time(
-        lambda: engines[True].embed_triplet_loader(loader))
-    assert not any(R.KERNEL_LAUNCHES.values()), R.KERNEL_LAUNCHES
-    dedup, dedup_ms = sync_time(lambda: engines[True].evaluate_class_dedup(
-        embeds, k=K, num_unique=3))
-    assert R.KERNEL_LAUNCHES["fused_cosine_scores"] == 1, R.KERNEL_LAUNCHES
-    match, match_ms = sync_time(
-        lambda: engines[True].evaluate_index_match(embeds))
-    launches = dict(R.KERNEL_LAUNCHES)
-    plain = dict(R.PLAIN_ON_CARD)
+    # -> evaluate_class_dedup / evaluate_index_match, launches counted
+    # from just before to just after
+    with _cuda.ledger() as got:
+        with _cuda.ledger() as embed_got:
+            embeds, embed_ms = sync_time(
+                lambda: engines[True].embed_triplet_loader(loader))
+        assert not any(lib_launches(embed_got, "fused_topk").values()), (
+            embed_got)
+        with _cuda.ledger() as dedup_got:
+            dedup, dedup_ms = sync_time(
+                lambda: engines[True].evaluate_class_dedup(
+                    embeds, k=K, num_unique=3))
+        assert dedup_got["cosine_scores_f32"] == 1, dedup_got
+        match, match_ms = sync_time(
+            lambda: engines[True].evaluate_index_match(embeds))
+    launches = lib_launches(got, "fused_topk")
     log(f"inference evaluation, use_pallas=True: embed_triplet_loader "
         f"({EVAL_BATCHES} batches of {TRAIN_BATCH} seeded {TRAIN_SRC} px "
         f"triplets, b3a at {SIZE} px) {embed_ms:.1f} ms; "
         f"evaluate_class_dedup (k={K}, Q=G={n_eval}) {dedup_ms:.1f} ms; "
-        f"evaluate_index_match {match_ms:.1f} ms; launches {launches}")
+        f"evaluate_index_match {match_ms:.1f} ms; launches {dict(got)}")
     # one query block of 512 per evaluation: one launch each
-    assert launches["fused_cosine_scores"] == 2, launches
+    assert launches["cosine_scores_f32"] == 2, launches
     assert sum(launches.values()) == 2, launches
-    assert not any(plain.values()), f"plain versions ran on the card: {plain}"
+    assert not plain_runs(got), f"plain versions ran on the card: {got}"
     for key in ("fms_ims_all", "fms_poss_all", "fms_negs_all"):
         assert embeds[key].shape == (n_eval, DIM), embeds[key].shape
         assert np.isfinite(embeds[key]).all()
@@ -1840,14 +1851,15 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     gal, norms = index._gallery_on_device()
     for n, emb in ((64, paths["float32"][0][0]), (8, paths["float32"][2][0])):
         assert emb.shape == (n, DIM)
-        R.reset_launch_counts()
-        _, cold_ms = sync_time(lambda: engines[True].search(emb, gal, k=K))
-        (v, i), warm_ms = sync_time(
-            lambda: engines[True].search(emb, gal, k=K))
-        counts, plain = dict(R.KERNEL_LAUNCHES), dict(R.PLAIN_ON_CARD)
-        assert counts["fused_cosine_scores"] == 2, counts
+        with _cuda.ledger() as got:
+            _, cold_ms = sync_time(
+                lambda: engines[True].search(emb, gal, k=K))
+            (v, i), warm_ms = sync_time(
+                lambda: engines[True].search(emb, gal, k=K))
+        counts = lib_launches(got, "fused_topk")
+        assert counts["cosine_scores_f32"] == 2, counts
         assert sum(counts.values()) == 2, counts
-        assert not any(plain.values()), plain
+        assert not plain_runs(got), got
         qh = R.l2_normalize(emb)
         fv, fi = R.cosine_topk(emb, gal, K, gallery_norms=norms,
                                method="fused")
@@ -1859,7 +1871,7 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
             fv[:, K - 1:K], ("search", n))
         log(f"RetrievalEngine(use_pallas=True).search, Q={n}, G={G_TOTAL}, "
             f"k={K}: {cold_ms:.2f} ms first, {warm_ms:.2f} ms warm (host "
-            f"clock, synchronised); launches {counts}; against the fused "
+            f"clock, synchronised); launches {dict(got)}; against the fused "
             f"kernel 1: max |vals| diff {verr:.3g}, {n_diff} of {n} rows "
             "with index sets that differ, only at near-ties")
 
@@ -1891,7 +1903,6 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                             min=R.COSINE_SIM_EPS)
     for q in (64, 512):
         qh = R.l2_normalize(torch.randn((q, DIM), generator=gen, device=DEV))
-        R.reset_launch_counts()   # comparison launches are not counted
         got, want = R.fused_cosine_scores(qh, gal), \
             R.cosine_scores_reference(qh, gal)
         exact = qh.double() @ g64.t()
@@ -1928,7 +1939,7 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
                 "source": "imageretrievalresearch_tpu_torch/csrc/"
                           "fused_topk.cu",
                 "replaces": "imageretrievalresearch_tpu/ops/retrieval.py:109",
-                "launches": launches["fused_cosine_scores"],
+                "launches": launches["cosine_scores_f32"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **bounds, "library_ms": library_ms, "ms_by": "single call",
                 "burst_ms": b_ms, "library_burst_ms": lib_b_ms}
@@ -1946,8 +1957,8 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     # 7.4 kernel 11, the ladder: each rung against its plain version on ±1
     # data (every word, sum and score exact: bitwise) and stream_only on
     # the float gallery within its stated bound; then the tool's ladder at
-    # Q = 64 over the resident f32 and bf16 galleries, counts set to 0
-    # just before and read just after
+    # Q = 64 over the resident f32 and bf16 galleries, launches counted from
+    # just before to just after
     q_hat = R.l2_normalize(paths["float32"][0][0])
     pq, pg = R.l2_normalize(pm1_rows(gen, 64, DIM)), pm1_rows(gen, G_TOTAL,
                                                               DIM)
@@ -1989,12 +2000,10 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
             f"of the sum of |words| (limit {rtol:.3g})")
     del pq, pg, g_pm1, s_pm1
 
-    PF.reset_launch_counts()
-    R.reset_launch_counts()
-    ladder = {mode: PF.run_ladder(q_hat, g_in, K, **aux)
-              for mode, (g_in, aux) in forms.items()}
-    ladder_launches = dict(PF.KERNEL_LAUNCHES)
-    assert not any(R.PLAIN_ON_CARD.values())
+    with _cuda.ledger() as ladder_launches:
+        ladder = {mode: PF.run_ladder(q_hat, g_in, K, **aux)
+                  for mode, (g_in, aux) in forms.items()}
+    assert not plain_runs(ladder_launches), ladder_launches
     for mode, times in ladder.items():
         tag = tags[mode]
         for rung in PF.RUNGS:
@@ -2044,8 +2053,8 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
 
     # 7.5 kernel 12, the stream probe over a (100,352, 1536) f32 array:
     # bitwise on small integers (exact in f32), within its stated bound on
-    # float data; then the tool's probes, counts set to 0 just before and
-    # read just after, and the torch read+write pass
+    # float data; then the tool's probes, launches counted from just
+    # before to just after, and the torch read+write pass
     x = torch.randint(-3, 4, (PF.G_PAD, DIM), generator=gen, device=DEV
                       ).float()
     for rows in PF.PROBE_ROWS:
@@ -2064,9 +2073,9 @@ def inference_phase(model, index, paths, gen, peaks) -> list:
     log(f"stream probe vs plain version at rows {PF.PROBE_ROWS}: bitwise on "
         f"small integers; float data within the stated bound (max |diff| "
         f"{perr:.3g})")
-    PF.reset_launch_counts()
-    probes = PF.run_probes(x)
-    probe_launches = PF.KERNEL_LAUNCHES["stream_probe"]
+    with _cuda.ledger() as got:
+        probes = PF.run_probes(x)
+    probe_launches = got["stream_probe_f32"]
     assert probe_launches > 0
     x_bytes = x.numel() * 4
     for rows, ms in probes.items():
@@ -2289,18 +2298,17 @@ def cli_phase(card: str) -> dict:
             f"meta keys {sorted(info['meta'])}")
 
         launches, queried, library = {}, {}, None
-        for mode, kernel in MODE_KERNELS.items():
-            plain_before = dict(R.PLAIN_ON_CARD)
-            R.reset_launch_counts()
-            recs, ms = cli_stdout(["query", npz, qry, "-k", str(K),
-                                   "--num_unique", "3", "--matmul_dtype",
-                                   mode])
-            counts = dict(R.KERNEL_LAUNCHES)
+        for mode, entry in MODE_ENTRIES.items():
+            with _cuda.ledger() as got:
+                recs, ms = cli_stdout(["query", npz, qry, "-k", str(K),
+                                       "--num_unique", "3", "--matmul_dtype",
+                                       mode])
+            counts = lib_launches(got, "fused_topk")
             assert len(recs) == CLI_QUERIES, (mode, len(recs))
-            assert counts[kernel] == 1, (mode, counts)
-            assert sum(counts.values()) == counts[kernel], (mode, counts)
-            assert R.PLAIN_ON_CARD == plain_before, (mode, R.PLAIN_ON_CARD)
-            launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+            assert counts[entry] == 1, (mode, got)
+            assert sum(counts.values()) == 1, (mode, got)
+            assert not plain_runs(got), (mode, got)
+            launches[entry] = launches.get(entry, 0) + 1
             library = library or library_path(npz, qpaths)
             for rec, ref, path in zip(recs, library(mode), qpaths):
                 assert rec["query"] == path
@@ -2312,7 +2320,7 @@ def cli_phase(card: str) -> dict:
             queried[mode] = recs
             log(f"CLI query {mode}: {CLI_QUERIES} JSON lines in {ms:.0f} ms "
                 f"wall (model, artifact, decode, embed, k={K} ranking, "
-                f"dedup, print); launches {counts}; records equal to the "
+                f"dedup, print); launches {dict(got)}; records equal to the "
                 f"library path's; {card}")
 
         args = CLI.build_parser().parse_args(["serve", npz, "--port", "0"])
@@ -2401,8 +2409,8 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
     """Phase 9's serving path of ``name`` (seeded weights, D = ``dim``):
     the card's forward against the CPU's; 512 embedded images + 99,488
     seeded unit rows in a ``GalleryIndex`` (G = 100,000); a Q = 64
-    request in each mode, cold then warm, counts set to 0 just before
-    each and read just after (one launch of the mode's kernel); kernels
+    request in each mode, cold then warm, launches counted from just before
+    each to just after (one launch of the mode's kernel); kernels
     1-3 against their plain versions over this gallery (``topk_checks``)
     and their times (``topk_times``). Each request's embed launches kernel
     13 once a Swin block (f32 under ``no_grad``), none for a CNN. Returns,
@@ -2427,42 +2435,42 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
     index.add(emb.cpu().numpy(), classes[:N_IMAGES])
     index.add(rows.cpu().numpy(), classes[N_IMAGES:])
     del rows, emb
-    launches = dict.fromkeys(MODE_KERNELS.values(), 0)
+    launches = dict.fromkeys(MODE_ENTRIES.values(), 0)
     blocks = sum(isinstance(m, SWIN.WindowAttention) for m in model.modules())
     attn = {"launches": 0, "requests": 0, "blocks": blocks}
-    for mode, kernel in MODE_KERNELS.items():
+    for mode, entry in MODE_ENTRIES.items():
         batch = images(gen, 64)
         for rnd in ("cold", "warm"):
-            R.reset_launch_counts()
-            ATT.reset_launch_counts()
-            q, embed_ms = sync_time(lambda: engine.embed_batch(batch))
-            att = ATT.KERNEL_LAUNCHES["window_attention"]
-            assert att == blocks, (name, mode, rnd, att, blocks)
-            attn["launches"] += att
-            attn["requests"] += 1
-            (vals, inds, cls), query_ms = sync_time(
-                lambda: index.query_class_dedup(q, k=K, num_unique=3,
-                                                matmul_dtype=mode,
-                                                shortlist=SHORTLIST))
-            counts = dict(R.KERNEL_LAUNCHES)
-            assert counts[kernel] == 1 == sum(counts.values()), (
-                name, mode, counts)
-            assert not any(R.PLAIN_ON_CARD.values()), R.PLAIN_ON_CARD
+            with _cuda.ledger() as got:
+                with _cuda.ledger() as embed_got:
+                    q, embed_ms = sync_time(lambda: engine.embed_batch(batch))
+                att = embed_got["window_attention_f32"]
+                assert att == blocks, (name, mode, rnd, att, blocks)
+                attn["launches"] += att
+                attn["requests"] += 1
+                (vals, inds, cls), query_ms = sync_time(
+                    lambda: index.query_class_dedup(q, k=K, num_unique=3,
+                                                    matmul_dtype=mode,
+                                                    shortlist=SHORTLIST))
+            counts = lib_launches(got, "fused_topk")
+            assert counts[entry] == 1 == sum(counts.values()), (
+                name, mode, got)
+            assert not plain_runs(got), got
             assert vals.shape == inds.shape == cls.shape == (64, 3)
             assert np.isfinite(vals).all() and (inds >= 0).all()
             np.testing.assert_array_equal(cls, index.classes[inds])
             assert (np.diff(vals, axis=1) <= 0).all(), "dedup order"
-            launches[kernel] += 1
+            launches[entry] += 1
             upload = " (with the mode's upload)" if rnd == "cold" else ""
             log(f"[{name}] {mode} request Q=64, {rnd}: "
                 f"{embed_ms + query_ms:.1f} ms end to end = embed "
                 f"{embed_ms:.1f} + k={K} top-k and class dedup "
-                f"{query_ms:.1f}{upload}; launches {counts}, window "
+                f"{query_ms:.1f}{upload}; launches {dict(got)}, window "
                 f"attention {att}")
     q_hat = R.l2_normalize(q)
     errs, _ = topk_checks(index, q_hat, gen, f"[{name}, D = {dim}] ")
     times = topk_times(index, q_hat, peaks, f"[{name}] ")
-    return {**{kernel: {"launches": launches[kernel],
+    return {**{kernel: {"launches": launches[MODE_ENTRIES[mode]],
                         "max_abs_err": errs[mode], **times[mode], "D": dim}
                for mode, (kernel, _) in KERNELS.items()},
             "window_attention": attn}
@@ -2507,14 +2515,13 @@ def backbone_phase(gen, peaks: dict) -> tuple[dict, dict]:
     init = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(SEED)
     train = MemoryLoader(rng, T4.steps, T4.batch)
-    ATT.reset_launch_counts()   # the card-vs-CPU forward took kernel 13
-    fit = fit_once(model, init, train, MemoryLoader(rng, 1, T4.batch),
-                   False, T4)
-    assert not any(v for c in fit["counts"].values() for v in c.values()), (
-        fit["counts"])
-    timed_epochs(model, init, train, False, T4)
-    # autograd and bf16 autocast keep the eager attention
-    assert ATT.KERNEL_LAUNCHES["window_attention"] == 0, ATT.KERNEL_LAUNCHES
+    with _cuda.ledger() as got:
+        fit_once(model, init, train, MemoryLoader(rng, 1, T4.batch), False,
+                 T4)
+        timed_epochs(model, init, train, False, T4)
+    # no kernel and no plain version on the card: autograd and bf16
+    # autocast keep the eager attention
+    assert not got, got
     log(f"T4 on {T4.model}: window attention kernel launches over the fit "
         f"and the timed epochs: 0 (eager under autocast and autograd)")
     del model, init
@@ -2560,12 +2567,11 @@ def window_attention_phase(peaks: dict) -> list:
         index = ATT.relative_position_index(ws).to(DEV)
         m = SWIN._shift_attn_mask(grid, grid, grid, grid, ws, shift)
         mask = None if m is None else torch.from_numpy(m).to(DEV)
-        ATT.reset_launch_counts()
-        with torch.no_grad():
+        with _cuda.ledger() as counts, torch.no_grad():
             got = ATT.window_attention(qkv, table, mask, heads)
             want = ATT.window_attention_reference(qkv, table, index, mask,
                                                 heads)
-        launches = ATT.KERNEL_LAUNCHES["window_attention"]
+        launches = counts["window_attention_f32"]
         assert launches == 1, launches
         err = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
@@ -2686,8 +2692,8 @@ def disk_phase(card: str) -> dict:
     ``cli.data_split``, ``cli.train`` (T3 on efficientnet_b3a) and
     ``cli.find_lr`` (rexnet_150), with the opt-in depthwise kernels, and
     phase 14 (a) on the train run's directory. Returns the launches of
-    kernels 5-10 in the train run (by C entry for the image kernels), of
-    kernels 9-10 in the sweep and of kernel 1 in 14 (a)."""
+    kernels 5-10 in the train run (by C entry), of kernels 9-10 in the
+    sweep and of kernel 1 in 14 (a)."""
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="disk_phase_")
     try:
@@ -2779,11 +2785,9 @@ def train_cli_run(tree: str, split: str, root: str, card: str) -> dict:
             return out
         return train_epoch
 
-    plain_before = (dict(DW.PLAIN_ON_CARD), dict(IK.PLAIN_ON_CARD))
-    for mod in (DW, IK):
-        mod.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
+        counts = stack.enter_context(_cuda.ledger())
         for owner, name, wrap in (
                 (DecodeCacheMixin, "_init_decode_cache", time_fill),
                 (Trainer, "train_epoch", time_epoch),
@@ -2791,27 +2795,23 @@ def train_cli_run(tree: str, split: str, root: str, card: str) -> dict:
             stack.enter_context(patched(owner, name, wrap))
         (state, history), ms = sync_time(
             lambda: TRAIN_CLI.run(TRAIN_CLI.build_parser().parse_args(argv)))
-    counts = {"dw": dict(DW.KERNEL_LAUNCHES), "image": dict(IK.KERNEL_LAUNCHES),
-              "entry": dict(IK.ENTRY_LAUNCHES),
-              "copies": dict(DW.LAYOUT_COPIES)}
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = DISK_EPOCHS * DISK_STEPS
     val = DISK_EPOCHS * DISK_VAL_BATCHES
     n = B3A_DW_LAYERS
-    want_dw = {"depthwise_conv_forward": n * (steps + val),
-               "depthwise_conv_grad_x": n * steps,
-               "depthwise_conv_grad_w": n * steps}
+    want_dw = {"dw_conv_forward": n * (steps + val),
+               "dw_conv_grad_x": n * steps, "dw_conv_grad_w": n * steps}
     want_image = {k: steps * 3 * p for k, p in launches_per_policy().items()}
     log(f"cli.train T3 ({' '.join(argv)}): {ms / 1e3:.1f} s; state.step "
-        f"{state.step}; launches {counts}; expected depthwise {want_dw} "
+        f"{state.step}; launches {dict(counts)}; expected depthwise {want_dw} "
         f"({n} layers x (train steps {steps} + val batches {val}), x train "
         f"steps), image kernels {want_image} (train steps x 3 roles x per "
         "policy call)")
     assert state.step == steps and len(history["epochs"]) == DISK_EPOCHS
-    assert counts["dw"] == want_dw, counts
-    assert counts["image"] == want_image, counts
-    assert (dict(DW.PLAIN_ON_CARD), dict(IK.PLAIN_ON_CARD)) == plain_before
-    assert counts["copies"] == {"nhwc": 0}, counts
+    assert lib_launches(counts, "depthwise_conv") == want_dw, counts
+    assert lib_launches(counts, "image_ops") == want_image, counts
+    assert not plain_runs(counts), counts
+    assert not counts["nhwc_copy"], counts
     ckpt = os.path.join(save, "efficientnet_b3a_Adam_0.0047863")
     with open(os.path.join(ckpt, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -2892,8 +2892,8 @@ def train_cli_run(tree: str, split: str, root: str, card: str) -> dict:
         f"decodes {3 * DISK_BATCH} files with {cfg.num_workers} loader "
         "threads; the Huffman walk holds the GIL)")
     log(f"  peak device memory {peak:.2f} GB; {card}")
-    return {"dw": counts["dw"], "entry": counts["entry"],
-            "epoch0": history["epochs"][0], "run_dir": ckpt}
+    return {"launches": counts, "epoch0": history["epochs"][0],
+            "run_dir": ckpt}
 
 
 def multihost_cli_run(tree: str, split: str, root: str, ref: dict,
@@ -2902,8 +2902,8 @@ def multihost_cli_run(tree: str, split: str, root: str, ref: dict,
     over the multi-host flags at world size 1 (``--coordinator_address
     localhost:<port> --num_processes 1 --process_id 0``: one process, an
     NCCL group of one, the model in DDP), one epoch of phase 10's run,
-    against that run's first epoch; launch counts set to 0 just before
-    and read just after."""
+    against that run's first epoch; launches counted from just before
+    to just after."""
     set_opt_in(True)
     argv = ["--recipe", "train_efficient_cos_con_ce_loss", "-ip", tree,
             "--split_json", split, "-bs", str(DISK_BATCH), "--max_epochs",
@@ -2919,18 +2919,16 @@ def multihost_cli_run(tree: str, split: str, root: str, ref: dict,
             return orig(self, state, epoch)
         return train_epoch
 
-    for mod in (DW, IK):
-        mod.reset_launch_counts()
-    with patched(Trainer, "train_epoch", record):
+    with _cuda.ledger() as got, patched(Trainer, "train_epoch", record):
         (state, history), ms = sync_time(lambda: TRAIN_CLI.run(
             TRAIN_CLI.build_parser().parse_args(argv)))
-    counts = {**DW.KERNEL_LAUNCHES, **IK.KERNEL_LAUNCHES}
+    counts = lib_launches(got, "depthwise_conv", "image_ops")
     assert not distributed.in_group(), "the CLI left its group running"
     assert wrapped == ["DistributedDataParallel"], wrapped
     n = B3A_DW_LAYERS
-    want = {"depthwise_conv_forward": n * (DISK_STEPS + DISK_VAL_BATCHES),
-            "depthwise_conv_grad_x": n * DISK_STEPS,
-            "depthwise_conv_grad_w": n * DISK_STEPS,
+    want = {"dw_conv_forward": n * (DISK_STEPS + DISK_VAL_BATCHES),
+            "dw_conv_grad_x": n * DISK_STEPS,
+            "dw_conv_grad_w": n * DISK_STEPS,
             **{k: DISK_STEPS * 3 * p
                for k, p in launches_per_policy().items()}}
     assert counts == want, (counts, want)
@@ -2973,11 +2971,9 @@ def find_lr_cli_run(tree: str, split: str, card: str) -> dict:
         return lr_find
 
     args = FIND_LR_CLI.build_parser().parse_args(argv)
-    DW.reset_launch_counts()
-    plain_before = dict(DW.PLAIN_ON_CARD)
-    with patched(lr_finder, "lr_find", time_steps):
+    with _cuda.ledger() as got, patched(lr_finder, "lr_find", time_steps):
         out, ms = sync_time(lambda: FIND_LR_CLI.run(args))
-    counts = dict(DW.KERNEL_LAUNCHES)
+    counts = lib_launches(got, "depthwise_conv")
     n, taken = REXNET_DW_LAYERS, len(step_s)
     want = {k: n * taken for k in counts}
     s, losses = out["suggestion"], out["losses"]
@@ -2991,7 +2987,7 @@ def find_lr_cli_run(tree: str, split: str, card: str) -> dict:
     assert (args.min_lr * (1 - 1e-12) <= s <= args.max_lr * (1 + 1e-12)), s
     assert len(losses) >= 3 and np.all(np.isfinite(losses)), losses
     assert counts == want, counts
-    assert dict(DW.PLAIN_ON_CARD) == plain_before
+    assert not plain_runs(got), got
     return counts
 
 
@@ -3157,20 +3153,12 @@ def matplotlib_report() -> bool:
     return False
 
 
-def counters() -> tuple:
-    """Every launch and plain-version counter of the port's kernels."""
-    return (dict(R.KERNEL_LAUNCHES), dict(R.PLAIN_ON_CARD),
-            dict(IK.KERNEL_LAUNCHES), dict(IK.PLAIN_ON_CARD),
-            dict(DW.KERNEL_LAUNCHES), dict(DW.PLAIN_ON_CARD))
-
-
 def inference_cli_run(argv: list, card: str) -> dict:
-    """``cli.inference`` in this process with every launch count set to 0
-    just before and read just after: its printed metric lines, results,
-    launches, wall, cache fill, embed ms per batch and evaluation ms. Only
-    kernel 1 may launch (once: the evaluation ranks Q = G = 264), and no
-    plain version may run on the card."""
-    plain_before = counters()[1::2]
+    """``cli.inference`` in this process with everything the kernel layer
+    counted from just before to just after: its printed metric lines,
+    results, launches, wall, cache fill, embed ms per batch and
+    evaluation ms. Only kernel 1 may launch (once: the evaluation ranks
+    Q = G = 264), and no plain version may run on the card."""
     fills, embeds, evals, evaluated = [], [], [], []
 
     def time_fill(orig):
@@ -3191,10 +3179,9 @@ def inference_cli_run(argv: list, card: str) -> dict:
             return timed
         return wrap
 
-    for mod in (R, IK, DW):
-        mod.reset_launch_counts()
     buf = io.StringIO()
     with contextlib.ExitStack() as stack:
+        counts = stack.enter_context(_cuda.ledger())
         for owner, name, wrap in (
                 (DecodeCacheMixin, "_init_decode_cache", time_fill),
                 (RetrievalEngine, "embed_batch", time_into(embeds)),
@@ -3206,7 +3193,6 @@ def inference_cli_run(argv: list, card: str) -> dict:
         stack.enter_context(contextlib.redirect_stdout(buf))
         results, ms = sync_time(lambda: INFER_CLI.run(
             INFER_CLI.build_parser().parse_args(argv)))
-    counts = counters()
     lines = [ln for ln in buf.getvalue().splitlines()
              if ln.startswith(("Test ", "Saved ", "Wrote ", "The dataset",
                                "Number of"))]
@@ -3216,10 +3202,7 @@ def inference_cli_run(argv: list, card: str) -> dict:
     for key in ("top1", "top3", "scores"):
         name = "cos sim scores" if key == "scores" else key
         assert f"Test {name}: {results[key]:.3f}" in lines, (key, lines)
-    assert counts[0]["fused_cosine_topk"] == 1, counts[0]
-    assert sum(counts[0].values()) == 1, counts[0]
-    assert not any(counts[2].values()) and not any(counts[4].values())
-    assert counts[1::2] == plain_before, (counts[1::2], plain_before)
+    assert counts == {"fused_topk_f32": 1}, counts
     fill_s = sum(t for t, _ in fills)
     n_files = sum(n for _, n in fills)
     log(f"cli.inference {' '.join(argv[2:])}: {ms / 1e3:.2f} s wall (host "
@@ -3227,9 +3210,9 @@ def inference_cli_run(argv: list, card: str) -> dict:
         f"({n_files} files decoded), {len(embeds)} embed_batch calls "
         f"(rexnet_150, {SIZE} px) {np.median(embeds):.1f} ms median, "
         f"{sum(embeds):.0f} ms in all, the evaluation {evals[0]:.1f} ms; "
-        f"launches {counts[0]}, no plain version on the card; {card}")
+        f"launches {dict(counts)}, no plain version on the card; {card}")
     return {"results": results, "embeds": evaluated[0],
-            "launches": counts[0]["fused_cosine_topk"]}
+            "launches": counts["fused_topk_f32"]}
 
 
 def dense_reference(model, fn: str, embeds: dict) -> dict:
@@ -3287,24 +3270,22 @@ def index_match_to_dense(model, got: dict, embeds: dict) -> None:
 def artifact_queries(npz: str, qpaths: list, card: str) -> dict:
     """``cli.gallery query`` of EVAL_QUERIES photos against the int8
     artifact ``cli.inference`` saved, in int8 (kernel 3) and float32
-    (kernel 1), counts set to 0 just before each and read just after;
+    (kernel 1), launches counted from just before each to just after;
     records against the library path (near-tie rule) and their top-1
     classes."""
     library = library_path(npz, qpaths)
     launches = {}
     for mode in ("int8", "float32"):
-        kernel = MODE_KERNELS[mode]
-        plain_before = counters()[1::2]
-        for mod in (R, IK, DW):
-            mod.reset_launch_counts()
-        recs, ms = cli_stdout(["query", npz, *qpaths, "-k", str(K),
-                               "--num_unique", "3", "--matmul_dtype", mode])
-        counts = counters()
+        entry = MODE_ENTRIES[mode]
+        with _cuda.ledger() as counts:
+            recs, ms = cli_stdout(["query", npz, *qpaths, "-k", str(K),
+                                   "--num_unique", "3", "--matmul_dtype",
+                                   mode])
+        topk = lib_launches(counts, "fused_topk")
         assert len(recs) == EVAL_QUERIES, len(recs)
-        assert counts[0][kernel] == 1 and sum(counts[0].values()) == 1, (
-            mode, counts[0])
-        assert counts[1::2] == plain_before, mode
-        launches[kernel] = counts[0][kernel]
+        assert topk[entry] == 1 and sum(topk.values()) == 1, (mode, counts)
+        assert not plain_runs(counts), (mode, counts)
+        launches[entry] = topk[entry]
         refs = library(mode)
         n_diff = near_tie_records(recs, refs, f"artifact query {mode}")
         top1 = sum(r["classes"][0] == f["classes"][0]
@@ -3312,7 +3293,7 @@ def artifact_queries(npz: str, qpaths: list, card: str) -> dict:
         assert top1 >= EVAL_QUERIES - n_diff, (mode, top1, n_diff)
         log(f"cli.gallery query of {EVAL_QUERIES} photos against the "
             f"cli.inference int8 artifact, --matmul_dtype {mode}: "
-            f"{ms:.0f} ms wall; launches {counts[0]}; top-1 class equal to "
+            f"{ms:.0f} ms wall; launches {dict(counts)}; top-1 class equal to "
             f"the library path's for {top1} of {EVAL_QUERIES}, {n_diff} "
             f"records differ, all at near-ties; {card}")
     return launches
@@ -3355,9 +3336,9 @@ def approx_check(index, q64, card: str) -> None:
     the dense path (no kernel launch), indices and values equal to
     ``method='dense'``'s, recall 1.0 against the exact (fused) request;
     warm times of both."""
-    R.reset_launch_counts()
-    av, ai, _ = index.query(q64, k=K, method="approx")
-    assert not any(R.KERNEL_LAUNCHES.values()), R.KERNEL_LAUNCHES
+    with _cuda.ledger() as got:
+        av, ai, _ = index.query(q64, k=K, method="approx")
+    assert not got, got
     dv, di, _ = index.query(q64, k=K, method="dense")
     assert np.array_equal(ai, di) and np.array_equal(av, dv)
     ev, ei, _ = index.query(q64, k=K)
@@ -3438,12 +3419,12 @@ def analysis_phase(index, q64, card: str) -> dict:
 def sharded_request(index, q64, mode: str, mesh, card: str, tag: str
                     ) -> int:
     """A Q = 64 request of ``mode`` over ``mesh`` through
-    ``GalleryIndex.query_class_dedup(mesh=...)``, counts set to 0 just
-    before and read just after: one launch of the mode's kernel per shard,
+    ``GalleryIndex.query_class_dedup(mesh=...)``, launches counted from just
+    before to just after: one launch of the mode's kernel per shard,
     nothing else, no row sent to the certificate repair; its dedup and
     its top-k bitwise the unsharded request's; then the warm times of
     both (median of SHARD_REPS, in turns). Returns the launches."""
-    r, name = mesh.shape["data"], MODE_KERNELS[mode]
+    r, entry = mesh.shape["data"], MODE_ENTRIES[mode]
     kw = dict(k=K, matmul_dtype=mode)
     form, t_up = sync_time(lambda: index._gallery_on_device(mode, mesh))
     bad = []
@@ -3454,13 +3435,12 @@ def sharded_request(index, q64, mode: str, mesh, card: str, tag: str
             return orig(q_hat, gallery, k, vals, inds, ok, **rkw)
         return repair
 
-    R.reset_launch_counts()
-    plain_before = dict(R.PLAIN_ON_CARD)
-    with patched(R, "certified_topk_repair", count_bad):
+    with _cuda.ledger() as counts, patched(R, "certified_topk_repair",
+                                           count_bad):
         got = index.query_class_dedup(q64, num_unique=3, mesh=mesh, **kw)
-    counts = dict(R.KERNEL_LAUNCHES)
-    assert counts[name] == r and sum(counts.values()) == r, (tag, counts)
-    assert dict(R.PLAIN_ON_CARD) == plain_before
+    topk = lib_launches(counts, "fused_topk")
+    assert topk[entry] == r and sum(topk.values()) == r, (tag, counts)
+    assert not plain_runs(counts), (tag, counts)
     assert bad == [0] * r, (tag, bad)
     want = index.query_class_dedup(q64, num_unique=3, **kw)
     sv, si, _ = index.query(q64, mesh=mesh, **kw)
@@ -3491,12 +3471,12 @@ def sharded_request(index, q64, mode: str, mesh, card: str, tag: str
     log(f"sharded {tag}: {mode} over {r} shard{'s' if r > 1 else ''} of "
         f"{form[0].shards[0].shape[0]:,} rows (G = {len(index):,}, padded "
         f"to {form[0].shape[0]:,}): {r} launch{'es' if r > 1 else ''} of "
-        f"{name}, no repair; dedup and top-{K} bit for bit the unsharded "
+        f"{entry}, no repair; dedup and top-{K} bit for bit the unsharded "
         f"request's; warm request {np.median(ts):.3f} ms against unsharded "
         f"{np.median(tu):.3f} ms (query_class_dedup, Q = 64, host clock, "
         f"synchronised, median of {SHARD_REPS} in turns); shards made in "
         f"{t_up:.0f} ms, {mb:.1f} MB resident; {card}")
-    return counts[name]
+    return topk[entry]
 
 
 def sharded_phase(index, q64, card: str) -> dict:
@@ -3505,11 +3485,11 @@ def sharded_phase(index, q64, card: str) -> dict:
     gallery (G = 100,003) over RAGGED_R shards, and ``make_mesh()`` once.
     Returns each kernel's launches per case."""
     t_phase = time.perf_counter()
-    out = {MODE_KERNELS[m]: {} for m in SHARD_MODES}
+    out = {KERNELS[m][0]: {} for m in SHARD_MODES}
     for r in SHARDS:
         mesh = Mesh(["cuda:0"] * r)
         for mode in SHARD_MODES:
-            out[MODE_KERNELS[mode]][f"R{r}"] = sharded_request(
+            out[KERNELS[mode][0]][f"R{r}"] = sharded_request(
                 index, q64, mode, mesh, card, f"R={r} {mode}")
     rng = np.random.default_rng(SEED + 12)
     extra = rng.normal(size=(RAGGED_EXTRA, DIM)).astype(np.float32)
@@ -3518,7 +3498,7 @@ def sharded_phase(index, q64, card: str) -> dict:
     mesh = Mesh(["cuda:0"] * RAGGED_R)
     assert (-len(ragged)) % RAGGED_R == 5
     for mode in SHARD_MODES:
-        out[MODE_KERNELS[mode]][f"R{RAGGED_R}_ragged"] = sharded_request(
+        out[KERNELS[mode][0]][f"R{RAGGED_R}_ragged"] = sharded_request(
             ragged, q64, mode, mesh, card, f"ragged R={RAGGED_R} {mode}")
     del ragged
     mesh = make_mesh()
@@ -3545,26 +3525,23 @@ def md_batch() -> dict:
 
 
 def md_step(trainer: Trainer, raw: dict) -> dict:
-    """One train step of ``trainer`` (the compared one; launch counts set
-    to 0 just before and read just after), then a second, timed (host
-    clock around a synchronised step); the state after the first."""
+    """One train step of ``trainer`` (the compared one; launches counted
+    from just before to just after), then a second, timed (host clock
+    around a synchronised step); the state after the first."""
     set_opt_in(True)
     state = trainer.init_state()
     gens = trainer._generators(0)
-    for mod in (DW, IK):
-        mod.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    state, m = trainer.train_batch(state, raw, gens)
-    counts = {**DW.KERNEL_LAUNCHES, **IK.KERNEL_LAUNCHES}
-    entry = dict(IK.ENTRY_LAUNCHES)
-    plain = {**DW.PLAIN_ON_CARD, **IK.PLAIN_ON_CARD}
+    with _cuda.ledger() as got:
+        state, m = trainer.train_batch(state, raw, gens)
     model = {k: v.detach().cpu() for k, v in
              state.state_dict()["model"].items()}
     _, step_ms = sync_time(lambda: trainer.train_batch(state, raw, gens))
     set_opt_in(False)
     return {"metrics": {k: float(v) for k, v in m.items()},
-            "model": model, "launches": counts, "entry": entry,
-            "plain": plain,
+            "model": model,
+            "launches": lib_launches(got, "depthwise_conv", "image_ops"),
+            "plain": plain_runs(got),
             "step_ms": step_ms,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "wrapper": type(state.model).__name__}
@@ -3667,11 +3644,10 @@ def md_launches_ok(tag: str, got: dict) -> None:
     layers, kernels 5-8 at phase 5's counts per policy call x 3 roles; no
     plain version on the card."""
     n = B3A_DW_LAYERS
-    want = {"depthwise_conv_forward": n, "depthwise_conv_grad_x": n,
-            "depthwise_conv_grad_w": n,
+    want = {"dw_conv_forward": n, "dw_conv_grad_x": n, "dw_conv_grad_w": n,
             **{k: 3 * p for k, p in launches_per_policy().items()}}
     assert got["launches"] == want, (tag, got["launches"], want)
-    assert not any(got["plain"].values()), (tag, got["plain"])
+    assert not got["plain"], (tag, got["plain"])
 
 
 def multidevice_phase(card: str, multihost: dict) -> dict:
@@ -3728,6 +3704,9 @@ def multidevice_phase(card: str, multihost: dict) -> dict:
         distributed.destroy_group()
 
     def launched(tag, devices, backend=None, layout="replicated"):
+        # the ranks may share card 0 with this process: hand them its cache
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = distributed.launch(
             "chip_smoke:md_rank", len(devices),
@@ -3795,8 +3774,7 @@ def multidevice_phase(card: str, multihost: dict) -> dict:
     log(f"phase 13 (multi-device training): "
         f"{time.perf_counter() - t_phase:.1f} s; bit for bit: {results}; "
         f"{card}")
-    return {"ranks": [{**got["launches"], **got["entry"]}
-                      for got in ranks]}
+    return {"ranks": [got["launches"] for got in ranks]}
 
 
 
@@ -3807,9 +3785,9 @@ def convert_cli_run(run_dir: str, written: dict, root: str,
     read by ``load_checkpoint`` into a fresh b3a on the card, then the
     file ``--to native`` and read again. The tree's files embed bit for
     bit through all three, and a class-dedup query of CONVERT_QUERIES of
-    them over all of them ranks the same, each through kernel 1 (counts
-    set to 0 just before the query and read just after). Returns kernel
-    1's launches."""
+    them over all of them ranks the same, each through kernel 1 (launches
+    counted from just before the query to just after). Returns kernel 1's
+    launches."""
     t_phase = time.perf_counter()
     n_cls = DISK_TREE["n_cats"]
     common = ["--model_name", "efficientnet_b3a", "--num_classes",
@@ -3850,12 +3828,11 @@ def convert_cli_run(run_dir: str, written: dict, root: str,
                 for i in range(0, len(paths), 64)])
         index = GalleryIndex(DIM)
         index.add(embeds[src].cpu().numpy(), classes)
-        R.reset_launch_counts()
-        ranked[src] = index.query_class_dedup(
-            embeds[src][:CONVERT_QUERIES], k=K, num_unique=3)
-        counts = dict(R.KERNEL_LAUNCHES)
-        assert counts["fused_cosine_topk"] == 1, counts
-        assert sum(counts.values()) == 1, counts
+        with _cuda.ledger() as got:
+            ranked[src] = index.query_class_dedup(
+                embeds[src][:CONVERT_QUERIES], k=K, num_unique=3)
+        counts = lib_launches(got, "fused_topk")
+        assert counts["fused_topk_f32"] == 1 == sum(counts.values()), got
         launches += 1
     ref = embeds[run_dir]
     assert torch.isfinite(ref).all() and ref.shape == (len(paths), DIM)
@@ -3908,8 +3885,8 @@ def hybrid_step(mesh, case: str) -> dict:
     """The case's step on this rank of a (data, model) mesh, through the
     path a user calls: ``put_fsdp(mesh, model, axis_name="model")``,
     ``shard_batch``, the Trainer's transform with ``rows=mesh.rows_of``,
-    ``build_train_step(cfg, schedule, mesh=mesh)``; launch counts set to
-    0 just before the first step and read just after, a second step timed
+    ``build_train_step(cfg, schedule, mesh=mesh)``; launches counted from
+    just before the first step to just after, a second step timed
     (as md_step). Every rank returns its launches, times and shards, rank
     0 the whole state."""
     cfg = hybrid_config(case)
@@ -3945,13 +3922,9 @@ def hybrid_step(mesh, case: str) -> dict:
         return step(state, {**batch, "rows": rows}, dgen)
 
     set_opt_in(True)
-    for mod in (DW, IK):
-        mod.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    _, m = train_batch()
-    counts = {**DW.KERNEL_LAUNCHES, **IK.KERNEL_LAUNCHES}
-    entry = dict(IK.ENTRY_LAUNCHES)
-    plain = {**DW.PLAIN_ON_CARD, **IK.PLAIN_ON_CARD}
+    with _cuda.ledger() as got:
+        _, m = train_batch()
     whole = {k: v.detach().cpu() for k, v in
              state.state_dict()["model"].items()}
     _, step_ms = sync_time(train_batch)
@@ -3959,8 +3932,9 @@ def hybrid_step(mesh, case: str) -> dict:
     local_mb = sum(p.to_local().numel() * 4 for p in model.parameters())
     return {"metrics": {k: float(v) for k, v in m.items()},
             "model": whole if mesh.rank == 0 else None,
-            "launches": counts, "entry": entry, "plain": plain,
-            "step_ms": step_ms, "coords": mesh.coords,
+            "launches": lib_launches(got, "depthwise_conv", "image_ops"),
+            "plain": plain_runs(got), "step_ms": step_ms,
+            "coords": mesh.coords,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "shards": len(shards), "local_mb": local_mb / 1e6,
             "whole_mb": sum(p.numel() * 4 for p in model.parameters()) / 1e6}
@@ -3986,7 +3960,7 @@ def hybrid_checks(tag: str, ranks: list, refs: dict, inits: dict,
             if case == "b3a":
                 md_launches_ok(f"14 {tag} b3a, rank {r}", got)
             else:
-                assert not any(got["plain"].values()), (tag, got["plain"])
+                assert not got["plain"], (tag, got["plain"])
             assert got["metrics"] == ranks[0][case]["metrics"], (tag, r)
             log(f"14 {tag} {case}, rank {r} {got['coords']}: warm step "
                 f"{got['step_ms']:.1f} ms against one card's "
@@ -4081,8 +4055,7 @@ def hybrid_phase(card: str) -> dict:
     log(f"phase 14 (b), (c) (the 2-D hybrid layout): "
         f"{time.perf_counter() - t_phase:.1f} s; bit for bit: {results}; "
         f"{card}")
-    return {"ranks": [{**rank["b3a"]["launches"], **rank["b3a"]["entry"]}
-                      for rank in ranks]}
+    return {"ranks": [rank["b3a"]["launches"] for rank in ranks]}
 
 
 def main() -> None:
@@ -4111,7 +4084,6 @@ def main() -> None:
     log(codec_report())
 
     # 2. main path: model + gallery
-    R.reset_launch_counts()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     model = create_model("efficientnet_b3a", seed=SEED)
     engine = RetrievalEngine(model,
@@ -4145,14 +4117,14 @@ def main() -> None:
         served = []
         for n in sizes * 2:
             batch = images(gen, n)
-            before = dict(R.KERNEL_LAUNCHES)
-            emb, embed_ms = sync_time(lambda: engine.embed_batch(batch))
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            (vals, inds, cls), query_ms = sync_time(
-                lambda: index.query_class_dedup(emb, k=K, num_unique=3,
-                                                matmul_dtype=mode,
-                                                shortlist=SHORTLIST))
+            with _cuda.ledger() as got:
+                emb, embed_ms = sync_time(lambda: engine.embed_batch(batch))
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                (vals, inds, cls), query_ms = sync_time(
+                    lambda: index.query_class_dedup(emb, k=K, num_unique=3,
+                                                    matmul_dtype=mode,
+                                                    shortlist=SHORTLIST))
             peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
             ms = embed_ms + query_ms
             assert vals.shape == inds.shape == cls.shape == (n, 3)
@@ -4160,7 +4132,8 @@ def main() -> None:
             np.testing.assert_array_equal(cls, index.classes[inds])
             assert (np.diff(vals, axis=1) <= 0).all(), "dedup order"
             if n < 32:    # below the fused threshold: the dense path
-                assert R.KERNEL_LAUNCHES == before, (mode, n)
+                assert not any(lib_launches(got, "fused_topk").values()), (
+                    mode, n, got)
             served.append((emb, ms))
             log(f"{mode} request Q={n}: {ms:.1f} ms end to end = embed "
                 f"{embed_ms:.1f} + k={K} top-k and class dedup "
@@ -4171,19 +4144,17 @@ def main() -> None:
         return served
 
     launches, paths = {}, {}
-    for mode, sizes, kernel in (
-            ("float32", (64, 64, 8), "fused_cosine_topk"),
-            ("bfloat16", (64, 8), "fused_cosine_topk_bf16"),
-            ("int8", (64, 8), "fused_cosine_topk_int8"),
-            ("int8_rerank", (64, 8), "fused_cosine_topk_int8")):
-        R.reset_launch_counts()
-        paths[mode] = serve(mode, sizes)
-        counts = dict(R.KERNEL_LAUNCHES)
-        log(f"{mode} path launches: {counts}")
+    for mode, sizes in (("float32", (64, 64, 8)), ("bfloat16", (64, 8)),
+                        ("int8", (64, 8)), ("int8_rerank", (64, 8))):
+        entry = MODE_ENTRIES[mode]
+        with _cuda.ledger() as got:
+            paths[mode] = serve(mode, sizes)
+        counts = lib_launches(got, "fused_topk")
+        log(f"{mode} path launches: {dict(got)}")
         # each Q=64 request launches the mode's kernel once, Q=8 never
-        assert counts[kernel] == 2 * sizes.count(64), (mode, counts)
-        assert sum(counts.values()) == counts[kernel], (mode, counts)
-        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        assert counts[entry] == 2 * sizes.count(64), (mode, got)
+        assert sum(counts.values()) == counts[entry], (mode, got)
+        launches[entry] = launches.get(entry, 0) + counts[entry]
         form = index._gallery_on_device(mode)
         log(f"{mode} resident gallery: "
             f"{sum(t.numel() * t.element_size() for t in form) / 1e6:.1f}"
@@ -4264,7 +4235,7 @@ def main() -> None:
             "route": "cuda",
             "source": "imageretrievalresearch_tpu_torch/csrc/fused_topk.cu",
             "replaces": f"imageretrievalresearch_tpu/{replaces}",
-            "launches": launches[name],
+            "launches": launches[MODE_ENTRIES[mode]],
             "max_abs_err": errs[mode],
             **times[mode],
             "ms_by": "single call",
@@ -4325,32 +4296,27 @@ def main() -> None:
     t3 = depthwise_training(T3, gen, peaks, DW_RAGGED)
     assert len(t3["shapes"]) == 26, t3["shapes"]
     inference_rows = inference_phase(model, index, paths, gen, peaks)
-    # the CLI's launches of kernels 1-3 (each query path's counts set to 0
-    # just before it and read just after), beside the main path's
+    # the CLI's launches of kernels 1-3 (each query path's launches
+    # counted from just before it to just after), beside the main path's
     cli = cli_phase(PF.card())
     served, t1 = backbone_phase(gen, peaks)
     attention_rows = window_attention_phase(peaks)
     for row in kernels:
-        if row["name"] in cli:
-            row["cli_launches"] = cli[row["name"]]
+        row["cli_launches"] = row_launches(row["name"], cli)
         row["models"] = {m: rows[row["name"]] for m, rows in served.items()}
     # row 13's launches on the serving path, beside its isolated calls
     for row in attention_rows:
         row["models"] = {m: rows["window_attention"]
                          for m, rows in served.items()}
     # 10. training from disk through the CLIs: rows 5-10 carry the train
-    # run's launches (the image kernels by C entry), rows 9-10 the sweep's
+    # run's launches, rows 9-10 the sweep's
     disk = disk_phase(PF.card())
     dw_rows = dw_entries(t3, t1)
-    for row in image_rows:
-        row["train_cli_launches"] = disk["train"]["entry"][ENTRIES[row["name"]]]
+    for row in image_rows + dw_rows:
+        row["train_cli_launches"] = row_launches(row["name"],
+                                                 disk["train"]["launches"])
     for row in dw_rows:
-        counters = (("depthwise_conv_forward", "depthwise_conv_grad_x")
-                    if row["name"] == "depthwise_conv_forward"
-                    else ("depthwise_conv_grad_w",))
-        row["train_cli_launches"] = sum(disk["train"]["dw"][c]
-                                        for c in counters)
-        row["find_lr_launches"] = sum(disk["sweep"][c] for c in counters)
+        row["find_lr_launches"] = row_launches(row["name"], disk["sweep"])
     kernels += image_rows + dw_rows + inference_rows + attention_rows
     # 11. evaluation and analysis from disk: rows 1 and 3 carry kernel 1's
     # launches in the two cli.inference runs and each kernel's in the
@@ -4362,7 +4328,8 @@ def main() -> None:
             row["inference_cli_launches"] = {
                 "class_dedup": analysis["class_dedup"] if own else 0,
                 "index_match": analysis["index_match"] if own else 0,
-                "artifact_query": analysis["artifact_query"][row["name"]]}
+                "artifact_query": row_launches(row["name"],
+                                               analysis["artifact_query"])}
 
     # 12. sharded retrieval over the phase 2 gallery: rows 1-3 carry each
     # sharded request's launches (one per shard)
@@ -4374,15 +4341,9 @@ def main() -> None:
     # 13. multi-device training on the one card: rows 5-10 carry each
     # rank's launches in (b)
     md = multidevice_phase(PF.card(), disk["multihost"])
-    for row in image_rows:
+    for row in image_rows + dw_rows:
         row["multi_device_launches_per_rank"] = [
-            ranks[ENTRIES[row["name"]]] for ranks in md["ranks"]]
-    for row in dw_rows:
-        counters = (("depthwise_conv_forward", "depthwise_conv_grad_x")
-                    if row["name"] == "depthwise_conv_forward"
-                    else ("depthwise_conv_grad_w",))
-        row["multi_device_launches_per_rank"] = [
-            sum(ranks[c] for c in counters) for ranks in md["ranks"]]
+            row_launches(row["name"], ranks) for ranks in md["ranks"]]
 
     # 14. the converter (inside phase 10: row 1 carries kernel 1's
     # launches in its queries) and the 2-D hybrid layout: rows 5-10 carry
@@ -4391,15 +4352,9 @@ def main() -> None:
         if row["name"] in disk["convert"]:
             row["convert_launches"] = disk["convert"][row["name"]]
     hybrid = hybrid_phase(PF.card())
-    for row in image_rows:
+    for row in image_rows + dw_rows:
         row["hybrid_launches_per_rank"] = [
-            ranks[ENTRIES[row["name"]]] for ranks in hybrid["ranks"]]
-    for row in dw_rows:
-        counters = (("depthwise_conv_forward", "depthwise_conv_grad_x")
-                    if row["name"] == "depthwise_conv_forward"
-                    else ("depthwise_conv_grad_w",))
-        row["hybrid_launches_per_rank"] = [
-            sum(ranks[c] for c in counters) for ranks in hybrid["ranks"]]
+            row_launches(row["name"], ranks) for ranks in hybrid["ranks"]]
 
     # 15. result: the one card this run drove
     print(json.dumps({"kernels": kernels}))

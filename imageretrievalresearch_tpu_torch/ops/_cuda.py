@@ -8,17 +8,26 @@ the source so an edited source rebuilds. Nothing here runs at import
 time: the CPU tests import every module, and a machine without the CUDA
 toolkit has no ``nvcc``. The kernels' wrappers share the device dispatch
 (``on_cpu``), the operand checks and ``launch``.
+
+It also keeps the one record of what the kernels did, read through
+``ledger()``: each successful launch under its C entry
+(``fused_topk_f32``, ``image_column_shift``, ...), each plain version run
+on a CUDA tensor under ``plain:<entry>``, and ``nhwc_copy``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+from typing import Iterator
 
 import torch
 
@@ -75,6 +84,39 @@ SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# every count since the process started, read through ledger(); the lock
+# keeps counts from concurrent threads (a server's handlers) whole
+_COUNTS: collections.Counter[str] = collections.Counter()
+_COUNTS_LOCK = threading.Lock()
+
+
+def record(key: str) -> None:
+    """Count one ``key`` in the ledger."""
+    with _COUNTS_LOCK:
+        _COUNTS[key] += 1
+
+
+def plain_on_card(entry: str, t: torch.Tensor) -> None:
+    """Count a run of the plain version of C entry ``entry`` on ``t`` as
+    ``plain:<entry>`` when ``t`` is a CUDA tensor: on the card the kernel
+    is the main path, so a count there shows a call that left it."""
+    if t.device.type == "cuda":
+        record(f"plain:{entry}")
+
+
+@contextlib.contextmanager
+def ledger() -> Iterator[collections.Counter[str]]:
+    """Yield a Counter that holds, once the block has exited, what the
+    ledger counted inside it (a key counted 0 times is absent). Blocks
+    nest: each holds only its own block's counts."""
+    with _COUNTS_LOCK:
+        start = _COUNTS.copy()
+    inside: collections.Counter[str] = collections.Counter()
+    try:
+        yield inside
+    finally:
+        with _COUNTS_LOCK:
+            inside.update(_COUNTS - start)
 
 
 def _nvcc() -> str:
@@ -190,7 +232,8 @@ def stream_handle(index: int) -> int:
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call entry point ``entry`` of library ``name`` on the current stream
     of ``device``, tensors passed as pointers, ints as ints and None as a
-    null pointer; raise on the CUDA error it returns. The entry point is
+    null pointer; raise on the CUDA error it returns, else count the
+    launch under ``entry`` in the ledger. The entry point is
     looked up once; the device becomes current only for a call on another
     device than the current one."""
     fn = _ENTRIES.get((name, entry))
@@ -206,3 +249,4 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"({error_string(err, name)})")
+    record(entry)

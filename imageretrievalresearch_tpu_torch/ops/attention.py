@@ -31,12 +31,6 @@ from imageretrievalresearch_tpu_torch.ops import _cuda
 HEAD_WIDTH = 32
 MAX_TOKENS = 208    # the kernel's wider lane layout: 16 lanes x 13 columns
 
-KERNEL_LAUNCHES = {"window_attention": 0}
-
-
-def reset_launch_counts() -> None:
-    KERNEL_LAUNCHES["window_attention"] = 0
-
 
 def relative_position_index(ws: int) -> torch.Tensor:
     """(N²,) int64 for N = ws²: entry (i, j) of a ws x ws window's tokens
@@ -122,5 +116,4 @@ def window_attention(qkv: torch.Tensor, table: torch.Tensor,
                       device=dev)
     _cuda.launch("window_attention", "window_attention_f32", dev, qkv,
                  table, mask, out, bn, ws, heads, nw, HEAD_WIDTH ** -0.5)
-    KERNEL_LAUNCHES["window_attention"] += 1
     return out

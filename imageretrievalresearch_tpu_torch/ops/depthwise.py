@@ -22,8 +22,9 @@ plan fits, the port's kernels take every shape above.
 
 The kernels read NHWC with channels innermost, the memory order in which
 the port's model holds its activations (a channels-last NCHW tensor), so
-the layers pass them through as views; ``LAYOUT_COPIES`` counts the
-tensors that had to be copied into that order.
+the layers pass them through as views; a tensor that had to be copied
+into that order is counted in the ledger of ``_cuda`` as ``nhwc_copy``,
+and a plain version run on a CUDA tensor under its kernel's entry.
 
 The opt-in is JAX's: ``IRT_FORCE_PALLAS_DW=1``, read at call time. Without
 it ``models.layers.DepthwiseConv2d`` is the grouped ``nn.Conv2d`` (cuDNN on
@@ -48,19 +49,6 @@ THREADS = 256
 BAND_RUN = 4
 BAND_SMEM = 112 * 1024
 BAND_BLOCKS_PER_SM = 2
-
-KERNEL_LAUNCHES = {"depthwise_conv_forward": 0, "depthwise_conv_grad_x": 0,
-                   "depthwise_conv_grad_w": 0}
-PLAIN_ON_CARD = dict.fromkeys(KERNEL_LAUNCHES, 0)
-# tensors copied into NHWC order before a launch
-LAYOUT_COPIES = {"nhwc": 0}
-
-
-def reset_launch_counts() -> None:
-    for counts in (KERNEL_LAUNCHES, PLAIN_ON_CARD, LAYOUT_COPIES):
-        for name in counts:
-            counts[name] = 0
-
 
 def use_depthwise_kernel() -> bool:
     """The opt-in, read at each call (``IRT_FORCE_PALLAS_DW``)."""
@@ -208,11 +196,6 @@ def band_splits(n: int, bands: int, c_blocks: int,
     return -(-items // per), per
 
 
-def _plain(name: str, t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        PLAIN_ON_CARD[name] += 1
-
-
 def _windows(x: torch.Tensor, k: int, stride: int, ho: int, wo: int):
     """((i, j), the f32 (N, Ho, Wo, C) window of tap (i, j)) of the
     zero-padded NHWC input, taps in row-major order."""
@@ -233,7 +216,7 @@ def depthwise_forward_reference(x: torch.Tensor, taps: torch.Tensor,
     """(N, H, W, C) f32/bf16 + (K, K, C) taps -> (N, Ho, Wo, C) in x's
     type: shifted multiply-adds in f32, in the kernel's order (taps row by
     row), each product and sum rounded on its own."""
-    _plain("depthwise_conv_forward", x)
+    _cuda.plain_on_card("dw_conv_forward", x)
     n, h, w, c = x.shape
     k = taps.shape[0]
     ho, wo = out_len(h, k, stride), out_len(w, k, stride)
@@ -247,7 +230,7 @@ def depthwise_grad_w_reference(x: torch.Tensor, g: torch.Tensor, k: int,
                                stride: int) -> torch.Tensor:
     """Tap gradients: (N, H, W, C) input, (N, Ho, Wo, C) cotangent ->
     (K, K, C) f32, each tap the sum over n, ho, wo of its window times g."""
-    _plain("depthwise_conv_grad_w", x)
+    _cuda.plain_on_card("dw_conv_grad_w", x)
     ho, wo = g.shape[1], g.shape[2]
     gf = g.float()
     out = torch.empty((k, k, x.shape[3]), dtype=torch.float32,
@@ -260,11 +243,6 @@ def depthwise_grad_w_reference(x: torch.Tensor, g: torch.Tensor, k: int,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
-    _cuda.launch("depthwise_conv", entry, dev, *args)
-    KERNEL_LAUNCHES[name] += 1
-
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -299,9 +277,9 @@ def depthwise_forward(x: torch.Tensor, taps: torch.Tensor,
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     plan = _band_split("forward", x.device, n, h, w, c, k, stride,
                        x.element_size())
-    _launch("depthwise_conv_forward", "dw_conv_forward", x.device, x, taps,
-            out, n, h, w, c, ho, wo, k, stride, *plan,
-            int(x.dtype == torch.bfloat16))
+    _cuda.launch("depthwise_conv", "dw_conv_forward", x.device, x, taps, out,
+                 n, h, w, c, ho, wo, k, stride, *plan,
+                 int(x.dtype == torch.bfloat16))
     return out
 
 
@@ -323,9 +301,9 @@ def depthwise_grad_w(x: torch.Tensor, g: torch.Tensor, k: int,
     partial = torch.empty((plan[2], k * k, c), dtype=torch.float32,
                           device=x.device)
     out = torch.empty((k, k, c), dtype=torch.float32, device=x.device)
-    _launch("depthwise_conv_grad_w", "dw_conv_grad_w", x.device, x, g,
-            partial, out, n, h, w, c, ho, wo, k, stride, *plan,
-            int(x.dtype == torch.bfloat16))
+    _cuda.launch("depthwise_conv", "dw_conv_grad_w", x.device, x, g,
+                 partial, out, n, h, w, c, ho, wo, k, stride, *plan,
+                 int(x.dtype == torch.bfloat16))
     return out
 
 
@@ -335,10 +313,10 @@ def depthwise_grad_w(x: torch.Tensor, g: torch.Tensor, k: int,
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
     """An NCHW tensor as NHWC: a view of a channels-last tensor, else a
-    copy (counted)."""
+    copy (counted as ``nhwc_copy``)."""
     v = t.permute(0, 2, 3, 1)
     if not v.is_contiguous():
-        LAYOUT_COPIES["nhwc"] += 1
+        _cuda.record("nhwc_copy")
         v = v.contiguous()
     return v
 
@@ -364,7 +342,7 @@ def depthwise_grad_x_reference(g: torch.Tensor, taps: torch.Tensor,
                                stride: int, h: int, w: int) -> torch.Tensor:
     """Plain version of the input gradient, JAX's ``_dw_op_bwd``: the
     stride-1 forward of the dilated cotangent with the taps flipped."""
-    _plain("depthwise_conv_grad_x", g)
+    _cuda.plain_on_card("dw_conv_grad_x", g)
     return depthwise_forward_reference(dilate(g, stride, h, w),
                                        taps.flip(0, 1), 1)
 
@@ -396,9 +374,9 @@ def depthwise_grad_x(g: torch.Tensor, taps: torch.Tensor, stride: int,
     dx = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
     plan = _band_split("grad_x", g.device, n, h, w, c, k, stride,
                        g.element_size())
-    _launch("depthwise_conv_grad_x", "dw_conv_grad_x", g.device, g, taps,
-            dx, n, h, w, c, ho, wo, k, stride, *plan,
-            int(g.dtype == torch.bfloat16))
+    _cuda.launch("depthwise_conv", "dw_conv_grad_x", g.device, g, taps, dx,
+                 n, h, w, c, ho, wo, k, stride, *plan,
+                 int(g.dtype == torch.bfloat16))
     return dx
 
 

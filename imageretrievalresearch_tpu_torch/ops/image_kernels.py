@@ -9,12 +9,14 @@ version (``*_reference``), which fixes the semantics and which the card's
 comparisons use. The TPU kernels needed a static bound on the shifts
 (``smax``) to unroll their roll passes; these read any shift directly.
 
-All images are uint8. The plain versions count how often they ran on a
-CUDA tensor (``PLAIN_ON_CARD``), so a run can show that its main path
-went through the kernels only. The integer shift has two forms, of rows
-(:func:`row_shift`) and of the columns of planes (:func:`column_shift`,
-the rotate's Sy pass without a transposed copy); both replace
-``pallas_row_shift`` and count under ``row_shift``.
+All images are uint8. A plain version that runs on a CUDA tensor is
+counted in the ledger of ``_cuda`` under its kernel's entry, so a run can
+show that its main path went through the kernels only. The integer shift
+has two forms, of rows (:func:`row_shift`) and of the columns of planes
+(:func:`column_shift`, the rotate's Sy pass without a transposed copy),
+both replacing ``pallas_row_shift``; each launches its own entry
+(``image_row_shift``, ``image_column_shift``), and the column form's
+plain version runs the row form's.
 """
 
 from __future__ import annotations
@@ -24,28 +26,6 @@ import torch
 from imageretrievalresearch_tpu_torch.ops import _cuda
 
 FILL = 128
-
-# launches of each hand-written kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {"plane_histogram": 0, "lut_apply": 0,
-                   "row_shift_cubic": 0, "row_shift": 0}
-# the same launches by C entry: the integer shift's two forms share the
-# ``row_shift`` counter above, and each has its own entry here
-ENTRY_LAUNCHES = {"image_histogram": 0, "image_lut_apply": 0,
-                  "image_row_shift_cubic": 0, "image_row_shift": 0,
-                  "image_column_shift": 0}
-# calls of each plain version on a CUDA tensor
-PLAIN_ON_CARD = dict.fromkeys(KERNEL_LAUNCHES, 0)
-
-
-def reset_launch_counts() -> None:
-    for counts in (KERNEL_LAUNCHES, ENTRY_LAUNCHES, PLAIN_ON_CARD):
-        for name in counts:
-            counts[name] = 0
-
-
-def _plain(name: str, t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        PLAIN_ON_CARD[name] += 1
 
 
 def cubic_weight(t: torch.Tensor) -> torch.Tensor:
@@ -66,7 +46,7 @@ def cubic_weight(t: torch.Tensor) -> torch.Tensor:
 
 def plane_histogram_reference(planes: torch.Tensor) -> torch.Tensor:
     """(P, H, W) uint8 -> (P, 256) int32 counts, by scatter-add."""
-    _plain("plane_histogram", planes)
+    _cuda.plain_on_card("image_histogram", planes)
     flat = planes.reshape(planes.shape[0], -1).long()
     out = torch.zeros((planes.shape[0], 256), dtype=torch.int32,
                       device=planes.device)
@@ -78,7 +58,7 @@ def lut_apply_reference(planes: torch.Tensor,
                         lut: torch.Tensor) -> torch.Tensor:
     """(P, H, W) uint8 + (P, 256) int32 in [0, 255] -> (P, H, W) uint8,
     ``out[p] = lut[p][planes[p]]``."""
-    _plain("lut_apply", planes)
+    _cuda.plain_on_card("image_lut_apply", planes)
     p = planes.shape[0]
     rows = torch.arange(p, device=planes.device)[:, None]
     out = lut[rows, planes.reshape(p, -1).long()]
@@ -89,7 +69,7 @@ def row_shift_reference(rows: torch.Tensor, shifts: torch.Tensor, *,
                         fill: int = FILL) -> torch.Tensor:
     """(N, W) uint8 + (N,) int -> (N, W) uint8 with
     ``out(n, x) = rows(n, x + shifts(n))``, ``fill`` outside [0, W)."""
-    _plain("row_shift", rows)
+    _cuda.plain_on_card("image_row_shift", rows)
     w = rows.shape[1]
     src = (torch.arange(w, device=rows.device)[None, :]
            + shifts.long()[:, None])
@@ -115,7 +95,7 @@ def row_shift_cubic_reference(rows: torch.Tensor, src0: torch.Tensor, *,
     outside; the TPU kernel's arithmetic (taps summed in the order -1, 0,
     1, 2; division by max(wsum, 1e-8); source positions outside
     [-0.5, W - 0.5] filled; round half to even, clip)."""
-    _plain("row_shift_cubic", rows)
+    _cuda.plain_on_card("image_row_shift_cubic", rows)
     w = rows.shape[1]
     fl = torch.floor(src0.float())
     frac = (src0.float() - fl)[:, None]
@@ -142,12 +122,6 @@ def row_shift_cubic_reference(rows: torch.Tensor, src0: torch.Tensor, *,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(name: str, entry: str, dev: torch.device, *args) -> None:
-    _cuda.launch("image_ops", entry, dev, *args)
-    KERNEL_LAUNCHES[name] += 1
-    ENTRY_LAUNCHES[entry] += 1
-
-
 def plane_histogram(planes: torch.Tensor) -> torch.Tensor:
     """Per-plane 256-bin histograms: (P, H, W) uint8 -> (P, 256) int32;
     replaces ``pallas_histogram``. One launch: the kernel writes every
@@ -158,8 +132,8 @@ def plane_histogram(planes: torch.Tensor) -> torch.Tensor:
     _cuda.check_operand("planes", planes, torch.uint8, (p, h, w),
                         planes.device)
     out = torch.empty((p, 256), dtype=torch.int32, device=planes.device)
-    _launch("plane_histogram", "image_histogram", planes.device,
-            planes, p, h * w, out)
+    _cuda.launch("image_ops", "image_histogram", planes.device, planes, p,
+                 h * w, out)
     return out
 
 
@@ -175,7 +149,8 @@ def lut_apply(planes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     _cuda.check_operand("planes", planes, torch.uint8, (p, h, w), dev)
     _cuda.check_operand("lut", lut, torch.int32, (p, 256), dev)
     out = torch.empty_like(planes)
-    _launch("lut_apply", "image_lut_apply", dev, planes, lut, p, h * w, out)
+    _cuda.launch("image_ops", "image_lut_apply", dev, planes, lut, p, h * w,
+                 out)
     return out
 
 
@@ -191,8 +166,8 @@ def row_shift(rows: torch.Tensor, shifts: torch.Tensor, *,
     _cuda.check_operand("rows", rows, torch.uint8, (n, w), dev)
     _cuda.check_operand("shifts", shifts, torch.int32, (n,), dev)
     out = torch.empty_like(rows)
-    _launch("row_shift", "image_row_shift", dev, rows, shifts, n, w, fill,
-            out)
+    _cuda.launch("image_ops", "image_row_shift", dev, rows, shifts, n, w,
+                 fill, out)
     return out
 
 
@@ -201,7 +176,7 @@ def column_shift(planes: torch.Tensor, shifts: torch.Tensor, *,
     """Per-column integer shift of planes: (P, H, W) uint8 + (P, W) int32
     -> (P, H, W) uint8, ``out(p, y, x) = planes(p, y + shifts(p, x), x)``,
     ``fill`` outside [0, H); the transpose of :func:`row_shift`, one
-    ``row_shift`` launch. H is at most 49,152 on the card, as W is for
+    launch of ``image_column_shift``. H is at most 49,152 on the card, as W is for
     :func:`row_shift`."""
     if _cuda.on_cpu(planes):
         return column_shift_reference(planes, shifts, fill=fill)
@@ -210,8 +185,8 @@ def column_shift(planes: torch.Tensor, shifts: torch.Tensor, *,
     _cuda.check_operand("planes", planes, torch.uint8, (p, h, w), dev)
     _cuda.check_operand("shifts", shifts, torch.int32, (p, w), dev)
     out = torch.empty_like(planes)
-    _launch("row_shift", "image_column_shift", dev, planes, shifts, p, h, w,
-            fill, out)
+    _cuda.launch("image_ops", "image_column_shift", dev, planes, shifts, p,
+                 h, w, fill, out)
     return out
 
 
@@ -228,6 +203,6 @@ def row_shift_cubic(rows: torch.Tensor, src0: torch.Tensor, *,
     _cuda.check_operand("rows", rows, torch.uint8, (n, w), dev)
     _cuda.check_operand("src0", src0, torch.float32, (n,), dev)
     out = torch.empty_like(rows)
-    _launch("row_shift_cubic", "image_row_shift_cubic", dev, rows, src0, n,
-            w, fill, out)
+    _cuda.launch("image_ops", "image_row_shift_cubic", dev, rows, src0, n,
+                 w, fill, out)
     return out

@@ -68,20 +68,6 @@ _INT8_EXACT_CHUNK = 1024
 # operands are 100 MB, however large the compact gallery
 _DENSE_GALLERY_TILE = 16384
 
-# launches of each hand-written kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {"fused_cosine_topk": 0, "fused_cosine_topk_bf16": 0,
-                   "fused_cosine_topk_int8": 0, "fused_cosine_scores": 0,
-                   "quantize_queries_int8": 0}
-# calls of the plain version of the scores kernel on a CUDA tensor
-PLAIN_ON_CARD = {"fused_cosine_scores": 0}
-
-
-def reset_launch_counts() -> None:
-    for counts in (KERNEL_LAUNCHES, PLAIN_ON_CARD):
-        for name in counts:
-            counts[name] = 0
-
-
 def l2_normalize(x: torch.Tensor, *, eps: float = COSINE_SIM_EPS
                  ) -> torch.Tensor:
     """Row-normalize with torch CosineSimilarity's per-norm eps clamp."""
@@ -218,7 +204,6 @@ def quantize_queries_int8(x: torch.Tensor
     scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     _cuda.launch("fused_topk", "quantize_rows_int8_f32", x.device, x, n, d,
                  codes, scales)
-    KERNEL_LAUNCHES["quantize_queries_int8"] += 1
     return codes, scales
 
 
@@ -529,11 +514,10 @@ def _work_words(q: int, d: int, k: int, n_split: int, int8: bool) -> int:
     return end
 
 
-# kernel variant per gallery dtype: (mode, C entry point, launch counter)
-_VARIANTS = {
-    torch.float32: ("float32", "fused_topk_f32", "fused_cosine_topk"),
-    torch.bfloat16: ("bfloat16", "fused_topk_bf16", "fused_cosine_topk_bf16"),
-    torch.int8: ("int8", "fused_topk_int8", "fused_cosine_topk_int8")}
+# kernel variant per gallery dtype: (mode, C entry point)
+_VARIANTS = {torch.float32: ("float32", "fused_topk_f32"),
+             torch.bfloat16: ("bfloat16", "fused_topk_bf16"),
+             torch.int8: ("int8", "fused_topk_int8")}
 
 
 def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
@@ -542,7 +526,7 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
     kernels (int8: the query quantization first) into one workspace; the
     outputs are views of its first words."""
     dev = queries_hat.device
-    _, entry, counter = _VARIANTS[gallery.dtype]
+    _, entry = _VARIANTS[gallery.dtype]
     q, d = queries_hat.shape
     g = gallery.shape[0]
     _cuda.check_operand("queries_hat", queries_hat, torch.float32, (q, d),
@@ -565,7 +549,6 @@ def _fused_cosine_topk_cuda(queries_hat, gallery, k, gallery_norms,
     work = torch.empty(words, device=dev, dtype=torch.int32)
     _cuda.launch("fused_topk", entry, dev, q_in, gallery, aux, q, g, d, k,
                  n_split, FUSED_BINS, FUSED_T_DEPTH, work, words)
-    KERNEL_LAUNCHES[counter] += 1
     out = work[:2 * q * k].view(2, q, k)
     return out[0].view(torch.float32), out[1], work[2 * q * k:2 * q * k + q]
 
@@ -635,8 +618,7 @@ def cosine_scores_reference(queries_hat: torch.Tensor,
     true f32, the eps clamp of :func:`l2_normalize` (TF32 is off on the
     card, ``_device.set_float32_precision``); the kernel computes the same
     function in 3xTF32."""
-    if queries_hat.device.type == "cuda":
-        PLAIN_ON_CARD["fused_cosine_scores"] += 1
+    _cuda.plain_on_card("cosine_scores_f32", queries_hat)
     return torch.matmul(queries_hat.float(),
                         _normalized_gallery(gallery, None).t())
 
@@ -668,7 +650,6 @@ def fused_cosine_scores(queries_hat: torch.Tensor, gallery: torch.Tensor,
     out = torch.empty((q, g), device=dev, dtype=torch.float32)
     _cuda.launch("fused_topk", "cosine_scores_f32", dev, queries_hat,
                  gallery, q, g, d, out)
-    KERNEL_LAUNCHES["fused_cosine_scores"] += 1
     return out
 
 

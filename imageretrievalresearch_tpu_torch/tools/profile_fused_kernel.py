@@ -69,15 +69,6 @@ RUNGS = ("stream_only", "matmul_only", "insert_only")
 _MODES = {torch.float32: ("float32", "f32"),
           torch.bfloat16: ("bfloat16", "bf16"), torch.int8: ("int8", "int8")}
 
-# launches of each hand-written kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {**{f"fused_topk_{m}_{r}": 0 for _, m in _MODES.values()
-                      for r in RUNGS}, "stream_probe": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
-
 
 def log(msg: str, _t0: list = []) -> None:
     if not _t0:
@@ -270,7 +261,6 @@ def _rung(name: str, q_hat: torch.Tensor, gallery: torch.Tensor, k: int,
     entry = f"fused_topk_{_MODES[gallery.dtype][1]}_{name}"
     _cuda.launch("fused_topk", entry, dev, *operands, q, g, d, k, n_split,
                  *out)
-    KERNEL_LAUNCHES[entry] += 1
     return out if name == "insert_only" else out[0]
 
 
@@ -329,7 +319,6 @@ def stream_probe(x: torch.Tensor, rows: int) -> torch.Tensor:
     out = torch.empty((rows,), device=x.device, dtype=torch.float32)
     _cuda.launch("stream_probe", "stream_probe_f32", x.device, x, n, d, rows,
                  rowsum, out)
-    KERNEL_LAUNCHES["stream_probe"] += 1
     return out
 
 

@@ -35,6 +35,7 @@ from imageretrievalresearch_tpu_torch.models.convert import (
     params_from_jax,
 )
 from imageretrievalresearch_tpu_torch.models.layers import DepthwiseConv2d
+from imageretrievalresearch_tpu_torch.ops import _cuda
 from imageretrievalresearch_tpu_torch.ops import depthwise as DW
 from imageretrievalresearch_tpu_torch.recipes import make_config
 
@@ -154,10 +155,9 @@ def test_rexnet_depthwise_opt_in_matches_jax(jax_forwards, monkeypatch):
         raise AssertionError("the grouped conv ran with the opt-in set")
 
     monkeypatch.setattr(DepthwiseConv2d, "_conv_forward", no_grouped_conv)
-    DW.reset_launch_counts()
-    with torch.no_grad():
+    with _cuda.ledger() as recorded, torch.no_grad():
         logits = port(torch.from_numpy(x)).numpy()
-    assert DW.LAYOUT_COPIES["nhwc"] == 0
+    assert not recorded
     np.testing.assert_allclose(logits, ref_logits, rtol=1e-4, atol=1e-4)
 
 

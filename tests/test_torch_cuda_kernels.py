@@ -12,6 +12,7 @@ import torch
 
 from imageretrievalresearch_tpu_torch.models import create_model
 from imageretrievalresearch_tpu_torch.models import swin as S
+from imageretrievalresearch_tpu_torch.ops import _cuda
 from imageretrievalresearch_tpu_torch.ops import attention as A
 from imageretrievalresearch_tpu_torch.ops import image_kernels as K
 from imageretrievalresearch_tpu_torch.ops import retrieval as T
@@ -43,10 +44,9 @@ def _launch_and_compare(q, g, k, device, mode="float32"):
     if mode != "float32":
         gd, gs = T._prepare_gallery(gd, mode)
     splits = T.fused_splits(qh.shape[0], gd.shape[0], k, device)
-    counter = T._VARIANTS[gd.dtype][2]
-    before = T.KERNEL_LAUNCHES[counter]
-    kv, ki, kok = T.fused_cosine_topk(qh, gd, k, gallery_scale=gs)
-    assert T.KERNEL_LAUNCHES[counter] == before + 1
+    with _cuda.ledger() as launched:
+        kv, ki, kok = T.fused_cosine_topk(qh, gd, k, gallery_scale=gs)
+    assert launched == {T._VARIANTS[gd.dtype][1]: 1}
     rv, ri, rok = T.fused_cosine_topk_reference(
         qh, gd, k, matmul_dtype=mode, gallery_scale=gs, splits=splits)
     torch.cuda.synchronize()
@@ -212,9 +212,9 @@ def test_query_quantization_kernel_bitwise(cuda_device, n, d):
     if d > 2:
         x[-1, :3] = [127.0, 0.5, -2.5]   # scale 1: x / s lands on .5 ties
     xd = torch.from_numpy(x).to(cuda_device)
-    before = T.KERNEL_LAUNCHES["quantize_queries_int8"]
-    codes, scales = T.quantize_queries_int8(xd)
-    assert T.KERNEL_LAUNCHES["quantize_queries_int8"] == before + 1
+    with _cuda.ledger() as launched:
+        codes, scales = T.quantize_queries_int8(xd)
+    assert launched == {"quantize_rows_int8_f32": 1}
     want_c, want_s = T.quantize_rows_int8(xd)
     torch.cuda.synchronize()
     assert codes.dtype == torch.int8 and scales.shape == (n, 1)
@@ -230,10 +230,10 @@ def test_int8_kernel_tile_ordinals_limit_raises(cuda_device, monkeypatch):
     codes = torch.zeros((g, 16), dtype=torch.int8, device=cuda_device)
     scales = torch.ones((g, 1), device=cuda_device)
     qh = T.l2_normalize(torch.ones((64, 16), device=cuda_device))
-    before = dict(T.KERNEL_LAUNCHES)
-    with pytest.raises(ValueError, match="16-bit tile ordinals"):
+    with _cuda.ledger() as launched, pytest.raises(
+            ValueError, match="16-bit tile ordinals"):
         T.fused_cosine_topk(qh, codes, 150, gallery_scale=scales)
-    assert T.KERNEL_LAUNCHES == before
+    assert not launched
 
 
 @pytest.mark.cuda
@@ -317,9 +317,9 @@ def test_scores_kernel_matches_plain_version(cuda_device, q, g, d):
     qh = T.l2_normalize(torch.from_numpy(_pm1_rows(rng, q, d))).to(
         cuda_device)
     gd = torch.from_numpy(_pm1_rows(rng, g, d)).to(cuda_device)
-    before = T.KERNEL_LAUNCHES["fused_cosine_scores"]
-    got = T.fused_cosine_scores(qh, gd)
-    assert T.KERNEL_LAUNCHES["fused_cosine_scores"] == before + 1
+    with _cuda.ledger() as launched:
+        got = T.fused_cosine_scores(qh, gd)
+    assert launched == {"cosine_scores_f32": 1}
     want = T.cosine_scores_reference(qh, gd)
     torch.cuda.synchronize()
     assert got.shape == (q, g)
@@ -349,18 +349,22 @@ def test_ladder_rungs_match_plain_versions(cuda_device, mode, q, g, d, k):
     if mode != "float32":
         gd, gs = T._prepare_gallery(gd, mode)
     splits = T.fused_splits(q, g, k, cuda_device)
-    P.reset_launch_counts()
-    for name, rung in P.build_variants().items():
-        got = rung.kernel(qh, gd, k, gallery_scale=gs)
-        want = rung.plain(qh, gd, k, splits=splits, gallery_scale=gs)
-        torch.cuda.synchronize()
-        # ±1 data: every word, sum and score exact, so bitwise
-        for a, b in zip(got if isinstance(got, tuple) else (got,),
-                        want if isinstance(want, tuple) else (want,)):
-            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
-    launched = {n: c for n, c in P.KERNEL_LAUNCHES.items() if c}
+    with _cuda.ledger() as launched:
+        for name, rung in P.build_variants().items():
+            got = rung.kernel(qh, gd, k, gallery_scale=gs)
+            want = rung.plain(qh, gd, k, splits=splits, gallery_scale=gs)
+            torch.cuda.synchronize()
+            # ±1 data: every word, sum and score exact, so bitwise
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_array_equal(a.cpu().numpy(),
+                                              b.cpu().numpy())
     tag = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}[mode]
-    assert launched == {f"fused_topk_{tag}_{r}": 1 for r in P.RUNGS}
+    want = {f"fused_topk_{tag}_{r}": 1 for r in P.RUNGS}
+    want[f"fused_topk_{tag}"] = 1       # the full kernel
+    if tag == "int8":   # an int8 rung quantizes q̂ by its own launch first
+        want["quantize_rows_int8_f32"] = len(P.RUNGS)
+    assert launched == want
 
 
 @pytest.mark.cuda
@@ -415,12 +419,10 @@ def test_histogram_and_lut_kernels_match_plain_version(cuda_device, shape):
     planes = torch.from_numpy(_edge_planes(rng, shape)).to(cuda_device)
     lut = torch.from_numpy(rng.integers(0, 256, (shape[0], 256)).astype(
         np.int32)).to(cuda_device)
-    before = dict(K.KERNEL_LAUNCHES)
-    hist = K.plane_histogram(planes)
-    out = K.lut_apply(planes, lut)
-    assert K.KERNEL_LAUNCHES["plane_histogram"] == before[
-        "plane_histogram"] + 1
-    assert K.KERNEL_LAUNCHES["lut_apply"] == before["lut_apply"] + 1
+    with _cuda.ledger() as launched:
+        hist = K.plane_histogram(planes)
+        out = K.lut_apply(planes, lut)
+    assert launched == {"image_histogram": 1, "image_lut_apply": 1}
     torch.cuda.synchronize()
     assert torch.equal(hist, K.plane_histogram_reference(planes))
     assert int(hist.sum()) == planes.numel()
@@ -451,12 +453,10 @@ def test_row_shift_kernels_match_plain_version(cuda_device, n, w):
             shifts[i], src0[i] = s, f
     shifts, src0 = (torch.from_numpy(a).to(cuda_device)
                     for a in (shifts, src0))
-    before = dict(K.KERNEL_LAUNCHES)
-    out = K.row_shift(rows, shifts)
-    cubic = K.row_shift_cubic(rows, src0)
-    assert K.KERNEL_LAUNCHES["row_shift"] == before["row_shift"] + 1
-    assert K.KERNEL_LAUNCHES["row_shift_cubic"] == before[
-        "row_shift_cubic"] + 1
+    with _cuda.ledger() as launched:
+        out = K.row_shift(rows, shifts)
+        cubic = K.row_shift_cubic(rows, src0)
+    assert launched == {"image_row_shift": 1, "image_row_shift_cubic": 1}
     torch.cuda.synchronize()
     assert torch.equal(out, K.row_shift_reference(rows, shifts))
     assert torch.equal(cubic, K.row_shift_cubic_reference(rows, src0))
@@ -488,9 +488,9 @@ def test_column_shift_kernel_matches_plain_version(cuda_device, p, h, w):
     planes = torch.from_numpy(rng.integers(0, 256, (p, h, w), dtype=np.uint8)
                               ).to(cuda_device)
     shifts = torch.from_numpy(_column_shifts(rng, p, h, w)).to(cuda_device)
-    before = dict(K.KERNEL_LAUNCHES)
-    out = K.column_shift(planes, shifts)
-    assert K.KERNEL_LAUNCHES["row_shift"] == before["row_shift"] + 1
+    with _cuda.ledger() as launched:
+        out = K.column_shift(planes, shifts)
+    assert launched == {"image_column_shift": 1}
     torch.cuda.synchronize()
     assert torch.equal(out, K.column_shift_reference(planes, shifts))
 
@@ -656,9 +656,10 @@ def test_batched_rotate_on_the_card_matches_the_cpu(cuda_device, shape):
     deg = torch.from_numpy(rng.choice([-30.0, -26.666666, -10.0, -3.33, 0.0,
                                        3.33, 10.0, 26.666666, 30.0], b
                                       ).astype(np.float32))
-    before = K.KERNEL_LAUNCHES["row_shift"]
-    card = A.batched_rotate(imgs.to(cuda_device), deg.to(cuda_device))
-    assert K.KERNEL_LAUNCHES["row_shift"] == before + 3
+    with _cuda.ledger() as launched:
+        card = A.batched_rotate(imgs.to(cuda_device), deg.to(cuda_device))
+    # Sx on rows, Sy on columns, Sx on rows
+    assert launched == {"image_row_shift": 2, "image_column_shift": 1}
     assert torch.equal(card.cpu(), A.batched_rotate(imgs, deg))
 
 
@@ -673,12 +674,13 @@ def test_policy_on_the_card_matches_the_cpu_table(cuda_device):
     imgs = torch.from_numpy(rng.integers(0, 256, (32, 48, 40, 3),
                                          dtype=np.uint8))
     draws = A.draw_policy(32, torch.Generator().manual_seed(0))
-    K.reset_launch_counts()
-    card = A.apply_policy(imgs.to(cuda_device),
-                          *(d.to(cuda_device) for d in draws)).cpu()
-    assert K.KERNEL_LAUNCHES == {"plane_histogram": 2, "lut_apply": 3,
-                                 "row_shift_cubic": 1, "row_shift": 6}
-    assert not any(K.PLAIN_ON_CARD.values())
+    with _cuda.ledger() as launched:
+        card = A.apply_policy(imgs.to(cuda_device),
+                              *(d.to(cuda_device) for d in draws)).cpu()
+    # no plain version on the card
+    assert launched == {"image_histogram": 2, "image_lut_apply": 3,
+                        "image_row_shift_cubic": 1, "image_row_shift": 4,
+                        "image_column_shift": 2}
     cpu = A.apply_policy(imgs, *draws)
     ops, _, do, _ = draws
     rotated = ((ops == A.ROTATE) & do).any(dim=1)
@@ -744,14 +746,13 @@ def test_depthwise_kernels_match_plain_version(cuda_device, shape, dtype):
     x, g, taps = _dw_inputs(rng, shape, dtype, cuda_device)
     k, s = shape[4], shape[5]
     n, h, w = shape[:3]
-    DW.reset_launch_counts()
-    y = DW.depthwise_forward(x, taps, s)
-    dx = DW.depthwise_grad_x(g, taps, s, h, w)
-    dw = DW.depthwise_grad_w(x, g, k, s)
-    dw_again = DW.depthwise_grad_w(x, g, k, s)
-    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
-                                  "depthwise_conv_grad_x": 1,
-                                  "depthwise_conv_grad_w": 2}
+    with _cuda.ledger() as launched:
+        y = DW.depthwise_forward(x, taps, s)
+        dx = DW.depthwise_grad_x(g, taps, s, h, w)
+        dw = DW.depthwise_grad_w(x, g, k, s)
+        dw_again = DW.depthwise_grad_w(x, g, k, s)
+    assert launched == {"dw_conv_forward": 1, "dw_conv_grad_x": 1,
+                        "dw_conv_grad_w": 2}
     torch.cuda.synchronize()
     assert y.dtype == dtype and dx.dtype == dtype
     assert torch.equal(y, DW.depthwise_forward_reference(x, taps, s))
@@ -781,19 +782,17 @@ def test_depthwise_function_gradients_through_the_kernels(cuda_device,
     x.requires_grad_(True)
     wt = torch.from_numpy(rng.normal(size=(c, 1, k, k)).astype(np.float32)
                           ).to(cuda_device).requires_grad_(True)
-    DW.reset_launch_counts()
-    y = DW.depthwise_conv(x, wt, s)
-    ref = F.conv2d(x, wt, stride=s, padding=k // 2, groups=c)
-    # a channels-last cotangent, as the model's are: no layout copy
-    cot = torch.randn(ref.shape, device=cuda_device).contiguous(
-        memory_format=torch.channels_last)
-    dx, dw = torch.autograd.grad((y * cot).sum(), (x, wt))
-    ex, ew = torch.autograd.grad((ref * cot).sum(), (x, wt))
-    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
-                                  "depthwise_conv_grad_x": 1,
-                                  "depthwise_conv_grad_w": 1}
-    assert not any(DW.PLAIN_ON_CARD.values())
-    assert DW.LAYOUT_COPIES["nhwc"] == 0
+    with _cuda.ledger() as launched:
+        y = DW.depthwise_conv(x, wt, s)
+        ref = F.conv2d(x, wt, stride=s, padding=k // 2, groups=c)
+        # a channels-last cotangent, as the model's are: no layout copy
+        cot = torch.randn(ref.shape, device=cuda_device).contiguous(
+            memory_format=torch.channels_last)
+        dx, dw = torch.autograd.grad((y * cot).sum(), (x, wt))
+        ex, ew = torch.autograd.grad((ref * cot).sum(), (x, wt))
+    # no plain version on the card, no nhwc_copy
+    assert launched == {"dw_conv_forward": 1, "dw_conv_grad_x": 1,
+                        "dw_conv_grad_w": 1}
     for got, want in ((y, ref), (dx, ex), (dw, ew)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -825,10 +824,10 @@ def test_depthwise_grad_w_every_tap_size_and_stride(cuda_device, k, s,
     the sum of |x| |g| of its plain version, and bitwise run to run."""
     rng = np.random.default_rng(8)
     x, g, _ = _dw_inputs(rng, (3, 19, 17, c, k, s), dtype, cuda_device)
-    DW.reset_launch_counts()
-    dw = DW.depthwise_grad_w(x, g, k, s)
-    again = DW.depthwise_grad_w(x, g, k, s)
-    assert DW.KERNEL_LAUNCHES["depthwise_conv_grad_w"] == 2
+    with _cuda.ledger() as launched:
+        dw = DW.depthwise_grad_w(x, g, k, s)
+        again = DW.depthwise_grad_w(x, g, k, s)
+    assert launched == {"dw_conv_grad_w": 2}
     want = DW.depthwise_grad_w_reference(x, g, k, s)
     scale = DW.depthwise_grad_w_reference(x.abs(), g.abs(), k, s)
     torch.cuda.synchronize()
@@ -853,18 +852,16 @@ def test_depthwise_forward_and_grad_x_ragged(cuda_device, shape, dtype):
     rng = np.random.default_rng(14)
     n, h, w, c, k, s = shape
     x, g, taps = _dw_inputs(rng, shape, dtype, cuda_device)
-    DW.reset_launch_counts()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        dx = DW.depthwise_grad_x(g, taps, s, h, w)
-        torch.cuda.synchronize()
-    kernels = [e.key for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    y = DW.depthwise_forward(x, taps, s)
-    assert DW.KERNEL_LAUNCHES == {"depthwise_conv_forward": 1,
-                                  "depthwise_conv_grad_x": 1,
-                                  "depthwise_conv_grad_w": 0}
-    assert not any(DW.PLAIN_ON_CARD.values())
+    with _cuda.ledger() as launched:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            dx = DW.depthwise_grad_x(g, taps, s, h, w)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        y = DW.depthwise_forward(x, taps, s)
+    # no plain version on the card
+    assert launched == {"dw_conv_forward": 1, "dw_conv_grad_x": 1}
     torch.cuda.synchronize()
     assert torch.equal(y, DW.depthwise_forward_reference(x, taps, s))
     assert torch.equal(dx, DW.depthwise_grad_x_reference(g, taps, s, h, w))
@@ -914,10 +911,9 @@ def test_window_attention_kernel_matches_plain_version(
     qkv, table, index, mask = _window_case(rng, heads, ws, grid, shift,
                                            images, cuda_device)
     assert (mask is not None) == (shift > 0 or grid % ws > 0)
-    A.reset_launch_counts()
-    with torch.no_grad():
+    with _cuda.ledger() as launched, torch.no_grad():
         got = A.window_attention(qkv, table, mask, heads)
-    assert A.KERNEL_LAUNCHES["window_attention"] == 1
+    assert launched == {"window_attention_f32": 1}
     want = A.window_attention_reference(qkv, table, index, mask, heads)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
@@ -956,14 +952,13 @@ def test_swin_attention_takes_the_kernel_only_without_autograd(
     torch.manual_seed(0)
     mod = S.WindowAttention(96, 3, 7).to(cuda_device)
     x = torch.randn((8, 49, 96), device=cuda_device)
-    A.reset_launch_counts()
-    with torch.profiler.profile(
+    with _cuda.ledger() as launched, torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         with torch.no_grad():
             fused = mod(x)
         eager = mod(x)
         eager.sum().backward()
-    assert A.KERNEL_LAUNCHES["window_attention"] == 1
+    assert launched == {"window_attention_f32": 1}
     assert profiling.counts() == {"swin.attn_fused": 1, "swin.attn_eager": 1}
     assert mod.qkv.weight.grad is not None
     torch.testing.assert_close(fused, eager.detach(), rtol=ATTN_TOL,
@@ -983,14 +978,13 @@ def test_swin_s3_base_embedding_through_the_kernel(cuda_device,
             if isinstance(m, S.WindowAttention):
                 m.relative_position_bias_table.normal_(generator=g)
     x = torch.rand((8, 224, 224, 3), generator=g, device=cuda_device)
-    A.reset_launch_counts()
-    with torch.no_grad():
+    with _cuda.ledger() as launched, torch.no_grad():
         fused = model.embed(x)
-    assert A.KERNEL_LAUNCHES["window_attention"] == 36
+    assert launched == {"window_attention_f32": 36}
     monkeypatch.setattr(A, "takes_kernel", lambda qkv, table: False)
-    with torch.no_grad():
+    with _cuda.ledger() as launched, torch.no_grad():
         eager = model.embed(x)
-    assert A.KERNEL_LAUNCHES["window_attention"] == 36
+    assert not launched
     rel = ((fused - eager).norm(dim=1) / eager.norm(dim=1)).max().item()
     print(f"swin_s3_base_224 embedding, kernel vs eager: emb_rel {rel:.3g}")
     assert rel <= 1e-5, rel

@@ -121,10 +121,9 @@ def test_opt_in_runs_the_plain_versions_on_a_cpu_tensor(monkeypatch):
         raise AssertionError("the grouped conv ran with the opt-in set")
 
     monkeypatch.setattr(DepthwiseConv2d, "_conv_forward", no_grouped_conv)
-    DW.reset_launch_counts()
-    got, got_g = run()
-    assert not any(DW.KERNEL_LAUNCHES.values())
-    assert DW.LAYOUT_COPIES["nhwc"] == 0
+    with _cuda.ledger() as recorded:
+        got, got_g = run()
+    assert not recorded     # no launch, no nhwc_copy
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     for a, b in zip(got_g, want_g):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from imageretrievalresearch_tpu_torch.models import create_model
+from imageretrievalresearch_tpu_torch.ops import _cuda
 from imageretrievalresearch_tpu_torch.ops import retrieval as R
 from imageretrievalresearch_tpu_torch.ops.preprocess import (
     build_eval_transform,
@@ -397,18 +398,20 @@ def test_ladder_wrappers_on_cpu_run_their_plain_versions(rng):
     assert list(variants) == ["stream_only", "matmul_only", "insert_only",
                               "full"]
     codes, scales = R.quantize_rows_int8(R.l2_normalize(g))
-    for gallery, gs in ((g, None), (R.l2_normalize(g).to(torch.bfloat16),
-                                    None), (codes, scales)):
-        for name, rung in variants.items():
-            got, want = rung.kernel(qh, gallery, 20, gallery_scale=gs), \
-                rung.plain(qh, gallery, 20, splits=1, gallery_scale=gs)
-            for a, b in zip(got if isinstance(got, tuple) else (got,),
-                            want if isinstance(want, tuple) else (want,)):
-                np.testing.assert_array_equal(a.numpy(), b.numpy())
-    full = variants["full"].kernel(qh, g, 20)
-    for a, b in zip(full, R.fused_cosine_topk(qh, g, 20)):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert not any(P.KERNEL_LAUNCHES.values())
+    with _cuda.ledger() as launched:
+        for gallery, gs in ((g, None),
+                            (R.l2_normalize(g).to(torch.bfloat16), None),
+                            (codes, scales)):
+            for name, rung in variants.items():
+                got, want = rung.kernel(qh, gallery, 20, gallery_scale=gs), \
+                    rung.plain(qh, gallery, 20, splits=1, gallery_scale=gs)
+                for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                want if isinstance(want, tuple) else (want,)):
+                    np.testing.assert_array_equal(a.numpy(), b.numpy())
+        full = variants["full"].kernel(qh, g, 20)
+        for a, b in zip(full, R.fused_cosine_topk(qh, g, 20)):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert not launched
     with pytest.raises(ValueError, match="float32 .* or bfloat16"):
         variants["stream_only"].kernel(qh, g.to(torch.float16), 20)
     with pytest.raises(ValueError, match="gallery_scale"):

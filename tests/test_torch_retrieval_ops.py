@@ -599,10 +599,11 @@ def test_query_quantization_wrapper_on_cpu_is_jax_quantizer(rng):
     x = rng.normal(size=(33, 70)).astype(np.float32) * 2
     x[4] = 0.0
     jc, js = J.quantize_rows_int8(jnp.asarray(x))
-    tc, ts = T.quantize_queries_int8(_t(x))
+    with T._cuda.ledger() as launched:
+        tc, ts = T.quantize_queries_int8(_t(x))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    assert not T.KERNEL_LAUNCHES["quantize_queries_int8"]
+    assert not launched
     with pytest.raises(ValueError, match="float32"):
         T.quantize_queries_int8(_t(x).double())
 
@@ -760,21 +761,32 @@ def test_f32_kernel_checks_tile_ordinals_before_it_launches(monkeypatch):
     """The f32 wrapper (kernel 1 is a score stage of the tensor-core
     kernel, with its 16-bit tile ordinals) raises past 65,536 gallery tiles
     per split before it computes norms, allocates or launches; at the limit
-    it goes on to the launch. Run on CPU tensors with one split and the
-    launch replaced."""
+    it goes on to the launch, which fails and is not counted. Run on CPU
+    tensors with one split, the device lookups replaced and the C entry
+    replaced by one that returns a CUDA error."""
     monkeypatch.setattr(T._cuda, "sm_count", lambda device: 1)
+    entered = []
 
-    def launch(*args):
-        raise RuntimeError("launched")
+    def entry(*args):
+        entered.append(args)
+        return 700      # cudaErrorIllegalAddress
 
-    monkeypatch.setattr(T._cuda, "launch", launch)
+    monkeypatch.setitem(T._cuda._ENTRIES, ("fused_topk", "fused_topk_f32"),
+                        entry)
+    monkeypatch.setattr(T._cuda, "device_index", lambda device: 0)
+    monkeypatch.setattr(T._cuda, "stream_handle", lambda index: 0)
+    monkeypatch.setattr(T._cuda, "error_string", lambda err, name: "stub")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     qh = torch.ones((64, 1))
-    before = dict(T.KERNEL_LAUNCHES)
     limit = T.FUSED_BINS * T.MAX_TILE_ORDINALS
-    with pytest.raises(ValueError, match="16-bit tile ordinals"):
-        T._fused_cosine_topk_cuda(qh, torch.zeros((limit + 1, 1)), 150,
-                                  None, None)
-    with pytest.raises(RuntimeError, match="launched"):
-        T._fused_cosine_topk_cuda(qh, torch.zeros((limit, 1)), 150, None,
-                                  None)
-    assert T.KERNEL_LAUNCHES == before
+    with T._cuda.ledger() as launched:
+        with pytest.raises(ValueError, match="16-bit tile ordinals"):
+            T._fused_cosine_topk_cuda(qh, torch.zeros((limit + 1, 1)), 150,
+                                      None, None)
+        assert not entered
+        with pytest.raises(RuntimeError, match="fused_topk_f32 launch "
+                           "failed: CUDA error 700"):
+            T._fused_cosine_topk_cuda(qh, torch.zeros((limit, 1)), 150,
+                                      None, None)
+    assert len(entered) == 1
+    assert not launched
