@@ -161,7 +161,13 @@ Phases (any failure exits non-zero, with no result line):
    median single-call time beside its bound, the plain version's and the
    library's (``F.scaled_dot_product_attention`` with the bias and mask
    as one additive mask, timed only); the row's ``models`` carry the
-   serving path's launches.
+   serving path's launches. Kernel 14 (the MLP's linear layers) likewise:
+   two launches a block (72 a Swin-S3-B request), none for rexnet_150,
+   none over T4's fit; then row 14 (``linear_phase``) at the eight MLP
+   shapes of a request of 64 images: against an f64 product (within 1e-6,
+   beside cuBLAS f32's error), single-call and back-to-back times beside
+   its bound, its plain version's and the library's (``F.linear`` f32 +
+   ``F.gelu``).
 10. Training from disk through the CLIs users run, in this process
    (``build_parser().parse_args([...])`` -> ``run``). The port's
    ``make_sketchy_tree`` writes 8 categories x 10 products at 256 px (240
@@ -358,6 +364,7 @@ from imageretrievalresearch_tpu_torch.ops import attention as ATT  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import autoaugment as A  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import depthwise as DW  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import image_kernels as IK  # noqa: E402
+from imageretrievalresearch_tpu_torch.ops import linear as LIN  # noqa: E402
 from imageretrievalresearch_tpu_torch.ops import retrieval as R  # noqa: E402
 from imageretrievalresearch_tpu_torch.parallel import (  # noqa: E402
     Mesh,
@@ -2413,9 +2420,10 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
     each to just after (one launch of the mode's kernel); kernels
     1-3 against their plain versions over this gallery (``topk_checks``)
     and their times (``topk_times``). Each request's embed launches kernel
-    13 once a Swin block (f32 under ``no_grad``), none for a CNN. Returns,
-    by kernel name, its launches, largest |kernel - plain| and times, and
-    under ``window_attention`` kernel 13's launches over the requests."""
+    13 once a Swin block and kernel 14 twice (f32 under ``no_grad``), none
+    for a CNN. Returns, by kernel name, its launches, largest |kernel -
+    plain| and times, and under ``window_attention`` and ``linear``
+    kernels 13's and 14's launches over the requests."""
     model = create_model(name, seed=SEED)
     assert model.num_features == dim, (name, model.num_features)
     card_vs_cpu(name, model)
@@ -2438,6 +2446,8 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
     launches = dict.fromkeys(MODE_ENTRIES.values(), 0)
     blocks = sum(isinstance(m, SWIN.WindowAttention) for m in model.modules())
     attn = {"launches": 0, "requests": 0, "blocks": blocks}
+    mlps = sum(isinstance(m, SWIN.Mlp) for m in model.modules())
+    mlp = {"launches": 0, "requests": 0, "blocks": mlps}
     for mode, entry in MODE_ENTRIES.items():
         batch = images(gen, 64)
         for rnd in ("cold", "warm"):
@@ -2448,6 +2458,11 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
                 assert att == blocks, (name, mode, rnd, att, blocks)
                 attn["launches"] += att
                 attn["requests"] += 1
+                # kernel 14: fc1 (with the GELU) and fc2 of every MLP
+                lin = embed_got["linear_tf32x3_f32"]
+                assert lin == 2 * mlps, (name, mode, rnd, lin, mlps)
+                mlp["launches"] += lin
+                mlp["requests"] += 1
                 (vals, inds, cls), query_ms = sync_time(
                     lambda: index.query_class_dedup(q, k=K, num_unique=3,
                                                     matmul_dtype=mode,
@@ -2466,14 +2481,14 @@ def serve_backbone(name: str, dim: int, gen, peaks: dict) -> dict:
                 f"{embed_ms + query_ms:.1f} ms end to end = embed "
                 f"{embed_ms:.1f} + k={K} top-k and class dedup "
                 f"{query_ms:.1f}{upload}; launches {dict(got)}, window "
-                f"attention {att}")
+                f"attention {att}, linear (MLP) {lin}")
     q_hat = R.l2_normalize(q)
     errs, _ = topk_checks(index, q_hat, gen, f"[{name}, D = {dim}] ")
     times = topk_times(index, q_hat, peaks, f"[{name}] ")
     return {**{kernel: {"launches": launches[MODE_ENTRIES[mode]],
                         "max_abs_err": errs[mode], **times[mode], "D": dim}
                for mode, (kernel, _) in KERNELS.items()},
-            "window_attention": attn}
+            "window_attention": attn, "linear": mlp}
 
 
 def embed_backbone(name: str, gen) -> None:
@@ -2520,10 +2535,11 @@ def backbone_phase(gen, peaks: dict) -> tuple[dict, dict]:
                  T4)
         timed_epochs(model, init, train, False, T4)
     # no kernel and no plain version on the card: autograd and bf16
-    # autocast keep the eager attention
+    # autocast keep the eager attention and MLP
     assert not got, got
-    log(f"T4 on {T4.model}: window attention kernel launches over the fit "
-        f"and the timed epochs: 0 (eager under autocast and autograd)")
+    log(f"T4 on {T4.model}: window attention and linear (MLP) kernel "
+        f"launches over the fit and the timed epochs: 0 (eager under "
+        f"autocast and autograd)")
     del model, init
 
     for name in EMBEDDED:
@@ -2608,6 +2624,85 @@ def window_attention_phase(peaks: dict) -> list:
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_by": "median single call"})
         del qkv, got, want
+    return entries
+
+
+# row 14: Swin-S3-B's MLP calls for 64 images at 224 px, (rows, K, N,
+# GELU): fc1 then fc2 of stages 1-4, every shape its serving path gives
+# kernel 14; the kernel against an f64 product within LINEAR_F64_REL
+# (relative, Frobenius: f32's level; one TF32 pass is ~1e-3)
+LINEAR_SHAPES = {"linear_fc1_s1": (200704, 96, 384, True),
+                 "linear_fc1_s2": (50176, 192, 768, True),
+                 "linear_fc1_s3": (12544, 384, 1536, True),
+                 "linear_fc1_s4": (3136, 768, 3072, True),
+                 "linear_fc2_s1": (200704, 384, 96, False),
+                 "linear_fc2_s2": (50176, 768, 192, False),
+                 "linear_fc2_s3": (12544, 1536, 384, False),
+                 "linear_fc2_s4": (3136, 3072, 768, False)}
+LINEAR_F64_REL = 1e-6
+
+
+def linear_phase(peaks: dict) -> list:
+    """Row 14 at each of ``LINEAR_SHAPES``: x (a LayerNorm's scale),
+    LeCun-normal weights and small biases from the seed; the kernel (one
+    launch) against an f64 product and beside cuBLAS's f32 error; median
+    single-call times (and the fastest of 5 bursts of 20) of the kernel,
+    its plain version (the 3xTF32 arithmetic in cuBLAS f32 products) and
+    the library (``F.linear`` in f32, TF32 off, + ``F.gelu`` for fc1),
+    beside the bound: 3 TF32 passes of 2 M K N FLOPs against x, W and b
+    read once and y written once."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    entries = []
+    for name, (m, k, n, gelu) in LINEAR_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        w = torch.randn((n, k), generator=gen, device=DEV) * k ** -0.5
+        b = torch.randn((n,), generator=gen, device=DEV) * 0.1
+        with _cuda.ledger() as counts, torch.no_grad():
+            got = LIN.linear(x, w, b, gelu)
+        launches = counts["linear_tf32x3_f32"]
+        assert launches == 1, launches
+        want = x.double() @ w.double().T + b.double()
+        lib = F.linear(x, w, b)
+        if gelu:
+            want, lib = F.gelu(want), F.gelu(lib)
+        rel = ((got.double() - want).norm() / want.norm()).item()
+        lib_rel = ((lib.double() - want).norm() / want.norm()).item()
+        assert rel <= LINEAR_F64_REL, (name, rel)
+        del want, lib, got
+
+        def library():
+            y = F.linear(x, w, b)
+            return F.gelu(y) if gelu else y
+
+        with torch.no_grad():
+            ms = event_ms(lambda: LIN.linear(x, w, b, gelu), reps=50)
+            b_ms = PF.pipelined_ms(lambda: LIN.linear(x, w, b, gelu))
+            plain_ms = event_ms(lambda: LIN.linear_reference(x, w, b, gelu),
+                                reps=10)
+            library_ms = event_ms(library, reps=20)
+            lib_b_ms = PF.pipelined_ms(library)
+        nbytes = 4 * (m * k + n * k + n + m * n)
+        bound_ms, bound_by = bound(nbytes, TF32_PASSES * 2 * m * k * n,
+                                   peaks, "tf32")
+        log(f"linear kernel (kernel 14) {name}, ({m}, {k} -> {n}"
+            f"{', GELU' if gelu else ''}): |kernel - f64| / |f64| {rel:.3g} "
+            f"(cuBLAS f32 {lib_rel:.3g}); kernel {ms:.4f} ms, back-to-back "
+            f"{b_ms:.4f} (bound {bound_ms:.4f}, {bound_by}: "
+            f"{100 * bound_ms / b_ms:.1f}% back-to-back), plain "
+            f"{plain_ms:.4f} ms, library (F.linear f32"
+            f"{' + F.gelu' if gelu else ''}) {library_ms:.4f} ms, "
+            f"back-to-back {lib_b_ms:.4f}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "imageretrievalresearch_tpu_torch/csrc/"
+                      "linear_tf32x3.cu",
+            "replaces": None, "launches": launches, "f64_rel": rel,
+            "library_f64_rel": lib_rel, "ms": ms, "burst_ms": b_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_burst_ms": lib_b_ms, "ms_by": "median single call"})
+        del x, w, b
     return entries
 
 
@@ -4074,7 +4169,9 @@ def main() -> None:
         "query quantization, the f32, bf16 and int8 ladder rungs, the "
         "scores kernel (3xTF32); image_ops: histogram, LUT, row shifts; "
         "depthwise_conv: the band kernel (forward and dx), tap gradients + "
-        "reduction; stream_probe: row sums + fold), one nvcc each in "
+        "reduction; stream_probe: row sums + fold; window_attention: "
+        "kernel 13; linear_tf32x3: kernel 14, the 3xTF32 wgmma linear "
+        "layer), one nvcc each in "
         f"parallel: {time.perf_counter() - t0:.1f} s")
     for name, out in outputs.items():
         for line in out.splitlines():
@@ -4301,6 +4398,7 @@ def main() -> None:
     cli = cli_phase(PF.card())
     served, t1 = backbone_phase(gen, peaks)
     attention_rows = window_attention_phase(peaks)
+    linear_rows = linear_phase(peaks)
     for row in kernels:
         row["cli_launches"] = row_launches(row["name"], cli)
         row["models"] = {m: rows[row["name"]] for m, rows in served.items()}
@@ -4308,6 +4406,9 @@ def main() -> None:
     for row in attention_rows:
         row["models"] = {m: rows["window_attention"]
                          for m, rows in served.items()}
+    # row 14's launches on the serving path, beside its isolated calls
+    for row in linear_rows:
+        row["models"] = {m: rows["linear"] for m, rows in served.items()}
     # 10. training from disk through the CLIs: rows 5-10 carry the train
     # run's launches, rows 9-10 the sweep's
     disk = disk_phase(PF.card())
@@ -4317,7 +4418,8 @@ def main() -> None:
                                                  disk["train"]["launches"])
     for row in dw_rows:
         row["find_lr_launches"] = row_launches(row["name"], disk["sweep"])
-    kernels += image_rows + dw_rows + inference_rows + attention_rows
+    kernels += (image_rows + dw_rows + inference_rows + attention_rows
+                + linear_rows)
     # 11. evaluation and analysis from disk: rows 1 and 3 carry kernel 1's
     # launches in the two cli.inference runs and each kernel's in the
     # artifact's queries

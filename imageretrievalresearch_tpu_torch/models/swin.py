@@ -17,7 +17,9 @@ then does not shift); a grid that is not a multiple of the window is
 padded, each padded cell a mask region of its own; an odd grid is padded
 before merging. Attention is written as JAX writes it: scaled q kᵀ + bias
 (+ the -100 mask), softmax in float32, then @ v (``ops/attention.py``: on
-the card one kernel for f32 inference).
+the card one kernel for f32 inference); the MLP's two linear layers run
+on the card as 3xTF32 tensor-core products (``ops/linear.py``), the GELU
+in fc1's epilogue, for f32 inference.
 
 The relative-position index and the masks at ``img_size`` are
 non-persistent buffers built at construction (as timm 0.4.12 builds them).
@@ -38,7 +40,11 @@ alone, for each block call: ``swin.windows`` (B x windows),
 mask) and ``swin.attn_scores`` (B x windows x heads x N^2); and for each
 attention call, which path it took: ``swin.attn_fused`` (the window
 attention kernel, ``ops/attention.py``: f32 inference on the card) or
-``swin.attn_eager`` (the eager arithmetic: the CPU, autograd, autocast).
+``swin.attn_eager`` (the eager arithmetic: the CPU, autograd, autocast);
+and for each MLP call its multiply-adds, ``swin.mlp_macs`` (2 x rows x dim
+x hidden), and its path: ``swin.mlp_fused`` (fc1 with the GELU and fc2 on
+the linear kernel, ``ops/linear.py``: f32 inference on the card) or
+``swin.mlp_eager`` (``fc2(gelu(fc1(x)))``: the CPU, autograd, autocast).
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imageretrievalresearch_tpu_torch.models.layers import DropPath
-from imageretrievalresearch_tpu_torch.ops import attention
+from imageretrievalresearch_tpu_torch.ops import attention, linear
 from imageretrievalresearch_tpu_torch.ops.pooling import get_fm
 from imageretrievalresearch_tpu_torch.utils.profiling import count, span
 
@@ -155,7 +161,15 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("swin.mlp"):
-            return self.fc2(self.act(self.fc1(x)))
+            fc1, fc2 = self.fc1, self.fc2
+            count("swin.mlp_macs", 2 * x.numel() * fc1.out_features)
+            if (linear.takes_kernel(x, fc1.weight, fc1.bias)
+                    and linear.takes_kernel(x, fc2.weight, fc2.bias)):
+                count("swin.mlp_fused")
+                h = linear.linear(x, fc1.weight, fc1.bias, gelu=True)
+                return linear.linear(h, fc2.weight, fc2.bias)
+            count("swin.mlp_eager")
+            return fc2(self.act(fc1(x)))
 
 
 class SwinBlock(nn.Module):

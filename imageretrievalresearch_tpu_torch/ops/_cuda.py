@@ -37,7 +37,8 @@ SOURCES = {"fused_topk": _PKG / "csrc" / "fused_topk.cu",
            "image_ops": _PKG / "csrc" / "image_ops.cu",
            "depthwise_conv": _PKG / "csrc" / "depthwise_conv.cu",
            "stream_probe": _PKG / "csrc" / "stream_probe.cu",
-           "window_attention": _PKG / "csrc" / "window_attention.cu"}
+           "window_attention": _PKG / "csrc" / "window_attention.cu",
+           "linear_tf32x3": _PKG / "csrc" / "linear_tf32x3.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -81,6 +82,9 @@ SIGNATURES = {
     # the stream
     "window_attention": {"window_attention_f32": [_P] * 4 + [_I] * 4
                          + [ctypes.c_float, _P]},
+    # x, W_hi, W_lo, the bias (or none), the output; M, N, K, the GELU
+    # flag, the grid's cap (the SM count), the stream
+    "linear_tf32x3": {"linear_tf32x3_f32": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

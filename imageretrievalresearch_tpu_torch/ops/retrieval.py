@@ -80,8 +80,8 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
     from zero, as ``cvt.rna.tf32.f32`` rounds: the magnitude's low 13 bits
     rounded off, carrying into the exponent (up to inf past the largest
-    TF32 value); inf and nan kept. A restatement of the kernels' split for
-    tests; nothing on the card's path calls it."""
+    TF32 value); inf and nan kept. The kernels' split restated; on the
+    card's path it splits the linear kernel's weights (``ops/linear.py``)."""
     x = x.float()
     bits = x.contiguous().view(torch.int32)
     sign = bits & torch.iinfo(torch.int32).min

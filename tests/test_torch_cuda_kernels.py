@@ -970,7 +970,8 @@ def test_swin_s3_base_embedding_through_the_kernel(cuda_device,
                                                    monkeypatch):
     """swin_s3_base_224's f32 no_grad embedding of 8 images through the
     kernel (36 launches, one per block) within 1e-5 (relative, per row)
-    of the eager path's on the card, the bias tables drawn non-zero."""
+    of the eager path's on the card, the bias tables drawn non-zero; the
+    MLPs on the linear kernel in both (two launches a block)."""
     model = create_model("swin_s3_base_224", seed=0, device=cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     with torch.no_grad():
@@ -980,11 +981,11 @@ def test_swin_s3_base_embedding_through_the_kernel(cuda_device,
     x = torch.rand((8, 224, 224, 3), generator=g, device=cuda_device)
     with _cuda.ledger() as launched, torch.no_grad():
         fused = model.embed(x)
-    assert launched == {"window_attention_f32": 36}
+    assert launched == {"window_attention_f32": 36, "linear_tf32x3_f32": 72}
     monkeypatch.setattr(A, "takes_kernel", lambda qkv, table: False)
     with _cuda.ledger() as launched, torch.no_grad():
         eager = model.embed(x)
-    assert not launched
+    assert launched == {"linear_tf32x3_f32": 72}
     rel = ((fused - eager).norm(dim=1) / eager.norm(dim=1)).max().item()
     print(f"swin_s3_base_224 embedding, kernel vs eager: emb_rel {rel:.3g}")
     assert rel <= 1e-5, rel

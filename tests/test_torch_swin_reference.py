@@ -132,9 +132,13 @@ def test_counters_and_spans_under_a_profiler(monkeypatch):
     # (14, 14, 4), (7, 7, 8), two blocks each; a block call's windows are
     # B (grid / window)² = 2 x (64, 4, 1, 1), its scores windows x heads x
     # (window²)², and the odd block of stages 1 and 2 (grid > window) is
-    # shifted and masked; on the CPU every attention call is eager
+    # shifted and masked; on the CPU every attention and MLP call is
+    # eager, an MLP call's multiply-adds 2 x tokens x dim x 4 dim
     assert profiling.counts() == {
         "swin.attn_eager": 8,
+        "swin.mlp_eager": 8,
+        "swin.mlp_macs": 2 * 2 * 8 * (3136 * 32 ** 2 + 784 * 64 ** 2
+                                      + 196 * 128 ** 2 + 49 * 256 ** 2),
         "swin.windows": 2 * 2 * (64 + 4 + 1 + 1),
         "swin.masked_windows": 2 * (64 + 4),
         "swin.attn_scores": 2 * 2 * (64 * 1 * 49 ** 2 + 4 * 2 * 196 ** 2
